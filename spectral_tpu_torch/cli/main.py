@@ -1,0 +1,54 @@
+"""spectral-tpu-torch CLI: the reference's driver executables as subcommands.
+
+    spectral-tpu-torch poisson -m 64 -n 64 -p 64 -ksp_rtol 1e-10
+    spectral-tpu-torch cheb -m1 9 -m 8 -n 7 -p 6 -d 1
+
+Option names and output format follow the JAX package's CLI.  Float64 is
+the default (the reference runs at rtol 1e-10..1e-12); pass -f32 for
+float32.  ``-device`` picks the torch device, ``cuda`` by default; without
+CUDA that raises rather than running on the host (pass ``-device cpu``).
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from spectral_tpu_torch.utils.options import Options
+
+# Drivers of the JAX CLI that this package does not carry yet.
+_NOT_PORTED = ("elliptic", "stokes", "heat", "ustokes", "convection")
+
+
+def _setup(opts: Options) -> tuple[torch.device, torch.dtype]:
+    device = torch.device(opts.get_string("device", "cuda"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("-device cuda: CUDA is not available "
+                           "(pass -device cpu to run on the host)")
+    dtype = torch.float32 if opts.has("f32") else torch.float64
+    return device, dtype
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        print(__doc__)
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd in _NOT_PORTED:
+        raise NotImplementedError(
+            f"the {cmd} driver is not ported yet (ROADMAP.md queue 1, item 1b)")
+    if cmd not in ("poisson", "cheb"):
+        print(f"unknown driver {cmd!r}; one of: poisson cheb")
+        return 1
+    opts = Options(rest)
+    device, dtype = _setup(opts)
+    from spectral_tpu_torch.cli import drivers
+    if cmd == "poisson":
+        return drivers.poisson_main(opts, device=device, dtype=dtype)
+    return drivers.cheb_main(opts, device=device, dtype=dtype)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,147 @@
+"""Tensor-product CGL grid with static boundary masks.
+
+Counterpart of ``spectral_tpu/grid.py``.  Every field keeps the full grid
+shape and the interior/boundary structure is a boolean mask, so "scatters"
+are elementwise ``torch.where``.  Host-side geometry (nodes, chain-rule
+factors) stays numpy float64; the tensors a solve uses (masks, coordinates)
+are built once on the grid's ``device`` in the grid's ``dtype``.
+
+Conventions (as in the JAX package): coordinates per axis are CGL nodes
+cos(i*pi/(n-1)), decreasing from +1 (index 0) to -1 (index n-1); a
+"global" vector carries zeros at Dirichlet entries.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from functools import cached_property
+
+import numpy as np
+import torch
+
+from spectral_tpu_torch.ops.chebyshev import cgl_nodes_np
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """A d-dimensional tensor-product CGL grid on ``device`` in ``dtype``.
+
+    ``intervals`` maps each axis affinely from [-1, 1] onto [a, b] (node 0
+    sits at b); spectral derivatives pick up the chain-rule factor through
+    ``deriv_scale_np`` / ``apply_dif_weight``.
+    """
+
+    dims: tuple[int, ...]
+    intervals: tuple[tuple[float, float], ...] | None = None
+    maps: tuple | None = None
+    device: torch.device | str = "cpu"
+    dtype: torch.dtype = torch.float64
+
+    def __post_init__(self):
+        object.__setattr__(self, "dims", tuple(int(n) for n in self.dims))
+        object.__setattr__(self, "device", torch.device(self.device))
+        if any(n < 3 for n in self.dims):
+            raise ValueError(f"every axis needs >= 3 nodes, got {self.dims}")
+        if self.maps is not None:
+            raise NotImplementedError(
+                "Grid(maps=...) is not ported yet (ROADMAP.md queue 1, "
+                "item 6: curvilinear)")
+        if self.intervals is not None:
+            if len(self.intervals) != len(self.dims):
+                raise ValueError("need one (a, b) interval per axis")
+            if any(b <= a for a, b in self.intervals):
+                raise ValueError("intervals must satisfy a < b")
+            object.__setattr__(self, "intervals",
+                               tuple((float(a), float(b))
+                                     for a, b in self.intervals))
+
+    @property
+    def ndim(self) -> int:
+        return len(self.dims)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.dims)
+
+    @cached_property
+    def nodes_1d(self) -> tuple[np.ndarray, ...]:
+        ref = [cgl_nodes_np(n) for n in self.dims]
+        if self.intervals is None:
+            return tuple(ref)
+        out = []
+        for (a, b), z in zip(self.intervals, ref):
+            c, h = 0.5 * (a + b), 0.5 * (b - a)
+            out.append(c + h * z)
+        return tuple(out)
+
+    @cached_property
+    def deriv_scale_np(self) -> np.ndarray:
+        """Per-axis constant chain-rule factor d(xi)/d(x) = 2/(b - a)."""
+        if self.intervals is None:
+            return np.ones(len(self.dims))
+        return np.asarray([2.0 / (b - a) for a, b in self.intervals])
+
+    def apply_dif_weight(self, v: torch.Tensor, axis: int) -> torch.Tensor:
+        """v * d(xi)/d(x) along ``axis``; identity on unmapped grids."""
+        if self.intervals is None:
+            return v
+        return v * float(self.deriv_scale_np[axis])
+
+    @cached_property
+    def coords_np(self) -> np.ndarray:
+        """(dims..., d) float64 coordinate array."""
+        mesh = np.meshgrid(*self.nodes_1d, indexing="ij")
+        return np.stack(mesh, axis=-1)
+
+    @cached_property
+    def coords(self) -> torch.Tensor:
+        return torch.as_tensor(self.coords_np, dtype=self.dtype,
+                               device=self.device)
+
+    @cached_property
+    def boundary_mask_np(self) -> np.ndarray:
+        """(dims...) bool: node lies on any face."""
+        m = np.zeros(self.dims, dtype=bool)
+        for ax in range(self.ndim):
+            sl0 = [slice(None)] * self.ndim
+            sl1 = [slice(None)] * self.ndim
+            sl0[ax] = 0
+            sl1[ax] = -1
+            m[tuple(sl0)] = True
+            m[tuple(sl1)] = True
+        return m
+
+    @cached_property
+    def boundary_mask(self) -> torch.Tensor:
+        return torch.as_tensor(self.boundary_mask_np, device=self.device)
+
+    @cached_property
+    def interior_mask(self) -> torch.Tensor:
+        return torch.as_tensor(~self.boundary_mask_np, device=self.device)
+
+    @property
+    def num_boundary(self) -> int:
+        return int(self.boundary_mask_np.sum())
+
+    @property
+    def num_interior(self) -> int:
+        return self.size - self.num_boundary
+
+    def census(self) -> str:
+        return (f"DOF distribution: {self.size:8d} local "
+                f"{self.num_interior:8d} global {self.num_boundary:8d} dirichlet")
+
+    def _mask_for(self, mask: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        if u.ndim > self.ndim:  # trailing component axes
+            return mask.reshape(mask.shape + (1,) * (u.ndim - self.ndim))
+        return mask
+
+    def zero_boundary(self, u: torch.Tensor) -> torch.Tensor:
+        """Keep interior values, zero the boundary."""
+        return torch.where(self._mask_for(self.interior_mask, u), u,
+                           torch.zeros((), dtype=u.dtype, device=u.device))
+
+    def set_boundary(self, u: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+        """Overwrite boundary entries with ``values``."""
+        return torch.where(self._mask_for(self.boundary_mask, u), values, u)

@@ -1,0 +1,109 @@
+"""Linear Poisson model: the main path of the port.
+
+Counterpart of ``spectral_tpu/models/poisson.py``: the matrix-free spectral
+Laplacian (each Chebyshev derivative applied twice, boundary rows
+identity), solved by GMRES against the FD surrogate's exact fast
+diagonalization, with the manufactured solution u = prod_j cos(pi x_j / 2).
+
+Operator paths:
+- composed (default): ``chebdiff`` per axis; on CUDA the last-axis
+  derivatives run kernel K1 (``method="auto"`` or ``"kernel"``).
+- ``method="kernel"`` on a 3-D grid: the fused Laplacian, kernel K2,
+  one pass over the field with the boundary select in its epilogue.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from functools import cached_property
+
+import torch
+
+from spectral_tpu_torch.grid import Grid
+from spectral_tpu_torch.ops.chebyshev import chebdiff
+from spectral_tpu_torch.ops.fastdiag import FastDiagSolver
+from spectral_tpu_torch.ops.stencil import poisson_fd_stencil
+from spectral_tpu_torch.solvers.krylov import KSPConfig
+from spectral_tpu_torch.solvers.types import SolveResult
+
+
+@dataclasses.dataclass(frozen=True)
+class PoissonModel:
+    """-Laplace(u) = f on the grid's box with Dirichlet boundary (identity
+    rows).  Tensors live on ``grid.device``; the operator runs in the dtype
+    of its input."""
+
+    grid: Grid
+    method: str = "auto"  # chebdiff execution path; "kernel" = K1 / K2
+    mesh: object = None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "PoissonModel(mesh=...) is not ported yet (ROADMAP.md queue 1, "
+                "item 7: parallel)")
+
+    def operator(self, u: torch.Tensor) -> torch.Tensor:
+        """y = -sum_j D_j(D_j u); boundary rows y_b = u_b."""
+        g = self.grid
+        if self.method == "kernel" and g.ndim == 3:
+            from spectral_tpu_torch.ops.cuda_cheb import laplacian3d
+            s2 = g.deriv_scale_np ** 2
+            return laplacian3d(u, bmask=g.boundary_mask, scales=tuple(s2))
+        wgt = g.apply_dif_weight  # affine chain rule (identity if unmapped)
+        y = torch.zeros_like(u)
+        for ax in range(g.ndim):
+            y = y - wgt(chebdiff(wgt(chebdiff(u, ax, self.method), ax),
+                                 ax, self.method), ax)
+        return torch.where(g.boundary_mask, u, y)
+
+    @cached_property
+    def fd_stencil(self):
+        return poisson_fd_stencil(self.grid)
+
+    def build_pc(self, pc_type: str = "fastdiag", dtype: torch.dtype | None = None):
+        """Strong PC on the FD surrogate, in ``dtype`` (default: the grid's)."""
+        dtype = dtype or self.grid.dtype
+        if pc_type == "fastdiag":
+            return FastDiagSolver.build(self.grid, dtype=dtype)
+        if pc_type == "jacobi":
+            diag = self.fd_stencil.diag().to(dtype)
+            return lambda r: r / diag
+        if pc_type.startswith("mg"):
+            raise NotImplementedError(
+                "pc_type mg is not ported yet (ROADMAP.md queue 1, item 2: "
+                "ops/multigrid.py)")
+        if pc_type == "lu":
+            # Dense LU of the assembled FD surrogate, the reference's
+            # -pc_type lu; small grids only.  torch.linalg solves are
+            # dtype-strict, so the right-hand side is cast to the factors'
+            # dtype (the solve casts the result back to its own).
+            if self.grid.size > 5000:
+                raise ValueError("dense -pc_type lu is for small grids")
+            A = torch.as_tensor(self.fd_stencil.as_dense_np(), dtype=dtype,
+                                device=self.grid.device)
+            LU, piv = torch.linalg.lu_factor(A)
+            dims = self.grid.dims
+            return lambda r: torch.linalg.lu_solve(
+                LU, piv, r.reshape(-1, 1).to(LU.dtype)).reshape(dims)
+        if pc_type == "none":
+            return None
+        raise ValueError(f"unknown pc_type {pc_type!r}")
+
+    def exact_solution(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """u = prod_j cos(pi x_j / 2), f = d (pi/2)^2 u, in the grid's dtype."""
+        x = self.grid.coords  # (dims..., d)
+        u = torch.prod(torch.cos(0.5 * math.pi * x), dim=-1)
+        f = self.grid.ndim * (0.5 * math.pi) ** 2 * u
+        return u, f
+
+    def rhs(self, u_exact: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        """b carries f inside and the Dirichlet data on the boundary."""
+        return torch.where(self.grid.boundary_mask, u_exact, f)
+
+    def solve(self, b: torch.Tensor, *, ksp: KSPConfig | None = None,
+              pc_type: str = "fastdiag") -> SolveResult:
+        ksp = ksp or KSPConfig(type="gmres", rtol=1e-10, max_it=200)
+        M = self.build_pc(pc_type, dtype=b.dtype)
+        return ksp.solve(self.operator, b, M=M)

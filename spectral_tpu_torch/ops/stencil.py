@@ -1,0 +1,131 @@
+"""Low-order finite-difference rediscretization as stencil coefficient fields.
+
+Counterpart of ``spectral_tpu/ops/stencil.py``: a (2d+1)-point stencil on
+a tensor grid is stored as coefficient fields on the grid (center plus
+lower/upper per axis), applied as shifted elementwise products.  Dirichlet
+rows are identity and couplings into the boundary are dropped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from spectral_tpu_torch.grid import Grid
+
+
+def shift(x: torch.Tensor, axis: int, s: int) -> torch.Tensor:
+    """y_i = x_{i+s} along ``axis``, zero-filled at the ends (|s| small)."""
+    if s == 0:
+        return x
+    n = x.shape[axis]
+    y = torch.zeros_like(x)
+    if s > 0:
+        y.narrow(axis, 0, n - s).copy_(x.narrow(axis, s, n - s))
+    else:
+        y.narrow(axis, -s, n + s).copy_(x.narrow(axis, 0, n + s))
+    return y
+
+
+def fd1d_coeffs(z: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Non-uniform 3-point second-derivative row coefficients (negated),
+    the entries of the reference's AssemblePoissonPC2; boundary rows zero."""
+    n = len(z)
+    lower = np.zeros(n)
+    center = np.zeros(n)
+    upper = np.zeros(n)
+    zm, z0, zp = z[:-2], z[1:-1], z[2:]
+    lower[1:-1] = -1.0 / ((zm - z0) * (zm - zp))
+    center[1:-1] = -1.0 / ((z0 - zm) * (z0 - zp))
+    upper[1:-1] = -1.0 / ((zp - zm) * (zp - z0))
+    return lower, center, upper
+
+
+def _bcast_axis(a: np.ndarray, axis: int, ndim: int) -> np.ndarray:
+    shape = [1] * ndim
+    shape[axis] = len(a)
+    return a.reshape(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilOp:
+    """A (2d+1)-point stencil operator as coefficient fields:
+
+      y = center*x + sum_j lower[j]*shift(x, j, -1) + upper[j]*shift(x, j, +1)
+
+    Extra trailing axes of x are broadcast.
+    """
+
+    center: torch.Tensor
+    lower: tuple[torch.Tensor, ...]
+    upper: tuple[torch.Tensor, ...]
+
+    @property
+    def grid_ndim(self) -> int:
+        return self.center.ndim
+
+    def _b(self, c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim > c.ndim:
+            return c.reshape(c.shape + (1,) * (x.ndim - c.ndim))
+        return c
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._b(self.center, x) * x
+        for ax in range(self.grid_ndim):
+            y = y + self._b(self.lower[ax], x) * shift(x, ax, -1)
+            y = y + self._b(self.upper[ax], x) * shift(x, ax, +1)
+        return y
+
+    def diag(self) -> torch.Tensor:
+        return self.center
+
+    def as_dense_np(self) -> np.ndarray:
+        """Materialize as a dense float64 (size, size) matrix."""
+        center = self.center.detach().cpu().double().numpy()
+        dims = center.shape
+        size = math.prod(dims)
+        A = np.zeros((size, size))
+        A[np.arange(size), np.arange(size)] = center.reshape(-1)
+        strides = np.array([math.prod(dims[j + 1:]) for j in range(len(dims))])
+        idx = np.indices(dims).reshape(len(dims), -1)
+        flat = np.arange(size)
+        for ax in range(len(dims)):
+            lo = self.lower[ax].detach().cpu().double().numpy().reshape(-1)
+            up = self.upper[ax].detach().cpu().double().numpy().reshape(-1)
+            has_m = idx[ax] > 0
+            has_p = idx[ax] < dims[ax] - 1
+            A[flat[has_m], flat[has_m] - strides[ax]] += lo[has_m]
+            A[flat[has_p], flat[has_p] + strides[ax]] += up[has_p]
+        return A
+
+
+def poisson_fd_stencil(grid: Grid, dtype: torch.dtype | None = None) -> StencilOp:
+    """d-dimensional FD Laplacian surrogate on CGL nodes (host float64
+    assembly, cast once to ``dtype`` on the grid's device): interior rows
+    are the Kronecker sum of 1-D non-uniform stencils, Dirichlet rows
+    identity, couplings into the boundary dropped."""
+    dtype = dtype or grid.dtype
+    d = grid.ndim
+    center = np.zeros(grid.dims)
+    lowers, uppers = [], []
+    interior = ~grid.boundary_mask_np
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=grid.device)
+
+    for ax in range(d):
+        lo1, c1, up1 = fd1d_coeffs(grid.nodes_1d[ax])
+        center += _bcast_axis(c1, ax, d)
+        lo = np.broadcast_to(_bcast_axis(lo1, ax, d), grid.dims).copy()
+        up = np.broadcast_to(_bcast_axis(up1, ax, d), grid.dims).copy()
+        lo[~interior] = 0.0
+        up[~interior] = 0.0
+        lo[~np.roll(interior, 1, axis=ax)] = 0.0   # neighbor i-1 on boundary
+        up[~np.roll(interior, -1, axis=ax)] = 0.0  # neighbor i+1 on boundary
+        lowers.append(dev(lo))
+        uppers.append(dev(up))
+    center[~interior] = 1.0
+    return StencilOp(dev(center), tuple(lowers), tuple(uppers))

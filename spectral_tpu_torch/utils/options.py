@@ -1,0 +1,101 @@
+"""PETSc-style options database with prefix namespacing.
+
+Counterpart of ``spectral_tpu/utils/options.py``: ``-key value`` and
+``-flag`` tokens, with solver options read under a prefix
+(``Options.ksp_config("vel_")`` reads the ``-vel_ksp_*`` keys).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+
+def _is_number(tok: str) -> bool:
+    try:
+        float(tok)
+        return True
+    except ValueError:
+        return False
+
+
+class Options:
+    """Parsed ``-key value`` / ``-flag`` command-line options."""
+
+    def __init__(self, argv: Sequence[str] | dict[str, str] | None = None):
+        self._db: dict[str, str] = {}
+        self._used: set[str] = set()
+        if isinstance(argv, dict):
+            self._db = {k.lstrip("-"): str(v) for k, v in argv.items()}
+        elif argv:
+            i = 0
+            toks = list(argv)
+            while i < len(toks):
+                tok = toks[i]
+                if not tok.startswith("-") or _is_number(tok):
+                    raise ValueError(f"expected an option, got {tok!r}")
+                key = tok.lstrip("-")
+                if i + 1 < len(toks) and (not toks[i + 1].startswith("-")
+                                          or _is_number(toks[i + 1])):
+                    self._db[key] = toks[i + 1]
+                    i += 2
+                else:
+                    self._db[key] = ""  # bare flag
+                    i += 1
+
+    # -- primitive getters ----------------------------------------------------
+    def has(self, key: str) -> bool:
+        key = key.lstrip("-")
+        if key in self._db:
+            self._used.add(key)
+            return True
+        return False
+
+    def _get(self, key: str) -> Optional[str]:
+        key = key.lstrip("-")
+        if key in self._db:
+            self._used.add(key)
+            return self._db[key]
+        return None
+
+    def get_int(self, key: str, default: int) -> int:
+        v = self._get(key)
+        return default if v is None else int(v)
+
+    def get_real(self, key: str, default: float) -> float:
+        v = self._get(key)
+        return default if v is None else float(v)
+
+    def get_string(self, key: str, default: str) -> str:
+        v = self._get(key)
+        return default if v is None else v
+
+    def get_real_array(self, key: str, default=()) -> tuple[float, ...]:
+        v = self._get(key)
+        if v is None:
+            return tuple(default)
+        return tuple(float(t) for t in v.replace(" ", "").split(",") if t)
+
+    def unused(self) -> list[str]:
+        """-options_left analog: keys never consumed."""
+        return sorted(set(self._db) - self._used)
+
+    # -- prefixed solver configs ---------------------------------------------
+    def ksp_config(self, prefix: str = "", default: KSPConfig = KSPConfig()) -> KSPConfig:
+        """Read -{prefix}ksp_type/_rtol/_atol/_divtol/_max_it/_gmres_restart
+        (the KSPSetFromOptions analog)."""
+        p = prefix
+        return dataclasses.replace(
+            default,
+            type=self.get_string(f"{p}ksp_type", default.type),
+            rtol=self.get_real(f"{p}ksp_rtol", default.rtol),
+            atol=self.get_real(f"{p}ksp_atol", default.atol),
+            dtol=self.get_real(f"{p}ksp_divtol", default.dtol),
+            max_it=self.get_int(f"{p}ksp_max_it", default.max_it),
+            restart=self.get_int(f"{p}ksp_gmres_restart", default.restart),
+        )
+
+    def pc_type(self, prefix: str = "", default: str = "fastdiag") -> str:
+        return self.get_string(f"{prefix}pc_type", default)

@@ -1,0 +1,104 @@
+"""Plain versions of the port's two kernels (spectral_tpu_torch.ops.cuda_cheb)
+against the JAX package's Pallas kernels in interpret mode, run as
+tests/test_pallas.py runs them; and the wrappers' CPU-only routing."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spectral_tpu.grid import Grid as JGrid
+from spectral_tpu.ops.pallas_cheb import chebdiff_last_pallas, laplacian3d_pallas
+from spectral_tpu_torch.grid import Grid
+from spectral_tpu_torch.ops import _build, cuda_cheb
+
+
+@pytest.mark.parametrize("shape,block,scale", [
+    ((3, 10, 16), 16, None),
+    ((7, 12), 4, None),      # ragged: 7 rows in blocks of 4
+    ((5, 12), 8, 0.25),      # scale folded into D^T
+])
+def test_chebdiff_last_ref_matches_pallas(shape, block, scale):
+    u = np.random.default_rng(0).standard_normal(shape)
+    ref = chebdiff_last_pallas(jnp.asarray(u), block_rows=block, interpret=True,
+                               scale=scale)
+    got = cuda_cheb.chebdiff_last_ref(torch.from_numpy(u), scale)
+    # atol 1e-10, the tolerance tests/test_pallas.py holds the kernel to:
+    # both multiply by the same float64 (s D)^T, in another summation order
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-10, rtol=0)
+
+
+def test_laplacian3d_ref_matches_pallas():
+    u = np.random.default_rng(2).standard_normal((12, 10, 8))
+    ref = np.asarray(laplacian3d_pallas(jnp.asarray(u), interpret=True))
+    got = cuda_cheb.laplacian3d_ref(torch.from_numpy(u)).numpy()
+    # scale-normalised atol 1e-11 (test_pallas.py): D2 entries reach ~n^4/15
+    scale = np.max(np.abs(ref))
+    np.testing.assert_allclose(got / scale, ref / scale, atol=1e-11, rtol=0)
+
+
+def test_laplacian3d_ref_boundary_mask_and_scales_match_pallas():
+    jg = JGrid((8, 8, 8))
+    g = Grid((8, 8, 8))
+    u = np.random.default_rng(3).standard_normal(g.dims)
+    scales = (0.25, 1.0, 4.0)
+    ref = np.asarray(laplacian3d_pallas(jnp.asarray(u), bmask=jg.boundary_mask,
+                                        interpret=True, scales=scales))
+    got = cuda_cheb.laplacian3d_ref(torch.from_numpy(u), g.boundary_mask,
+                                    scales).numpy()
+    # boundary rows are u itself: bitwise
+    np.testing.assert_array_equal(got[g.boundary_mask_np], u[g.boundary_mask_np])
+    scale = np.max(np.abs(ref))
+    np.testing.assert_allclose(got / scale, ref / scale, atol=1e-11, rtol=0)
+
+
+def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
+    cuda_cheb.reset_launch_counts()
+    rng = np.random.default_rng(4)
+    u2 = torch.from_numpy(rng.standard_normal((6, 9)))
+    u3 = torch.from_numpy(rng.standard_normal((8, 7, 6)))
+    mask = Grid((8, 7, 6)).boundary_mask
+    np.testing.assert_array_equal(cuda_cheb.chebdiff_last(u2, 0.5).numpy(),
+                                  cuda_cheb.chebdiff_last_ref(u2, 0.5).numpy())
+    np.testing.assert_array_equal(cuda_cheb.laplacian3d(u3, mask).numpy(),
+                                  cuda_cheb.laplacian3d_ref(u3, mask).numpy())
+    assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0,
+                                         "laplacian3d_kernel": 0}
+
+
+def test_non_cpu_tensors_never_take_the_plain_path():
+    """A tensor that is not on the CPU goes to the kernel or raises; here a
+    meta tensor (neither CPU nor CUDA) must raise, not compute."""
+    u = torch.empty((4, 8), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        cuda_cheb.chebdiff_last(u)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        cuda_cheb.laplacian3d(torch.empty((4, 4, 4), device="meta"))
+
+
+def test_kernel_limits():
+    # K2's shared-memory need at the production grid, and its limit
+    assert cuda_cheb.laplacian3d_smem_bytes((64, 64, 64), 8) <= cuda_cheb.SMEM_LIMIT
+    assert cuda_cheb.laplacian3d_smem_bytes((128, 128, 128), 8) > cuda_cheb.SMEM_LIMIT
+    assert cuda_cheb.K1_MAX_N == 128
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """A missing compiler is an error, never a silent fall back."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "_DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_library_name_follows_the_sources(monkeypatch, tmp_path):
+    src = tmp_path / "k.cu"
+    src.write_text("// one")
+    monkeypatch.setattr(_build, "SOURCES", (src,))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build.library_path()
+    assert first.parent == tmp_path / "build"
+    src.write_text("// two")
+    assert _build.library_path() != first
