@@ -4,23 +4,33 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, then drives the Poisson
-main path at its real size (64^3, rtol 1e-10) through the entry points a
-user calls:
+against its plain PyTorch version on the card, then drives the port's
+paths at their real sizes through the entry points a user calls:
 
   0. identify the card; build the kernels (timed);
   1. K1 chebdiff_last_kernel against chebdiff_last_ref;
   2. K2 laplacian3d_kernel against laplacian3d_ref;
-  3. main path A: the CLI, ``poisson -m 64 -n 64 -p 64 -ksp_rtol 1e-10``
+  3. Poisson path A: the CLI, ``poisson -m 64 -n 64 -p 64 -ksp_rtol 1e-10``
      in float64 (K1 on the last axis of the composed operator);
-  4. main path B: mixed-precision refinement at 64^3, float32 GMRES on the
-     fused Laplacian (K2) with a float32 fastdiag PC, float64 residuals,
-     through ``refine_solve`` and ``refine_solve_fused``.
+  4. Poisson path B: mixed-precision refinement at 64^3, float32 GMRES on
+     the fused Laplacian (K2) with a float32 fastdiag PC, float64
+     residuals, through ``refine_solve`` and ``refine_solve_fused``;
+  5. the K3 sweep (the counterpart of benchmarks/exp_pallas.py::main): K3
+     against its plain version on ragged shapes, then every row-tile
+     height x packing at u of (1,048,576, 64) float32, timed;
+  6. the elliptic CLI in float64: ``-dim 12,12,12,12,12 -exact 2
+     -pc_type fastdiag`` and ``-dim 32,32,32 -gamma 1 -pc_type mg3``,
+     gated on the JAX package's CPU oracle;
+  7. mixed-precision Newton: ``EllipticModel.solve_refined`` and
+     ``solve_refined_fused`` in the elliptic32 configuration, and
+     ``solve_refined`` on the 5-D problem.
 
-Every phase raises on failure.  Before the last line it prints the kernels
-as JSON (launch counts from phases 3-4 only, errors and median times from
-phases 1-2); the last line is {"ok": true, "device": {...}}.  Without CUDA
-it exits non-zero and prints no result.
+Each path (phases 3-7) is driven with the launch counts set to 0 just
+before it and read just after; every phase raises on failure.  Before the
+last line it prints the kernels as JSON (launches summed over the paths,
+errors and median times from the comparisons); the last line is
+{"ok": true, "device": {...}}.  Without CUDA it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -36,8 +46,22 @@ import time
 
 SOURCE = "spectral_tpu_torch/csrc/cheb_kernels.cu"
 REPLACES = {"chebdiff_last_kernel": "spectral_tpu/ops/pallas_cheb.py:34",
-            "laplacian3d_kernel": "spectral_tpu/ops/pallas_cheb.py:81"}
+            "laplacian3d_kernel": "spectral_tpu/ops/pallas_cheb.py:81",
+            "chebdiff_packed_kernel": "benchmarks/exp_pallas.py:32"}
 BOUND = {"float32": 1e-5, "float64": 1e-12}   # max |kernel - plain| / max |plain|
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; FMA-pipe FLOP/s outside
+# the tensor cores, where these kernels run
+HBM_BYTES_S = 3.35e12
+PEAK_FLOP_S = {"float32": 67e12, "float64": 34e12}
+# The JAX package's elliptic CLI on the CPU in float64 (spectral_tpu.cli
+# elliptic -platform cpu, the same options): Newton count, Krylov counts
+# per Newton step, max error.
+ELLIPTIC_ORACLE = {
+    "5d": (["-dim", "12,12,12,12,12", "-exact", "2", "-pc_type", "fastdiag",
+            "-ksp_rtol", "1e-10", "-debug", "1"], 1, [11], 2.017631e-11),
+    "32^3 mg3": (["-dim", "32,32,32", "-exact", "0", "-gamma", "1", "-pc_type", "mg3",
+                  "-snes_rtol", "1e-10", "-debug", "1"], 5, [6, 7, 7, 6, 7], 2.512879e-12),
+}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -85,7 +109,7 @@ def timed_twice(run, warm_reps: int = 2):
     return out, first, best
 
 
-def compare(name, kernel, plain, u, case) -> dict:
+def compare(name, kernel, plain, u, case, timed=True) -> dict:
     import torch
 
     got = kernel()
@@ -96,8 +120,24 @@ def compare(name, kernel, plain, u, case) -> dict:
     rel = abs_err / float(torch.max(torch.abs(ref)))
     dtype = str(u.dtype).replace("torch.", "")
     require(rel <= BOUND[dtype], f"{name} {case}: error {rel:.3e} > {BOUND[dtype]:.0e}")
-    return {"case": case, "dtype": dtype, "rel_err": rel, "max_abs_err": abs_err,
-            "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain)}
+    out = {"case": case, "dtype": dtype, "rel_err": rel, "max_abs_err": abs_err}
+    if timed:
+        out.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain))
+    return out
+
+
+def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over the HBM rate and the operations over the peak rate for dtype."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOP_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_cli(cli_main, argv) -> tuple[int, str]:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
 
 
 def main() -> int:
@@ -111,10 +151,12 @@ def main() -> int:
 
     from spectral_tpu_torch.cli.main import main as cli_main
     from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.elliptic import EllipticModel
     from spectral_tpu_torch.models.poisson import PoissonModel
     from spectral_tpu_torch.ops import _build, cuda_cheb
     from spectral_tpu_torch.ops.chebyshev import diffmat_np
     from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
     from spectral_tpu_torch.solvers.refinement import refine_solve, refine_solve_fused
 
     dev = torch.device("cuda")
@@ -141,6 +183,7 @@ def main() -> int:
         "build_s": build_s, "nvcc_s": compile_s, "ptxas": ptxas}))
 
     # -- phase 1: K1 against its plain version --------------------------------
+    t_phase = time.perf_counter()
     k1 = []
     k1_cases = [((3, 10, 16), None), ((7, 12), None), ((5, 12), 0.25),
                 ((11, 10), None), ((4, 9, 128), None), ((64, 64, 64), None)]
@@ -150,13 +193,25 @@ def main() -> int:
             k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u, scale),
                               lambda: cuda_cheb.chebdiff_last_ref(u, scale), u,
                               f"{shape} scale={scale}"))
+            if shape == (64, 64, 64):   # the Poisson CLI's shape: its bound and library call
+                dt = cuda_cheb._diffmat_t(64, None, dtype, dev)
+                k1[-1]["library_ms"] = cuda_ms(lambda: torch.matmul(u, dt))
+                k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(
+                    2 * u.numel() * u.element_size() + dt.numel() * dt.element_size(),
+                    2 * 64 * u.numel(), k1[-1]["dtype"])
     u = randn((256, 64, 64, 64), torch.float32, 99)   # the cheb_matvec shape
     k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u),
                       lambda: cuda_cheb.chebdiff_last_ref(u), u, "(256, 64, 64, 64)"))
+    dt = cuda_cheb._diffmat_t(64, None, torch.float32, dev)
+    k1[-1]["library_ms"] = cuda_ms(lambda: torch.matmul(u, dt))
+    k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 4 + 64 * 64 * 4,
+                                                   2 * 64 * u.numel(), "float32")
     del u
     print("phase1 K1 " + json.dumps(k1))
+    print(f"phase1 seconds {time.perf_counter() - t_phase:.3f}")
 
     # -- phase 2: K2 against its plain version --------------------------------
+    t_phase = time.perf_counter()
     k2 = []
     for dtype in (torch.float32, torch.float64):
         u = randn((12, 10, 8), dtype, 1)
@@ -169,32 +224,45 @@ def main() -> int:
             k2.append(compare("K2", lambda: cuda_cheb.laplacian3d(u, mask, scales),
                               lambda: cuda_cheb.laplacian3d_ref(u, mask, scales), u,
                               f"{dims} bmask scales={scales}"))
+            # u read, y written, the mask read, three n x n operators; 6n FLOP a point
+            k2[-1]["bound_ms"], k2[-1]["bound_by"] = bound(
+                u.numel() * (2 * u.element_size() + 1) + 3 * dims[0] ** 2 * u.element_size(),
+                6 * dims[0] * u.numel(), k2[-1]["dtype"])
     print("phase2 K2 " + json.dumps(k2))
+    print(f"phase2 seconds {time.perf_counter() - t_phase:.3f}")
 
-    # -- the main path: counts start from zero here ---------------------------
-    cuda_cheb.reset_launch_counts()
+    # Each path runs with the counts set to 0 just before it and is read
+    # just after; the kernels line sums the paths.
+    launches = {name: 0 for name in cuda_cheb.LAUNCHES}
 
-    # -- phase 3: main path A, the CLI in float64 -----------------------------
+    def path(name, fn, kernels):
+        cuda_cheb.reset_launch_counts()
+        out = fn()
+        counts = dict(cuda_cheb.LAUNCHES)
+        for k in kernels:
+            require(counts[k] > 0, f"{name}: the path did not launch {k}")
+        for k, v in counts.items():
+            launches[k] += v
+        return out, counts
+
+    K1, K2, K3 = "chebdiff_last_kernel", "laplacian3d_kernel", "chebdiff_packed_kernel"
+
+    # -- phase 3: Poisson path A, the CLI in float64 --------------------------
+    t_phase = time.perf_counter()
     argv = ["poisson", "-m", "64", "-n", "64", "-p", "64", "-ksp_rtol", "1e-10"]
-
-    def run_cli():
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = cli_main(argv)
-        return rc, buf.getvalue()
-
-    (rc, out), first_s, warm_s = timed_twice(run_cli)
+    ((rc, out), first_s, warm_s), counts = path(
+        "phase3", lambda: timed_twice(lambda: run_cli(cli_main, argv)), [K1])
     m = re.search(r"Norm of error (\S+) iterations (\d+)", out)
     require(rc == 0 and m is not None, f"CLI failed (rc {rc}): {out!r}")
     err, iters = float(m.group(1)), int(m.group(2))
     require(err <= 1e-10, f"CLI error {err:.3e} > 1e-10")
-    k1_after_a = cuda_cheb.LAUNCHES["chebdiff_last_kernel"]
-    require(k1_after_a > 0, "the CLI path did not launch K1")
     print("phase3 " + json.dumps({"cli": " ".join(argv), "iterations": iters, "error": err,
                                   "first_s": first_s, "solve_s": warm_s,
-                                  "k1_launches": k1_after_a}))
+                                  "k1_launches": counts[K1],
+                                  "seconds": time.perf_counter() - t_phase}))
 
-    # -- phase 4: main path B, mixed precision at 64^3 -------------------------
+    # -- phase 4: Poisson path B, mixed precision at 64^3 ---------------------
+    t_phase = time.perf_counter()
     n = 64
     g = Grid((n, n, n), device=dev, dtype=torch.float64)
     model = PoissonModel(g, method="kernel")
@@ -218,7 +286,6 @@ def main() -> int:
             y -= np.moveaxis((z.reshape(-1, n) @ D2T).reshape(z.shape), -1, ax)
         return np.where(bm, x, y)
 
-    k2_before = cuda_cheb.LAUNCHES["laplacian3d_kernel"]
     b_dev = torch.from_numpy(b).to(dev)
     runs = {
         "refine_solve": lambda: refine_solve(A_hi, inner, b, device=dev, rtol=1e-10,
@@ -226,37 +293,167 @@ def main() -> int:
         "refine_solve_fused": lambda: refine_solve_fused(model.operator, inner, b_dev,
                                                          rtol=1e-10, max_refine=8),
     }
-    phase4 = {}
-    for name, run in runs.items():
-        out, first_s, warm_s = timed_twice(run)
-        x = out.x.cpu().numpy() if isinstance(out.x, torch.Tensor) else out.x
-        err = float(np.max(np.abs(x - u64)))
-        rel = out.rnorm / bnorm
-        require(out.reason > 0 and rel <= 1e-10, f"{name}: rel residual {rel:.3e}")
-        require(15 <= out.inner_iters <= 30, f"{name}: {out.inner_iters} inner iterations")
-        # the JAX package's own bench_poisson64 reaches 1.067e-13 here (CPU,
-        # float64): the 64^3 spectral solution's distance from the exact one
-        require(err <= 2e-13, f"{name}: error {err:.3e} > 2e-13")
-        phase4[name] = {"refine_steps": out.refine_steps, "inner_iters": out.inner_iters,
-                        "rel_residual": rel, "error": err, "first_s": first_s,
-                        "solve_s": warm_s}
-    k2_launches = cuda_cheb.LAUNCHES["laplacian3d_kernel"] - k2_before
-    require(k2_launches > 0, "the mixed-precision path did not launch K2")
-    phase4["k2_launches"] = k2_launches
-    print("phase4 " + json.dumps(phase4))
 
-    counts = dict(cuda_cheb.LAUNCHES)
+    def poisson_b():
+        phase = {}
+        for name, run in runs.items():
+            out, first_s, warm_s = timed_twice(run)
+            x = out.x.cpu().numpy() if isinstance(out.x, torch.Tensor) else out.x
+            err = float(np.max(np.abs(x - u64)))
+            rel = out.rnorm / bnorm
+            require(out.reason > 0 and rel <= 1e-10, f"{name}: rel residual {rel:.3e}")
+            require(15 <= out.inner_iters <= 30, f"{name}: {out.inner_iters} inner iterations")
+            # the JAX package's own bench_poisson64 reaches 1.067e-13 here (CPU,
+            # float64): the 64^3 spectral solution's distance from the exact one
+            require(err <= 2e-13, f"{name}: error {err:.3e} > 2e-13")
+            phase[name] = {"refine_steps": out.refine_steps, "inner_iters": out.inner_iters,
+                           "rel_residual": rel, "error": err, "first_s": first_s,
+                           "solve_s": warm_s}
+        return phase
+
+    phase4, counts = path("phase4", poisson_b, [K2])
+    phase4["k2_launches"] = counts[K2]
+    phase4["seconds"] = time.perf_counter() - t_phase
+    print("phase4 " + json.dumps(phase4))
+    del g, model, M, b_dev
+
+    # -- phase 5: the K3 sweep (exp_pallas.py::main) --------------------------
+    t_phase = time.perf_counter()
+    S = 1.0 / 64**2          # exp_pallas.py:33 folds 1/n^2 into D^T
+    k3 = []
+    for dtype in (torch.float32, torch.float64):
+        for seed, (rows, pack, blk) in enumerate(((1, 1, 32), (37, 2, 64), (100, 1, 128),
+                                                  (1003, 2, 32), (515, 1, 64),
+                                                  (333, 2, 128))):
+            u = randn((rows, 64 * pack), dtype, 10 + seed)
+            k3.append(compare("K3", lambda: cuda_cheb.chebdiff_packed(u, pack, S, blk),
+                              lambda: cuda_cheb.chebdiff_packed_ref(u, pack, S), u,
+                              f"({rows}, {64 * pack}) pack={pack} blk={blk}", timed=False))
+    print("phase5 K3 " + json.dumps(k3))
+    u = randn((1 << 20, 64), torch.float32, 98)   # 256 x 64^3 dofs, exp_pallas.py main
+    dofs = u.numel()
+    dt = cuda_cheb._diffmat_t(64, S, torch.float32, dev)
+    library_ms = cuda_ms(lambda: torch.matmul(u, dt))
+    k3_bound = bound(2 * dofs * 4 + 64 * 64 * 4, 2 * 64 * dofs, "float32")
+    cases = [(pack, blk) for pack in (1, 2) for blk in cuda_cheb.K3_BLOCK_ROWS]
+    sweep = {}
+    for pack in (1, 2):
+        u2d = u.view(-1, 64 * pack)
+        ref = cuda_cheb.chebdiff_packed_ref(u2d, pack, S)
+        plain_ms = cuda_ms(lambda: cuda_cheb.chebdiff_packed_ref(u2d, pack, S))
+        for blk in cuda_cheb.K3_BLOCK_ROWS:
+            got = cuda_cheb.chebdiff_packed(u2d, pack, S, blk)
+            abs_err = float(torch.max(torch.abs(got - ref)))
+            rel = abs_err / float(torch.max(torch.abs(ref)))
+            require(rel <= BOUND["float32"], f"K3 sweep pack={pack} blk={blk}: error {rel:.3e}")
+            sweep[(pack, blk)] = {"case": f"(1048576, 64) as ({dofs // (64 * pack)}, "
+                                          f"{64 * pack}) pack={pack} blk={blk}",
+                                  "dtype": "float32", "rel_err": rel, "max_abs_err": abs_err,
+                                  "plain_ms": plain_ms}
+        del ref, got
+
+    def k3_sweep():
+        for pack, blk in cases:
+            u2d = u.view(-1, 64 * pack)
+            ms = cuda_ms(lambda: cuda_cheb.chebdiff_packed(u2d, pack, S, blk))
+            sweep[(pack, blk)].update(ms=ms, gdofs=dofs / ms / 1e6)
+
+    _, counts = path("phase5", k3_sweep, [K3])
+    for c in sweep.values():
+        c.update(library_ms=library_ms, bound_ms=k3_bound[0], bound_by=k3_bound[1])
+    print("phase5 sweep " + json.dumps({"library_gdofs": dofs / library_ms / 1e6,
+                                        "k3_launches": counts[K3],
+                                        "cases": list(sweep.values()),
+                                        "seconds": time.perf_counter() - t_phase}))
+    del u, u2d
+    torch.cuda.empty_cache()
+
+    # -- phase 6: the elliptic CLI in float64, gated on the CPU oracle --------
+    t_phase = time.perf_counter()
+    phase6 = {}
+    for name, (opts, newton_its, krylov, error) in ELLIPTIC_ORACLE.items():
+        argv = ["elliptic", *opts]
+        ((rc, out), first_s, warm_s), counts = path(
+            f"phase6 {name}", lambda: timed_twice(lambda: run_cli(cli_main, argv),
+                                                  warm_reps=1), [K1])
+        mn = re.search(r"Number of nonlinear iterations = (\d+)", out)
+        mk = re.search(r"KSP iterations per Newton step: \[([\d, ]*)\]", out)
+        me = re.search(r"Norm of error\s*: abs = (\S+)", out)
+        require(rc == 0 and mn and mk and me, f"elliptic {name} failed (rc {rc}): {out!r}")
+        its = int(mn.group(1))
+        kits = [int(k) for k in mk.group(1).split(",")]
+        err = float(me.group(1))
+        require(its == newton_its, f"elliptic {name}: {its} Newton steps, oracle {newton_its}")
+        require(len(kits) == len(krylov) and all(abs(a - b) <= 1 for a, b in zip(kits, krylov)),
+                f"elliptic {name}: Krylov {kits}, oracle {krylov} (within 1 each)")
+        require(err <= 2 * error, f"elliptic {name}: error {err:.3e} > 2 x {error:.3e}")
+        phase6[name] = {"cli": " ".join(argv), "newton": its, "krylov": kits, "error": err,
+                        "first_s": first_s, "solve_s": warm_s, "k1_launches": counts[K1]}
+    phase6["seconds"] = time.perf_counter() - t_phase
+    print("phase6 " + json.dumps(phase6))
+
+    # -- phase 7: mixed-precision Newton (float32 Newton, float64 refinement) --
+    # Bands around the JAX package's CPU oracle (bench.py, x64 off): 6 Newton
+    # and 27 Krylov at 32^3, 17 Krylov in 5-D.  Float32 Newton at rtol 3e-5
+    # runs at the float32 floor, where iterates that differ in round-off take
+    # later steps that differ by more (at 12^3 the JAX package takes 5 steps
+    # and the port 6, tests/test_torch_elliptic.py): Newton within 2 of the
+    # oracle, total Krylov within a factor 2.  The error is bounded by the
+    # tolerance, not by the oracle's value: refinement stops once the rel
+    # residual is <= 1e-10, which leaves an error up to about 0.14 x rel
+    # residual on these grids; the oracle's 5.6e-16 and 2.3e-13 come from a
+    # last step that overshot the tolerance.  So the error gate is 2e-11.
+    t_phase = time.perf_counter()
+    m32 = EllipticModel(Grid((32, 32, 32), device=dev), gamma=1.0, exponent=2.0)
+    m5 = EllipticModel(Grid((12,) * 5, device=dev), gamma=0.0)
+    nc = NewtonConfig(rtol=3e-5, max_it=30, ksp_ew=True, ew_etamax=0.5, pc_lag=2)
+    problems = {
+        "32^3 solve_refined": (m32, "solve_refined", dict(pc_type="mg3", newton=nc),
+                               (4, 8), (14, 54)),
+        "32^3 solve_refined_fused": (m32, "solve_refined_fused",
+                                     dict(pc_type="mg3", newton=nc), (4, 8), (14, 54)),
+        "5d solve_refined": (m5, "solve_refined", {}, (1, 4), (9, 34)),
+    }
+    phase7 = {}
+    for name, (model, fn, kw, newton_band, krylov_band) in problems.items():
+        u_np, b_np, d_np = model.setup_problem_np(exact=0 if model is m32 else 2)
+        ((x, info), first_s, warm_s), counts = path(
+            f"phase7 {name}", lambda: timed_twice(
+                lambda: getattr(model, fn)(b_np, d_np, rtol=1e-10, **kw)), [K1])
+        res32 = info["newton32"]
+        total = sum(res32.ksp_iters) + info["refine_inner_iters"]
+        err = float(np.max(np.abs(x - u_np)))
+        rel = info["rel_residual"]
+        require(res32.reason > 0, f"{name}: float32 Newton did not converge ({res32.reason_str()})")
+        require(rel <= 1e-10, f"{name}: rel residual {rel:.3e} > 1e-10")
+        require(err <= 2e-11, f"{name}: error {err:.3e} > 2e-11")
+        require(newton_band[0] <= res32.iters <= newton_band[1],
+                f"{name}: {res32.iters} Newton steps outside {newton_band}")
+        require(krylov_band[0] <= total <= krylov_band[1],
+                f"{name}: {total} Krylov iterations outside {krylov_band}")
+        phase7[name] = {"newton": res32.iters, "krylov": res32.ksp_iters,
+                        "refine_inner": info["refine_inner_iters"], "total_krylov": total,
+                        "rel_residual": rel, "error": err, "first_s": first_s,
+                        "solve_s": warm_s, "k1_launches": counts[K1]}
+    phase7["seconds"] = time.perf_counter() - t_phase
+    print("phase7 " + json.dumps(phase7))
+
+    # -- the kernels line ------------------------------------------------------
     k1_main = next(c for c in k1 if c["case"] == "(64, 64, 64) scale=None"
                    and c["dtype"] == "float64")
     k2_main = next(c for c in k2 if c["case"] == "(64, 64, 64) bmask scales=None"
                    and c["dtype"] == "float32")
+    k2_main["library_ms"] = None   # no single PyTorch call computes it
+    k3_main = min(sweep.values(), key=lambda c: c["ms"])
     kernels = []
-    for name, c in (("chebdiff_last_kernel", k1_main), ("laplacian3d_kernel", k2_main)):
-        require(counts[name] > 0, f"{name} was not launched by the main path")
+    for name, c in ((K1, k1_main), (K2, k2_main), (K3, k3_main)):
+        require(launches[name] > 0, f"{name} was not launched by its path")
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name], "launches": counts[name],
+                        "replaces": REPLACES[name], "launches": launches[name],
                         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                        "plain_ms": c["plain_ms"]})
+                        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                        "case": f"{c['case']} {c['dtype']}"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

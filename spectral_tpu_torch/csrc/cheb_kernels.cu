@@ -4,8 +4,8 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes.  Each
 // entry point launches on the caller's stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError() (0 on success).  Both kernels
-// are templated on float and double and accumulate in the working type.
+// synchronise, and returns cudaGetLastError() (0 on success).  Every kernel
+// is templated on float and double and accumulates in the working type.
 //
 // K1 chebdiff_last_kernel  (replaces spectral_tpu/ops/pallas_cheb.py::chebdiff_last_pallas)
 //   y[M, n] = u[M, n] @ DT[n, n], DT = (s D)^T folded on the host in float64
@@ -38,6 +38,30 @@
 //   memory, coalesced over k and L2-resident at these sizes (50 MB L2).
 //   y is written once.  Limit: (ny*nz + nz*nz + ny*tj + nx) * sizeof(T)
 //   <= 227 KB (64^3 in float64 takes 73 KB).
+//
+// K3 chebdiff_packed_kernel  (replaces benchmarks/exp_pallas.py::make_pallas)
+//   y[M, n*pack] = u[M, n*pack] @ kron(I_pack, DT), DT = (s D)^T folded on
+//   the host in float64 before the cast: the lane-packed derivative of the
+//   TPU experiment, which packs `pack` pencils of n = 64 into one 128-lane
+//   row so the MXU sees a full-width product.  The TPU multiplies the zero
+//   blocks of the Kronecker product for free; a GPU thread pays for every
+//   FMA, and at pack = 2 the dense form would do 17.2 GFLOP at the sweep
+//   shape.  This kernel never touches the zero blocks: the (M, n*pack) rows
+//   are M*pack contiguous pencils of n, and one resident DT (n x n) in
+//   shared memory serves every pencil of every row.  Bound at the sweep
+//   shape (u of 1,048,576 x 64 float32, either packing): 512 MiB moved (u
+//   read once, y written once), 0.160 ms at 3.35 TB/s; 8.6 GFLOP, 0.128 ms
+//   at 67 TFLOP/s float32 (outside the tensor cores): memory bound.
+//   Design: the row-tile height (BM rows, BM * pack pencils) is a template
+//   parameter (32, 64 or 128: the counterpart of the TPU's blk sweep).  A
+//   block loads DT once, then walks row tiles (grid-stride loop, grid sized
+//   by occupancy): a coalesced copy of the tile into padded shared rows,
+//   then each thread computes 4 x 4 register tiles of y from 16-byte shared
+//   loads, as K1 does.  The ragged last tile is masked (the TPU launch,
+//   grid = M // blk, leaves it unwritten).  The TPU's dimension_semantics
+//   and vmem_limit_bytes have no counterpart: blocks always run in
+//   parallel on the card, and shared memory is sized per launch.
+//   Limit: (npad^2 + BM * pack * (npad + 4)) * sizeof(T) <= 227 KB.
 
 #include <cuda_runtime.h>
 
@@ -324,6 +348,125 @@ cudaError_t launch_laplacian3d(const T* u, const T* d2xt, const T* d2yt,
   return cudaGetLastError();
 }
 
+
+template <int BM>
+size_t k3_smem(int n, int pack, size_t itemsize) {
+  const int npad = (n + 3) / 4 * 4;
+  return itemsize * (size_t(npad) * npad + size_t(BM) * pack * (npad + 4));
+}
+
+template <typename T, int BM>
+__global__ void __launch_bounds__(kThreads)
+chebdiff_packed_kernel(const T* __restrict__ u, const T* __restrict__ dt,
+                       T* __restrict__ y, long long M, int n, int pack) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int npad = (n + 3) / 4 * 4;
+  const int ldu = npad + 4;
+  const int w = n * pack;        // elements per row of u and y
+  const int P = BM * pack;       // pencils per row tile
+  T* dts = reinterpret_cast<T*>(smem_raw);   // npad x npad, zero beyond n
+  T* tile = dts + size_t(npad) * npad;        // P x ldu: [p * ldu + k]
+  const int tid = threadIdx.x;
+
+  for (int idx = tid; idx < npad * npad; idx += blockDim.x) {
+    const int k = idx / npad, c = idx - k * npad;
+    dts[idx] = (k < n && c < n) ? dt[size_t(k) * n + c] : T(0);
+  }
+  // the k padding of every pencil is zero once and never overwritten
+  for (int idx = tid; idx < P * (npad - n); idx += blockDim.x) {
+    const int p = idx / (npad - n), k = n + idx - p * (npad - n);
+    tile[p * ldu + k] = T(0);
+  }
+
+  const int ncg = npad / kTN;            // column groups
+  const int items = (P / kTM) * ncg;     // 4 x 4 output tiles per row tile
+  const long long tiles = (M + BM - 1) / BM;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long row0 = t * BM;
+    const int rows = M - row0 < BM ? int(M - row0) : BM;
+    const T* src = u + row0 * w;
+    for (int e = tid; e < rows * w; e += blockDim.x) {
+      const int p = e / n, k = e - p * n;
+      tile[p * ldu + k] = src[e];
+    }
+    __syncthreads();  // the tile (and, the first time, DT) is visible
+    const int pencils = rows * pack;
+    for (int it = tid; it < items; it += blockDim.x) {
+      const int cg = it % ncg, pg = it / ncg;
+      if (pg * kTM >= pencils) continue;
+      T acc[kTM][kTN];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = T(0);
+      const T* ua = tile + pg * kTM * ldu;
+      const T* db = dts + cg * kTN;
+      for (int k0 = 0; k0 < npad; k0 += 4) {
+        T a[kTM][4];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) load4(ua + i * ldu + k0, a[i]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          T b[kTN];
+          load4(db + size_t(k0 + kk) * npad, b);
+#pragma unroll
+          for (int i = 0; i < kTM; ++i)
+#pragma unroll
+            for (int j = 0; j < kTN; ++j) acc[i][j] = fma(a[i][kk], b[j], acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const int p = pg * kTM + i;
+        if (p < pencils) {
+          T* dst = y + (row0 * pack + p) * n + cg * kTN;
+#pragma unroll
+          for (int j = 0; j < kTN; ++j)
+            if (cg * kTN + j < n) dst[j] = acc[i][j];
+        }
+      }
+    }
+    __syncthreads();  // every reader is done before the tile is refilled
+  }
+}
+
+template <typename T, int BM>
+cudaError_t launch_k3(const T* u, const T* dt, T* y, long long M, int n, int pack,
+                      cudaStream_t stream) {
+  const size_t smem = k3_smem<BM>(n, pack, sizeof(T));
+  if (smem > size_t(kMaxSmem)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(chebdiff_packed_kernel<T, BM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, chebdiff_packed_kernel<T, BM>, kThreads, smem)) != cudaSuccess)
+    return err;
+  const long long tiles = (M + BM - 1) / BM;
+  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > tiles) blocks = tiles;
+  chebdiff_packed_kernel<T, BM><<<unsigned(blocks), kThreads, smem, stream>>>(u, dt, y, M, n,
+                                                                             pack);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_chebdiff_packed(const T* u, const T* dt, T* y, long long M, int n,
+                                   int pack, int block_rows, cudaStream_t stream) {
+  if (n < 2 || pack < 1 || n * pack > 128 || M < 0) return cudaErrorInvalidValue;
+  if (M == 0) return cudaSuccess;
+  switch (block_rows) {
+    case 32: return launch_k3<T, 32>(u, dt, y, M, n, pack, stream);
+    case 64: return launch_k3<T, 64>(u, dt, y, M, n, pack, stream);
+    case 128: return launch_k3<T, 128>(u, dt, y, M, n, pack, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -356,6 +499,20 @@ int laplacian3d_f64(const void* u, const void* d2xt, const void* d2yt, const voi
                                 static_cast<const double*>(d2yt), static_cast<const double*>(d2zt),
                                 static_cast<const bool*>(bmask), static_cast<double*>(y),
                                 nx, ny, nz, static_cast<cudaStream_t>(stream)));
+}
+
+int chebdiff_packed_f32(const void* u, const void* dt, void* y, long long M, int n,
+                        int pack, int block_rows, void* stream) {
+  return int(launch_chebdiff_packed(static_cast<const float*>(u), static_cast<const float*>(dt),
+                                    static_cast<float*>(y), M, n, pack, block_rows,
+                                    static_cast<cudaStream_t>(stream)));
+}
+
+int chebdiff_packed_f64(const void* u, const void* dt, void* y, long long M, int n,
+                        int pack, int block_rows, void* stream) {
+  return int(launch_chebdiff_packed(static_cast<const double*>(u),
+                                    static_cast<const double*>(dt), static_cast<double*>(y),
+                                    M, n, pack, block_rows, static_cast<cudaStream_t>(stream)));
 }
 
 const char* cheb_kernels_error_string(int code) {

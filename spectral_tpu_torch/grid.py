@@ -30,17 +30,23 @@ class Grid:
     ``intervals`` maps each axis affinely from [-1, 1] onto [a, b] (node 0
     sits at b); spectral derivatives pick up the chain-rule factor through
     ``deriv_scale_np`` / ``apply_dif_weight``.
+
+    ``device`` defaults to ``cuda``: without CUDA the constructor raises
+    rather than running on the host; pass ``device="cpu"`` for that.
     """
 
     dims: tuple[int, ...]
     intervals: tuple[tuple[float, float], ...] | None = None
     maps: tuple | None = None
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
     dtype: torch.dtype = torch.float64
 
     def __post_init__(self):
         object.__setattr__(self, "dims", tuple(int(n) for n in self.dims))
         object.__setattr__(self, "device", torch.device(self.device))
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Grid(device='cuda'): CUDA is not available "
+                               "(pass device='cpu' to run on the host)")
         if any(n < 3 for n in self.dims):
             raise ValueError(f"every axis needs >= 3 nodes, got {self.dims}")
         if self.maps is not None:
@@ -87,6 +93,12 @@ class Grid:
         if self.intervals is None:
             return v
         return v * float(self.deriv_scale_np[axis])
+
+    def apply_dif_weight_np(self, v: np.ndarray, axis: int) -> np.ndarray:
+        """``apply_dif_weight`` on a host numpy array."""
+        if self.intervals is None:
+            return v
+        return v * self.deriv_scale_np[axis]
 
     @cached_property
     def coords_np(self) -> np.ndarray:

@@ -12,6 +12,9 @@ does about that.
 - K2 ``laplacian3d``     replaces ``pallas_cheb.py::laplacian3d_pallas``:
   y = -(s_x D2_x u + s_y D2_y u + s_z D2_z u) on a 3-D field, with the
   boundary-identity select folded into the epilogue.
+- K3 ``chebdiff_packed`` replaces ``benchmarks/exp_pallas.py::make_pallas``:
+  y = u2d @ kron(I_pack, (s D)^T) on a lane-packed (M, n * pack) view,
+  without multiplying the Kronecker product's zero blocks.
 
 Each wrapper takes its plain version (``*_ref``, the same function in
 ``torch.matmul`` / ``tensordot``) only for a tensor on the CPU.  For a CUDA
@@ -35,7 +38,10 @@ K1_MAX_N = 128
 SMEM_LIMIT = 232448
 
 # Kernel launches since the last reset, by kernel name.
-LAUNCHES = {"chebdiff_last_kernel": 0, "laplacian3d_kernel": 0}
+LAUNCHES = {"chebdiff_last_kernel": 0, "laplacian3d_kernel": 0,
+            "chebdiff_packed_kernel": 0}
+# Row-tile heights K3 is built for (template instances of the kernel).
+K3_BLOCK_ROWS = (32, 64, 128)
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -97,6 +103,15 @@ def laplacian3d_ref(u: torch.Tensor, bmask: torch.Tensor | None = None,
     if bmask is not None:
         y = torch.where(bmask, u, y)
     return y
+
+
+def chebdiff_packed_ref(u2d: torch.Tensor, pack: int,
+                        scale: float | None = None) -> torch.Tensor:
+    """y = u2d @ kron(I_pack, (scale * D)^T): the literal dense function of
+    the lane-packed TPU experiment, zero blocks included."""
+    n = u2d.shape[-1] // pack
+    eye = torch.eye(pack, dtype=u2d.dtype, device=u2d.device)
+    return u2d @ torch.kron(eye, _diffmat_t(n, scale, u2d.dtype, u2d.device))
 
 
 # ---------------------------------------------------------------------------
@@ -183,4 +198,56 @@ def laplacian3d(u: torch.Tensor, bmask: torch.Tensor | None = None,
     _launch("laplacian3d_kernel", f"laplacian3d_{suffix}", u.device,
             u.data_ptr(), d2xt.data_ptr(), d2yt.data_ptr(), d2zt.data_ptr(),
             None if bmask is None else bmask.data_ptr(), y.data_ptr(), *dims)
+    return y
+
+
+def chebdiff_packed_smem_bytes(n: int, pack: int, block_rows: int, itemsize: int) -> int:
+    """Shared memory K3 needs (mirrors the C side): the padded D^T and one
+    tile of block_rows * pack padded pencils."""
+    npad = (n + 3) // 4 * 4
+    return itemsize * (npad * npad + block_rows * pack * (npad + 4))
+
+
+def _packed_shape(u2d: torch.Tensor, pack: int, block_rows: int) -> int:
+    """K3's argument checks (the same on every device); returns n."""
+    if u2d.ndim != 2:
+        raise ValueError(f"chebdiff_packed: need a 2-D (M, n * pack) tensor, "
+                         f"got shape {tuple(u2d.shape)}")
+    w = u2d.shape[1]
+    if pack < 1 or w % pack:
+        raise ValueError(f"chebdiff_packed: row width {w} is not a multiple of pack={pack}")
+    n = w // pack
+    if n < 2 or w > K1_MAX_N:
+        raise ValueError(f"chebdiff_packed: the kernel takes 2 <= n and "
+                         f"n * pack <= {K1_MAX_N}, got n={n}, pack={pack}")
+    if block_rows not in K3_BLOCK_ROWS:
+        raise ValueError(f"chebdiff_packed: block_rows must be one of "
+                         f"{K3_BLOCK_ROWS}, got {block_rows}")
+    need = chebdiff_packed_smem_bytes(n, pack, block_rows, u2d.element_size())
+    if need > SMEM_LIMIT:
+        raise ValueError(f"chebdiff_packed: n={n}, pack={pack}, block_rows={block_rows} "
+                         f"in {u2d.dtype} needs {need} bytes of shared memory, "
+                         f"the kernel has {SMEM_LIMIT}")
+    return n
+
+
+def chebdiff_packed(u2d: torch.Tensor, pack: int, scale: float | None = None,
+                    block_rows: int = 64) -> torch.Tensor:
+    """The lane-packed derivative through K3 (plain version on the CPU):
+    each row of the contiguous (M, n * pack) ``u2d`` holds ``pack``
+    pencils of n, each multiplied by (scale * D)^T.  ``block_rows`` picks
+    the row-tile height (one of K3_BLOCK_ROWS), the TPU sweep's blk.  The
+    arguments are checked alike on every device."""
+    pack = int(pack)
+    n = _packed_shape(u2d, pack, block_rows)
+    if u2d.device.type == "cpu":
+        return chebdiff_packed_ref(u2d, pack, scale)
+    suffix = _check_cuda("chebdiff_packed", u2d)
+    DT = _diffmat_t(n, None if scale is None else float(scale), u2d.dtype, u2d.device)
+    y = torch.empty_like(u2d)
+    if u2d.shape[0] == 0:
+        return y
+    _launch("chebdiff_packed_kernel", f"chebdiff_packed_{suffix}", u2d.device,
+            u2d.data_ptr(), DT.data_ptr(), y.data_ptr(), u2d.shape[0], n, pack,
+            block_rows)
     return y

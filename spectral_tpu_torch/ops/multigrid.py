@@ -1,0 +1,276 @@
+"""Geometric multigrid on CGL tensor grids.
+
+Counterpart of ``spectral_tpu/ops/multigrid.py``: every level is a CGL
+tensor grid, transfers are 1-D interpolation matrices in theta = acos(x),
+coarse operators are rediscretized from restricted coefficient fields,
+and the smoother is Chebyshev-accelerated Jacobi with its eigenvalue bound
+from power iteration.  The coarsest level is a dense LU solve.
+
+Works on full-grid tensors with identity Dirichlet rows and zero boundary
+values; trailing component axes broadcast through every level.  JAX's
+``fori_loop`` is a Python loop here, and the eigenvalue bound stays a 0-d
+tensor on the device, so a V-cycle never waits for the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from spectral_tpu_torch.grid import Grid
+from spectral_tpu_torch.ops.stencil import StencilOp, elliptic_jacobian_stencil
+from spectral_tpu_torch.ops.tensorops import apply_axis_matmul, stencil_to_dense
+
+
+def _theta_interp_np(n_f: int, n_c: int) -> np.ndarray:
+    """(n_f, n_c) linear interpolation from coarse to fine CGL in theta."""
+    tf = np.linspace(0.0, np.pi, n_f)
+    tc = np.linspace(0.0, np.pi, n_c)
+    P = np.zeros((n_f, n_c))
+    j = np.clip(np.searchsorted(tc, tf) - 1, 0, n_c - 2)
+    w = (tf - tc[j]) / (tc[j + 1] - tc[j])
+    P[np.arange(n_f), j] = 1.0 - w
+    P[np.arange(n_f), j + 1] += w
+    return P
+
+
+def theta_transfer_np(n_f: int, n_c: int) -> tuple[np.ndarray, np.ndarray]:
+    """(P, R) per-axis transfer pair: linear coarse->fine interpolation in
+    theta and its row-normalized (constants-preserving) restriction."""
+    P = _theta_interp_np(n_f, n_c)
+    R = P.T.copy()
+    R /= R.sum(axis=1, keepdims=True)
+    return P, R
+
+
+def default_stencil_builder(grid: Grid, coeffs: dict) -> StencilOp:
+    """Variable-coefficient elliptic Jacobian stencil from coefficient fields
+    (eta, deta, gradu); the constant-coefficient Laplacian where a field is
+    absent.  Runs in eta's dtype (the grid's when eta is absent)."""
+    eta = coeffs.get("eta")
+    dtype = grid.dtype if eta is None else eta.dtype
+
+    def zeros():
+        return torch.zeros(grid.dims, dtype=dtype, device=grid.device)
+
+    if eta is None:
+        eta = torch.ones(grid.dims, dtype=dtype, device=grid.device)
+    deta = coeffs.get("deta")
+    if deta is None:
+        deta = zeros()
+    gradu = coeffs.get("gradu")
+    if gradu is None:
+        gradu = [zeros() for _ in range(grid.ndim)]
+    return elliptic_jacobian_stencil(grid, eta, deta, gradu)
+
+
+def _map_fields(fn, coeffs):
+    """Apply ``fn`` to every tensor of a coefficient dict (lists inside)."""
+    if isinstance(coeffs, dict):
+        return {k: _map_fields(fn, v) for k, v in coeffs.items()}
+    if isinstance(coeffs, (list, tuple)):
+        return type(coeffs)(_map_fields(fn, v) for v in coeffs)
+    return fn(coeffs)
+
+
+@functools.lru_cache(maxsize=None)
+def _power_start(grid: Grid, dtype: torch.dtype) -> torch.Tensor:
+    """The power iteration's deterministic start, sin(1..size) with a zero
+    boundary: built in float64, then cast (as both packages do)."""
+    x = np.sin(np.arange(1.0, grid.size + 1.0)).reshape(grid.dims)
+    x = np.where(grid.boundary_mask_np, 0.0, x)
+    return torch.as_tensor(x, dtype=dtype, device=grid.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Multigrid:
+    """Static hierarchy; per-solve state comes from ``setup``.
+
+    setup(coeffs) -> state dict (per level: stencil, diagonal, Chebyshev
+    bound; the coarsest level's dense LU); vcycle(state, b) -> one
+    preconditioner apply.
+    """
+
+    grids: tuple[Grid, ...]
+    prolong: tuple[tuple[torch.Tensor, ...], ...]         # per level, per axis (n_f, n_c), float64
+    restrict_coeff: tuple[tuple[torch.Tensor, ...], ...]  # normalized averaging, float64
+    builder: Callable[[Grid, dict], StencilOp]
+    pre_smooth: int = 2
+    post_smooth: int = 2
+    omega: float = 0.8
+    smoother: str = "chebyshev"  # "chebyshev" | "jacobi"
+    cycles: int = 1              # V-cycles per apply (residual-corrected)
+
+    def __post_init__(self):
+        if self.smoother == "line":
+            raise NotImplementedError(
+                "Multigrid(smoother='line') needs ops/tridiag.py, which is not "
+                "ported yet (ROADMAP.md queue 1, item 2)")
+        if self.smoother not in ("chebyshev", "jacobi"):
+            raise ValueError(f"unknown smoother {self.smoother!r}")
+
+    @staticmethod
+    def build(grid: Grid, builder: Callable = default_stencil_builder,
+              coarsest: int = 4, max_levels: int = 10,
+              pre_smooth: int = 2, post_smooth: int = 2,
+              omega: float = 0.8, smoother: str = "chebyshev",
+              cycles: int = 1) -> "Multigrid":
+        """Halve every axis ((n + 1) // 2, at least 3 nodes) until the
+        coarsest axis has ``coarsest`` nodes or fewer, or the level has at
+        most 200 nodes; every level lives on the fine grid's device."""
+        grids = [grid]
+        while len(grids) < max_levels:
+            dims = grids[-1].dims
+            if max(dims) <= coarsest or math.prod(dims) <= 200:
+                break
+            new_dims = tuple(max(3, (n + 1) // 2) for n in dims)
+            if new_dims == dims:
+                break
+            grids.append(Grid(new_dims, intervals=grid.intervals,
+                              device=grid.device, dtype=grid.dtype))
+        Ps, Rcs = [], []
+        for fine, coarse in zip(grids[:-1], grids[1:]):
+            pr = [theta_transfer_np(nf, nc) for nf, nc in zip(fine.dims, coarse.dims)]
+            Ps.append(tuple(p for p, _ in pr))
+            Rcs.append(tuple(r for _, r in pr))
+        return Multigrid.from_transfers(tuple(grids), Ps, Rcs, builder=builder,
+                                        pre_smooth=pre_smooth, post_smooth=post_smooth,
+                                        omega=omega, smoother=smoother, cycles=cycles)
+
+    @staticmethod
+    def from_transfers(grids, prolong, restrict_coeff, **cfg) -> "Multigrid":
+        """A hierarchy from per-level, per-axis host transfer matrices, kept
+        in float64 on the fine grid's device."""
+        cfg.setdefault("builder", default_stencil_builder)
+        dev = grids[0].device
+
+        def t(a):
+            return torch.as_tensor(np.array(a, np.float64), device=dev)
+
+        return Multigrid(tuple(grids),
+                         tuple(tuple(t(a) for a in lvl) for lvl in prolong),
+                         tuple(tuple(t(a) for a in lvl) for lvl in restrict_coeff),
+                         **cfg)
+
+    # -- transfers ------------------------------------------------------------
+    def _prolong(self, lvl: int, xc: torch.Tensor) -> torch.Tensor:
+        for ax in range(self.grids[0].ndim):
+            xc = apply_axis_matmul(self.prolong[lvl][ax].to(xc.dtype), xc, ax)
+        return xc
+
+    def _restrict(self, lvl: int, f: torch.Tensor) -> torch.Tensor:
+        """Residuals and coefficient fields alike: normalized averaging."""
+        for ax in range(self.grids[0].ndim):
+            f = apply_axis_matmul(self.restrict_coeff[lvl][ax].to(f.dtype), f, ax)
+        return f
+
+    def _mask(self, lvl: int, x: torch.Tensor) -> torch.Tensor:
+        return self.grids[lvl].zero_boundary(x)
+
+    # -- per-solve state ------------------------------------------------------
+    def _level(self, lvl: int, S: StencilOp):
+        diag = S.diag()
+        lam_max = None
+        if self.smoother == "chebyshev" and lvl < len(self.grids) - 1:
+            lam_max = self._power_lambda_max(lvl, S, diag)
+        return S, diag, lam_max
+
+    def _coarse_lu(self, levels):
+        A = stencil_to_dense(levels[-1][0], self.grids[-1].dims)
+        return torch.linalg.lu_factor(A)
+
+    def setup(self, coeffs: dict | None = None) -> dict:
+        """Restrict coefficient fields, rediscretize every level, estimate
+        the smoother's eigenvalue bounds, factor the coarsest level (the
+        analog of PCSetUp + hypre setup)."""
+        coeffs = dict(coeffs or {})
+        levels = []
+        for lvl, g in enumerate(self.grids):
+            levels.append(self._level(lvl, self.builder(g, coeffs)))
+            if lvl < len(self.grids) - 1:
+                coeffs = _map_fields(lambda f, lvl=lvl: self._restrict(lvl, f), coeffs)
+        return {"levels": levels, "coarse_lu": self._coarse_lu(levels)}
+
+    def shift_state(self, state: dict, shift) -> dict:
+        """State solving (S + shift) on the interior of every level, from a
+        shift-free ``setup`` state: centers get ``shift`` on interior rows;
+        diagonals, eigenvalue bounds and the coarse LU are recomputed.
+        ``shift`` may be a number or a 0-d tensor."""
+        levels = []
+        for lvl, (S, _diag, _lam) in enumerate(state["levels"]):
+            interior = self.grids[lvl].interior_mask
+            sh = torch.as_tensor(shift, dtype=S.center.dtype, device=S.center.device)
+            Ss = dataclasses.replace(S, center=torch.where(interior, S.center + sh,
+                                                           S.center))
+            levels.append(self._level(lvl, Ss))
+        return {"levels": levels, "coarse_lu": self._coarse_lu(levels)}
+
+    def _power_lambda_max(self, lvl: int, S: StencilOp, diag: torch.Tensor,
+                          iters: int = 12) -> torch.Tensor:
+        """Largest eigenvalue of D^{-1} S by power iteration, times 1.1 (the
+        analog of hypre's smoother eigenvalue estimate); a 0-d tensor."""
+        x = _power_start(self.grids[lvl], diag.dtype)
+        for _ in range(iters):
+            y = S.apply(x) / diag
+            x = y / torch.clamp_min(torch.linalg.vector_norm(y), 1e-30)
+        y = S.apply(x) / diag
+        num = torch.dot(x.reshape(-1), y.reshape(-1))
+        den = torch.dot(x.reshape(-1), x.reshape(-1))
+        return 1.1 * num / torch.clamp_min(den, 1e-30)
+
+    # -- cycle ----------------------------------------------------------------
+    def _smooth(self, S: StencilOp, diag: torch.Tensor, lam_max, x, b, iters: int):
+        d = diag if x.ndim == diag.ndim else diag.reshape(
+            diag.shape + (1,) * (x.ndim - diag.ndim))
+        if self.smoother == "jacobi" or lam_max is None:
+            for _ in range(iters):
+                x = x + self.omega * (b - S.apply(x)) / d
+            return x
+        # Chebyshev smoothing on [lam_max/4, lam_max] of D^{-1} S
+        lmin = lam_max / 4.0
+        theta = 0.5 * (lam_max + lmin)
+        delta = 0.5 * (lam_max - lmin)
+        sigma = theta / delta
+        rho = 1.0 / sigma
+        r = (b - S.apply(x)) / d
+        dx = r / theta
+        x = x + dx
+        for _ in range(iters - 1):
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            r = (b - S.apply(x)) / d
+            dx = rho_new * rho * dx + 2.0 * rho_new / delta * r
+            x = x + dx
+            rho = rho_new
+        return x
+
+    def _cycle(self, state: dict, lvl: int, b: torch.Tensor) -> torch.Tensor:
+        S, diag, lam_max = state["levels"][lvl]
+        if lvl == len(self.grids) - 1:
+            # torch.linalg.lu_solve is dtype-strict: solve in the factors'
+            # dtype and cast back to the cycle's working dtype
+            size = self.grids[lvl].size
+            LU, piv = state["coarse_lu"]
+            z = torch.linalg.lu_solve(LU, piv, b.reshape(size, -1).to(LU.dtype))
+            return z.reshape(b.shape).to(b.dtype)
+        x = self._smooth(S, diag, lam_max, torch.zeros_like(b), b, self.pre_smooth)
+        r = b - S.apply(x)
+        rc = self._mask(lvl + 1, self._restrict(lvl, r))
+        ec = self._cycle(state, lvl + 1, rc)
+        x = x + self._mask(lvl, self._prolong(lvl, ec))
+        return self._smooth(S, diag, lam_max, x, b, self.post_smooth)
+
+    def vcycle(self, state: dict, b: torch.Tensor) -> torch.Tensor:
+        """``cycles`` residual-corrected V-cycles as one preconditioner
+        apply; boundary entries pass through."""
+        bi = self._mask(0, b)
+        z = self._cycle(state, 0, bi)
+        S = state["levels"][0][0]
+        for _ in range(self.cycles - 1):
+            z = z + self._cycle(state, 0, bi - self._mask(0, S.apply(z)))
+        bmask = self.grids[0]._mask_for(self.grids[0].boundary_mask, b)
+        return torch.where(bmask, b, z)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -129,3 +130,49 @@ def poisson_fd_stencil(grid: Grid, dtype: torch.dtype | None = None) -> StencilO
         uppers.append(dev(up))
     center[~interior] = 1.0
     return StencilOp(dev(center), tuple(lowers), tuple(uppers))
+
+
+def elliptic_jacobian_stencil(grid: Grid, eta: torch.Tensor, deta: torch.Tensor,
+                              gradu: Sequence[torch.Tensor]) -> StencilOp:
+    """Variable-coefficient FD stencil of the linearized elliptic operator
+    (FormJacobian, elliptic.C:537-590): flux-form FD of -div(eta grad .)
+    plus the Newton term deta * grad(u0), with midpoint (arithmetic-mean)
+    coefficients.  Dirichlet rows identity, couplings into the boundary
+    dropped.  Runs in eta's dtype on eta's device."""
+    d = grid.ndim
+    interior = grid.interior_mask.to(eta.device)
+    zero = torch.zeros((), dtype=eta.dtype, device=eta.device)
+    center = torch.zeros(grid.dims, dtype=eta.dtype, device=eta.device)
+    lowers, uppers = [], []
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=eta.dtype, device=eta.device)
+
+    for ax in range(d):
+        z = grid.nodes_1d[ax]
+        n = len(z)
+        idxM = np.zeros(n)
+        idxP = np.zeros(n)
+        idx = np.zeros(n)
+        idxM[1:-1] = 1.0 / (z[1:-1] - z[:-2])
+        idxP[1:-1] = 1.0 / (z[2:] - z[1:-1])
+        idx[1:-1] = 2.0 / (z[2:] - z[:-2])
+        idxM = dev(_bcast_axis(idxM, ax, d))
+        idxP = dev(_bcast_axis(idxP, ax, d))
+        idx = dev(_bcast_axis(idx, ax, d))
+        etaM = 0.5 * (shift(eta, ax, -1) + eta)
+        etaP = 0.5 * (shift(eta, ax, +1) + eta)
+        detaM = 0.5 * (shift(deta, ax, -1) + deta)
+        detaP = 0.5 * (shift(deta, ax, +1) + deta)
+        gu = gradu[ax]
+        guM = 0.5 * (shift(gu, ax, -1) + gu)
+        guP = 0.5 * (shift(gu, ax, +1) + gu)
+        lo = -idx * (idxM * etaM - 0.5 * detaM * guM)
+        up = -idx * (idxP * etaP + 0.5 * detaP * guP)
+        center = center + idx * (idxP * etaP + idxM * etaM
+                                 - 0.5 * (detaP * guP - detaM * guM))
+        lowers.append(torch.where(interior & shift(interior, ax, -1), lo, zero))
+        uppers.append(torch.where(interior & shift(interior, ax, +1), up, zero))
+    center = torch.where(interior, center, torch.ones((), dtype=eta.dtype,
+                                                      device=eta.device))
+    return StencilOp(center, tuple(lowers), tuple(uppers))

@@ -61,3 +61,29 @@ def solve_result_to_numpy(res) -> dict[str, np.ndarray]:
     return {"x": _np(res.x), "iters": int(_np(res.iters)),
             "reason": int(_np(res.reason)), "rnorm": float(_np(res.rnorm)),
             "history": hist[hist >= 0.0]}
+
+
+def multigrid_from_numpy(grid: Grid, prolong, restrict_coeff, **cfg):
+    """A Multigrid on ``grid`` (and its device) from the JAX hierarchy's
+    per-level, per-axis transfer matrices as numpy arrays; ``cfg`` takes
+    ``builder``, ``pre_smooth``, ``post_smooth``, ``omega``, ``smoother``
+    and ``cycles``.  The coarse grids follow from the transfer shapes."""
+    from spectral_tpu_torch.ops.multigrid import Multigrid
+
+    grids = [grid]
+    for lvl in prolong:
+        dims = tuple(int(np.shape(P)[1]) for P in lvl)
+        grids.append(Grid(dims, intervals=grid.intervals, device=grid.device,
+                          dtype=grid.dtype))
+    return Multigrid.from_transfers(tuple(grids), prolong, restrict_coeff, **cfg)
+
+
+def newton_result_to_numpy(res) -> dict:
+    """x, iters, reason, fnorm, fnorm history, per-step Krylov counts and
+    the last Krylov history of a NewtonResult of either package, as numpy
+    arrays and Python numbers."""
+    return {"x": _np(res.x), "iters": int(res.iters), "reason": int(res.reason),
+            "fnorm": float(res.fnorm),
+            "fnorm_history": np.asarray([float(v) for v in res.fnorm_history]),
+            "ksp_iters": [int(k) for k in res.ksp_iters],
+            "ksp_history_last": np.asarray([float(v) for v in res.ksp_history_last])}

@@ -11,6 +11,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 from spectral_tpu_torch.solvers.krylov import KSPConfig
+from spectral_tpu_torch.solvers.newton import NewtonConfig
 
 
 def _is_number(tok: str) -> bool:
@@ -72,6 +73,12 @@ class Options:
         v = self._get(key)
         return default if v is None else v
 
+    def get_int_array(self, key: str, default: Sequence[int]) -> tuple[int, ...]:
+        v = self._get(key)
+        if v is None:
+            return tuple(default)
+        return tuple(int(t) for t in v.replace(" ", "").split(",") if t)
+
     def get_real_array(self, key: str, default=()) -> tuple[float, ...]:
         v = self._get(key)
         if v is None:
@@ -99,3 +106,18 @@ class Options:
 
     def pc_type(self, prefix: str = "", default: str = "fastdiag") -> str:
         return self.get_string(f"{prefix}pc_type", default)
+
+    def newton_config(self, default: NewtonConfig = NewtonConfig()) -> NewtonConfig:
+        """Read -snes_rtol/_atol/_stol/_max_it/_monitor/_linesearch_type/
+        _ksp_ew/_lag_preconditioner (SNESSetFromOptions)."""
+        return dataclasses.replace(
+            default,
+            rtol=self.get_real("snes_rtol", default.rtol),
+            atol=self.get_real("snes_atol", default.atol),
+            stol=self.get_real("snes_stol", default.stol),
+            max_it=self.get_int("snes_max_it", default.max_it),
+            monitor=self.has("snes_monitor") or default.monitor,
+            line_search=self.get_string("snes_linesearch_type", default.line_search),
+            ksp_ew=self.has("snes_ksp_ew") or default.ksp_ew,
+            pc_lag=self.get_int("snes_lag_preconditioner", default.pc_lag),
+        )

@@ -28,7 +28,7 @@ def _rel(got, ref):
 @pytest.mark.parametrize("dims", DIMS)
 def test_stencil_matches_jax(dims):
     js = j_stencil(JGrid(dims))
-    ts = poisson_fd_stencil(Grid(dims))
+    ts = poisson_fd_stencil(Grid(dims, device="cpu"))
     # the host assembly is the same float64 numpy code: bitwise
     np.testing.assert_array_equal(ts.center.numpy(), np.asarray(js.center))
     carried = stencil_from_numpy(np.asarray(js.center),
@@ -70,7 +70,7 @@ def test_fastdiag_apply_matches_jax(dims, kw, runtime_shift):
 def test_fastdiag_is_exact_inverse_of_surrogate(dims):
     """The invariant of the JAX package: fastdiag solves the FD surrogate
     exactly.  1e-10 relative: the eigenvector matrices' conditioning."""
-    g = Grid(dims)
+    g = Grid(dims, device="cpu")
     S = poisson_fd_stencil(g)
     fd = FastDiagSolver.build(g)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(dims))
@@ -79,7 +79,7 @@ def test_fastdiag_is_exact_inverse_of_surrogate(dims):
 
 
 def test_fastdiag_float32_factors():
-    g = Grid((10, 9, 8))
+    g = Grid((10, 9, 8), device="cpu")
     fd = FastDiagSolver.build(g, dtype=torch.float32)
     assert all(v.dtype == torch.float32 for v in fd.V + fd.Vinv)
     r = np.random.default_rng(3).standard_normal(g.dims)

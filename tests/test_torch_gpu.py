@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from spectral_tpu_torch.grid import Grid
+from spectral_tpu_torch.models.elliptic import EllipticModel
 from spectral_tpu_torch.models.poisson import PoissonModel
 from spectral_tpu_torch.ops import chebyshev, cuda_cheb
 
@@ -71,8 +72,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         cuda_cheb.laplacian3d(torch.zeros((128, 128, 128), device=cuda,
                                           dtype=torch.float64))
-    assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0,
-                                         "laplacian3d_kernel": 0}
+    with pytest.raises(ValueError, match="block_rows"):
+        cuda_cheb.chebdiff_packed(torch.zeros((4, 128), device=cuda), 2, block_rows=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_cheb.chebdiff_packed(torch.zeros((128, 8), device=cuda).T, 2)
+    assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0, "laplacian3d_kernel": 0,
+                                  "chebdiff_packed_kernel": 0}
 
 
 def test_auto_routes_last_axis_to_k1(cuda):
@@ -97,4 +102,66 @@ def test_poisson_on_card_matches_host(cuda):
     rel = float(torch.linalg.vector_norm(card.x.cpu() - host.x)
                 / torch.linalg.vector_norm(host.x))
     assert rel <= 1e-10, rel
+    assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M,pack", [(1, 1), (37, 2), (100, 1), (1003, 2), (515, 1)])
+@pytest.mark.parametrize("block_rows", [32, 64, 128])
+def test_k3_matches_plain(cuda, dtype, M, pack, block_rows):
+    """K3 against its plain version (the dense Kronecker product), ragged
+    row tails included (no M here is a multiple of the tile but 1)."""
+    u = _randn((M, 64 * pack), dtype, cuda, 3)
+    s = 1.0 / 64**2
+    got = cuda_cheb.chebdiff_packed(u, pack, s, block_rows=block_rows)
+    assert _rel(got, cuda_cheb.chebdiff_packed_ref(u, pack, s)) <= BOUND[dtype]
+    assert cuda_cheb.LAUNCHES["chebdiff_packed_kernel"] == 1
+
+
+def test_k3_odd_pencil_length(cuda):
+    """n not a multiple of 4 (zero-padded k extent), 3 pencils a row."""
+    u = _randn((70, 3 * 10), torch.float64, cuda, 4)
+    got = cuda_cheb.chebdiff_packed(u, 3, block_rows=32)
+    assert _rel(got, cuda_cheb.chebdiff_packed_ref(u, 3)) <= BOUND[torch.float64]
+
+
+def test_grid_defaults_to_the_card(cuda):
+    g = Grid((8, 8))
+    assert g.device.type == "cuda" and g.boundary_mask.device.type == "cuda"
+    assert g.coords.device.type == "cuda"
+
+
+@pytest.mark.parametrize("dims,pc,slack", [((16, 16), "fastdiag", 0), ((12, 12, 12), "mg3", 3)])
+def test_elliptic_on_card_matches_host(cuda, dims, pc, slack):
+    """The float64 Newton solve on the card (K1 in every residual and
+    Jacobian action) against the same solve on the host: the same Newton
+    count, solutions to 1e-10 relative.  The Krylov counts per Newton step
+    are equal at 16^2; at 12^3 with mg3 each step takes 7-19 iterations to
+    rtol 1e-5 and the count moves with the card's summation order (one
+    run: [7, 12, 13, 16, 19] on the card, [7, 13, 13, 15, 17] on the host),
+    so there each step is held within ``slack``."""
+    res = {}
+    for dev in ("cpu", cuda):
+        m = EllipticModel(Grid(dims, device=dev), gamma=1.0)
+        _, b, d = m.setup_problem(exact=0)
+        res[str(dev)] = m.solve(b, d, pc_type=pc)
+    host, card = res["cpu"], res[str(cuda)]
+    assert card.iters == host.iters, (card.iters, host.iters)
+    assert all(abs(a - b) <= slack for a, b in zip(card.ksp_iters, host.ksp_iters)), (
+        card.ksp_iters, host.ksp_iters)
+    rel = float(torch.linalg.vector_norm(card.x.cpu() - host.x)
+                / torch.linalg.vector_norm(host.x))
+    assert rel <= 1e-10, rel
+    assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0
+
+
+def test_elliptic_refined_on_card(cuda):
+    """Mixed precision at 12^3 on the card: float32 Newton + float64
+    refinement reach rel residual 1e-10 by both loops."""
+    m = EllipticModel(Grid((12, 12, 12), device=cuda), gamma=1.0)
+    u, b, d = m.setup_problem_np(exact=0)
+    for name in ("solve_refined", "solve_refined_fused"):
+        x, info = getattr(m, name)(b, d, rtol=1e-10, pc_type="mg3")
+        assert info["rel_residual"] <= 1e-10, (name, info["rel_residual"])
+        assert np.max(np.abs(x - u)) <= 1e-6   # 7.68e-7: the 12^3 discretisation error
     assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0

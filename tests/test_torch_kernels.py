@@ -1,6 +1,8 @@
-"""Plain versions of the port's two kernels (spectral_tpu_torch.ops.cuda_cheb)
+"""Plain versions of the port's kernels (spectral_tpu_torch.ops.cuda_cheb)
 against the JAX package's Pallas kernels in interpret mode, run as
-tests/test_pallas.py runs them; and the wrappers' CPU-only routing."""
+tests/test_pallas.py runs them (K3's TPU kernel, in benchmarks/exp_pallas.py,
+has no interpret switch: its plain version is held to the formula that
+script builds); and the wrappers' CPU-only routing and refusals."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,6 +10,7 @@ import pytest
 import torch
 
 from spectral_tpu.grid import Grid as JGrid
+from spectral_tpu.ops.chebyshev import diffmat_np
 from spectral_tpu.ops.pallas_cheb import chebdiff_last_pallas, laplacian3d_pallas
 from spectral_tpu_torch.grid import Grid
 from spectral_tpu_torch.ops import _build, cuda_cheb
@@ -39,7 +42,7 @@ def test_laplacian3d_ref_matches_pallas():
 
 def test_laplacian3d_ref_boundary_mask_and_scales_match_pallas():
     jg = JGrid((8, 8, 8))
-    g = Grid((8, 8, 8))
+    g = Grid((8, 8, 8), device="cpu")
     u = np.random.default_rng(3).standard_normal(g.dims)
     scales = (0.25, 1.0, 4.0)
     ref = np.asarray(laplacian3d_pallas(jnp.asarray(u), bmask=jg.boundary_mask,
@@ -57,13 +60,15 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     rng = np.random.default_rng(4)
     u2 = torch.from_numpy(rng.standard_normal((6, 9)))
     u3 = torch.from_numpy(rng.standard_normal((8, 7, 6)))
-    mask = Grid((8, 7, 6)).boundary_mask
+    mask = Grid((8, 7, 6), device="cpu").boundary_mask
     np.testing.assert_array_equal(cuda_cheb.chebdiff_last(u2, 0.5).numpy(),
                                   cuda_cheb.chebdiff_last_ref(u2, 0.5).numpy())
     np.testing.assert_array_equal(cuda_cheb.laplacian3d(u3, mask).numpy(),
                                   cuda_cheb.laplacian3d_ref(u3, mask).numpy())
-    assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0,
-                                         "laplacian3d_kernel": 0}
+    np.testing.assert_array_equal(cuda_cheb.chebdiff_packed(u2, 1).numpy(),
+                                  cuda_cheb.chebdiff_packed_ref(u2, 1).numpy())
+    assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0, "laplacian3d_kernel": 0,
+                                  "chebdiff_packed_kernel": 0}
 
 
 def test_non_cpu_tensors_never_take_the_plain_path():
@@ -74,6 +79,8 @@ def test_non_cpu_tensors_never_take_the_plain_path():
         cuda_cheb.chebdiff_last(u)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         cuda_cheb.laplacian3d(torch.empty((4, 4, 4), device="meta"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        cuda_cheb.chebdiff_packed(torch.empty((4, 128), device="meta"), 2)
 
 
 def test_kernel_limits():
@@ -102,3 +109,36 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert first.parent == tmp_path / "build"
     src.write_text("// two")
     assert _build.library_path() != first
+
+
+@pytest.mark.parametrize("pack", [1, 2])
+def test_chebdiff_packed_ref_matches_exp_pallas_formula(pack):
+    """K3's plain version against the dense operator of exp_pallas.py:33,
+    kron(I_pack, D^T / n^2) on the (M, n * pack) view, and against the
+    unpacked product of exp_pallas.py:78 on the (M * pack, n) view."""
+    n, M = 16, 9
+    u = np.random.default_rng(5).standard_normal((M, n * pack))
+    DT = diffmat_np(n).T / (n * n)
+    got = cuda_cheb.chebdiff_packed_ref(torch.from_numpy(u), pack, 1.0 / (n * n)).numpy()
+    # float64 products of the same entries, summed in other orders
+    np.testing.assert_allclose(got, u @ np.kron(np.eye(pack), DT), atol=1e-13, rtol=0)
+    np.testing.assert_allclose(got, (u.reshape(-1, n) @ DT).reshape(M, n * pack),
+                               atol=1e-13, rtol=0)
+
+
+def test_chebdiff_packed_refusals():
+    """Checked alike on every device, so the CPU sees them too."""
+    u = torch.zeros((8, 128), dtype=torch.float64)
+    with pytest.raises(ValueError, match="2-D"):
+        cuda_cheb.chebdiff_packed(u.reshape(2, 4, 128), 1)
+    with pytest.raises(ValueError, match="multiple of pack"):
+        cuda_cheb.chebdiff_packed(u[:, :30], 4)
+    with pytest.raises(ValueError, match="n \\* pack <= 128"):
+        cuda_cheb.chebdiff_packed(torch.zeros((8, 192)), 2)
+    with pytest.raises(ValueError, match="block_rows"):
+        cuda_cheb.chebdiff_packed(u, 2, block_rows=512)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_cheb.chebdiff_packed(u, 1, block_rows=128)    # 128 x 128 in float64
+    assert cuda_cheb.chebdiff_packed(u, 2, block_rows=128).shape == u.shape
+    assert cuda_cheb.K3_BLOCK_ROWS == (32, 64, 128)
+    assert cuda_cheb.LAUNCHES["chebdiff_packed_kernel"] == 0

@@ -38,7 +38,7 @@ def test_poisson_solve_matches_jax():
     ju, jf = jm.exact_solution()
     jres = jm.solve(jm.rhs(ju, jf))
     jerr = float(jnp.max(jnp.abs(jres.x - ju)))
-    tm = PoissonModel(Grid((N, N, N)))
+    tm = PoissonModel(Grid((N, N, N), device="cpu"))
     tu, tf = tm.exact_solution()
     tres = tm.solve(tm.rhs(tu, tf))
     terr = float(torch.max(torch.abs(tres.x - tu)))
@@ -52,7 +52,8 @@ def test_poisson_solve_matches_jax():
 def test_kernel_operator_matches_composed_and_jax():
     """method="kernel" (K2's plain version on CPU) and the composed path
     (K1's plain version on the last axis) against the JAX operator."""
-    g = Grid((N, 10, 8), intervals=((0.0, 2.0), (-1.0, 1.0), (-3.0, 1.0)))
+    g = Grid((N, 10, 8), intervals=((0.0, 2.0), (-1.0, 1.0), (-3.0, 1.0)),
+             device="cpu")
     jg = JGrid(g.dims, intervals=g.intervals)
     x = np.random.default_rng(5).standard_normal(g.dims)
     ref = np.asarray(JPoisson(jg).operator(jnp.asarray(x)))
@@ -96,7 +97,7 @@ def _host_A_hi(dims):
 
 def test_refinement_matches_jax():
     dims = (N, N, N)
-    g = Grid(dims)
+    g = Grid(dims, device="cpu")
     u = np.prod(np.cos(0.5 * np.pi * g.coords_np), axis=-1)
     b = np.where(g.boundary_mask_np, u, 3.0 * (0.5 * np.pi) ** 2 * u)
     A_hi = _host_A_hi(dims)
@@ -129,7 +130,7 @@ def test_refinement_matches_jax():
 
 
 def test_fused_refinement_rejects_a_widening_inner_solve():
-    tm = PoissonModel(Grid((8, 8, 8)))
+    tm = PoissonModel(Grid((8, 8, 8), device="cpu"))
     b = torch.ones((8, 8, 8), dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         refine_solve_fused(tm.operator, lambda r: (r.double(), 1), b)
@@ -159,7 +160,7 @@ def test_cli_cheb_runs(capsys):
 def test_lu_pc_iteration_count_equals_fastdiag():
     """fastdiag and dense LU solve the same surrogate exactly, so the
     Krylov counts agree (the JAX package's lu cross-check)."""
-    m = PoissonModel(Grid((N, N, N)))
+    m = PoissonModel(Grid((N, N, N), device="cpu"))
     u, f = m.exact_solution()
     b = m.rhs(u, f)
     its = {pc: m.solve(b, pc_type=pc).iters for pc in ("fastdiag", "lu")}
@@ -167,13 +168,13 @@ def test_lu_pc_iteration_count_equals_fastdiag():
 
 
 def test_unported_paths_raise():
-    g = Grid((8, 8))
+    g = Grid((8, 8), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PoissonModel(g).build_pc("mg")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PoissonModel(g, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Grid((8, 8), maps=(None, None))
+        Grid((8, 8), maps=(None, None), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_main(["poisson", "-m", "8", "-n", "8", "-map", "bump:0.1", "-device", "cpu"])
 
