@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's time goes on one GPU: torch.profiler over one warm run
-of each elliptic path.
+of each elliptic path that chip_smoke.py drives (its phases 6 and 7, taken
+from its tables).
 
     python3 profile_port.py
 
@@ -14,8 +15,6 @@ first, so set-up caches are warm.  Without CUDA it exits non-zero.
 
 from __future__ import annotations
 
-import contextlib
-import io
 import json
 import sys
 import time
@@ -45,37 +44,20 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import ELLIPTIC_ORACLE, refined_runs, run_cli
     from spectral_tpu_torch.cli.main import main as cli_main
-    from spectral_tpu_torch.grid import Grid
-    from spectral_tpu_torch.models.elliptic import EllipticModel
-    from spectral_tpu_torch.solvers.newton import NewtonConfig
 
-    dev = torch.device("cuda")
-
-    def cli(*argv):
+    def cli(opts):
         def run():
-            with contextlib.redirect_stdout(io.StringIO()):
-                rc = cli_main(["elliptic", *argv])
+            rc, _ = run_cli(cli_main, ["elliptic", *opts])
             if rc != 0:
-                raise RuntimeError(f"elliptic {' '.join(argv)}: exit code {rc}")
+                raise RuntimeError(f"elliptic {' '.join(opts)}: exit code {rc}")
         return run
 
-    m32 = EllipticModel(Grid((32, 32, 32), device=dev), gamma=1.0)
-    p32 = m32.setup_problem_np(exact=0)
-    m5 = EllipticModel(Grid((12,) * 5, device=dev), gamma=0.0)
-    p5 = m5.setup_problem_np(exact=2)
-    nc = NewtonConfig(rtol=3e-5, max_it=30, ksp_ew=True, ew_etamax=0.5, pc_lag=2)
-    paths = {
-        "elliptic CLI 5d fastdiag f64": cli("-dim", "12,12,12,12,12", "-exact", "2",
-                                             "-pc_type", "fastdiag", "-ksp_rtol", "1e-10"),
-        "elliptic CLI 32^3 mg3 f64": cli("-dim", "32,32,32", "-exact", "0", "-gamma", "1",
-                                          "-pc_type", "mg3", "-snes_rtol", "1e-10"),
-        "elliptic32 solve_refined": lambda: m32.solve_refined(
-            p32[1], p32[2], rtol=1e-10, pc_type="mg3", newton=nc),
-        "elliptic32 solve_refined_fused": lambda: m32.solve_refined_fused(
-            p32[1], p32[2], rtol=1e-10, pc_type="mg3", newton=nc),
-        "elliptic5d solve_refined": lambda: m5.solve_refined(p5[1], p5[2], rtol=1e-10),
-    }
+    # the paths of chip_smoke.py phases 6 and 7, from its tables
+    paths = {f"elliptic CLI {name} f64": cli(opts)
+             for name, (opts, *_) in ELLIPTIC_ORACLE.items()}
+    paths.update({name: run for name, (run, _) in refined_runs(torch.device("cuda")).items()})
     for name, run in paths.items():
         run()                                   # warm-up
         torch.cuda.synchronize()

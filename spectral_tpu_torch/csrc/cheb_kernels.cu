@@ -57,7 +57,7 @@
 //   block loads DT once, then walks row tiles (grid-stride loop, grid sized
 //   by occupancy): a coalesced copy of the tile into padded shared rows,
 //   then each thread computes 4 x 4 register tiles of y from 16-byte shared
-//   loads, as K1 does.  The ragged last tile is masked (the TPU launch,
+//   loads (micro_tile, shared with K1).  The ragged last tile is masked (the TPU launch,
 //   grid = M // blk, leaves it unwritten).  The TPU's dimension_semantics
 //   and vmem_limit_bytes have no counterpart: blocks always run in
 //   parallel on the card, and shared memory is sized per launch.
@@ -109,6 +109,32 @@ __device__ __forceinline__ void store4(float* p, const float v[4]) {
 __device__ __forceinline__ void store4(double* p, const double v[4]) {
   *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
   *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+}
+
+// The register tile of K1 and K3: acc[i][j] = sum_k a[i * lda + k] * b[k * ldb + j]
+// over k < npad (a multiple of 4), i < kTM, j < kTN.  Each step of four k
+// takes 8 16-byte shared loads (4 rows of a, 4 rows of b) and does 64 FMAs.
+template <typename T>
+__device__ __forceinline__ void micro_tile(const T* a, int lda, const T* b, int ldb, int npad,
+                                           T acc[kTM][kTN]) {
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = T(0);
+  for (int k0 = 0; k0 < npad; k0 += 4) {
+    T av[kTM][4];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) load4(a + i * lda + k0, av[i]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      T bv[kTN];
+      load4(b + size_t(k0 + kk) * ldb, bv);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fma(av[i][kk], bv[j], acc[i][j]);
+    }
+  }
 }
 
 // Asynchronous 16-byte global -> shared copies (sm_80+), tracked in groups.
@@ -203,26 +229,8 @@ chebdiff_last_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     __syncthreads();  // the tile and DT are visible to every thread
     if (active) {
       T acc[kTM][kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = T(0);
-      const T* ua = ubase + cur * ustride + rgi * kTM * s.ldu;
-      const T* db = dts + cg * kTN;
-      for (int k0 = 0; k0 < s.npad; k0 += 4) {
-        T a[kTM][4];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) load4(ua + i * s.ldu + k0, a[i]);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          T b[kTN];
-          load4(db + size_t(k0 + kk) * s.npad, b);
-#pragma unroll
-          for (int i = 0; i < kTM; ++i)
-#pragma unroll
-            for (int j = 0; j < kTN; ++j) acc[i][j] = fma(a[i][kk], b[j], acc[i][j]);
-        }
-      }
+      micro_tile(ubase + cur * ustride + rgi * kTM * s.ldu, s.ldu, dts + cg * kTN, s.npad,
+                 s.npad, acc);
 #pragma unroll
       for (int i = 0; i < kTM; ++i) {
         const int rr = rgi * kTM + i;
@@ -395,26 +403,7 @@ chebdiff_packed_kernel(const T* __restrict__ u, const T* __restrict__ dt,
       const int cg = it % ncg, pg = it / ncg;
       if (pg * kTM >= pencils) continue;
       T acc[kTM][kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = T(0);
-      const T* ua = tile + pg * kTM * ldu;
-      const T* db = dts + cg * kTN;
-      for (int k0 = 0; k0 < npad; k0 += 4) {
-        T a[kTM][4];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) load4(ua + i * ldu + k0, a[i]);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          T b[kTN];
-          load4(db + size_t(k0 + kk) * npad, b);
-#pragma unroll
-          for (int i = 0; i < kTM; ++i)
-#pragma unroll
-            for (int j = 0; j < kTN; ++j) acc[i][j] = fma(a[i][kk], b[j], acc[i][j]);
-        }
-      }
+      micro_tile(tile + pg * kTM * ldu, ldu, dts + cg * kTN, npad, npad, acc);
 #pragma unroll
       for (int i = 0; i < kTM; ++i) {
         const int p = pg * kTM + i;

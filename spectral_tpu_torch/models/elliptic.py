@@ -302,6 +302,54 @@ class EllipticModel:
 
         return inner
 
+    def _solve_refined(self, b_np, dirichlet_np, *, on_device: bool, rtol: float,
+                       max_refine: int, ksp: KSPConfig | None,
+                       newton: NewtonConfig | None, pc_type: str):
+        """The defect-correction loop of both public entry points: float32
+        Newton, then x -= J32^-1 F64(x) until ||F64(x)|| <= rtol ||b||.
+        ``on_device`` picks where x and the float64 residual live."""
+        ksp = ksp or KSPConfig(type="fgmres", rtol=1e-5, max_it=300)
+        newton = newton or NewtonConfig(rtol=1e-6, max_it=30)
+        b64_np = np.asarray(b_np, np.float64)
+        d64_np = np.asarray(dirichlet_np, np.float64)
+        b32, d32 = self._dev32(b64_np), self._dev32(d64_np)
+        res32 = self.solve(b32, d32, ksp=ksp, newton=newton, pc_type=pc_type)
+
+        if on_device:   # x and F float64 tensors on the card
+            dev = self.grid.device
+            residual64 = self.make_residual(torch.as_tensor(b64_np, device=dev),
+                                            torch.as_tensor(d64_np, device=dev))
+            residual_hi = lambda x: residual64(x)[0]  # noqa: E731
+            norm = lambda F: float(torch.linalg.vector_norm(F))  # noqa: E731
+            to32 = lambda a: a.to(torch.float32)  # noqa: E731
+            x = res32.x.to(torch.float64)
+        else:           # x and F float64 numpy arrays on the host
+            residual_hi = self.make_residual_np(b64_np, d64_np)
+            norm = lambda F: float(np.linalg.norm(F))  # noqa: E731
+            to32 = self._dev32
+            x = res32.x.cpu().numpy().astype(np.float64)
+
+        inner = self._inner32(pc_type, ksp)
+        bnorm = max(float(np.linalg.norm(b64_np)), 1e-300)
+        F = residual_hi(x)
+        rnorm = norm(F)
+        hist = [rnorm]
+        steps = inner_its = 0
+        while steps < max_refine and rnorm > rtol * bnorm and math.isfinite(rnorm):
+            dx, its = inner(to32(x), to32(F), b32, d32)
+            if dx.dtype != torch.float32:
+                raise TypeError(f"the inner solve must stay float32, returned {dx.dtype}")
+            x = x - (dx.to(torch.float64) if on_device
+                     else dx.cpu().numpy().astype(np.float64))
+            F = residual_hi(x)
+            rnorm = norm(F)
+            hist.append(rnorm)
+            steps += 1
+            inner_its += int(its)
+        info = {"newton32": res32, "refine_history": hist, "refine_steps": steps,
+                "refine_inner_iters": inner_its, "rel_residual": rnorm / bnorm}
+        return (x.cpu().numpy() if on_device else x), info
+
     def solve_refined(self, b_np, dirichlet_np, *, rtol: float = 1e-10,
                       max_refine: int = 10, ksp: KSPConfig | None = None,
                       newton: NewtonConfig | None = None,
@@ -310,32 +358,9 @@ class EllipticModel:
         accuracy floor, then steps with float64 host residuals and float32
         preconditioned linear solves on the device.  Returns
         (x float64 numpy, info)."""
-        ksp = ksp or KSPConfig(type="fgmres", rtol=1e-5, max_it=300)
-        newton = newton or NewtonConfig(rtol=1e-6, max_it=30)
-        b32, d32 = self._dev32(b_np), self._dev32(dirichlet_np)
-        res32 = self.solve(b32, d32, ksp=ksp, newton=newton, pc_type=pc_type)
-        x = res32.x.cpu().numpy().astype(np.float64)
-
-        residual_hi = self.make_residual_np(np.asarray(b_np, np.float64),
-                                            np.asarray(dirichlet_np, np.float64))
-        inner = self._inner32(pc_type, ksp)
-        bnorm = max(float(np.linalg.norm(b_np)), 1e-300)
-        hist = []
-        inner_its = 0
-        for _ in range(max_refine):
-            r = residual_hi(x)
-            rnorm = float(np.linalg.norm(r))
-            hist.append(rnorm)
-            if rnorm <= rtol * bnorm:
-                break
-            dx, its = inner(self._dev32(x), self._dev32(r), b32, d32)
-            inner_its += int(its)
-            x = x - dx.cpu().numpy().astype(np.float64)
-        else:
-            hist.append(float(np.linalg.norm(residual_hi(x))))
-        info = {"newton32": res32, "refine_history": hist,
-                "refine_inner_iters": inner_its, "rel_residual": hist[-1] / bnorm}
-        return x, info
+        return self._solve_refined(b_np, dirichlet_np, on_device=False, rtol=rtol,
+                                   max_refine=max_refine, ksp=ksp, newton=newton,
+                                   pc_type=pc_type)
 
     def solve_refined_fused(self, b_np, dirichlet_np, *, rtol: float = 1e-10,
                             max_refine: int = 10, ksp: KSPConfig | None = None,
@@ -348,33 +373,6 @@ class EllipticModel:
         the host (the loop's stopping test).  Nothing is cached between
         calls: ``b`` and ``dirichlet`` are this call's.  Returns
         (x float64 numpy, info)."""
-        ksp = ksp or KSPConfig(type="fgmres", rtol=1e-5, max_it=300)
-        newton = newton or NewtonConfig(rtol=1e-6, max_it=30)
-        dev = self.grid.device
-        b64 = torch.as_tensor(np.asarray(b_np, np.float64), device=dev)
-        d64 = torch.as_tensor(np.asarray(dirichlet_np, np.float64), device=dev)
-        b32, d32 = b64.to(torch.float32), d64.to(torch.float32)
-        res32 = self.solve(b32, d32, ksp=ksp, newton=newton, pc_type=pc_type)
-
-        residual_hi = self.make_residual(b64, d64)
-        inner = self._inner32(pc_type, ksp)
-        bnorm = max(float(torch.linalg.vector_norm(b64)), 1e-300)
-        tol = rtol * bnorm
-        x = res32.x.to(torch.float64)
-        F = residual_hi(x)[0]
-        rnorm = float(torch.linalg.vector_norm(F))
-        hist = [rnorm]
-        steps = inner_its = 0
-        while steps < max_refine and rnorm > tol and math.isfinite(rnorm):
-            dx, its = inner(x.to(torch.float32), F.to(torch.float32), b32, d32)
-            if dx.dtype != torch.float32:
-                raise TypeError(f"the inner solve must stay float32, returned {dx.dtype}")
-            x = x - dx.to(torch.float64)
-            F = residual_hi(x)[0]
-            rnorm = float(torch.linalg.vector_norm(F))
-            hist.append(rnorm)
-            steps += 1
-            inner_its += int(its)
-        info = {"newton32": res32, "refine_history": hist, "refine_steps": steps,
-                "refine_inner_iters": inner_its, "rel_residual": rnorm / bnorm}
-        return x.cpu().numpy(), info
+        return self._solve_refined(b_np, dirichlet_np, on_device=True, rtol=rtol,
+                                   max_refine=max_refine, ksp=ksp, newton=newton,
+                                   pc_type=pc_type)

@@ -5,6 +5,8 @@ skips without CUDA (decided in the fixture, not at import).  On the card:
     python -m pytest tests/test_torch_gpu.py -m cuda -q -p no:randomly --noconftest
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -42,7 +44,9 @@ def _randn(shape, dtype, device, seed):
 @pytest.mark.parametrize("shape,scale", [((3, 10, 16), None), ((7, 12), None),
                                          ((5, 12), 0.25), ((13, 10), None),
                                          ((2, 3, 128), None),
-                                         ((1000, 64), None)])
+                                         ((1000, 64), None),
+                                         ((32, 32, 32), None),    # the 32^3 elliptic paths
+                                         ((12,) * 5, None)])      # the 5-D elliptic paths
 def test_k1_matches_plain(cuda, dtype, shape, scale):
     u = _randn(shape, dtype, cuda, 0)
     got = cuda_cheb.chebdiff_last(u, scale)
@@ -133,26 +137,35 @@ def test_grid_defaults_to_the_card(cuda):
 
 @pytest.mark.parametrize("dims,pc,slack", [((16, 16), "fastdiag", 0), ((12, 12, 12), "mg3", 3)])
 def test_elliptic_on_card_matches_host(cuda, dims, pc, slack):
-    """The float64 Newton solve on the card (K1 in every residual and
-    Jacobian action) against the same solve on the host: the same Newton
-    count, solutions to 1e-10 relative.  The Krylov counts per Newton step
-    are equal at 16^2; at 12^3 with mg3 each step takes 7-19 iterations to
-    rtol 1e-5 and the count moves with the card's summation order (one
-    run: [7, 12, 13, 16, 19] on the card, [7, 13, 13, 15, 17] on the host),
-    so there each step is held within ``slack``."""
+    """The float64 Newton solve on the card, with K1 in every residual and
+    Jacobian action (method "auto") and without it (method "matmul"),
+    against the same solve on the host: the same Newton count, solutions
+    to 1e-10 relative.  The Krylov counts per Newton step are equal at
+    16^2; at 12^3 with mg3 each step takes 7-19 iterations to rtol 1e-5
+    and the count moves with the summation order (one run: [7, 12, 13, 16,
+    19] on the card, [7, 13, 13, 15, 17] on the host), so there each step
+    is held within ``slack``.  The counts of the three solves are printed
+    (``-rP`` shows them): the "matmul" solve on the card tells a fault of
+    K1 from the card's summation order."""
     res = {}
-    for dev in ("cpu", cuda):
-        m = EllipticModel(Grid(dims, device=dev), gamma=1.0)
+    for dev, method in (("cpu", "auto"), (cuda, "auto"), (cuda, "matmul")):
+        cuda_cheb.reset_launch_counts()
+        m = EllipticModel(Grid(dims, device=dev), gamma=1.0, method=method)
         _, b, d = m.setup_problem(exact=0)
-        res[str(dev)] = m.solve(b, d, pc_type=pc)
-    host, card = res["cpu"], res[str(cuda)]
-    assert card.iters == host.iters, (card.iters, host.iters)
-    assert all(abs(a - b) <= slack for a, b in zip(card.ksp_iters, host.ksp_iters)), (
-        card.ksp_iters, host.ksp_iters)
-    rel = float(torch.linalg.vector_norm(card.x.cpu() - host.x)
-                / torch.linalg.vector_norm(host.x))
-    assert rel <= 1e-10, rel
-    assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0
+        res[(str(dev), method)] = r = m.solve(b, d, pc_type=pc)
+        k1 = cuda_cheb.LAUNCHES["chebdiff_last_kernel"]
+        assert (k1 > 0) == (dev == cuda and method == "auto"), (dev, method, k1)
+        print(json.dumps({"dims": dims, "pc": pc, "device": str(dev), "method": method,
+                          "newton": r.iters, "krylov": r.ksp_iters, "k1_launches": k1}))
+    host = res[("cpu", "auto")]
+    for method in ("auto", "matmul"):
+        card = res[(str(cuda), method)]
+        assert card.iters == host.iters, (method, card.iters, host.iters)
+        assert all(abs(a - b) <= slack for a, b in zip(card.ksp_iters, host.ksp_iters)), (
+            method, card.ksp_iters, host.ksp_iters)
+        rel = float(torch.linalg.vector_norm(card.x.cpu() - host.x)
+                    / torch.linalg.vector_norm(host.x))
+        assert rel <= 1e-10, (method, rel)
 
 
 def test_elliptic_refined_on_card(cuda):
