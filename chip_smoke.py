@@ -16,8 +16,10 @@ paths at their real sizes through the entry points a user calls:
      the fused Laplacian (K2) with a float32 fastdiag PC, float64
      residuals, through ``refine_solve`` and ``refine_solve_fused``;
   5. the K3 sweep (the counterpart of benchmarks/exp_pallas.py::main): K3
-     against its plain version on ragged shapes, then every row-tile
-     height x packing at u of (1,048,576, 64) float32, timed;
+     against its plain version on ragged shapes, both of its branches
+     (bulk copies; the synchronous copy for shapes a bulk copy cannot
+     take), then every row-tile height x packing at u of (1,048,576, 64)
+     float32, both branches and the ring depths, timed;
   6. the elliptic CLI in float64: ``-dim 12,12,12,12,12 -exact 2
      -pc_type fastdiag`` and ``-dim 32,32,32 -gamma 1 -pc_type mg3``,
      gated on the JAX package's CPU oracle;
@@ -26,9 +28,10 @@ paths at their real sizes through the entry points a user calls:
      ``solve_refined`` on the 5-D problem.
 
 Each path (phases 3-7) is driven with the launch counts set to 0 just
-before it and read just after; every phase raises on failure.  Before the
-last line it prints the kernels as JSON (launches summed over the paths,
-errors and median times from the comparisons); the last line is
+before it and read just after (K1's also by shape); every phase raises on
+failure.  Before the last line it prints the kernels as JSON (launches
+summed over the paths, errors and median times from the comparisons); the
+last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and prints
 no result.
 """
@@ -49,6 +52,18 @@ REPLACES = {"chebdiff_last_kernel": "spectral_tpu/ops/pallas_cheb.py:34",
             "laplacian3d_kernel": "spectral_tpu/ops/pallas_cheb.py:81",
             "chebdiff_packed_kernel": "benchmarks/exp_pallas.py:32"}
 BOUND = {"float32": 1e-5, "float64": 1e-12}   # max |kernel - plain| / max |plain|
+# The shapes the paths give K1: 64^3 (the Poisson CLI), 32^3 and 12^5 (the
+# elliptic paths, float64 in phase 6, float32 and float64 in phase 7)
+K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5)
+K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
+# K3's ragged cases, each in float32 and float64: (rows, n, pack, row tile,
+# offset of u2d in its storage).  n % 4 == 0 goes by bulk copies (n = 12:
+# lanes past D^T's 12 columns); the last row tile of (257, 64) is one
+# pencil; n = 10, n = 9 (k padded in shared memory) and views one element
+# into their storage take the synchronous copy.
+K3_CASES = ((1, 64, 1, 32, 0), (37, 64, 2, 64, 0), (100, 64, 1, 128, 0), (1003, 64, 2, 32, 0),
+            (515, 64, 1, 64, 0), (333, 64, 2, 128, 0), (257, 64, 1, 128, 0), (70, 12, 3, 32, 0),
+            (70, 10, 3, 32, 0), (45, 9, 2, 64, 0), (515, 64, 1, 64, 1), (333, 64, 2, 128, 1))
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; FMA-pipe FLOP/s outside
 # the tensor cores, where these kernels run
 HBM_BYTES_S = 3.35e12
@@ -184,6 +199,38 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_report(log: str) -> dict:
+    """kernel instance -> registers and spill bytes, from ``nvcc -Xptxas -v``."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"(chebdiff_last_kernel|laplacian3d_kernel|chebdiff_packed_kernel)"
+                          r"I(.*?)EEv", m.group(1))
+            args = ["float" if f == "f" else "double" if f == "d" else num or
+                    ("true" if b == "1" else "false")
+                    for num, b, f in re.findall(r"Li(\d+)E|Lb([01])E|([fd])", k.group(2))]
+            cur = out.setdefault(f"{k.group(1)}<{', '.join(args)}>", {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def k3_sweep_ms(cuda_cheb, u) -> dict:
+    """(pack, row tile) -> K3's ms on u (M, 64) viewed as (M / pack, 64 pack):
+    the six cases of the sweep.  k3_sweep.py times them in other checkouts."""
+    out = {}
+    for pack in (1, 2):
+        u2d = u.view(-1, 64 * pack)
+        for blk in (32, 64, 128):
+            out[(pack, blk)] = cuda_ms(lambda: cuda_cheb.chebdiff_packed(u2d, pack, K3_SCALE, blk))
+    return out
+
+
 def run_cli(cli_main, argv) -> tuple[int, str]:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -224,8 +271,11 @@ def main() -> int:
     lib_path, compile_s = _build.build()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if lib_path.with_suffix(".log").exists() else []
+    ptxas = ptxas_report(lib_path.with_suffix(".log").read_text())
+    k3_instances = {k: v for k, v in ptxas.items() if k.startswith("chebdiff_packed_kernel")}
+    require(len(k3_instances) == 12, f"ptxas reported {len(k3_instances)} K3 instances, not 12")
+    for k, v in k3_instances.items():
+        require(v.get("spill_stores") == 0 and v.get("spill_loads") == 0, f"{k} spills: {v}")
     print("phase0 " + json.dumps({
         "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -234,24 +284,22 @@ def main() -> int:
     # -- phase 1: K1 against its plain version --------------------------------
     t_phase = time.perf_counter()
     k1 = []
-    # small and ragged cases, then the shapes the paths give K1: 64^3 (the
-    # Poisson CLI), 32^3 and 12^5 (the elliptic paths, float64 in phase 6,
-    # float32 and float64 in phase 7)
+    # small and ragged cases, then the shapes the paths give K1
     k1_cases = [((3, 10, 16), None), ((7, 12), None), ((5, 12), 0.25),
-                ((11, 10), None), ((4, 9, 128), None), ((64, 64, 64), None),
-                ((32, 32, 32), None), ((12,) * 5, None)]
+                ((11, 10), None), ((4, 9, 128), None)] + [(s, None) for s in K1_PATH_SHAPES]
     for dtype in (torch.float32, torch.float64):
         for seed, (shape, scale) in enumerate(k1_cases):
             u = randn(shape, dtype, seed)
             k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u, scale),
                               lambda: cuda_cheb.chebdiff_last_ref(u, scale), u,
                               f"{shape} scale={scale}"))
-            if shape == (64, 64, 64):   # the Poisson CLI's shape: its bound and library call
-                dt = cuda_cheb._diffmat_t(64, None, dtype, dev)
+            if shape in K1_PATH_SHAPES:   # a path's shape: its bound and library call
+                n = shape[-1]
+                dt = cuda_cheb._diffmat_t(n, None, dtype, dev)
                 k1[-1]["library_ms"] = cuda_ms(lambda: torch.matmul(u, dt))
                 k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(
                     2 * u.numel() * u.element_size() + dt.numel() * dt.element_size(),
-                    2 * 64 * u.numel(), k1[-1]["dtype"])
+                    2 * n * u.numel(), k1[-1]["dtype"])
     u = randn((256, 64, 64, 64), torch.float32, 99)   # the cheb_matvec shape
     k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u),
                       lambda: cuda_cheb.chebdiff_last_ref(u), u, "(256, 64, 64, 64)"))
@@ -285,13 +333,17 @@ def main() -> int:
     print(f"phase2 seconds {time.perf_counter() - t_phase:.3f}")
 
     # Each path runs with the counts set to 0 just before it and is read
-    # just after; the kernels line sums the paths.
+    # just after; the kernels line sums the paths.  K1's launches by shape
+    # and dtype, per path: k1_shapes[path name].
     launches = {name: 0 for name in cuda_cheb.LAUNCHES}
+    k1_shapes = {}
 
     def path(name, fn, kernels):
         cuda_cheb.reset_launch_counts()
         out = fn()
         counts = dict(cuda_cheb.LAUNCHES)
+        k1_shapes[name] = {f"{shape} {dtype}": c for (shape, dtype), c
+                           in cuda_cheb.K1_LAUNCHES_BY_SHAPE.items()}
         for k in kernels:
             require(counts[k] > 0, f"{name}: the path did not launch {k}")
         for k, v in counts.items():
@@ -312,6 +364,7 @@ def main() -> int:
     print("phase3 " + json.dumps({"cli": " ".join(argv), "iterations": iters, "error": err,
                                   "first_s": first_s, "solve_s": warm_s,
                                   "k1_launches": counts[K1],
+                                  "k1_launches_by_shape": k1_shapes["phase3"],
                                   "seconds": time.perf_counter() - t_phase}))
 
     # -- phase 4: Poisson path B, mixed precision at 64^3 ---------------------
@@ -372,53 +425,80 @@ def main() -> int:
 
     # -- phase 5: the K3 sweep (exp_pallas.py::main) --------------------------
     t_phase = time.perf_counter()
-    S = 1.0 / 64**2          # exp_pallas.py:33 folds 1/n^2 into D^T
     k3 = []
     for dtype in (torch.float32, torch.float64):
-        for seed, (rows, pack, blk) in enumerate(((1, 1, 32), (37, 2, 64), (100, 1, 128),
-                                                  (1003, 2, 32), (515, 1, 64),
-                                                  (333, 2, 128))):
-            u = randn((rows, 64 * pack), dtype, 10 + seed)
-            k3.append(compare("K3", lambda: cuda_cheb.chebdiff_packed(u, pack, S, blk),
-                              lambda: cuda_cheb.chebdiff_packed_ref(u, pack, S), u,
-                              f"({rows}, {64 * pack}) pack={pack} blk={blk}", timed=False))
+        branches = set()
+        for seed, (rows, n, pack, blk, off) in enumerate(K3_CASES):
+            u = randn((off + rows * n * pack,), dtype, 10 + seed)[off:].view(rows, n * pack)
+            branch = "bulk" if cuda_cheb.chebdiff_packed_bulk(u, pack) else "sync"
+            branches.add(branch)
+            k3.append(compare("K3", lambda: cuda_cheb.chebdiff_packed(u, pack, K3_SCALE, blk),
+                              lambda: cuda_cheb.chebdiff_packed_ref(u, pack, K3_SCALE), u,
+                              f"({rows}, {n * pack}) pack={pack} blk={blk} offset={off}",
+                              timed=False))
+            k3[-1]["branch"] = branch
+        require(branches == {"bulk", "sync"}, f"K3 {dtype}: branches taken {branches}")
     print("phase5 K3 " + json.dumps(k3))
     u = randn((1 << 20, 64), torch.float32, 98)   # 256 x 64^3 dofs, exp_pallas.py main
     dofs = u.numel()
-    dt = cuda_cheb._diffmat_t(64, S, torch.float32, dev)
+    dt = cuda_cheb._diffmat_t(64, K3_SCALE, torch.float32, dev)
     library_ms = cuda_ms(lambda: torch.matmul(u, dt))
     k3_bound = bound(2 * dofs * 4 + 64 * 64 * 4, 2 * 64 * dofs, "float32")
-    cases = [(pack, blk) for pack in (1, 2) for blk in cuda_cheb.K3_BLOCK_ROWS]
-    sweep = {}
+    # the same values one element into a buffer: K3's synchronous branch
+    u_sync = torch.empty(dofs + 1, device=dev, dtype=torch.float32)[1:].view_as(u)
+    u_sync.copy_(u)
+    sweep, stages = {}, {}
     for pack in (1, 2):
-        u2d = u.view(-1, 64 * pack)
-        ref = cuda_cheb.chebdiff_packed_ref(u2d, pack, S)
-        plain_ms = cuda_ms(lambda: cuda_cheb.chebdiff_packed_ref(u2d, pack, S))
+        u2d, s2d = u.view(-1, 64 * pack), u_sync.view(-1, 64 * pack)
+        ref = cuda_cheb.chebdiff_packed_ref(u2d, pack, K3_SCALE)
+        plain_ms = cuda_ms(lambda: cuda_cheb.chebdiff_packed_ref(u2d, pack, K3_SCALE))
         for blk in cuda_cheb.K3_BLOCK_ROWS:
-            got = cuda_cheb.chebdiff_packed(u2d, pack, S, blk)
-            abs_err = float(torch.max(torch.abs(got - ref)))
-            rel = abs_err / float(torch.max(torch.abs(ref)))
-            require(rel <= BOUND["float32"], f"K3 sweep pack={pack} blk={blk}: error {rel:.3e}")
-            sweep[(pack, blk)] = {"case": f"(1048576, 64) as ({dofs // (64 * pack)}, "
-                                          f"{64 * pack}) pack={pack} blk={blk}",
-                                  "dtype": "float32", "rel_err": rel, "max_abs_err": abs_err,
-                                  "plain_ms": plain_ms}
+            c = {"case": f"(1048576, 64) as ({dofs // (64 * pack)}, {64 * pack}) "
+                         f"pack={pack} blk={blk}", "dtype": "float32", "plain_ms": plain_ms}
+            for branch, x in (("bulk", u2d), ("sync", s2d)):
+                require(cuda_cheb.chebdiff_packed_bulk(x, pack) == (branch == "bulk"),
+                        f"K3 sweep pack={pack} blk={blk}: not the {branch} branch")
+                got = cuda_cheb.chebdiff_packed(x, pack, K3_SCALE, blk)
+                abs_err = float(torch.max(torch.abs(got - ref)))
+                rel = abs_err / float(torch.max(torch.abs(ref)))
+                require(rel <= BOUND["float32"],
+                        f"K3 sweep pack={pack} blk={blk} {branch}: error {rel:.3e}")
+                key = "" if branch == "bulk" else "sync_"
+                c.update({f"{key}rel_err": rel, f"{key}max_abs_err": abs_err})
+            c["sync_ms"] = cuda_ms(lambda: cuda_cheb.chebdiff_packed(s2d, pack, K3_SCALE, blk))
+            # the ring depth: every cap up to what fits (the wrapper takes K3_MAX_STAGES)
+            fit = cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4, max_stages=1 << 20)
+            stages[f"pack={pack} blk={blk}"] = {
+                "fit": fit, "default": cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4),
+                "ms": {str(k): cuda_ms(lambda: cuda_cheb._chebdiff_packed(
+                    u2d, pack, K3_SCALE, blk, k))
+                       for k in sorted({1, 2, 3, 4, 6, 8, 12, 16, 24, fit}) if k <= fit}}
+            sweep[(pack, blk)] = c
         del ref, got
+    del u_sync
 
     def k3_sweep():
-        for pack, blk in cases:
-            u2d = u.view(-1, 64 * pack)
-            ms = cuda_ms(lambda: cuda_cheb.chebdiff_packed(u2d, pack, S, blk))
-            sweep[(pack, blk)].update(ms=ms, gdofs=dofs / ms / 1e6)
+        for key, ms in k3_sweep_ms(cuda_cheb, u).items():
+            sweep[key].update(ms=ms, gdofs=dofs / ms / 1e6)
 
     _, counts = path("phase5", k3_sweep, [K3])
-    for c in sweep.values():
-        c.update(library_ms=library_ms, bound_ms=k3_bound[0], bound_by=k3_bound[1])
+    # occupancy computed from ptxas's registers and the shared memory taken:
+    # blocks an SM by the 64K registers (9 warps a block, each taking
+    # registers in units of 256) and by the 228 KB of shared memory (1 KB
+    # reserved a block)
+    for (pack, blk), c in sweep.items():
+        regs = ptxas[f"chebdiff_packed_kernel<float, {blk}, true>"]["registers"]
+        smem = cuda_cheb.chebdiff_packed_smem_bytes(64, pack, blk, 4)
+        warp_regs = -(-regs * 32 // 256) * 256
+        c.update(library_ms=library_ms, bound_ms=k3_bound[0], bound_by=k3_bound[1],
+                 registers=regs, smem=smem,
+                 stages=cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4),
+                 blocks_per_sm=min(65536 // (9 * warp_regs), 233472 // (smem + 1024)))
     print("phase5 sweep " + json.dumps({"library_gdofs": dofs / library_ms / 1e6,
                                         "k3_launches": counts[K3],
-                                        "cases": list(sweep.values()),
+                                        "cases": list(sweep.values()), "stages": stages,
                                         "seconds": time.perf_counter() - t_phase}))
-    del u, u2d
+    del u, u2d, s2d
     torch.cuda.empty_cache()
 
     # -- phase 6: the elliptic CLI in float64, gated on the CPU oracle --------
@@ -441,7 +521,8 @@ def main() -> int:
                 f"elliptic {name}: Krylov {kits}, oracle {krylov} (within 1 each)")
         require(err <= 2 * error, f"elliptic {name}: error {err:.3e} > 2 x {error:.3e}")
         phase6[name] = {"cli": " ".join(argv), "newton": its, "krylov": kits, "error": err,
-                        "first_s": first_s, "solve_s": warm_s, "k1_launches": counts[K1]}
+                        "first_s": first_s, "solve_s": warm_s, "k1_launches": counts[K1],
+                        "k1_launches_by_shape": k1_shapes[f"phase6 {name}"]}
     phase6["seconds"] = time.perf_counter() - t_phase
     print("phase6 " + json.dumps(phase6))
 
@@ -469,7 +550,8 @@ def main() -> int:
                         "refine_inner": info["refine_inner_iters"], "total_krylov": total,
                         "refine_history": info["refine_history"], "rel_residual": rel,
                         "error": err, "max_error": max_err, "first_s": first_s,
-                        "solve_s": warm_s, "k1_launches": counts[K1]}
+                        "solve_s": warm_s, "k1_launches": counts[K1],
+                        "k1_launches_by_shape": k1_shapes[f"phase7 {name}"]}
     phase7["seconds"] = time.perf_counter() - t_phase
     print("phase7 " + json.dumps(phase7))
 

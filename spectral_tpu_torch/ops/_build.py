@@ -31,9 +31,9 @@ _SIGNATURES = {
     # (u, dt, y, M, n, stream)
     "chebdiff_last_f32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
     "chebdiff_last_f64": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
-    # (u, dt, y, M, n, pack, block_rows, stream)
-    "chebdiff_packed_f32": [_P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P],
-    "chebdiff_packed_f64": [_P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P],
+    # (u, dt, y, M, n, pack, block_rows, max_stages, stream)
+    "chebdiff_packed_f32": [_P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P],
+    "chebdiff_packed_f64": [_P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P],
     # (u, d2xt, d2yt, d2zt, bmask, y, nx, ny, nz, stream)
     "laplacian3d_f32": [_P] * 6 + [ctypes.c_int] * 3 + [_P],
     "laplacian3d_f64": [_P] * 6 + [ctypes.c_int] * 3 + [_P],

@@ -19,7 +19,8 @@ does about that.
 Each wrapper takes its plain version (``*_ref``, the same function in
 ``torch.matmul`` / ``tensordot``) only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel or raises: there is no fallback.  Each
-launch adds one to ``LAUNCHES[<kernel name>]``.
+launch adds one to ``LAUNCHES[<kernel name>]``, and each K1 launch to
+``K1_LAUNCHES_BY_SHAPE[(shape, dtype name)]``.
 """
 
 from __future__ import annotations
@@ -40,8 +41,13 @@ SMEM_LIMIT = 232448
 # Kernel launches since the last reset, by kernel name.
 LAUNCHES = {"chebdiff_last_kernel": 0, "laplacian3d_kernel": 0,
             "chebdiff_packed_kernel": 0}
+# K1 launches since the last reset, by (shape of u, dtype name).
+K1_LAUNCHES_BY_SHAPE: dict[tuple[tuple[int, ...], str], int] = {}
 # Row-tile heights K3 is built for (template instances of the kernel).
 K3_BLOCK_ROWS = (32, 64, 128)
+# Most tile stages in K3's ring (fewer where fewer fit); chip_smoke.py
+# phase 5 times the alternatives.
+K3_MAX_STAGES = 24
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -49,6 +55,7 @@ _KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    K1_LAUNCHES_BY_SHAPE.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +171,8 @@ def chebdiff_last(u: torch.Tensor, scale: float | None = None) -> torch.Tensor:
         return y
     _launch("chebdiff_last_kernel", f"chebdiff_last_{suffix}", u.device,
             u.data_ptr(), DT.data_ptr(), y.data_ptr(), M, n)
+    key = (tuple(u.shape), str(u.dtype).replace("torch.", ""))
+    K1_LAUNCHES_BY_SHAPE[key] = K1_LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return y
 
 
@@ -201,11 +210,36 @@ def laplacian3d(u: torch.Tensor, bmask: torch.Tensor | None = None,
     return y
 
 
-def chebdiff_packed_smem_bytes(n: int, pack: int, block_rows: int, itemsize: int) -> int:
-    """Shared memory K3 needs (mirrors the C side): the padded D^T and one
-    tile of block_rows * pack padded pencils."""
+def _packed_sizes(n: int, pack: int, block_rows: int, itemsize: int) -> tuple[int, int]:
+    """K3's shared memory (mirrors k3_shape in the C source): the bytes of
+    the padded D^T, and of one stage, block_rows * pack * (npad + 4) values
+    and two 8-byte mbarriers."""
     npad = (n + 3) // 4 * 4
-    return itemsize * (npad * npad + block_rows * pack * (npad + 4))
+    return itemsize * npad * npad, itemsize * block_rows * pack * (npad + 4) + 16
+
+
+def chebdiff_packed_stages(n: int, pack: int, block_rows: int, itemsize: int,
+                           max_stages: int = K3_MAX_STAGES) -> int:
+    """K3's ring depth (mirrors the C side): as many stages as fit in
+    SMEM_LIMIT beside D^T, at most ``max_stages``; 0 when none fits."""
+    fixed, stage = _packed_sizes(n, pack, block_rows, itemsize)
+    return max(0, min(max_stages, (SMEM_LIMIT - fixed) // stage))
+
+
+def chebdiff_packed_smem_bytes(n: int, pack: int, block_rows: int, itemsize: int,
+                               max_stages: int = K3_MAX_STAGES) -> int:
+    """Shared memory K3 takes (mirrors the C side): D^T and its stages; the
+    need of one stage where none fits."""
+    fixed, stage = _packed_sizes(n, pack, block_rows, itemsize)
+    return fixed + max(1, chebdiff_packed_stages(n, pack, block_rows, itemsize,
+                                                 max_stages)) * stage
+
+
+def chebdiff_packed_bulk(u2d: torch.Tensor, pack: int) -> bool:
+    """Whether K3 fills its stages by bulk copies (mirrors the C side):
+    n % 4 == 0 and a 16-byte aligned u2d; otherwise its producer warp
+    copies them with ordinary loads."""
+    return (u2d.shape[1] // pack) % 4 == 0 and u2d.data_ptr() % 16 == 0
 
 
 def _packed_shape(u2d: torch.Tensor, pack: int, block_rows: int) -> int:
@@ -223,8 +257,8 @@ def _packed_shape(u2d: torch.Tensor, pack: int, block_rows: int) -> int:
     if block_rows not in K3_BLOCK_ROWS:
         raise ValueError(f"chebdiff_packed: block_rows must be one of "
                          f"{K3_BLOCK_ROWS}, got {block_rows}")
-    need = chebdiff_packed_smem_bytes(n, pack, block_rows, u2d.element_size())
-    if need > SMEM_LIMIT:
+    if chebdiff_packed_stages(n, pack, block_rows, u2d.element_size()) < 1:
+        need = chebdiff_packed_smem_bytes(n, pack, block_rows, u2d.element_size())
         raise ValueError(f"chebdiff_packed: n={n}, pack={pack}, block_rows={block_rows} "
                          f"in {u2d.dtype} needs {need} bytes of shared memory, "
                          f"the kernel has {SMEM_LIMIT}")
@@ -238,6 +272,13 @@ def chebdiff_packed(u2d: torch.Tensor, pack: int, scale: float | None = None,
     pencils of n, each multiplied by (scale * D)^T.  ``block_rows`` picks
     the row-tile height (one of K3_BLOCK_ROWS), the TPU sweep's blk.  The
     arguments are checked alike on every device."""
+    return _chebdiff_packed(u2d, pack, scale, block_rows, K3_MAX_STAGES)
+
+
+def _chebdiff_packed(u2d: torch.Tensor, pack: int, scale: float | None, block_rows: int,
+                     max_stages: int) -> torch.Tensor:
+    """``chebdiff_packed`` with the ring depth capped at ``max_stages``
+    (chip_smoke.py times the caps)."""
     pack = int(pack)
     n = _packed_shape(u2d, pack, block_rows)
     if u2d.device.type == "cpu":
@@ -249,5 +290,5 @@ def chebdiff_packed(u2d: torch.Tensor, pack: int, scale: float | None = None,
         return y
     _launch("chebdiff_packed_kernel", f"chebdiff_packed_{suffix}", u2d.device,
             u2d.data_ptr(), DT.data_ptr(), y.data_ptr(), u2d.shape[0], n, pack,
-            block_rows)
+            block_rows, max_stages)
     return y

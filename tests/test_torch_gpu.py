@@ -129,6 +129,36 @@ def test_k3_odd_pencil_length(cuda):
     assert _rel(got, cuda_cheb.chebdiff_packed_ref(u, 3)) <= BOUND[torch.float64]
 
 
+def _k3_sync_case(name, device):
+    """(u2d, pack) that a bulk copy cannot take: n = 10 (k padded in shared
+    memory), or a view one element into its storage (not 16-byte aligned)."""
+    if name == "n10_pack3":
+        return _randn((70, 3 * 10), torch.float32, device, 5), 3
+    buf = _randn((515 * 64 + 1,), torch.float32, device, 6)
+    return buf[1:].view(515, 64), 1
+
+
+@pytest.mark.parametrize("name", ["n10_pack3", "misaligned"])
+@pytest.mark.parametrize("block_rows", [32, 128])
+def test_k3_synchronous_branch(cuda, name, block_rows):
+    """K3's producer warp copies the stages itself where a bulk copy cannot."""
+    u, pack = _k3_sync_case(name, cuda)
+    assert not cuda_cheb.chebdiff_packed_bulk(u, pack)
+    got = cuda_cheb.chebdiff_packed(u, pack, 0.5, block_rows=block_rows)
+    assert _rel(got, cuda_cheb.chebdiff_packed_ref(u, pack, 0.5)) <= BOUND[torch.float32]
+    assert cuda_cheb.LAUNCHES["chebdiff_packed_kernel"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_one_pencil_tail(cuda, dtype):
+    """An aligned (bulk-copy) case whose last row tile is one pencil: its
+    full barrier is armed for 256 (512) bytes, not a whole tile."""
+    u = _randn((2 * 128 + 1, 64), dtype, cuda, 7)
+    assert cuda_cheb.chebdiff_packed_bulk(u, 1)
+    got = cuda_cheb.chebdiff_packed(u, 1, block_rows=128)
+    assert _rel(got, cuda_cheb.chebdiff_packed_ref(u, 1)) <= BOUND[dtype]
+
+
 def test_grid_defaults_to_the_card(cuda):
     g = Grid((8, 8))
     assert g.device.type == "cuda" and g.boundary_mask.device.type == "cuda"

@@ -69,6 +69,7 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
                                   cuda_cheb.chebdiff_packed_ref(u2, 1).numpy())
     assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0, "laplacian3d_kernel": 0,
                                   "chebdiff_packed_kernel": 0}
+    assert cuda_cheb.K1_LAUNCHES_BY_SHAPE == {}
 
 
 def test_non_cpu_tensors_never_take_the_plain_path():
@@ -142,3 +143,50 @@ def test_chebdiff_packed_refusals():
     assert cuda_cheb.chebdiff_packed(u, 2, block_rows=128).shape == u.shape
     assert cuda_cheb.K3_BLOCK_ROWS == (32, 64, 128)
     assert cuda_cheb.LAUNCHES["chebdiff_packed_kernel"] == 0
+
+
+@pytest.mark.parametrize("itemsize,n,pack,block_rows,stages", [
+    # the sweep shapes: n = 64 float32, 32-256 pencils a stage
+    (4, 64, 1, 32, 24), (4, 64, 1, 64, 12), (4, 64, 1, 128, 6),
+    (4, 64, 2, 32, 12), (4, 64, 2, 64, 6), (4, 64, 2, 128, 3),
+    # the float64 limits: one stage fits, or none
+    (8, 64, 2, 128, 1), (8, 128, 1, 64, 1), (8, 128, 1, 128, 0),
+])
+def test_chebdiff_packed_stage_rule(itemsize, n, pack, block_rows, stages):
+    """K3's ring depth and shared memory against the C side's layout (k3_shape):
+    two 8-byte mbarriers a stage, the padded D^T, then the stages of
+    block_rows * pack rows of npad + 4."""
+    assert cuda_cheb.chebdiff_packed_stages(n, pack, block_rows, itemsize,
+                                            max_stages=1 << 20) == stages
+    assert cuda_cheb.chebdiff_packed_stages(n, pack, block_rows, itemsize) == min(
+        stages, cuda_cheb.K3_MAX_STAGES)
+    npad = (n + 3) // 4 * 4
+    for cap in {1, 2, max(stages, 1)}:
+        used = max(1, min(cap, stages))
+        smem = cuda_cheb.chebdiff_packed_smem_bytes(n, pack, block_rows, itemsize, cap)
+        assert smem == 16 * used + itemsize * (npad * npad + used * block_rows * pack * (npad + 4))
+        assert (smem <= cuda_cheb.SMEM_LIMIT) == (stages >= 1)
+
+
+def test_chebdiff_packed_accepts_the_shapes_it_did():
+    """A ring of one stage needs 16 bytes more than the single tile K3 had;
+    no shape crosses the limit for it: the shapes taken and refused stay."""
+    for itemsize in (4, 8):
+        for n in range(2, cuda_cheb.K1_MAX_N + 1):
+            npad = (n + 3) // 4 * 4
+            for pack in range(1, cuda_cheb.K1_MAX_N // n + 1):
+                for rows in cuda_cheb.K3_BLOCK_ROWS:
+                    single_tile = itemsize * (npad * npad + rows * pack * (npad + 4))
+                    took = cuda_cheb.chebdiff_packed_stages(n, pack, rows, itemsize) >= 1
+                    assert took == (single_tile <= cuda_cheb.SMEM_LIMIT), (itemsize, n, pack, rows)
+
+
+def test_chebdiff_packed_branch_rule():
+    """Bulk copies take n % 4 == 0 (no k padding) from a 16-byte aligned u2d."""
+    u32, u64 = torch.zeros((6, 128)), torch.zeros((6, 36), dtype=torch.float64)
+    assert u32.data_ptr() % 16 == 0 and u64.data_ptr() % 16 == 0
+    assert cuda_cheb.chebdiff_packed_bulk(u32, 2)                        # n = 64
+    assert cuda_cheb.chebdiff_packed_bulk(u64, 3)                        # n = 12
+    assert not cuda_cheb.chebdiff_packed_bulk(u32[:, :30].contiguous(), 3)  # n = 10
+    assert not cuda_cheb.chebdiff_packed_bulk(u64[:, :30].contiguous(), 3)  # n = 10
+    assert not cuda_cheb.chebdiff_packed_bulk(u32.view(-1)[1:-127].view(5, 128), 2)
