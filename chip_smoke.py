@@ -7,9 +7,14 @@ Builds the CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, then drives the port's
 paths at their real sizes through the entry points a user calls:
 
-  0. identify the card; build the kernels (timed);
-  1. K1 chebdiff_last_kernel against chebdiff_last_ref;
-  2. K2 laplacian3d_kernel against laplacian3d_ref;
+  0. identify the card; build the kernels (timed), no spill in any instance;
+  1. K1 chebdiff_last_kernel against chebdiff_last_ref, bit equality
+     recorded; at the paths' shapes also torch.matmul, K1's launch (tile
+     rows, blocks) and computed occupancy, and each kernel's own duration;
+  2. K2 (laplacian3d_plane_kernel and laplacian3d_x_kernel, one C call)
+     against laplacian3d_ref, boundary rows equal to u, on fields the plane
+     pass takes tiled and unpadded; at 64^3 each pass against its own plain
+     version, its launch, occupancy and duration;
   3. Poisson path A: the CLI, ``poisson -m 64 -n 64 -p 64 -ksp_rtol 1e-10``
      in float64 (K1 on the last axis of the composed operator);
   4. Poisson path B: mixed-precision refinement at 64^3, float32 GMRES on
@@ -19,7 +24,8 @@ paths at their real sizes through the entry points a user calls:
      against its plain version on ragged shapes, both of its branches
      (bulk copies; the synchronous copy for shapes a bulk copy cannot
      take), then every row-tile height x packing at u of (1,048,576, 64)
-     float32, both branches and the ring depths, timed;
+     float32 in both branches (the path: one call each), then timed, with
+     the ring depths;
   6. the elliptic CLI in float64: ``-dim 12,12,12,12,12 -exact 2
      -pc_type fastdiag`` and ``-dim 32,32,32 -gamma 1 -pc_type mg3``,
      gated on the JAX package's CPU oracle;
@@ -28,12 +34,15 @@ paths at their real sizes through the entry points a user calls:
      ``solve_refined`` on the 5-D problem.
 
 Each path (phases 3-7) is driven with the launch counts set to 0 just
-before it and read just after (K1's also by shape); every phase raises on
-failure.  Before the last line it prints the kernels as JSON (launches
-summed over the paths, errors and median times from the comparisons); the
-last line is
-{"ok": true, "device": {...}}.  Without CUDA it exits non-zero and prints
-no result.
+before it and read just after (K1's also by shape), and times nothing
+inside it (a call captured in a CUDA graph counts once and launches at
+every replay); every phase raises on failure.  A timed comparison gives
+each side two times: ``device_ms`` (a CUDA graph of 20 calls, replayed
+between events) as ``ms`` and ``call_ms`` (the host clock over 100 calls
+and one synchronize).  Before the last line it prints the kernels as JSON
+(launches summed over the paths, errors and device times from the
+comparisons; K2 as its two passes); the last line is {"ok": true,
+"device": {...}}.  Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ import time
 
 SOURCE = "spectral_tpu_torch/csrc/cheb_kernels.cu"
 REPLACES = {"chebdiff_last_kernel": "spectral_tpu/ops/pallas_cheb.py:34",
-            "laplacian3d_kernel": "spectral_tpu/ops/pallas_cheb.py:81",
+            "laplacian3d_plane_kernel": "spectral_tpu/ops/pallas_cheb.py:81",
+            "laplacian3d_x_kernel": "spectral_tpu/ops/pallas_cheb.py:81",
             "chebdiff_packed_kernel": "benchmarks/exp_pallas.py:32"}
 BOUND = {"float32": 1e-5, "float64": 1e-12}   # max |kernel - plain| / max |plain|
 # The shapes the paths give K1: 64^3 (the Poisson CLI), 32^3 and 12^5 (the
@@ -64,10 +74,15 @@ K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
 K3_CASES = ((1, 64, 1, 32, 0), (37, 64, 2, 64, 0), (100, 64, 1, 128, 0), (1003, 64, 2, 32, 0),
             (515, 64, 1, 64, 0), (333, 64, 2, 128, 0), (257, 64, 1, 128, 0), (70, 12, 3, 32, 0),
             (70, 10, 3, 32, 0), (45, 9, 2, 64, 0), (515, 64, 1, 64, 1), (333, 64, 2, 128, 1))
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; FMA-pipe FLOP/s outside
-# the tensor cores, where these kernels run
+DTYPE_C = {"torch.float32": "float", "torch.float64": "double"}   # ptxas instance names
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; the card's FLOP/s for the
+# type, float32 outside the tensor cores (TF32 is another type), float64 on
+# its float64 tensor cores (the FMA pipes the kernels use give 34e12)
 HBM_BYTES_S = 3.35e12
-PEAK_FLOP_S = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOP_S = {"float32": 67e12, "float64": 67e12}
+# K2 fields whose padded plane does not fit in shared memory: the plane
+# pass stages them unpadded
+K2_UNPADDED = {"float32": (3, 22, 230), "float64": (4, 118, 118)}
 # The JAX package's elliptic CLI on the CPU in float64 (spectral_tpu.cli
 # elliptic -platform cpu, the same options): Newton count, Krylov counts
 # per Newton step, max error.
@@ -135,24 +150,77 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, reps: int = 15, inner: int = 5) -> float:
-    """Median device milliseconds per call, from CUDA events around
-    ``inner`` back-to-back calls, after a warm-up."""
+def device_ms(fn, calls: int = 20, reps: int = 15) -> float:
+    """Median device milliseconds per call: ``calls`` calls captured once
+    in a CUDA graph, the graph replayed ``reps`` times between CUDA events.
+    The host issues one replay, so its cost per call does not show.  The
+    launch counters see the warm-up and the captured calls, not the
+    replays: no counted path times."""
     import torch
 
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm up (builds, caches) off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(inner):
-            fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(start.elapsed_time(end) / calls)
+    del graph
     return statistics.median(times)
+
+
+def call_ms(fn, calls: int = 100, reps: int = 11) -> float:
+    """Median milliseconds per call on the host's clock over ``calls``
+    calls followed by one synchronize: what a caller waits, host and device
+    together."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0) / calls)
+    return statistics.median(times)
+
+
+def kernel_ms(fn, calls: int = 20) -> dict:
+    """Milliseconds per call of each kernel ``fn`` launches, by kernel
+    name, from torch.profiler over ``calls`` calls after a warm-up: the
+    kernels' own durations, without the gaps between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key):
+            e.device_time_total / 1e3 / calls
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def both_ms(fn) -> tuple[float, float]:
+    """(device_ms, call_ms) of ``fn``."""
+    return device_ms(fn), call_ms(fn)
 
 
 def timed_twice(run, warm_reps: int = 2):
@@ -186,9 +254,11 @@ def compare(name, kernel, plain, u, case, timed=True) -> dict:
     rel = abs_err / float(torch.max(torch.abs(ref)))
     dtype = str(u.dtype).replace("torch.", "")
     require(rel <= BOUND[dtype], f"{name} {case}: error {rel:.3e} > {BOUND[dtype]:.0e}")
-    out = {"case": case, "dtype": dtype, "rel_err": rel, "max_abs_err": abs_err}
-    if timed:
-        out.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain))
+    out = {"case": case, "dtype": dtype, "rel_err": rel, "max_abs_err": abs_err,
+           "bitwise": bool(torch.equal(got, ref))}
+    if timed:   # ms, plain_ms: device time; *call_ms: the caller's time a call
+        out["ms"], out["call_ms"] = both_ms(kernel)
+        out["plain_ms"], out["plain_call_ms"] = both_ms(plain)
     return out
 
 
@@ -199,13 +269,25 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def blocks_per_sm(registers: int, grid: dict) -> int:
+    """Blocks an SM holds, computed from a kernel's registers a thread
+    (ptxas) and its launch (threads a block, dynamic shared memory): the
+    fewest allowed by the 64K registers (a warp takes them in units of 256),
+    the 228 KB of shared memory (1 KB reserved a block) and 2048 threads."""
+    warps = -(-grid["threads"] // 32)
+    warp_regs = -(-registers * 32 // 256) * 256
+    return min(65536 // (warps * warp_regs), 233472 // (grid["smem"] + 1024),
+               2048 // grid["threads"], 32)
+
+
 def ptxas_report(log: str) -> dict:
     """kernel instance -> registers and spill bytes, from ``nvcc -Xptxas -v``."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"(chebdiff_last_kernel|laplacian3d_kernel|chebdiff_packed_kernel)"
+            k = re.search(r"(chebdiff_last_kernel|laplacian3d_plane_kernel|laplacian3d_x_kernel"
+                          r"|chebdiff_packed_kernel)"
                           r"I(.*?)EEv", m.group(1))
             args = ["float" if f == "f" else "double" if f == "d" else num or
                     ("true" if b == "1" else "false")
@@ -221,13 +303,14 @@ def ptxas_report(log: str) -> dict:
 
 
 def k3_sweep_ms(cuda_cheb, u) -> dict:
-    """(pack, row tile) -> K3's ms on u (M, 64) viewed as (M / pack, 64 pack):
-    the six cases of the sweep.  k3_sweep.py times them in other checkouts."""
+    """(pack, row tile) -> K3's (device_ms, call_ms) on u (M, 64) viewed as
+    (M / pack, 64 pack): the six cases of the sweep.  k3_sweep.py times
+    them in other checkouts."""
     out = {}
     for pack in (1, 2):
         u2d = u.view(-1, 64 * pack)
         for blk in (32, 64, 128):
-            out[(pack, blk)] = cuda_ms(lambda: cuda_cheb.chebdiff_packed(u2d, pack, K3_SCALE, blk))
+            out[(pack, blk)] = both_ms(lambda: cuda_cheb.chebdiff_packed(u2d, pack, K3_SCALE, blk))
     return out
 
 
@@ -272,10 +355,15 @@ def main() -> int:
     _build.load_library()
     build_s = time.perf_counter() - t0
     ptxas = ptxas_report(lib_path.with_suffix(".log").read_text())
-    k3_instances = {k: v for k, v in ptxas.items() if k.startswith("chebdiff_packed_kernel")}
-    require(len(k3_instances) == 12, f"ptxas reported {len(k3_instances)} K3 instances, not 12")
-    for k, v in k3_instances.items():
-        require(v.get("spill_stores") == 0 and v.get("spill_loads") == 0, f"{k} spills: {v}")
+    # K1: float, double x cp.async or not; K2: float, double x the plane pass
+    # (tiled or unpadded) and the x pass; K3: 12
+    for prefix, count in (("chebdiff_last_kernel", 4), ("laplacian3d_plane_kernel", 4),
+                          ("laplacian3d_x_kernel", 2), ("chebdiff_packed_kernel", 12)):
+        instances = {k: v for k, v in ptxas.items() if k.startswith(prefix + "<")}
+        require(len(instances) == count,
+                f"ptxas reported {len(instances)} {prefix} instances, not {count}")
+        for k, v in instances.items():
+            require(v.get("spill_stores") == 0 and v.get("spill_loads") == 0, f"{k} spills: {v}")
     print("phase0 " + json.dumps({
         "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -296,15 +384,22 @@ def main() -> int:
             if shape in K1_PATH_SHAPES:   # a path's shape: its bound and library call
                 n = shape[-1]
                 dt = cuda_cheb._diffmat_t(n, None, dtype, dev)
-                k1[-1]["library_ms"] = cuda_ms(lambda: torch.matmul(u, dt))
+                k1[-1]["library_ms"], k1[-1]["library_call_ms"] = both_ms(
+                    lambda: torch.matmul(u, dt))
                 k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(
                     2 * u.numel() * u.element_size() + dt.numel() * dt.element_size(),
                     2 * n * u.numel(), k1[-1]["dtype"])
+                k1[-1]["kernel_ms"] = kernel_ms(lambda: cuda_cheb.chebdiff_last(u, scale))
+                k1[-1]["library_kernel_ms"] = kernel_ms(lambda: torch.matmul(u, dt))
+                grid = cuda_cheb.chebdiff_last_grid(u)
+                regs = ptxas[f"chebdiff_last_kernel<{DTYPE_C[str(dtype)]}, true>"]["registers"]
+                k1[-1].update(grid=grid, registers=regs, blocks_per_sm=blocks_per_sm(regs, grid))
     u = randn((256, 64, 64, 64), torch.float32, 99)   # the cheb_matvec shape
     k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u),
                       lambda: cuda_cheb.chebdiff_last_ref(u), u, "(256, 64, 64, 64)"))
+    k1[-1]["grid"] = cuda_cheb.chebdiff_last_grid(u)
     dt = cuda_cheb._diffmat_t(64, None, torch.float32, dev)
-    k1[-1]["library_ms"] = cuda_ms(lambda: torch.matmul(u, dt))
+    k1[-1]["library_ms"], k1[-1]["library_call_ms"] = both_ms(lambda: torch.matmul(u, dt))
     k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 4 + 64 * 64 * 4,
                                                    2 * 64 * u.numel(), "float32")
     del u
@@ -315,20 +410,67 @@ def main() -> int:
     t_phase = time.perf_counter()
     k2 = []
     for dtype in (torch.float32, torch.float64):
+        dname = str(dtype)[6:]
         u = randn((12, 10, 8), dtype, 1)
         k2.append(compare("K2", lambda: cuda_cheb.laplacian3d(u),
                           lambda: cuda_cheb.laplacian3d_ref(u), u, "(12, 10, 8)"))
-        for dims, scales in (((8, 8, 8), None), ((64, 64, 64), (0.25, 1.0, 4.0)),
-                             ((64, 64, 64), None)):
+        # non-cubic fields with sizes not all multiples of 4 (ny * nz = 99: the
+        # x pass's scalar copies and stores) and a field the plane pass takes
+        # unpadded, untimed
+        for dims, scales, timed in (((20, 12, 10), (0.25, 1.0, 4.0), False),
+                                    ((13, 11, 9), None, False),
+                                    ((64, 48, 40), (2.0, 0.5, 1.0), False),
+                                    (K2_UNPADDED[dname], (0.5, 2.0, 1.0), False),
+                                    ((8, 8, 8), None, True),
+                                    ((64, 64, 64), (0.25, 1.0, 4.0), True),
+                                    ((64, 64, 64), None, True)):
             u = randn(dims, dtype, 2)
             mask = Grid(dims, device=dev).boundary_mask
             k2.append(compare("K2", lambda: cuda_cheb.laplacian3d(u, mask, scales),
                               lambda: cuda_cheb.laplacian3d_ref(u, mask, scales), u,
-                              f"{dims} bmask scales={scales}"))
-            # u read, y written, the mask read, three n x n operators; 6n FLOP a point
+                              f"{dims} bmask scales={scales}", timed=timed))
+            got = cuda_cheb.laplacian3d(u, mask, scales)
+            require(torch.equal(got[mask], u[mask]), f"K2 {dims}: boundary rows are not u")
+            grid = cuda_cheb.laplacian3d_grid(u)
+            tiled = cuda_cheb.laplacian3d_plane_tiled(dims, u.element_size())
+            require(grid["plane"]["tiled"] == tiled == (dims != K2_UNPADDED[dname]),
+                    f"K2 {dims} {dname}: plane pass tiled {grid['plane']['tiled']}")
+            k2[-1]["plane_tiled"] = tiled
+            if not timed:
+                continue
+            for name, g in grid.items():
+                inst = DTYPE_C[str(dtype)] + (", true" if name == "plane" else "")
+                regs = ptxas[f"laplacian3d_{name}_kernel<{inst}>"]["registers"]
+                g.update(registers=regs, blocks_per_sm=blocks_per_sm(regs, g))
+            own = kernel_ms(lambda: cuda_cheb.laplacian3d(u, mask, scales))
+            # each pass against its own plain version, on the same inputs
+            d2x, d2y, d2zt = cuda_cheb._d2_ops(dims, cuda_cheb._scales3(scales), dtype, dev)
+            t, y = cuda_cheb._laplacian3d(u, mask, scales)
+            nx, ny, nz = dims
+            pts, isz = u.numel(), u.element_size()
+            passes = {  # output, plain version, bytes moved, FLOPs
+                "plane": (t, lambda: torch.matmul(u, d2zt) + torch.matmul(d2y, u),
+                          2 * pts * isz + (ny * ny + nz * nz) * isz, 2 * (ny + nz) * pts),
+                "x": (y, lambda: torch.where(mask, u, -(t + torch.tensordot(d2x, u,
+                                                                            dims=([1], [0])))),
+                      pts * (3 * isz + 1) + nx * nx * isz, 2 * nx * pts)}
+            for name, (out, plain, nbytes, flops) in passes.items():
+                ref = plain()
+                abs_err = float(torch.max(torch.abs(out - ref)))
+                rel = abs_err / float(torch.max(torch.abs(ref)))
+                require(rel <= BOUND[dname], f"K2 {dims} {name} pass: error {rel:.3e}")
+                kname = f"laplacian3d_{name}_kernel"
+                passes[name] = dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, dname)),
+                                    case=f"{k2[-1]['case']}, {name} pass", dtype=dname,
+                                    rel_err=rel, max_abs_err=abs_err, library_ms=None,
+                                    ms=sum(v for k, v in own.items() if k.startswith(kname + "<")),
+                                    plain_ms=device_ms(plain))
+            del t, y, ref
+            k2[-1].update(grid=grid, kernel_ms=own, passes=passes)
+            # u read, y written, the mask read, three operators; 2 (nx + ny + nz) FLOP a point
             k2[-1]["bound_ms"], k2[-1]["bound_by"] = bound(
-                u.numel() * (2 * u.element_size() + 1) + 3 * dims[0] ** 2 * u.element_size(),
-                6 * dims[0] * u.numel(), k2[-1]["dtype"])
+                pts * (2 * isz + 1) + (nx * nx + ny * ny + nz * nz) * isz,
+                2 * (nx + ny + nz) * pts, dname)
     print("phase2 K2 " + json.dumps(k2))
     print(f"phase2 seconds {time.perf_counter() - t_phase:.3f}")
 
@@ -342,7 +484,7 @@ def main() -> int:
         cuda_cheb.reset_launch_counts()
         out = fn()
         counts = dict(cuda_cheb.LAUNCHES)
-        k1_shapes[name] = {f"{shape} {dtype}": c for (shape, dtype), c
+        k1_shapes[name] = {f"{tuple(shape)} {str(dtype)[6:]}": c for (shape, dtype), c
                            in cuda_cheb.K1_LAUNCHES_BY_SHAPE.items()}
         for k in kernels:
             require(counts[k] > 0, f"{name}: the path did not launch {k}")
@@ -350,7 +492,8 @@ def main() -> int:
             launches[k] += v
         return out, counts
 
-    K1, K2, K3 = "chebdiff_last_kernel", "laplacian3d_kernel", "chebdiff_packed_kernel"
+    K1, K3 = "chebdiff_last_kernel", "chebdiff_packed_kernel"
+    K2P, K2X = "laplacian3d_plane_kernel", "laplacian3d_x_kernel"
 
     # -- phase 3: Poisson path A, the CLI in float64 --------------------------
     t_phase = time.perf_counter()
@@ -417,8 +560,8 @@ def main() -> int:
                            "solve_s": warm_s}
         return phase
 
-    phase4, counts = path("phase4", poisson_b, [K2])
-    phase4["k2_launches"] = counts[K2]
+    phase4, counts = path("phase4", poisson_b, [K2P, K2X])
+    phase4["k2_launches"] = {K2P: counts[K2P], K2X: counts[K2X]}
     phase4["seconds"] = time.perf_counter() - t_phase
     print("phase4 " + json.dumps(phase4))
     del g, model, M, b_dev
@@ -442,46 +585,48 @@ def main() -> int:
     u = randn((1 << 20, 64), torch.float32, 98)   # 256 x 64^3 dofs, exp_pallas.py main
     dofs = u.numel()
     dt = cuda_cheb._diffmat_t(64, K3_SCALE, torch.float32, dev)
-    library_ms = cuda_ms(lambda: torch.matmul(u, dt))
+    library_ms = device_ms(lambda: torch.matmul(u, dt))
     k3_bound = bound(2 * dofs * 4 + 64 * 64 * 4, 2 * 64 * dofs, "float32")
     # the same values one element into a buffer: K3's synchronous branch
     u_sync = torch.empty(dofs + 1, device=dev, dtype=torch.float32)[1:].view_as(u)
     u_sync.copy_(u)
     sweep, stages = {}, {}
-    for pack in (1, 2):
-        u2d, s2d = u.view(-1, 64 * pack), u_sync.view(-1, 64 * pack)
-        ref = cuda_cheb.chebdiff_packed_ref(u2d, pack, K3_SCALE)
-        plain_ms = cuda_ms(lambda: cuda_cheb.chebdiff_packed_ref(u2d, pack, K3_SCALE))
-        for blk in cuda_cheb.K3_BLOCK_ROWS:
-            c = {"case": f"(1048576, 64) as ({dofs // (64 * pack)}, {64 * pack}) "
-                         f"pack={pack} blk={blk}", "dtype": "float32", "plain_ms": plain_ms}
-            for branch, x in (("bulk", u2d), ("sync", s2d)):
-                require(cuda_cheb.chebdiff_packed_bulk(x, pack) == (branch == "bulk"),
-                        f"K3 sweep pack={pack} blk={blk}: not the {branch} branch")
-                got = cuda_cheb.chebdiff_packed(x, pack, K3_SCALE, blk)
-                abs_err = float(torch.max(torch.abs(got - ref)))
-                rel = abs_err / float(torch.max(torch.abs(ref)))
-                require(rel <= BOUND["float32"],
-                        f"K3 sweep pack={pack} blk={blk} {branch}: error {rel:.3e}")
-                key = "" if branch == "bulk" else "sync_"
-                c.update({f"{key}rel_err": rel, f"{key}max_abs_err": abs_err})
-            c["sync_ms"] = cuda_ms(lambda: cuda_cheb.chebdiff_packed(s2d, pack, K3_SCALE, blk))
-            # the ring depth: every cap up to what fits (the wrapper takes K3_MAX_STAGES)
-            fit = cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4, max_stages=1 << 20)
-            stages[f"pack={pack} blk={blk}"] = {
-                "fit": fit, "default": cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4),
-                "ms": {str(k): cuda_ms(lambda: cuda_cheb._chebdiff_packed(
-                    u2d, pack, K3_SCALE, blk, k))
-                       for k in sorted({1, 2, 3, 4, 6, 8, 12, 16, 24, fit}) if k <= fit}}
-            sweep[(pack, blk)] = c
-        del ref, got
-    del u_sync
 
-    def k3_sweep():
-        for key, ms in k3_sweep_ms(cuda_cheb, u).items():
-            sweep[key].update(ms=ms, gdofs=dofs / ms / 1e6)
+    def k3_sweep():   # the path: every case once in each branch, checked
+        for pack in (1, 2):
+            u2d, s2d = u.view(-1, 64 * pack), u_sync.view(-1, 64 * pack)
+            ref = cuda_cheb.chebdiff_packed_ref(u2d, pack, K3_SCALE)
+            for blk in cuda_cheb.K3_BLOCK_ROWS:
+                c = {"case": f"(1048576, 64) as ({dofs // (64 * pack)}, {64 * pack}) "
+                             f"pack={pack} blk={blk}", "dtype": "float32"}
+                for branch, x in (("bulk", u2d), ("sync", s2d)):
+                    require(cuda_cheb.chebdiff_packed_bulk(x, pack) == (branch == "bulk"),
+                            f"K3 sweep pack={pack} blk={blk}: not the {branch} branch")
+                    got = cuda_cheb.chebdiff_packed(x, pack, K3_SCALE, blk)
+                    abs_err = float(torch.max(torch.abs(got - ref)))
+                    rel = abs_err / float(torch.max(torch.abs(ref)))
+                    require(rel <= BOUND["float32"],
+                            f"K3 sweep pack={pack} blk={blk} {branch}: error {rel:.3e}")
+                    key = "" if branch == "bulk" else "sync_"
+                    c.update({f"{key}rel_err": rel, f"{key}max_abs_err": abs_err})
+                sweep[(pack, blk)] = c
 
     _, counts = path("phase5", k3_sweep, [K3])
+    # timed after the path
+    for (pack, blk), c in sweep.items():
+        u2d, s2d = u.view(-1, 64 * pack), u_sync.view(-1, 64 * pack)
+        c["plain_ms"] = device_ms(lambda: cuda_cheb.chebdiff_packed_ref(u2d, pack, K3_SCALE))
+        c["sync_ms"] = device_ms(lambda: cuda_cheb.chebdiff_packed(s2d, pack, K3_SCALE, blk))
+        # the ring depth: every cap up to what fits (the wrapper takes K3_MAX_STAGES)
+        fit = cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4, max_stages=1 << 20)
+        stages[f"pack={pack} blk={blk}"] = {
+            "fit": fit, "default": cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4),
+            "ms": {str(k): device_ms(lambda: cuda_cheb._chebdiff_packed(
+                u2d, pack, K3_SCALE, blk, k))
+                   for k in sorted({1, 2, 3, 4, 6, 8, 12, 16, 24, fit}) if k <= fit}}
+    del u_sync
+    for key, (ms, call) in k3_sweep_ms(cuda_cheb, u).items():
+        sweep[key].update(ms=ms, call_ms=call, gdofs=dofs / ms / 1e6)
     # occupancy computed from ptxas's registers and the shared memory taken:
     # blocks an SM by the 64K registers (9 warps a block, each taking
     # registers in units of 256) and by the 228 KB of shared memory (1 KB
@@ -489,11 +634,10 @@ def main() -> int:
     for (pack, blk), c in sweep.items():
         regs = ptxas[f"chebdiff_packed_kernel<float, {blk}, true>"]["registers"]
         smem = cuda_cheb.chebdiff_packed_smem_bytes(64, pack, blk, 4)
-        warp_regs = -(-regs * 32 // 256) * 256
         c.update(library_ms=library_ms, bound_ms=k3_bound[0], bound_by=k3_bound[1],
                  registers=regs, smem=smem,
                  stages=cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4),
-                 blocks_per_sm=min(65536 // (9 * warp_regs), 233472 // (smem + 1024)))
+                 blocks_per_sm=blocks_per_sm(regs, {"threads": 288, "smem": smem}))
     print("phase5 sweep " + json.dumps({"library_gdofs": dofs / library_ms / 1e6,
                                         "k3_launches": counts[K3],
                                         "cases": list(sweep.values()), "stages": stages,
@@ -559,11 +703,10 @@ def main() -> int:
     k1_main = next(c for c in k1 if c["case"] == "(64, 64, 64) scale=None"
                    and c["dtype"] == "float64")
     k2_main = next(c for c in k2 if c["case"] == "(64, 64, 64) bmask scales=None"
-                   and c["dtype"] == "float32")
-    k2_main["library_ms"] = None   # no single PyTorch call computes it
+                   and c["dtype"] == "float32")["passes"]   # no PyTorch call computes either
     k3_main = min(sweep.values(), key=lambda c: c["ms"])
     kernels = []
-    for name, c in ((K1, k1_main), (K2, k2_main), (K3, k3_main)):
+    for name, c in ((K1, k1_main), (K2P, k2_main["plane"]), (K2X, k2_main["x"]), (K3, k3_main)):
         require(launches[name] > 0, f"{name} was not launched by its path")
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name], "launches": launches[name],

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time K3's six sweep cases (chip_smoke.py phase 5) in one checkout.
+"""Time the kernels at the shapes their paths give them, in one checkout.
 
     python3 k3_sweep.py [ROOT]
 
@@ -9,9 +9,15 @@ session: unpack the other commit into a directory that .gitignore lists
 (``git archive <commit> | tar -x -C build/parent``) and run, in turns,
 ``k3_sweep.py build/parent``, ``k3_sweep.py``, ``k3_sweep.py``,
 ``k3_sweep.py build/parent``.  Prints the card's name and power limit, then
-one JSON line: the checkout, and K3's median ms at u of (1,048,576, 64)
-float32 for each packing and row tile (CUDA events, as chip_smoke.py
-times).  Without CUDA it exits non-zero.
+one JSON line: the checkout and, as [device_ms, call_ms] (chip_smoke.py's
+``device_ms`` and ``call_ms``):
+
+- K3's six sweep cases at u of (1,048,576, 64) float32 (phase 5);
+- K1 at the five shapes the solves give it and at (256, 64, 64, 64)
+  float32, and ``torch.matmul`` on the same inputs (phase 1);
+- K2 at 64^3 with the boundary mask in float32 and float64 (phase 2).
+
+Without CUDA it exits non-zero.
 """
 
 from __future__ import annotations
@@ -23,6 +29,10 @@ from pathlib import Path
 
 import chip_smoke
 
+# (shape, dtype name) of K1's timed cases: the solves' shapes, then cheb_matvec's
+K1_CASES = (((64, 64, 64), "float64"), ((32, 32, 32), "float32"), ((32, 32, 32), "float64"),
+            ((12,) * 5, "float32"), ((12,) * 5, "float64"), ((256, 64, 64, 64), "float32"))
+
 
 def main(argv: list[str]) -> int:
     import torch
@@ -32,6 +42,7 @@ def main(argv: list[str]) -> int:
         return 1
     root = Path(argv[0] if argv else Path(__file__).parent).resolve()
     sys.path.insert(0, str(root))
+    from spectral_tpu_torch.grid import Grid
     from spectral_tpu_torch.ops import cuda_cheb
 
     if not Path(cuda_cheb.__file__).resolve().is_relative_to(root):
@@ -40,11 +51,30 @@ def main(argv: list[str]) -> int:
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0])
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(98)
-    u = torch.randn((1 << 20, 64), generator=gen, device="cuda")
-    ms = chip_smoke.k3_sweep_ms(cuda_cheb, u)
+
+    def randn(shape, dtype, seed):
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    u = randn((1 << 20, 64), torch.float32, 98)
+    k3 = {f"pack={p} blk={b}": t for (p, b), t in chip_smoke.k3_sweep_ms(cuda_cheb, u).items()}
+    del u
+    k1 = {}
+    for shape, dname in K1_CASES:
+        u = randn(shape, getattr(torch, dname), 0)
+        dt = cuda_cheb._diffmat_t(shape[-1], None, u.dtype, u.device)
+        k1[f"{shape} {dname}"] = {
+            "k1": chip_smoke.both_ms(lambda: cuda_cheb.chebdiff_last(u)),
+            "matmul": chip_smoke.both_ms(lambda: torch.matmul(u, dt))}
+        del u
+    k2 = {}
+    mask = Grid((64, 64, 64), device="cuda").boundary_mask
+    for dtype in (torch.float32, torch.float64):
+        u = randn((64, 64, 64), dtype, 2)
+        k2[f"(64, 64, 64) bmask {str(dtype)[6:]}"] = chip_smoke.both_ms(
+            lambda: cuda_cheb.laplacian3d(u, mask))
     print(json.dumps({"root": str(root), "device": torch.cuda.get_device_name(0),
-                      "ms": {f"pack={p} blk={b}": t for (p, b), t in ms.items()}}))
+                      "k3": k3, "k1": k1, "k2": k2}))
     return 0
 
 

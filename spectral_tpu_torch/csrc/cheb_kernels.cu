@@ -18,10 +18,18 @@
 //   row tiles of u through a row-major shared tile (grid-stride loop over
 //   tiles, grid sized by occupancy), so u and y cross device memory once.
 //   When n % 4 == 0 the tiles are double-buffered: the next one streams in
-//   by cp.async while the current one computes (other n take a synchronous,
-//   zero-padded load).  Each thread owns a 4 x 4 register tile of y and
-//   walks k four steps at a time: 8 16-byte shared loads (4 rows of u, 4
-//   rows of DT) feed 64 FMAs.  The ragged row tail is masked, not padded.
+//   by cp.async while the current one computes, and DT and a block's first
+//   tile land in one cp.async group, one round trip (other n take a
+//   synchronous, zero-padded load).  Each thread owns a 4 x 4 register tile
+//   of y and walks k four steps at a time: 8 16-byte shared loads (4 rows of
+//   u, 4 rows of DT) feed 64 FMAs.  The ragged row tail is masked, not padded.
+//   Small M (the solves' 64^3, 32^3, 12^5): where full tiles would leave
+//   resident blocks empty, each block takes one tile, as high as gives the
+//   busiest SM the fewest rows (least_busy_rows; 128 tiles of 32 rows at
+//   64^3, of 8 at 32^3, 130 of 160 at 12^5), so the product spreads over
+//   the SMs.  There a call is latency: one load round trip, then 1024 FMAs
+//   (float64: at half rate) a thread with one warp a scheduler.  Large M
+//   keeps the persistent grid of full tiles.
 //   Largest n: K1_MAX_N = 128 (DT is 128 KB in float64).
 //
 // K2 laplacian3d_kernel    (replaces spectral_tpu/ops/pallas_cheb.py::laplacian3d_pallas)
@@ -29,16 +37,35 @@
 //   precombined in float64; with bmask, y = where(bmask, u, y) in the
 //   epilogue.  The TPU kernel keeps the whole field in VMEM; a 64^3 field
 //   (1 MiB in float32, 2 MiB in float64) does not fit the 227 KB of shared
-//   memory a block may use.  Bound: 6n FLOP per point against 8 (16) bytes
-//   of device traffic, so the operator is cheap; what costs is re-reading
-//   u along three lines per point.  Design: block (jt, i) owns the points
-//   (i, j0..j0+tj, all k).  It holds the x-plane u[i, :, :], D2z^T and its
-//   rows of D2y in shared memory, so the y and z contractions read shared
-//   memory only; the x contraction reads pencils u[:, j, k] from global
-//   memory, coalesced over k and L2-resident at these sizes (50 MB L2).
-//   y is written once.  Limit: (ny*nz + nz*nz + ny*tj + nx) * sizeof(T)
-//   <= 227 KB (64^3 in float64 takes 73 KB).
-//
+//   memory a block may use.  Bound: 6n FLOP a point against 8 (16) bytes of
+//   device traffic; at 64^3 the FMAs bind (0.0015 ms float32), and every
+//   line of u has to meet its operator in shared memory.  Design: two
+//   passes, each a set of small products in K1's 4 x 4 register tile
+//   (micro_tile), launched by one C call on the caller's stream:
+//   - the plane pass (y and z): block (i, p) stages the plane u[i] (rows
+//     padded to nz + 4), D2z^T and its rows of D2y, and computes
+//     t[i, j, :] = u[i, j, :] D2z^T + D2y[j, :] u[i] for its rows j, both
+//     terms accumulated in one register tile (micro_tile's kAccumulate);
+//     the z term's operands land first, the rest during it;
+//   - the x pass: on the (nx, ny nz) views, block (q, p) stages D2x's rows
+//     and u's columns c0 .. c0 + 32 in chunks of 64 x values, starts its
+//     tile from t, accumulates D2x u and stores -(t + D2x u), or u where
+//     bmask; 16-byte loads and stores where ny nz % 4 == 0, the ragged tail
+//     masked.  It is launched by programmatic dependent launch: its blocks
+//     start beside the plane pass's (whose kernel asks for the largest
+//     shared-memory carveout, so they fit) and stage D2x and u before they
+//     wait for t.
+//   Every staging copy is a cp.async, 16 bytes where rows are 16-byte
+//   multiples, else one element, zero-filling the padding.  Both passes
+//   size their blocks by least_busy_rows (at 64^3: 128 blocks each).  FMA
+//   pipes only, no tensor cores.  Limit: the plane pass with 4 rows a block,
+//   (nzp^2 + nyp (nzp + 4) + 4 (nyp + 4)) * sizeof(T) <= 227 KB, nyp and nzp
+//   ny and nz rounded up to multiples of 4 (64^3 in float64 takes 70 KB).
+//   A plane that does not fit so is staged unpadded, one output point a
+//   thread (plane_unpadded), with (nz^2 + ny nz + ny) * sizeof(T) <= 227 KB
+//   at one row a block: every field the single-pass K2 took is taken
+//   (cuda_cheb's tests check the rule), and 128^3 in float64 is refused.
+
 // K3 chebdiff_packed_kernel  (replaces benchmarks/exp_pallas.py::make_pallas)
 //   y[M, n*pack] = u[M, n*pack] @ kron(I_pack, DT), DT = (s D)^T folded on
 //   the host in float64 before the cast: the lane-packed derivative of the
@@ -102,6 +129,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <map>
 #include <mutex>
@@ -123,11 +151,12 @@ struct K1Shape {
   int ldu;   // row stride of the u tile (npad + 4: 16-byte rows, 2 bank groups)
 };
 
-K1Shape k1_shape(int n) {
+// rg row groups a tile; 0 takes the most the block's threads hold.
+K1Shape k1_shape(int n, int rg = 0) {
   K1Shape s;
   s.npad = (n + 3) / 4 * 4;
   s.ncg = s.npad / kTN;
-  s.rg = kThreads / s.ncg;
+  s.rg = rg > 0 ? rg : kThreads / s.ncg;
   s.bm = s.rg * kTM;
   s.ldu = s.npad + 4;
   return s;
@@ -154,16 +183,19 @@ __device__ __forceinline__ void store4(double* p, const double v[4]) {
   *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
 }
 
-// The register tile of K1: acc[i][j] = sum_k a[i * lda + k] * b[k * ldb + j]
-// over k < npad (a multiple of 4), i < kTM, j < kTN.  Each step of four k
+// The register tile of K1 and K2: acc[i][j] = sum_k a[i * lda + k] * b[k * ldb + j]
+// over k < npad (a multiple of 4), i < kTM, j < kTN; with kAccumulate the sum
+// is added to acc as it stands, in the same order.  Each step of four k
 // takes 8 16-byte shared loads (4 rows of a, 4 rows of b) and does 64 FMAs.
-template <typename T>
+template <typename T, bool kAccumulate = false>
 __device__ __forceinline__ void micro_tile(const T* a, int lda, const T* b, int ldb, int npad,
                                            T acc[kTM][kTN]) {
+  if (!kAccumulate) {
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+    for (int i = 0; i < kTM; ++i)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = T(0);
+      for (int j = 0; j < kTN; ++j) acc[i][j] = T(0);
+  }
   for (int k0 = 0; k0 < npad; k0 += 4) {
     T av[kTM][4];
 #pragma unroll
@@ -191,10 +223,39 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_prior() {  // all groups but the newest
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// The same copies, zero-filling the destination where !valid (no bytes read).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+// One element (4 or 8 bytes), for layouts 16-byte copies cannot take.
+template <typename T>
+__device__ __forceinline__ void cp_async_elem_zfill(T* smem, const T* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               ::"r"(s), "l"(gmem), "n"(int(sizeof(T))), "r"(valid ? int(sizeof(T)) : 0)
+               : "memory");
+}
 
-// Issue the copies of one row tile into ``buf``: 16-byte chunks, rows past
-// the end are skipped (their accumulators are never stored).  Needs
-// n % 4 == 0 and a 16-byte aligned u, so chunks never straddle rows.
+// Programmatic dependent launch (sm_90): a kernel launched after this one
+// with programmatic stream serialization may start once every block here
+// has called launch_dependents (or exited); it calls grid_dependency_wait
+// before it reads what this kernel writes.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Issue the copies of one row tile into ``buf`` (the caller commits):
+// 16-byte chunks, rows past the end are skipped (their accumulators are
+// never stored).  Needs n % 4 == 0 and a 16-byte aligned u, so chunks
+// never straddle rows.
 template <typename T>
 __device__ __forceinline__ void issue_tile(T* buf, const T* __restrict__ u, long long M,
                                            int n, const K1Shape& s, long long tile) {
@@ -207,7 +268,6 @@ __device__ __forceinline__ void issue_tile(T* buf, const T* __restrict__ u, long
     const int e = c * CH, r = e / n, k = e - r * n;
     cp_async16(buf + r * s.ldu + k, src + e);
   }
-  cp_async_commit();
 }
 
 // Synchronous tile load for any n: the k extent is zero-padded to npad.
@@ -241,11 +301,17 @@ chebdiff_last_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   const size_t ustride = size_t(s.bm) * s.ldu;
   const int tid = threadIdx.x;
 
-  const long long tiles = (M + s.bm - 1) / s.bm;
-  if (kAsync && blockIdx.x < tiles) issue_tile(ubase, u, M, n, s, blockIdx.x);
-  for (int idx = tid; idx < s.npad * s.npad; idx += blockDim.x) {
-    const int k = idx / s.npad, c = idx - k * s.npad;
-    dts[idx] = (k < n && c < n) ? dt[size_t(k) * n + c] : T(0);
+  const long long tiles = (M + s.bm - 1) / s.bm;  // the grid takes at most this many blocks
+  if (kAsync) {  // n == npad: DT and the first tile in one group, one round trip
+    constexpr int CH = 16 / sizeof(T);
+    for (int c = tid; c < n * n / CH; c += kThreads) cp_async16(dts + c * CH, dt + c * CH);
+    issue_tile(ubase, u, M, n, s, blockIdx.x);
+    cp_async_commit();
+  } else {
+    for (int idx = tid; idx < s.npad * s.npad; idx += blockDim.x) {
+      const int k = idx / s.npad, c = idx - k * s.npad;
+      dts[idx] = (k < n && c < n) ? dt[size_t(k) * n + c] : T(0);
+    }
   }
 
   const int cg = tid % s.ncg;
@@ -262,10 +328,11 @@ chebdiff_last_kernel(const T* __restrict__ u, const T* __restrict__ dt,
       const long long next = tile + gridDim.x;
       if (next < tiles) {
         issue_tile(ubase + (cur ^ 1) * ustride, u, M, n, s, next);
+        cp_async_commit();
+        cp_async_wait_prior();  // this tile's copies (this thread's) have landed
       } else {
-        cp_async_commit();  // an empty group keeps the wait count uniform
+        cp_async_wait_all();  // the block's last tile: nothing to prefetch
       }
-      cp_async_wait_prior();  // this tile's copies (this thread's) have landed
     } else {
       load_tile(ubase, u, M, n, s, tile);
     }
@@ -294,13 +361,36 @@ chebdiff_last_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   }
 }
 
+// The card's SM count, read once per device.
+cudaError_t sm_count(int* sms) {
+  static std::mutex mu;
+  static std::map<int, int> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(dev);
+  if (hit != cache.end()) {
+    *sms = hit->second;
+    return cudaSuccess;
+  }
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  cache.emplace(dev, *sms);
+  return cudaSuccess;
+}
+
 // Launch set-up shared by every launcher, done once per (device, kernel,
 // dynamic shared memory bytes): raise the kernel's dynamic shared memory
 // limit (never lowering it below a size an earlier launch needed) and
 // return in *blocks how many blocks of `threads` the card holds at once
 // (SM count x occupancy), the size of a persistent grid.  Later launches
 // read the cache under a lock (ctypes calls release the interpreter lock).
-cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, long long* blocks) {
+// With max_shared, the kernel also asks for the SM's largest shared-memory
+// carveout, so blocks of another kernel that start beside its own (K2's x
+// pass beside its plane pass) find room on every SM.
+cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, long long* blocks,
+                            bool max_shared = false) {
   static std::mutex mu;
   static std::map<std::pair<int, const void*>, size_t> smem_set;
   static std::map<std::tuple<int, const void*, size_t>, long long> cache;
@@ -320,9 +410,12 @@ cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, long l
     if (err != cudaSuccess) return err;
     limit = smem;
   }
-  int sms = 0, per_sm = 0;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+  if (max_shared &&
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  int(cudaSharedmemCarveoutMaxShared))) != cudaSuccess)
     return err;
+  int sms = 0, per_sm = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
       cudaSuccess)
     return err;
@@ -331,20 +424,70 @@ cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, long l
   return cudaSuccess;
 }
 
+// The rows a tile, a multiple of 4 from 4 to `most`, that give the busiest
+// SM the fewest rows when `copies` x ceil(extent / rows) tiles are dealt
+// round-robin over `sms` SMs; the larger on a tie (fewer blocks, fewer
+// copies of what every block stages).  K1 at 64^3 takes 128 tiles of 32
+// rows: tiles of 28 would cover all 132 SMs but put two on 15 of them.
+int least_busy_rows(long long extent, long long copies, int most, int sms) {
+  int best = most;
+  long long best_rows = -1;
+  for (int rows = most; rows >= 4; rows -= 4) {
+    const long long tiles = copies * ((extent + rows - 1) / rows);
+    const long long busiest = (tiles + sms - 1) / sms * rows;
+    if (best_rows < 0 || busiest < best_rows) {
+      best = rows;
+      best_rows = busiest;
+    }
+  }
+  return best;
+}
+
 template <typename T, bool kAsync>
-cudaError_t launch_k1(const T* u, const T* dt, T* y, long long M, int n,
-                      const K1Shape& s, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (size_t(s.npad) * s.npad +
-                                   (kAsync ? 2 : 1) * size_t(s.bm) * s.ldu);
-  if (smem > size_t(kMaxSmem)) return cudaErrorInvalidValue;
-  long long blocks = 0;
-  const cudaError_t err = resident_blocks(
-      reinterpret_cast<const void*>(chebdiff_last_kernel<T, kAsync>), kThreads, smem, &blocks);
+size_t k1_smem(const K1Shape& s) {
+  return sizeof(T) * (size_t(s.npad) * s.npad + (kAsync ? 2 : 1) * size_t(s.bm) * s.ldu);
+}
+
+// K1's launch configuration: a persistent grid of full tiles where M fills
+// the resident slots (the configuration K1 has always had there);
+// otherwise one tile a block, as high as least_busy_rows finds.
+template <typename T, bool kAsync>
+cudaError_t k1_config(long long M, int n, K1Shape* s, size_t* smem, long long* blocks) {
+  const void* kernel = reinterpret_cast<const void*>(chebdiff_last_kernel<T, kAsync>);
+  *s = k1_shape(n);
+  *smem = k1_smem<T, kAsync>(*s);
+  if (*smem > size_t(kMaxSmem)) return cudaErrorInvalidValue;
+  cudaError_t err = resident_blocks(kernel, kThreads, *smem, blocks);
   if (err != cudaSuccess) return err;
-  const long long tiles = (M + s.bm - 1) / s.bm;
-  if (blocks > tiles) blocks = tiles;
+  long long tiles = (M + s->bm - 1) / s->bm;
+  if (tiles < *blocks) {
+    int sms = 0;
+    if ((err = sm_count(&sms)) != cudaSuccess) return err;
+    *s = k1_shape(n, least_busy_rows(M, 1, s->bm, sms) / kTM);
+    *smem = k1_smem<T, kAsync>(*s);
+    if ((err = resident_blocks(kernel, kThreads, *smem, blocks)) != cudaSuccess) return err;
+    tiles = (M + s->bm - 1) / s->bm;
+  }
+  if (*blocks > tiles) *blocks = tiles;
+  return cudaSuccess;
+}
+
+template <typename T, bool kAsync>
+cudaError_t launch_k1(const T* u, const T* dt, T* y, long long M, int n, cudaStream_t stream) {
+  K1Shape s;
+  size_t smem = 0;
+  long long blocks = 0;
+  const cudaError_t err = k1_config<T, kAsync>(M, n, &s, &smem, &blocks);
+  if (err != cudaSuccess) return err;
   chebdiff_last_kernel<T, kAsync><<<unsigned(blocks), kThreads, smem, stream>>>(u, dt, y, M, n, s);
   return cudaGetLastError();
+}
+
+// Tiles go by cp.async when n % 4 == 0 and u and DT are 16-byte aligned.
+template <typename T>
+bool k1_async(const T* u, const T* dt, int n) {
+  return n % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(dt) % 16 == 0;
 }
 
 template <typename T>
@@ -352,82 +495,370 @@ cudaError_t launch_chebdiff_last(const T* u, const T* dt, T* y, long long M,
                                  int n, cudaStream_t stream) {
   if (n < 2 || n > 128 || M < 0) return cudaErrorInvalidValue;
   if (M == 0) return cudaSuccess;
-  const K1Shape s = k1_shape(n);
-  const bool async = n % 4 == 0 && reinterpret_cast<unsigned long long>(u) % 16 == 0;
-  return async ? launch_k1<T, true>(u, dt, y, M, n, s, stream)
-               : launch_k1<T, false>(u, dt, y, M, n, s, stream);
+  return k1_async(u, dt, n) ? launch_k1<T, true>(u, dt, y, M, n, stream)
+                            : launch_k1<T, false>(u, dt, y, M, n, stream);
 }
 
-int k2_tile_rows(int ny, int nz) {
-  int tj = 1024 / nz;
-  if (tj < 1) tj = 1;
-  if (tj > ny) tj = ny;
-  return tj;
-}
-
+// What launch_chebdiff_last would launch, into out[4]: rows a tile, blocks,
+// threads a block, dynamic shared memory bytes.
 template <typename T>
-size_t k2_smem(int nx, int ny, int nz, int tj) {
-  return sizeof(T) * (size_t(ny) * nz + size_t(nz) * nz + size_t(ny) * tj + nx);
+cudaError_t chebdiff_last_config(const T* u, const T* dt, long long M, int n, long long* out) {
+  if (n < 2 || n > 128 || M < 1) return cudaErrorInvalidValue;
+  K1Shape s{};
+  size_t smem = 0;
+  long long blocks = 0;
+  const cudaError_t err = k1_async(u, dt, n) ? k1_config<T, true>(M, n, &s, &smem, &blocks)
+                                             : k1_config<T, false>(M, n, &s, &smem, &blocks);
+  out[0] = s.bm;
+  out[1] = blocks;
+  out[2] = kThreads;
+  out[3] = (long long)smem;
+  return err;
 }
 
+// ---- K2 -------------------------------------------------------------------
+
+constexpr int kK2AThreads = 256;  // plane pass: all stage, (ra / 4) x (nzpad / 4) compute
+constexpr int kK2BThreads = 128;  // x pass: (rb / 4) x (kK2Cols / 4)
+constexpr int kK2Cols = 32;       // columns of the (nx, ny * nz) view an x-pass block owns
+constexpr int kK2Chunk = 64;      // x values an x-pass step stages
+constexpr int kK2MaxRows = 64;    // rows i an x-pass block owns, at most
+
+struct K2Shape {
+  int nypad, nzpad;  // ny, nz rounded up to multiples of 4: the y and z contraction extents
+  int ldp;           // plane row stride, nzpad + 4
+  int ldy;           // D2y row stride, nypad + 4
+  bool tiled;        // plane pass: register tiles on padded rows, or one point a thread
+  int ra;            // plane pass: rows j a block (tiled: a multiple of 4)
+  int rb;            // x pass: rows i a block (a multiple of 4)
+  int kc;            // x pass: x values a step (a multiple of 4)
+  size_t smem_a, smem_b;  // bytes a block of each pass
+};
+
+// The plane pass's shared memory in values: D2zT, the plane, ra rows of
+// D2y; tiled, padded as K2Shape says, else unpadded.  Mirrored, at the
+// least rows a block (4 tiled, 1 unpadded), by cuda_cheb.laplacian3d_smem_bytes.
+size_t k2_plane_values(int nypad, int nzpad, int ra) {
+  return size_t(nzpad) * nzpad + size_t(nypad) * (nzpad + 4) + size_t(ra) * (nypad + 4);
+}
+size_t k2_plane_values_unpadded(int ny, int nz, int ra) {
+  return size_t(nz) * nz + size_t(ny) * nz + size_t(ra) * ny;
+}
+
+// Each pass's rows a block.  The plane pass is tiled where 4 rows of the
+// padded layout fit, and splits each plane's ny rows by least_busy_rows (at
+// most what its threads and shared memory hold); otherwise it stages the
+// plane unpadded, min(ny, 1024 / nz) rows a block as the single-pass K2
+// took, fewer where they do not fit, and the field is refused if one row
+// does not.  So it takes every field the single pass took (a field of
+// nz = 118 in float64 needs 238,208 bytes tiled).  The x pass splits the nx
+// rows of each column tile by least_busy_rows.  At 64^3 on 132 SMs: 64 x 2
+// tiled blocks of 32 rows j, and 128 column tiles x 64 rows i.
+K2Shape k2_shape(int nx, int ny, int nz, size_t itemsize, int sms) {
+  K2Shape s;
+  s.nypad = (ny + 3) / 4 * 4;
+  s.nzpad = (nz + 3) / 4 * 4;
+  s.ldp = s.nzpad + 4;
+  s.ldy = s.nypad + 4;
+  s.tiled = itemsize * k2_plane_values(s.nypad, s.nzpad, 4) <= size_t(kMaxSmem);
+  if (s.tiled) {
+    int most = std::min(kK2AThreads / (s.nzpad / kTN) * kTM, s.nypad);  // the block's threads
+    while (most > 4 && itemsize * k2_plane_values(s.nypad, s.nzpad, most) > size_t(kMaxSmem))
+      most -= 4;
+    s.ra = least_busy_rows(ny, nx, std::max(most, 4), sms);
+    s.smem_a = itemsize * k2_plane_values(s.nypad, s.nzpad, s.ra);
+  } else {
+    s.ra = std::max(1, std::min(ny, 1024 / nz));
+    while (s.ra > 1 && itemsize * k2_plane_values_unpadded(ny, nz, s.ra) > size_t(kMaxSmem))
+      --s.ra;
+    s.smem_a = itemsize * k2_plane_values_unpadded(ny, nz, s.ra);
+  }
+  const long long ctiles = ((long long)ny * nz + kK2Cols - 1) / kK2Cols;
+  s.rb = least_busy_rows(nx, ctiles, std::min((nx + 3) / 4 * 4, kK2MaxRows), sms);
+  s.kc = std::min((nx + 3) / 4 * 4, kK2Chunk);
+  s.smem_b = itemsize * (size_t(s.rb) * (s.kc + 4) + size_t(s.kc) * kK2Cols);
+  return s;
+}
+
+// Stage a rows x cols block of src (row stride lds) into dst (row stride
+// ldd), zero-filled out to rpad x cpad, by cp.async; the caller commits and
+// waits.  With vec (cols and cpad multiples of 16 bytes, src rows 16-byte
+// aligned) in 16-byte copies, else one element a copy.
+template <typename T, int kNT>
+__device__ __forceinline__ void stage_async(T* dst, int ldd, const T* __restrict__ src,
+                                            long long lds, int rows, int cols, int rpad,
+                                            int cpad, bool vec) {
+  const int V = vec ? 16 / int(sizeof(T)) : 1;
+  const int cw = cpad / V;
+  for (int e = threadIdx.x; e < rpad * cw; e += kNT) {
+    const int r = e / cw, c = (e - r * cw) * V;
+    const bool ok = r < rows && c < cols;
+    const T* from = ok ? src + r * lds + c : src;
+    if (vec)
+      cp_async16_zfill(dst + r * ldd + c, from, ok);
+    else
+      cp_async_elem_zfill(dst + r * ldd + c, from, ok);
+  }
+}
+
+// Pass A, the plane pass: block (i, p) computes rows j0 .. j0 + ra of the
+// plane i of t = D2z u + D2y u.  Tiled: both terms in one 4 x 4 register
+// tile per thread.  vec_z: 16-byte copies of the plane and D2zT (nz a
+// multiple of 16 bytes, u and d2zt aligned); vec_y: of the rows of D2y.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-laplacian3d_kernel(const T* __restrict__ u, const T* __restrict__ d2xt,
-                   const T* __restrict__ d2yt, const T* __restrict__ d2zt,
-                   const bool* __restrict__ bmask, T* __restrict__ y,
-                   int nx, int ny, int nz, int tj) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* plane = reinterpret_cast<T*>(smem_raw);  // u[i, :, :]            (ny x nz)
-  T* dzt = plane + size_t(ny) * nz;            // D2zT[a, k]            (nz x nz)
-  T* dyt = dzt + size_t(nz) * nz;              // D2yT[a, j0 + jl]      (ny x tj)
-  T* dxc = dyt + size_t(ny) * tj;              // D2xT[a, i]            (nx)
-  const int i = blockIdx.y;
-  const int j0 = blockIdx.x * tj;
-  const int tjh = min(tj, ny - j0);
+__device__ __forceinline__ void plane_tiled(T* dzt, const T* __restrict__ u,
+                                            const T* __restrict__ d2y,
+                                            const T* __restrict__ d2zt, T* __restrict__ t,
+                                            int ny, int nz, const K2Shape& s, bool vec_z,
+                                            bool vec_y) {
+  // dzt: D2zT[a, k]                                                     nzpad x nzpad
+  T* plane = dzt + size_t(s.nzpad) * s.nzpad;  // u[i, a, k]           nypad x ldp
+  T* dy = plane + size_t(s.nypad) * s.ldp;     // D2y[j0 + jl, a]      ra x ldy
+  const int i = blockIdx.x, j0 = blockIdx.y * s.ra;
   const size_t pstride = size_t(ny) * nz;
-  const T* ui = u + size_t(i) * pstride;
+  const T* ui = u + i * pstride;
+  // two groups: what the z term reads (D2zT, the block's own rows of the
+  // plane), then the rest of the plane and D2y, which land during the z term
+  const int j1 = min(j0 + s.ra, s.nypad);  // own rows j0 .. j1 (padded rows zeroed)
+  stage_async<T, kK2AThreads>(dzt, s.nzpad, d2zt, nz, nz, nz, s.nzpad, s.nzpad, vec_z);
+  stage_async<T, kK2AThreads>(plane + size_t(j0) * s.ldp, s.ldp, ui + size_t(j0) * nz, nz,
+                              min(j1, ny) - j0, nz, j1 - j0, s.nzpad, vec_z);
+  cp_async_commit();
+  stage_async<T, kK2AThreads>(plane, s.ldp, ui, nz, j0, nz, j0, s.nzpad, vec_z);
+  stage_async<T, kK2AThreads>(plane + size_t(j1) * s.ldp, s.ldp, ui + size_t(j1) * nz, nz,
+                              max(ny - j1, 0), nz, s.nypad - j1, s.nzpad, vec_z);
+  stage_async<T, kK2AThreads>(dy, s.ldy, d2y + size_t(j0) * ny, ny, min(s.ra, ny - j0), ny,
+                              s.ra, s.nypad, vec_y);
+  cp_async_commit();
 
-  for (int idx = threadIdx.x; idx < ny * nz; idx += blockDim.x) plane[idx] = ui[idx];
-  for (int idx = threadIdx.x; idx < nz * nz; idx += blockDim.x) dzt[idx] = d2zt[idx];
-  for (int idx = threadIdx.x; idx < ny * tj; idx += blockDim.x) {
-    const int a = idx / tj, jl = idx - a * tj;
-    dyt[idx] = jl < tjh ? d2yt[size_t(a) * ny + j0 + jl] : T(0);
-  }
-  for (int a = threadIdx.x; a < nx; a += blockDim.x) dxc[a] = d2xt[size_t(a) * nx + i];
+  const int ncg = s.nzpad / kTN;
+  const int cg = threadIdx.x % ncg, rgi = threadIdx.x / ncg;
+  const int jl = rgi * kTM, j = j0 + jl;
+  const bool active = rgi < s.ra / kTM && j < ny;
+  T acc[kTM][kTN];
+  cp_async_wait_prior();
+  __syncthreads();  // the first group has landed, from every thread
+  if (active)
+    micro_tile<T>(plane + size_t(j) * s.ldp, s.ldp, dzt + cg * kTN, s.nzpad, s.nzpad, acc);
+  cp_async_wait_all();
   __syncthreads();
+  if (!active) return;
+  micro_tile<T, true>(dy + size_t(jl) * s.ldy, s.ldy, plane + cg * kTN, s.ldp, s.nypad, acc);
+  const int k = cg * kTN;
+#pragma unroll
+  for (int r = 0; r < kTM; ++r) {
+    if (j + r >= ny) break;
+    T* dst = t + i * pstride + size_t(j + r) * nz + k;
+    if (nz % 4 == 0) {
+      store4(dst, acc[r]);  // k + 3 < nz
+    } else {
+#pragma unroll
+      for (int c = 0; c < kTN; ++c)
+        if (k + c < nz) dst[c] = acc[r][c];
+    }
+  }
+}
 
-  for (int p = threadIdx.x; p < tjh * nz; p += blockDim.x) {
+// Unpadded, for planes whose padded layout does not fit: D2zT, the plane and
+// the block's rows of D2y staged as they lie in memory, one element a copy,
+// and one output point a thread at a time.
+template <typename T>
+__device__ __forceinline__ void plane_unpadded(T* dzt, const T* __restrict__ u,
+                                               const T* __restrict__ d2y,
+                                               const T* __restrict__ d2zt, T* __restrict__ t,
+                                               int ny, int nz, int ra) {
+  T* plane = dzt + size_t(nz) * nz;          // u[i, a, k]         ny x nz
+  T* dy = plane + size_t(ny) * nz;           // D2y[j0 + jl, a]    ra x ny
+  const int i = blockIdx.x, j0 = blockIdx.y * ra, rows = min(ra, ny - j0);
+  const size_t pstride = size_t(ny) * nz;
+  stage_async<T, kK2AThreads>(dzt, nz, d2zt, nz, nz, nz, nz, nz, false);
+  stage_async<T, kK2AThreads>(plane, nz, u + i * pstride, nz, ny, nz, ny, nz, false);
+  stage_async<T, kK2AThreads>(dy, ny, d2y + size_t(j0) * ny, ny, rows, ny, rows, ny, false);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  for (int p = threadIdx.x; p < rows * nz; p += kK2AThreads) {
     const int jl = p / nz, k = p - jl * nz;
-    const int j = j0 + jl;
+    const T* row = plane + size_t(j0 + jl) * nz;
+    const T* dyr = dy + size_t(jl) * ny;
     T acc = T(0);
-    const T* row = plane + size_t(j) * nz;  // u[i, j, :]
-    for (int a = 0; a < nz; ++a) acc = fma(dzt[size_t(a) * nz + k], row[a], acc);
-    for (int a = 0; a < ny; ++a) acc = fma(dyt[size_t(a) * tj + jl], plane[size_t(a) * nz + k], acc);
-    const T* pencil = u + size_t(j) * nz + k;  // u[:, j, k]
-    for (int a = 0; a < nx; ++a) acc = fma(dxc[a], pencil[size_t(a) * pstride], acc);
-    const size_t o = size_t(i) * pstride + size_t(j) * nz + k;
-    y[o] = (bmask != nullptr && bmask[o]) ? ui[size_t(j) * nz + k] : -acc;
+    for (int a = 0; a < nz; ++a) acc = fma(row[a], dzt[size_t(a) * nz + k], acc);
+    for (int a = 0; a < ny; ++a) acc = fma(dyr[a], plane[size_t(a) * nz + k], acc);
+    t[i * pstride + size_t(j0 + jl) * nz + k] = acc;
+  }
+}
+
+template <typename T, bool kTiled>
+__global__ void __launch_bounds__(kK2AThreads)
+laplacian3d_plane_kernel(const T* __restrict__ u, const T* __restrict__ d2y,
+                         const T* __restrict__ d2zt, T* __restrict__ t, int ny, int nz,
+                         K2Shape s, bool vec_z, bool vec_y) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  launch_dependents();  // the x pass's blocks may start staging what is not t
+  if constexpr (kTiled)
+    plane_tiled(reinterpret_cast<T*>(smem_raw), u, d2y, d2zt, t, ny, nz, s, vec_z, vec_y);
+  else
+    plane_unpadded(reinterpret_cast<T*>(smem_raw), u, d2y, d2zt, t, ny, nz, s.ra);
+}
+
+// Pass B, the x pass with the epilogue, on the (nx, ncol = ny * nz) views:
+// block (q, p) owns rows i0 .. i0 + rb and columns c0 .. c0 + kK2Cols.  Its
+// threads start from t, add D2x u one chunk of kc x values at a time in the
+// same register tile, and store y = -(t + D2x u), or u where bmask.  vec:
+// ncol % 4 == 0 and u, t, y 16-byte aligned (16-byte copies, loads, stores);
+// vec_x: 16-byte copies of D2x (nx a multiple of 16 bytes, d2x aligned).
+template <typename T>
+__global__ void __launch_bounds__(kK2BThreads)
+laplacian3d_x_kernel(const T* __restrict__ u, const T* __restrict__ d2x,
+                     const bool* __restrict__ bmask, const T* __restrict__ t,
+                     T* __restrict__ y, int nx, long long ncol, K2Shape s, bool vec,
+                     bool vec_x) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* dx = reinterpret_cast<T*>(smem_raw);      // D2x[i0 + r, a0 + a]  rb x (kc + 4)
+  T* ut = dx + size_t(s.rb) * (s.kc + 4);      // u[a0 + a, c0 + c]    kc x kK2Cols
+  const long long c0 = (long long)blockIdx.x * kK2Cols;
+  const int i0 = blockIdx.y * s.rb;
+  const int cg = threadIdx.x % (kK2Cols / kTN), rgi = threadIdx.x / (kK2Cols / kTN);
+  const int il = rgi * kTM, i = i0 + il;
+  const long long c = c0 + cg * kTN;
+  const bool active = rgi < s.rb / kTM && i < nx;
+  const int cols = int(ncol - c0 < kK2Cols ? ncol - c0 : kK2Cols);
+
+  // bmask for the epilogue loads while the first chunk stages (bit 4 r + q:
+  // row i + r, column c + q); t only after the plane pass has completed
+  T acc[kTM][kTN];
+  unsigned bits = 0;
+  const bool vrow = vec && c < ncol;  // ncol % 4 == 0, so c + 3 < ncol
+  if (active && bmask != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kTM; ++r)
+#pragma unroll
+      for (int q = 0; q < kTN; ++q)
+        if (i + r < nx && c + q < ncol && bmask[size_t(i + r) * ncol + c + q])
+          bits |= 1u << (r * kTN + q);
+  }
+  for (int a0 = 0; a0 < nx; a0 += s.kc) {
+    if (a0 > 0) __syncthreads();  // every thread is done with the last chunk
+    const int ka = min(s.kc, nx - a0);
+    stage_async<T, kK2BThreads>(dx, s.kc + 4, d2x + size_t(i0) * nx + a0, nx,
+                                min(s.rb, nx - i0), ka, s.rb, s.kc, vec_x);
+    stage_async<T, kK2BThreads>(ut, kK2Cols, u + size_t(a0) * ncol + c0, ncol, ka, cols,
+                                s.kc, kK2Cols, vec);
+    cp_async_commit();
+    if (a0 == 0) {
+      grid_dependency_wait();
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < kTM; ++r) {
+          const size_t o = size_t(i + r) * ncol + c;
+          if (vrow && i + r < nx) {
+            load4(t + o, acc[r]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < kTN; ++q)
+              acc[r][q] = i + r < nx && c + q < ncol ? t[o + q] : T(0);
+          }
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (active)
+      micro_tile<T, true>(dx + size_t(il) * (s.kc + 4), s.kc + 4, ut + cg * kTN, kK2Cols, s.kc,
+                          acc);
+  }
+  if (!active || c >= ncol) return;
+#pragma unroll
+  for (int r = 0; r < kTM; ++r) {
+    if (i + r >= nx) break;
+    const size_t o = size_t(i + r) * ncol + c;
+    T v[kTN];
+#pragma unroll
+    for (int q = 0; q < kTN; ++q) v[q] = (bits >> (r * kTN + q)) & 1u ? u[o + q] : -acc[r][q];
+    if (vec) {  // ncol % 4 == 0, so c + 3 < ncol
+      store4(y + o, v);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kTN; ++q)
+        if (c + q < ncol) y[o + q] = v[q];
+    }
   }
 }
 
 template <typename T>
-cudaError_t launch_laplacian3d(const T* u, const T* d2xt, const T* d2yt,
-                               const T* d2zt, const bool* bmask, T* y,
-                               int nx, int ny, int nz, cudaStream_t stream) {
-  if (nx < 1 || ny < 1 || nz < 1) return cudaErrorInvalidValue;
-  const int tj = k2_tile_rows(ny, nz);
-  const size_t smem = k2_smem<T>(nx, ny, nz, tj);
-  if (smem > size_t(kMaxSmem)) return cudaErrorInvalidValue;
-  long long resident = 0;  // K2's grid follows the field, not the card
-  const cudaError_t err = resident_blocks(reinterpret_cast<const void*>(laplacian3d_kernel<T>),
-                                          kThreads, smem, &resident);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((ny + tj - 1) / tj, nx);
-  laplacian3d_kernel<T><<<grid, kThreads, smem, stream>>>(u, d2xt, d2yt, d2zt,
-                                                          bmask, y, nx, ny, nz, tj);
-  return cudaGetLastError();
+bool aligned16(const T* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// What launch_laplacian3d would launch, into out[9]: for the plane pass and
+// then the x pass, rows a block, blocks, threads a block, dynamic shared
+// memory bytes; then 1 where the plane pass is tiled, else 0.
+template <typename T>
+cudaError_t laplacian3d_config(int nx, int ny, int nz, long long* out) {
+  if (nx < 1 || ny < 1 || nz < 1) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const K2Shape s = k2_shape(nx, ny, nz, sizeof(T), sms);
+  const long long ncol = (long long)ny * nz;
+  const long long v[9] = {s.ra, (long long)nx * ((ny + s.ra - 1) / s.ra), kK2AThreads,
+                          (long long)s.smem_a, s.rb,
+                          (ncol + kK2Cols - 1) / kK2Cols * ((nx + s.rb - 1) / s.rb),
+                          kK2BThreads, (long long)s.smem_b, s.tiled ? 1 : 0};
+  for (int k = 0; k < 9; ++k) out[k] = v[k];
+  return cudaSuccess;
+}
+
+// Both passes on the caller's stream, the plane pass writing t, the x pass
+// reading it.
+template <typename T>
+cudaError_t launch_laplacian3d(const T* u, const T* d2x, const T* d2y, const T* d2zt,
+                               const bool* bmask, T* t, T* y, int nx, int ny, int nz,
+                               cudaStream_t stream) {
+  if (nx < 1 || ny < 1 || nz < 1) return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const K2Shape s = k2_shape(nx, ny, nz, sizeof(T), sms);
+  if (s.smem_a > size_t(kMaxSmem) || s.smem_b > size_t(kMaxSmem)) return cudaErrorInvalidValue;
+  // K2's grids follow the field; this sets the smem limits and carveouts once
+  long long resident = 0;
+  const void* plane = s.tiled ? reinterpret_cast<const void*>(laplacian3d_plane_kernel<T, true>)
+                              : reinterpret_cast<const void*>(laplacian3d_plane_kernel<T, false>);
+  if ((err = resident_blocks(plane, kK2AThreads, s.smem_a, &resident, true)) != cudaSuccess)
+    return err;
+  if ((err = resident_blocks(reinterpret_cast<const void*>(laplacian3d_x_kernel<T>),
+                             kK2BThreads, s.smem_b, &resident, true)) != cudaSuccess)
+    return err;
+  constexpr int V = 16 / sizeof(T);
+  const dim3 grid_a(nx, (ny + s.ra - 1) / s.ra);
+  const bool vec_z = nz % V == 0 && aligned16(u) && aligned16(d2zt);
+  const bool vec_y = ny % V == 0 && aligned16(d2y);
+  if (s.tiled)
+    laplacian3d_plane_kernel<T, true><<<grid_a, kK2AThreads, s.smem_a, stream>>>(
+        u, d2y, d2zt, t, ny, nz, s, vec_z, vec_y);
+  else
+    laplacian3d_plane_kernel<T, false><<<grid_a, kK2AThreads, s.smem_a, stream>>>(
+        u, d2y, d2zt, t, ny, nz, s, vec_z, vec_y);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // the x pass by programmatic dependent launch: its blocks start once every
+  // plane-pass block has, and stage D2x and u before they wait for t
+  const long long ncol = (long long)ny * nz;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned((ncol + kK2Cols - 1) / kK2Cols), (nx + s.rb - 1) / s.rb);
+  cfg.blockDim = dim3(kK2BThreads);
+  cfg.dynamicSmemBytes = s.smem_b;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const T* tc = t;
+  return cudaLaunchKernelEx(&cfg, laplacian3d_x_kernel<T>, u, d2x, bmask, tc, y, nx, ncol, s,
+                            ncol % 4 == 0 && aligned16(u) && aligned16(t) && aligned16(y),
+                            nx % V == 0 && aligned16(d2x));
+}
 
 // ---- K3 -------------------------------------------------------------------
 
@@ -740,20 +1171,44 @@ int chebdiff_last_f64(const void* u, const void* dt, void* y, long long M, int n
                                   static_cast<cudaStream_t>(stream)));
 }
 
-int laplacian3d_f32(const void* u, const void* d2xt, const void* d2yt, const void* d2zt,
-                    const void* bmask, void* y, int nx, int ny, int nz, void* stream) {
-  return int(launch_laplacian3d(static_cast<const float*>(u), static_cast<const float*>(d2xt),
-                                static_cast<const float*>(d2yt), static_cast<const float*>(d2zt),
-                                static_cast<const bool*>(bmask), static_cast<float*>(y),
-                                nx, ny, nz, static_cast<cudaStream_t>(stream)));
+// d2x, d2y: s (D @ D) row-major; d2zt: its transpose.  t: scratch of u's
+// size, 16-byte aligned, written by the plane pass and read by the x pass.
+int laplacian3d_f32(const void* u, const void* d2x, const void* d2y, const void* d2zt,
+                    const void* bmask, void* t, void* y, int nx, int ny, int nz, void* stream) {
+  return int(launch_laplacian3d(static_cast<const float*>(u), static_cast<const float*>(d2x),
+                                static_cast<const float*>(d2y), static_cast<const float*>(d2zt),
+                                static_cast<const bool*>(bmask), static_cast<float*>(t),
+                                static_cast<float*>(y), nx, ny, nz,
+                                static_cast<cudaStream_t>(stream)));
 }
 
-int laplacian3d_f64(const void* u, const void* d2xt, const void* d2yt, const void* d2zt,
-                    const void* bmask, void* y, int nx, int ny, int nz, void* stream) {
-  return int(launch_laplacian3d(static_cast<const double*>(u), static_cast<const double*>(d2xt),
-                                static_cast<const double*>(d2yt), static_cast<const double*>(d2zt),
-                                static_cast<const bool*>(bmask), static_cast<double*>(y),
-                                nx, ny, nz, static_cast<cudaStream_t>(stream)));
+int laplacian3d_f64(const void* u, const void* d2x, const void* d2y, const void* d2zt,
+                    const void* bmask, void* t, void* y, int nx, int ny, int nz, void* stream) {
+  return int(launch_laplacian3d(static_cast<const double*>(u), static_cast<const double*>(d2x),
+                                static_cast<const double*>(d2y), static_cast<const double*>(d2zt),
+                                static_cast<const bool*>(bmask), static_cast<double*>(t),
+                                static_cast<double*>(y), nx, ny, nz,
+                                static_cast<cudaStream_t>(stream)));
+}
+
+int chebdiff_last_config_f32(const void* u, const void* dt, long long M, int n,
+                             long long* out) {
+  return int(chebdiff_last_config(static_cast<const float*>(u), static_cast<const float*>(dt),
+                                  M, n, out));
+}
+
+int chebdiff_last_config_f64(const void* u, const void* dt, long long M, int n,
+                             long long* out) {
+  return int(chebdiff_last_config(static_cast<const double*>(u), static_cast<const double*>(dt),
+                                  M, n, out));
+}
+
+int laplacian3d_config_f32(int nx, int ny, int nz, long long* out) {
+  return int(laplacian3d_config<float>(nx, ny, nz, out));
+}
+
+int laplacian3d_config_f64(int nx, int ny, int nz, long long* out) {
+  return int(laplacian3d_config<double>(nx, ny, nz, out));
 }
 
 int chebdiff_packed_f32(const void* u, const void* dt, void* y, long long M, int n,

@@ -34,9 +34,14 @@ _SIGNATURES = {
     # (u, dt, y, M, n, pack, block_rows, max_stages, stream)
     "chebdiff_packed_f32": [_P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P],
     "chebdiff_packed_f64": [_P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P],
-    # (u, d2xt, d2yt, d2zt, bmask, y, nx, ny, nz, stream)
-    "laplacian3d_f32": [_P] * 6 + [ctypes.c_int] * 3 + [_P],
-    "laplacian3d_f64": [_P] * 6 + [ctypes.c_int] * 3 + [_P],
+    # (u, d2x, d2y, d2zt, bmask, t, y, nx, ny, nz, stream); t: scratch of u's size
+    "laplacian3d_f32": [_P] * 7 + [ctypes.c_int] * 3 + [_P],
+    "laplacian3d_f64": [_P] * 7 + [ctypes.c_int] * 3 + [_P],
+    # launch configurations, launching nothing: (u, dt, M, n, out[4]), (nx, ny, nz, out[9])
+    "chebdiff_last_config_f32": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    "chebdiff_last_config_f64": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    "laplacian3d_config_f32": [ctypes.c_int] * 3 + [_P],
+    "laplacian3d_config_f64": [ctypes.c_int] * 3 + [_P],
 }
 
 

@@ -19,12 +19,16 @@ does about that.
 Each wrapper takes its plain version (``*_ref``, the same function in
 ``torch.matmul`` / ``tensordot``) only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel or raises: there is no fallback.  Each
-launch adds one to ``LAUNCHES[<kernel name>]``, and each K1 launch to
-``K1_LAUNCHES_BY_SHAPE[(shape, dtype name)]``.
+launch adds one to ``LAUNCHES[<kernel name>]`` (K2's call launches two
+kernels, its plane pass and its x pass, and adds one to each), and each
+K1 launch to ``K1_LAUNCHES_BY_SHAPE[(u.shape, u.dtype)]``.  A launch goes
+on the caller's current stream, so it can be captured in a CUDA graph; a
+captured call counts once, when it is captured, and its replays do not.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -39,10 +43,10 @@ K1_MAX_N = 128
 SMEM_LIMIT = 232448
 
 # Kernel launches since the last reset, by kernel name.
-LAUNCHES = {"chebdiff_last_kernel": 0, "laplacian3d_kernel": 0,
-            "chebdiff_packed_kernel": 0}
-# K1 launches since the last reset, by (shape of u, dtype name).
-K1_LAUNCHES_BY_SHAPE: dict[tuple[tuple[int, ...], str], int] = {}
+LAUNCHES = {"chebdiff_last_kernel": 0, "laplacian3d_plane_kernel": 0,
+            "laplacian3d_x_kernel": 0, "chebdiff_packed_kernel": 0}
+# K1 launches since the last reset, by (u.shape, u.dtype).
+K1_LAUNCHES_BY_SHAPE: dict[tuple[torch.Size, torch.dtype], int] = {}
 # Row-tile heights K3 is built for (template instances of the kernel).
 K3_BLOCK_ROWS = (32, 64, 128)
 # Most tile stages in K3's ring (fewer where fewer fit); chip_smoke.py
@@ -74,14 +78,13 @@ def _diffmat_t(n: int, scale: float | None, dtype: torch.dtype,
 
 
 @functools.lru_cache(maxsize=None)
-def _d2_t(dims: tuple[int, int, int], scales: tuple[float, float, float],
-          dtype: torch.dtype, device: torch.device) -> tuple[torch.Tensor, ...]:
-    out = []
-    for n, s in zip(dims, scales):
-        D = diffmat_np(n)
-        out.append(torch.as_tensor(np.ascontiguousarray(s * (D @ D).T),
-                                   dtype=dtype, device=device))
-    return tuple(out)
+def _d2_ops(dims: tuple[int, int, int], scales: tuple[float, float, float],
+            dtype: torch.dtype, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """D2x and D2y row-major (K2 stages blocks of their rows in 16-byte
+    copies) and D2z^T, each s (D @ D) for its axis."""
+    D2 = [s * (diffmat_np(n) @ diffmat_np(n)) for n, s in zip(dims, scales)]
+    return tuple(torch.as_tensor(np.ascontiguousarray(m), dtype=dtype, device=device)
+                 for m in (D2[0], D2[1], D2[2].T))
 
 
 def _scales3(scales) -> tuple[float, float, float]:
@@ -102,10 +105,10 @@ def chebdiff_last_ref(u: torch.Tensor, scale: float | None = None) -> torch.Tens
 def laplacian3d_ref(u: torch.Tensor, bmask: torch.Tensor | None = None,
                     scales=None) -> torch.Tensor:
     """y = -(s_x D2_x u + s_y D2_y u + s_z D2_z u); y = where(bmask, u, y)."""
-    d2xt, d2yt, d2zt = _d2_t(tuple(u.shape), _scales3(scales), u.dtype, u.device)
+    d2x, d2y, d2zt = _d2_ops(tuple(u.shape), _scales3(scales), u.dtype, u.device)
     t = torch.matmul(u, d2zt)                                           # z
-    t = t + torch.tensordot(u, d2yt, dims=([1], [0])).transpose(1, 2)  # y
-    t = t + torch.tensordot(d2xt, u, dims=([0], [0]))                  # x
+    t = t + torch.tensordot(u, d2y, dims=([1], [1])).transpose(1, 2)   # y
+    t = t + torch.tensordot(d2x, u, dims=([1], [0]))                   # x
     y = -t
     if bmask is not None:
         y = torch.where(bmask, u, y)
@@ -128,26 +131,52 @@ def chebdiff_packed_ref(u2d: torch.Tensor, pack: int,
 def _check_cuda(name: str, *tensors: torch.Tensor) -> str:
     """Device, dtype and layout checks; returns the dtype suffix."""
     u = tensors[0]
-    if u.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {u.device}")
-    if u.dtype not in _KERNEL_DTYPES:
+    dev = u.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {dev}")
+    suffix = _KERNEL_DTYPES.get(u.dtype)
+    if suffix is None:
         raise TypeError(f"{name}: the kernel takes float32 or float64, got {u.dtype}")
     for t in tensors:
-        if t.device != u.device:
-            raise ValueError(f"{name}: tensors on {t.device} and {u.device}")
+        if t is not u and t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
-    return _KERNEL_DTYPES[u.dtype]
+    return suffix
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
-    from spectral_tpu_torch.ops._build import check, load_library
+# C entry points by name, resolved once from the library (ops._build).
+_ENTRY: dict[str, ctypes._CFuncPtr] = {}
 
-    lib = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, fn)(*args, stream)
-    check(lib, fn, code)
+
+def _entry(fn: str) -> ctypes._CFuncPtr:
+    from spectral_tpu_torch.ops._build import load_library
+
+    f = _ENTRY[fn] = getattr(load_library(), fn)
+    return f
+
+
+def _call(fn: str, device: torch.device, *args, stream: bool = True) -> None:
+    """Call the C entry point ``fn`` with ``device`` current (switched to
+    only where it is not) and, with ``stream``, its current raw stream
+    last; raise on a CUDA error."""
+    f = _ENTRY.get(fn) or _entry(fn)
+    idx = device.index
+    if stream:   # the raw handle, without building a torch.cuda.Stream
+        args += (torch._C._cuda_getCurrentRawStream(idx),)
+    if torch.cuda.current_device() == idx:
+        code = f(*args)
+    else:
+        with torch.cuda.device(idx):
+            code = f(*args)
+    if code:
+        from spectral_tpu_torch.ops._build import check, load_library
+
+        check(load_library(), fn, code)
+
+
+def _launch(name: str, fn: str, device: torch.device, *args) -> None:
+    _call(fn, device, *args)
     LAUNCHES[name] += 1
 
 
@@ -156,7 +185,8 @@ def chebdiff_last(u: torch.Tensor, scale: float | None = None) -> torch.Tensor:
 
     ``scale`` is folded into the resident matrix, so a scaled derivative
     costs no extra pass over u."""
-    if u.device.type == "cpu":
+    dev = u.device
+    if dev.type == "cpu":
         return chebdiff_last_ref(u, scale)
     suffix = _check_cuda("chebdiff_last", u)
     if u.ndim < 1:
@@ -164,23 +194,65 @@ def chebdiff_last(u: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     n = u.shape[-1]
     if not 2 <= n <= K1_MAX_N:
         raise ValueError(f"chebdiff_last: the kernel takes 2 <= n <= {K1_MAX_N}, got {n}")
-    DT = _diffmat_t(n, None if scale is None else float(scale), u.dtype, u.device)
+    DT = _diffmat_t(n, None if scale is None else float(scale), u.dtype, dev)
     y = torch.empty_like(u)
     M = u.numel() // n
     if M == 0:
         return y
-    _launch("chebdiff_last_kernel", f"chebdiff_last_{suffix}", u.device,
+    _launch("chebdiff_last_kernel", "chebdiff_last_" + suffix, dev,
             u.data_ptr(), DT.data_ptr(), y.data_ptr(), M, n)
-    key = (tuple(u.shape), str(u.dtype).replace("torch.", ""))
+    key = (u.shape, u.dtype)
     K1_LAUNCHES_BY_SHAPE[key] = K1_LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return y
 
 
+_GRID_KEYS = ("rows", "blocks", "threads", "smem")
+
+
+def chebdiff_last_grid(u: torch.Tensor) -> dict:
+    """K1's launch for the CUDA tensor u, as its C side chooses it (rows a
+    tile, blocks, threads a block, shared memory bytes); launches nothing."""
+    suffix = _check_cuda("chebdiff_last_grid", u)
+    n = u.shape[-1]
+    DT = _diffmat_t(n, None, u.dtype, u.device)
+    out = (ctypes.c_longlong * 4)()
+    _call("chebdiff_last_config_" + suffix, u.device, u.data_ptr(), DT.data_ptr(),
+          u.numel() // n, n, ctypes.addressof(out), stream=False)
+    return dict(zip(_GRID_KEYS, out))
+
+
+def laplacian3d_grid(u: torch.Tensor) -> dict:
+    """K2's launch for the 3-D CUDA tensor u: for each pass ("plane", "x"),
+    rows a block, blocks, threads a block, shared memory bytes, and whether
+    the plane pass is tiled; launches nothing."""
+    suffix = _check_cuda("laplacian3d_grid", u)
+    out = (ctypes.c_longlong * 9)()
+    _call("laplacian3d_config_" + suffix, u.device, *u.shape, ctypes.addressof(out),
+          stream=False)
+    return {"plane": dict(zip(_GRID_KEYS, out[:4]), tiled=bool(out[8])),
+            "x": dict(zip(_GRID_KEYS, out[4:8]))}
+
+
+def laplacian3d_plane_tiled(dims: tuple[int, int, int], itemsize: int) -> bool:
+    """Whether K2's plane pass takes its tiled layout (mirrors k2_shape in
+    the C source): D2z^T, the plane u[i] in rows of nz + 4 and 4 rows of
+    D2y, with ny and nz padded to multiples of 4, fit in SMEM_LIMIT."""
+    _, ny, nz = dims
+    nyp, nzp = (ny + 3) // 4 * 4, (nz + 3) // 4 * 4
+    return itemsize * (nzp * nzp + nyp * (nzp + 4) + 4 * (nyp + 4)) <= SMEM_LIMIT
+
+
 def laplacian3d_smem_bytes(dims: tuple[int, int, int], itemsize: int) -> int:
-    """Shared memory K2 needs for a field of ``dims`` (mirrors the C side)."""
-    nx, ny, nz = dims
-    tj = max(1, min(ny, 1024 // nz))
-    return itemsize * (ny * nz + nz * nz + ny * tj + nx)
+    """The least shared memory K2 takes for a field of ``dims`` (mirrors
+    k2_plane_values in the C source): its plane pass, tiled at 4 rows a
+    block where that fits, else unpadded at one row, nz^2 + ny nz + ny
+    values.  Its x pass takes at most 51,200 bytes, so the plane pass
+    decides which fields K2 takes."""
+    _, ny, nz = dims
+    nyp, nzp = (ny + 3) // 4 * 4, (nz + 3) // 4 * 4
+    if laplacian3d_plane_tiled(dims, itemsize):
+        return itemsize * (nzp * nzp + nyp * (nzp + 4) + 4 * (nyp + 4))
+    return itemsize * (nz * nz + ny * nz + ny)
 
 
 def laplacian3d(u: torch.Tensor, bmask: torch.Tensor | None = None,
@@ -191,6 +263,14 @@ def laplacian3d(u: torch.Tensor, bmask: torch.Tensor | None = None,
     y_b = u_b, applied in the kernel's epilogue."""
     if u.device.type == "cpu":
         return laplacian3d_ref(u, bmask, scales)
+    return _laplacian3d(u, bmask, scales)[1]
+
+
+def _laplacian3d(u: torch.Tensor, bmask: torch.Tensor | None,
+                 scales) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 on a CUDA tensor: (t, y), t the plane pass's output
+    s_y D2_y u + s_z D2_z u (chip_smoke.py holds each pass against its
+    plain version)."""
     tensors = (u,) if bmask is None else (u, bmask)
     suffix = _check_cuda("laplacian3d", *tensors)
     if u.ndim != 3:
@@ -202,12 +282,15 @@ def laplacian3d(u: torch.Tensor, bmask: torch.Tensor | None = None,
     if need > SMEM_LIMIT:
         raise ValueError(f"laplacian3d: {dims} in {u.dtype} needs {need} bytes "
                          f"of shared memory, the kernel has {SMEM_LIMIT}")
-    d2xt, d2yt, d2zt = _d2_t(dims, _scales3(scales), u.dtype, u.device)
+    d2x, d2y, d2zt = _d2_ops(dims, _scales3(scales), u.dtype, u.device)
+    t = torch.empty_like(u)   # the plane pass's output, the x pass's input
     y = torch.empty_like(u)
-    _launch("laplacian3d_kernel", f"laplacian3d_{suffix}", u.device,
-            u.data_ptr(), d2xt.data_ptr(), d2yt.data_ptr(), d2zt.data_ptr(),
-            None if bmask is None else bmask.data_ptr(), y.data_ptr(), *dims)
-    return y
+    _call(f"laplacian3d_{suffix}", u.device, u.data_ptr(), d2x.data_ptr(), d2y.data_ptr(),
+          d2zt.data_ptr(), None if bmask is None else bmask.data_ptr(), t.data_ptr(),
+          y.data_ptr(), *dims)
+    LAUNCHES["laplacian3d_plane_kernel"] += 1
+    LAUNCHES["laplacian3d_x_kernel"] += 1
+    return t, y
 
 
 def _packed_sizes(n: int, pack: int, block_rows: int, itemsize: int) -> tuple[int, int]:

@@ -63,7 +63,92 @@ def test_k2_matches_plain(cuda, dtype, dims, scales):
     got = cuda_cheb.laplacian3d(u, mask, scales)
     assert _rel(got, cuda_cheb.laplacian3d_ref(u, mask, scales)) <= BOUND[dtype]
     assert torch.equal(got[mask], u[mask])
-    assert cuda_cheb.LAUNCHES["laplacian3d_kernel"] == 1
+    assert cuda_cheb.LAUNCHES["laplacian3d_plane_kernel"] == 1
+    assert cuda_cheb.LAUNCHES["laplacian3d_x_kernel"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dims,scales", [((20, 12, 10), (0.25, 1.0, 4.0)),
+                                         ((64, 48, 40), (2.0, 0.5, 1.0)),
+                                         ((13, 11, 9), None),    # ny * nz = 99
+                                         ((8, 170, 3), None)])
+def test_k2_non_cubic(cuda, dtype, masked, dims, scales):
+    """K2's two passes on fields that are not cubes, with sizes that are not
+    all multiples of 4 (zero-padded contractions, scalar copies and stores,
+    ragged row and column tiles).  (8, 170, 3) in float64 is a field the
+    single-pass K2 refused for shared memory and the plane pass takes."""
+    u = _randn(dims, dtype, cuda, 8)
+    mask = Grid(dims, device=cuda).boundary_mask if masked else None
+    got = cuda_cheb.laplacian3d(u, mask, scales)
+    assert _rel(got, cuda_cheb.laplacian3d_ref(u, mask, scales)) <= BOUND[dtype]
+    if masked:
+        assert torch.equal(got[mask], u[mask])
+    assert cuda_cheb.LAUNCHES["laplacian3d_plane_kernel"] == 1
+    assert cuda_cheb.LAUNCHES["laplacian3d_x_kernel"] == 1
+
+
+@pytest.mark.parametrize("dtype,dims", [(torch.float64, (4, 118, 118)),
+                                        (torch.float32, (3, 22, 230)),
+                                        (torch.float64, (5, 100, 7))])
+def test_k2_unpadded_plane(cuda, dtype, dims):
+    """Fields whose padded plane does not fit in shared memory take the
+    unpadded plane pass; the single-pass K2 took (4, 118, 118) and
+    (3, 22, 230).  (5, 100, 7) is tiled, against the rule's mirror."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    tiled = cuda_cheb.laplacian3d_plane_tiled(dims, itemsize)
+    assert tiled == (dims == (5, 100, 7))
+    u = _randn(dims, dtype, cuda, 10)
+    grid = cuda_cheb.laplacian3d_grid(u)
+    assert grid["plane"]["tiled"] == tiled
+    assert grid["plane"]["smem"] <= cuda_cheb.SMEM_LIMIT
+    mask = Grid(dims, device=cuda).boundary_mask
+    for scales in (None, (0.5, 2.0, 1.0)):
+        got = cuda_cheb.laplacian3d(u, mask, scales)
+        assert _rel(got, cuda_cheb.laplacian3d_ref(u, mask, scales)) <= BOUND[dtype]
+        assert torch.equal(got[mask], u[mask])
+    assert cuda_cheb.LAUNCHES["laplacian3d_plane_kernel"] == 2
+
+
+def _least_busy_rows(extent, most, sms):
+    """The C side's least_busy_rows for one copy: the rows a tile, a
+    multiple of 4 up to ``most``, that give the busiest SM the fewest rows;
+    the larger on a tie."""
+    def busiest(rows):
+        tiles = -(-extent // rows)
+        return -(-tiles // sms) * rows
+
+    return min(range(most, 3, -4), key=busiest)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_tile_height_switch(cuda, dtype):
+    """Where full tiles would leave resident blocks empty, K1 takes one tile
+    a block, smaller at 64^3 (on 132 SMs, 128 tiles of 32 rows, not 64 of
+    64; the expected tile follows the card's SM count); from the M whose
+    full tiles fill them, the full tile and a persistent grid.  Each side
+    of the switch, ragged tails, against the plain version."""
+    big = torch.empty((1 << 20, 64), dtype=dtype, device=cuda)
+    full = cuda_cheb.chebdiff_last_grid(big)
+    full_rows, resident = full["rows"], full["blocks"]
+    del big
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows64 = _least_busy_rows(64 * 64, full_rows, sms)
+    cases = ((64 * 64, "smaller tile"), (full_rows * (resident - 1) - 3, "one tile a block"),
+             (full_rows * resident + 3, "persistent"))
+    for M, kind in cases:
+        u = _randn((M, 64), dtype, cuda, 9)
+        grid = cuda_cheb.chebdiff_last_grid(u)
+        rows, blocks = grid["rows"], grid["blocks"]
+        if kind == "smaller tile":
+            assert (rows, blocks) == (rows64, -(-M // rows64)), (M, rows, blocks, sms)
+        elif kind == "one tile a block":
+            assert rows <= full_rows and blocks == -(-M // rows), (M, rows, blocks)
+        else:
+            assert (rows, blocks) == (full_rows, resident), (M, rows, blocks)
+        got = cuda_cheb.chebdiff_last(u)
+        assert _rel(got, cuda_cheb.chebdiff_last_ref(u)) <= BOUND[dtype]
+    assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] == len(cases)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -80,8 +165,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         cuda_cheb.chebdiff_packed(torch.zeros((4, 128), device=cuda), 2, block_rows=16)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_cheb.chebdiff_packed(torch.zeros((128, 8), device=cuda).T, 2)
-    assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0, "laplacian3d_kernel": 0,
-                                  "chebdiff_packed_kernel": 0}
+    assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0, "laplacian3d_plane_kernel": 0,
+                                  "laplacian3d_x_kernel": 0, "chebdiff_packed_kernel": 0}
 
 
 def test_auto_routes_last_axis_to_k1(cuda):

@@ -67,8 +67,8 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
                                   cuda_cheb.laplacian3d_ref(u3, mask).numpy())
     np.testing.assert_array_equal(cuda_cheb.chebdiff_packed(u2, 1).numpy(),
                                   cuda_cheb.chebdiff_packed_ref(u2, 1).numpy())
-    assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0, "laplacian3d_kernel": 0,
-                                  "chebdiff_packed_kernel": 0}
+    assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0, "laplacian3d_plane_kernel": 0,
+                                  "laplacian3d_x_kernel": 0, "chebdiff_packed_kernel": 0}
     assert cuda_cheb.K1_LAUNCHES_BY_SHAPE == {}
 
 
@@ -89,6 +89,47 @@ def test_kernel_limits():
     assert cuda_cheb.laplacian3d_smem_bytes((64, 64, 64), 8) <= cuda_cheb.SMEM_LIMIT
     assert cuda_cheb.laplacian3d_smem_bytes((128, 128, 128), 8) > cuda_cheb.SMEM_LIMIT
     assert cuda_cheb.K1_MAX_N == 128
+
+
+@pytest.mark.parametrize("dims,itemsize,values,tiled", [
+    # tiled: D2z^T (nzp^2) + the plane (nyp rows of nzp + 4) + 4 rows of D2y (nyp + 4)
+    ((8, 8, 8), 4, 64 + 8 * 12 + 4 * 12, True),
+    ((64, 64, 64), 4, 4096 + 64 * 68 + 4 * 68, True),
+    ((64, 64, 64), 8, 4096 + 64 * 68 + 4 * 68, True),
+    ((20, 12, 10), 8, 144 + 12 * 16 + 4 * 16, True),       # ny, nz padded to 12
+    # unpadded: D2z^T (nz^2) + the plane (ny nz) + 1 row of D2y (ny)
+    ((4, 118, 118), 8, 2 * 118 * 118 + 118, False),
+    ((128, 128, 128), 8, 2 * 128 * 128 + 128, False),    # refused
+])
+def test_laplacian3d_smem_rule(dims, itemsize, values, tiled):
+    """K2's shared-memory need, the C side's k2_plane_values at 4 rows a
+    block, or k2_plane_values_unpadded at one row where the tiled layout
+    does not fit; 128^3 in float64 exceeds the limit and is refused."""
+    need = cuda_cheb.laplacian3d_smem_bytes(dims, itemsize)
+    assert need == itemsize * values
+    assert cuda_cheb.laplacian3d_plane_tiled(dims, itemsize) == tiled
+    assert (need <= cuda_cheb.SMEM_LIMIT) == (dims != (128, 128, 128))
+
+
+def test_laplacian3d_takes_every_field_the_single_pass_took():
+    """The single-pass K2 took a field when itemsize (ny nz + nz^2 + ny tj
+    + nx) <= SMEM_LIMIT, tj = max(1, min(ny, 1024 // nz)).  That need grows
+    with nx and the two-pass rule does not depend on nx, so nx = 1 covers
+    every (ny, nz) it took: each is taken now."""
+    for itemsize in (4, 8):
+        cap = cuda_cheb.SMEM_LIMIT // itemsize
+
+        def single_pass(ny, nz):
+            return ny * nz + nz * nz + ny * max(1, min(ny, 1024 // nz)) + 1
+
+        nz = 1
+        while single_pass(1, nz) <= cap:
+            ny = 1
+            while single_pass(ny, nz) <= cap:
+                need = cuda_cheb.laplacian3d_smem_bytes((1, ny, nz), itemsize)
+                assert need <= cuda_cheb.SMEM_LIMIT, (itemsize, ny, nz, need)
+                ny += 1
+            nz += 1
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
