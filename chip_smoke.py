@@ -31,9 +31,15 @@ paths at their real sizes through the entry points a user calls:
      gated on the JAX package's CPU oracle;
   7. mixed-precision Newton: ``EllipticModel.solve_refined`` and
      ``solve_refined_fused`` in the elliptic32 configuration, and
-     ``solve_refined`` on the 5-D problem.
+     ``solve_refined`` on the 5-D problem;
+  8. the Stokes flagship, gated on STOKES_ORACLE: the ``stokes`` CLI in
+     float64 on README:43 (linear) and README:52 (power law, -cont 4) at
+     20^3, ``__graft_entry__.entry()``'s forward step at 32^3 (residual and
+     one Jacobian action, float64 and float32), and
+     ``StokesProblem.solve_refined`` in bench.py's stokes20 configurations
+     (K1 on the pressure's last axis in every path).
 
-Each path (phases 3-7) is driven with the launch counts set to 0 just
+Each path (phases 3-8) is driven with the launch counts set to 0 just
 before it and read just after (K1's also by shape), and times nothing
 inside it (a call captured in a CUDA graph counts once and launches at
 every replay); every phase raises on failure.  A timed comparison gives
@@ -63,8 +69,10 @@ REPLACES = {"chebdiff_last_kernel": "spectral_tpu/ops/pallas_cheb.py:34",
             "chebdiff_packed_kernel": "benchmarks/exp_pallas.py:32"}
 BOUND = {"float32": 1e-5, "float64": 1e-12}   # max |kernel - plain| / max |plain|
 # The shapes the paths give K1: 64^3 (the Poisson CLI), 32^3 and 12^5 (the
-# elliptic paths, float64 in phase 6, float32 and float64 in phase 7)
-K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5)
+# elliptic paths, float64 in phase 6, float32 and float64 in phase 7; the
+# Stokes forward step, phase 8), 20^3 (the Stokes CLI in float64, and
+# solve_refined's float32 inner solves, phase 8)
+K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5, (20, 20, 20))
 K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
 # K3's ragged cases, each in float32 and float64: (rows, n, pack, row tile,
 # offset of u2d in its storage).  n % 4 == 0 goes by bulk copies (n = 12:
@@ -143,6 +151,134 @@ def refined_runs(dev) -> dict:
             kw["newton"] = NewtonConfig(**EW_NEWTON)
         runs[name] = (functools.partial(getattr(models[key], spec["entry"]), b, d, **kw), u)
     return runs
+
+
+# The Stokes flagship (phase 8).  STOKES_ORACLE: the JAX package on the CPU
+# in float64 (``python3 stokes_oracle.py``, its stokes driver with the same
+# options; the forward step by __graft_entry__.entry(); solve_refined with
+# x64 off, as bench.py runs it).  "newton" and "krylov" are per continuation
+# step.  Krylov gates: README:43, 14 +- 3.  README:52's counts move with the
+# summation order: the JAX package itself, started from the zero state plus
+# masked noise of 1e-13 (seeds 0-7) or 1e-11 (seed 0), takes the counts in
+# "perturbed" (stokes_oracle.py perturb), 689-871 in all against the
+# oracle's 656, with the same Newton counts and error; the fifth
+# continuation step's second Newton step alone takes 72-151.  So each
+# Krylov count, and the total, is held within max(3, 10%) of the range
+# that the oracle and those nine runs span (stokes_krylov_range).
+STOKES_README43 = ["-exact", "2", "-cont0", "1", "-schur_ksp_max_it", "3", "-vel_ksp_max_it",
+                   "4", "-svel_ksp_type", "preonly", "-ksp_type", "fgmres", "-dim", "20,20,20",
+                   "-ksp_rtol", "1e-10"]
+STOKES_README52 = ["-exact", "2", "-cont", "4", "-rheology", "1", "-eps", "1e-4", "-exponent",
+                   "3", "-schur_ksp_max_it", "3", "-vel_ksp_max_it", "4", "-svel_ksp_type",
+                   "preonly", "-ksp_type", "fgmres", "-dim", "20,20,20"]
+STOKES_ORACLE = {
+    "README:43": dict(argv=STOKES_README43, newton=[1], krylov=[[14]], error=2.792477e-07),
+    "README:52": dict(argv=STOKES_README52, newton=[2, 3, 3, 4, 5],
+                      krylov=[[4, 11], [17, 12, 16], [21, 18, 24], [37, 21, 18, 27],
+                              [171, 74, 36, 41, 108]], error=6.057082e-01,
+                      perturbed=[  # 1e-13, seeds 0-7, then 1e-11, seed 0
+                          [[4, 11], [16, 12, 15], [22, 16, 18], [35, 34, 36, 22],
+                           [149, 144, 39, 39, 120]],
+                          [[4, 11], [16, 13, 14], [25, 16, 17], [65, 21, 36, 29],
+                           [120, 105, 58, 37, 102]],
+                          [[4, 11], [16, 12, 16], [21, 21, 19], [37, 21, 23, 24],
+                           [166, 117, 52, 57, 141]],
+                          [[4, 11], [16, 12, 14], [21, 21, 20], [60, 20, 20, 22],
+                           [158, 121, 57, 54, 116]],
+                          [[4, 11], [16, 12, 14], [23, 17, 18], [39, 22, 18, 32],
+                           [205, 149, 58, 54, 152]],
+                          [[4, 11], [16, 12, 15], [21, 20, 19], [60, 46, 25, 51],
+                           [119, 151, 26, 68, 207]],
+                          [[4, 11], [15, 12, 14], [22, 17, 16], [52, 23, 19, 21],
+                           [160, 79, 51, 81, 131]],
+                          [[4, 11], [17, 12, 15], [22, 19, 22], [45, 19, 21, 30],
+                           [131, 151, 35, 64, 110]],
+                          [[4, 11], [16, 13, 17], [23, 21, 20], [42, 22, 22, 30],
+                           [207, 72, 70, 29, 110]]]),
+    # ||F|| and ||J F|| over both fields at zero_state(), entry()'s 32^3 step
+    "entry": {"F": 48593.71024072187, "JF": 66963687.40182088},
+    # solve_refined: the JAX package stops at rel 3.19e-13 with error 2.94e-14
+    # (linear) and at rel 4.31e-12 with error 0.6057081634662875 (power law);
+    # the port on the CPU at 3.22e-13 / 1.37e-13 and 4.35e-12 / 0.6057081634662824
+    "refined linear": dict(rel=3.194402332219898e-13, error=2.9405057785374996e-14),
+    "refined powerlaw": dict(rel=4.313229162342449e-12, error=0.6057081634662875),
+}
+
+
+def stokes_krylov_range(spec: dict):
+    """Per Newton step, and in total, the least and the most Krylov
+    iterations among the oracle's run and its perturbed runs."""
+    runs = [spec["krylov"], *spec["perturbed"]]
+    lo = [list(map(min, zip(*steps))) for steps in zip(*runs)]
+    hi = [list(map(max, zip(*steps))) for steps in zip(*runs)]
+    totals = [sum(map(sum, r)) for r in runs]
+    return (lo, hi), (min(totals), max(totals))
+
+
+def _within(k: int, lo: int, hi: int) -> bool:
+    return lo - max(3, 0.1 * lo) <= k <= hi + max(3, 0.1 * hi)
+
+
+def stokes_cli_ok(name: str, newton, krylov, err) -> str | None:
+    """Why a stokes CLI run misses STOKES_ORACLE[name]'s gates, or None."""
+    spec = STOKES_ORACLE[name]
+    if newton != spec["newton"]:
+        return f"Newton {newton}, oracle {spec['newton']}"
+    if name == "README:43":
+        if abs(krylov[0][0] - 14) > 3:
+            return f"Krylov {krylov}, oracle 14 +- 3"
+        if err > 2 * spec["error"]:
+            return f"error {err:.6e} > 2 x {spec['error']:.6e}"
+        return None
+    if [len(k) for k in krylov] != newton:
+        return f"Krylov {krylov}: not one count a Newton step"
+    (lo, hi), (tot_lo, tot_hi) = stokes_krylov_range(spec)
+    for i, (got, a, b) in enumerate(zip(krylov, lo, hi)):
+        if any(not _within(k, kl, kh) for k, kl, kh in zip(got, a, b)):
+            return (f"Krylov {got} in continuation step {i}, the JAX runs span "
+                    f"{a}..{b} (max(3, 10%) beyond)")
+    total = sum(map(sum, krylov))
+    if not _within(total, tot_lo, tot_hi):
+        return f"total Krylov {total}, the JAX runs span {tot_lo}..{tot_hi} (max(3, 10%) beyond)"
+    if abs(err - spec["error"]) > 1e-6 * spec["error"]:
+        return f"error {err:.6e}, oracle {spec['error']:.6e} (1e-6 relative)"
+    return None
+
+
+def stokes_refined_runs(dev) -> dict:
+    """name -> problem for solve_refined in bench.py's bench_stokes20_linear
+    and bench_stokes20_powerlaw configurations on ``dev``."""
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+
+    cfgs = {"refined linear": StokesConfig(exact=2, cont0=1),
+            "refined powerlaw": StokesConfig(
+                exact=2, rheology=1, cont=4, regularization=1e-4, exponent=3.0, pcvel="mg",
+                outer_ksp=KSPConfig(type="fgmres", rtol=1e-5, max_it=120, restart=60),
+                newton=NewtonConfig(rtol=2e-4, max_it=30, ksp_ew=True))}
+    return {name: StokesProblem(Grid((20, 20, 20), device=dev), cfg)
+            for name, cfg in cfgs.items()}
+
+
+def stokes_forward(dev, dtype):
+    """entry()'s forward step at 32^3 in ``dtype`` on ``dev``: the residual
+    at zero_state() and one Jacobian action on it; returns a function of
+    no arguments giving (F, J F)."""
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+
+    cfg = StokesConfig(exact=2, rheology=1, exponent=3.0, regularization=1e-2)
+    p = StokesProblem(Grid((32, 32, 32), device=dev, dtype=dtype), cfg)
+    residual = p.make_residual(p.params_at(cfg.cont))
+    x0 = p.zero_state()
+
+    def forward():
+        F, lin_state = residual(x0)
+        return F, p.jacobian_action(x0, lin_state, F)
+
+    return forward
 
 
 def require(cond: bool, msg: str) -> None:
@@ -698,6 +834,71 @@ def main() -> int:
                         "k1_launches_by_shape": k1_shapes[f"phase7 {name}"]}
     phase7["seconds"] = time.perf_counter() - t_phase
     print("phase7 " + json.dumps(phase7))
+
+    # -- phase 8: Stokes on the card (STOKES_ORACLE) --------------------------
+    t_phase = time.perf_counter()
+    phase8 = {}
+    for name in ("README:43", "README:52"):   # 8a, 8b: the CLI in float64
+        argv = ["stokes", *STOKES_ORACLE[name]["argv"]]
+        ((rc, out), first_s, warm_s), counts = path(
+            f"phase8 {name}", lambda: timed_twice(lambda: run_cli(cli_main, argv),
+                                                  warm_reps=1), [K1])
+        mc = re.search(r"Continuation steps: Newton (\[.*\])  Krylov (\[.*\])", out)
+        mr = re.search(r"Reason for solver termination: (\S+)", out)
+        me = re.search(r"Norm of error\s*: abs = (\S+)", out)
+        require(rc == 0 and mc and mr and me, f"stokes {name} failed (rc {rc}): {out!r}")
+        newton, krylov = json.loads(mc.group(1)), json.loads(mc.group(2))
+        err = float(me.group(1))
+        require(mr.group(1) == "CONVERGED_RTOL", f"stokes {name}: {mr.group(1)}")
+        why = stokes_cli_ok(name, newton, krylov, err)
+        require(why is None, f"stokes {name}: {why}")
+        phase8[name] = {"cli": " ".join(argv), "newton": newton, "krylov": krylov,
+                        "total_krylov": sum(map(sum, krylov)), "reason": mr.group(1),
+                        "error": err, "first_s": first_s, "solve_s": warm_s,
+                        "k1_launches": counts[K1],
+                        "k1_launches_by_shape": k1_shapes[f"phase8 {name}"]}
+    # 8c: entry()'s forward step at 32^3, float64 then float32
+    for dtype, gate in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        name = f"entry {str(dtype)[6:]}"
+        forward = stokes_forward(dev, dtype)
+        (F, JF), counts = path(f"phase8 {name}", forward, [K1])
+        norms = {k: float(torch.sqrt(sum(torch.sum(t.double() ** 2) for t in y.values())))
+                 for k, y in (("F", F), ("JF", JF))}
+        rel = {k: abs(v / STOKES_ORACLE["entry"][k] - 1.0) for k, v in norms.items()}
+        require(all(torch.isfinite(t).all() for y in (F, JF) for t in y.values()),
+                f"{name}: non-finite output")
+        require(F["v"].shape == (32, 32, 32, 3) and JF["p"].shape == (32, 32, 32),
+                f"{name}: shapes {F['v'].shape}, {JF['p'].shape}")
+        require(max(rel.values()) <= gate, f"{name}: norms {norms}, rel {rel} > {gate}")
+        phase8[name] = {"norms": norms, "rel_err": rel, "k1_launches": counts[K1],
+                        "k1_launches_by_shape": k1_shapes[f"phase8 {name}"]}
+        # timed after the path
+        phase8[name]["device_ms"], phase8[name]["call_ms"] = both_ms(forward)
+        del F, JF
+    # 8d: mixed precision, float32 continuation and Newton, float64 host residuals
+    for name, prob in stokes_refined_runs(dev).items():
+        ((x, info), first_s, warm_s), counts = path(
+            f"phase8 {name}", lambda: timed_twice(lambda: prob.solve_refined(rtol=1e-10),
+                                                  warm_reps=1), [K1])
+        rel, err = info["rel_residual"], prob.error_vs_exact(x)
+        ref = STOKES_ORACLE[name]["error"]
+        require(rel <= 1e-10, f"{name}: rel residual {rel:.3e} > 1e-10")
+        if name == "refined linear":
+            # the float64 floor of the discrete problem (STOKES_ORACLE): 7x the
+            # port's CPU value, far under the 2.8e-7 an unrefined rtol 1e-10 solve leaves
+            require(err <= 1e-12, f"{name}: error {err:.3e} > 1e-12")
+        else:
+            require(abs(err - ref) <= 1e-6 * ref, f"{name}: error {err!r}, oracle {ref!r}")
+        res = info["continuation"]
+        phase8[name] = {"newton": [r.iters for r in res], "krylov": [r.ksp_iters for r in res],
+                        "reasons": [r.reason_str() for r in res],
+                        "refine_history": info["refine_history"],
+                        "refine_inner": info["refine_inner_iters"], "rel_residual": rel,
+                        "error": err, "first_s": first_s, "solve_s": warm_s,
+                        "k1_launches": counts[K1],
+                        "k1_launches_by_shape": k1_shapes[f"phase8 {name}"]}
+    phase8["seconds"] = time.perf_counter() - t_phase
+    print("phase8 " + json.dumps(phase8))
 
     # -- the kernels line ------------------------------------------------------
     k1_main = next(c for c in k1 if c["case"] == "(64, 64, 64) scale=None"

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the port's time goes on one GPU: torch.profiler over one warm run
-of each elliptic path that chip_smoke.py drives (its phases 6 and 7, taken
-from its tables).
+of each elliptic and Stokes path that chip_smoke.py drives (its phases 6,
+7 and 8, taken from its tables).
 
-    python3 profile_port.py
+    python3 profile_port.py [substring ...]
+
+With arguments, only the paths whose names contain one of them.
 
 For each path it prints one JSON line: the host wall time of one
 unprofiled warm run and of the profiled run, the device busy time (the sum
@@ -44,21 +46,31 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import ELLIPTIC_ORACLE, refined_runs, run_cli
+    from chip_smoke import (ELLIPTIC_ORACLE, STOKES_ORACLE, refined_runs, run_cli,
+                            stokes_forward, stokes_refined_runs)
     from spectral_tpu_torch.cli.main import main as cli_main
 
-    def cli(opts):
+    def cli(driver, opts):
         def run():
-            rc, _ = run_cli(cli_main, ["elliptic", *opts])
+            rc, _ = run_cli(cli_main, [driver, *opts])
             if rc != 0:
-                raise RuntimeError(f"elliptic {' '.join(opts)}: exit code {rc}")
+                raise RuntimeError(f"{driver} {' '.join(opts)}: exit code {rc}")
         return run
 
-    # the paths of chip_smoke.py phases 6 and 7, from its tables
-    paths = {f"elliptic CLI {name} f64": cli(opts)
+    dev = torch.device("cuda")
+    # the paths of chip_smoke.py phases 6, 7 and 8, from its tables
+    paths = {f"elliptic CLI {name} f64": cli("elliptic", opts)
              for name, (opts, *_) in ELLIPTIC_ORACLE.items()}
-    paths.update({name: run for name, (run, _) in refined_runs(torch.device("cuda")).items()})
+    paths.update({name: run for name, (run, _) in refined_runs(dev).items()})
+    paths.update({f"stokes CLI {name} f64": cli("stokes", STOKES_ORACLE[name]["argv"])
+                  for name in ("README:43", "README:52")})
+    paths["stokes entry 32^3 f64"] = stokes_forward(dev, torch.float64)
+    paths.update({f"stokes {name}": (lambda p=p: p.solve_refined(rtol=1e-10))
+                  for name, p in stokes_refined_runs(dev).items()})
+    wanted = sys.argv[1:]
     for name, run in paths.items():
+        if wanted and not any(w in name for w in wanted):
+            continue
         run()                                   # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()

@@ -159,3 +159,143 @@ def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) ->
             print(f"{i:5d} KSP Residual norm {rn:.12e}")
     _print_unused(opts)
     return 0 if res.reason > 0 else 2
+
+
+def _pcvel_option(opts: Options) -> str:
+    """-pcvel: the reference's ints 0-3 (stokes.C:159-174) plus 4 = the
+    eta-aware multigrid; a string names a family directly."""
+    raw = opts.get_string("pcvel", "0")
+    table = {"0": "fastdiag", "1": "q1fem", "2": "probed", "3": "nodal", "4": "mg"}
+    return table.get(raw, raw)
+
+
+# stokes driver options whose code is not ported yet, with their ROADMAP item
+_STOKES_NOT_PORTED = {
+    "map": "item 6: curvilinear",
+    "fused": "item 3c: solve_continuation_fused",
+    "snes_grid_sequence": "item 2: cheb_regrid",
+    "checkpoint_dir": "item 8: utils/checkpoint.py",
+    "ksp_compute_singularvalues": "item 2: extreme_singular_values",
+    "output_vtk": "item 8: utils/vtk.py",
+    "log_summary": "item 8: utils/profiling.py",
+}
+
+
+def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
+    """Stokes driver (stokes.C:119-253) with continuation, flat domain.
+    Prints the JAX driver's lines, then the Newton and Krylov counts of
+    every continuation step.  Exit code 0 when the last Newton solve
+    converged, 2 when it did not."""
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+    from spectral_tpu_torch.utils.printing import vec_print2
+
+    for key, item in _STOKES_NOT_PORTED.items():
+        if opts.has(key):
+            raise NotImplementedError(
+                f"stokes -{key} is not ported yet (ROADMAP.md queue 1, {item})")
+    dims = opts.get_int_array("dim", (8, 6))
+    debug = opts.get_int("debug", 0)
+    cfg = StokesConfig(
+        exact=opts.get_int("exact", 0),
+        boundary=opts.get_int("boundary", 0),
+        rheology=opts.get_int("rheology", 0),
+        hardness=opts.get_real("hardness", 1.0),
+        exponent=opts.get_real("exponent", 1.0),
+        regularization=opts.get_real("eps", 1.0),
+        gamma0=opts.get_real("gamma0", 1.0),
+        cont0=opts.get_int("cont0", 0),
+        cont=opts.get_int("cont", 1),
+        scaleM=opts.get_real("scaleM", 1.0),
+        scaleN=opts.get_real("scaleN", 1.0),
+        zeroN=opts.get_int("zeroN", 0),
+        zeroV=opts.get_real("zeroV", 1.0),
+        pcvel=_pcvel_option(opts),
+        pcvel_smoother=opts.get_string("pcvel_smoother", "chebyshev"),
+        tbc=opts.get_int("tbc", 0),
+        traction_p=bool(opts.get_int("traction_p", 0)),
+        mixed_tang=bool(opts.get_int("mixed_tang", 0)),
+        saddle=opts.get_int("pc_saddle_type", 0),
+        outer_ksp=opts.ksp_config("", KSPConfig(type="fgmres", rtol=1e-5,
+                                                max_it=500, restart=50)),
+        vel_ksp=opts.ksp_config("vel_", KSPConfig(type="gmres", rtol=1e-5,
+                                                  max_it=10000, restart=30)),
+        svel_ksp=opts.ksp_config("svel_", KSPConfig(type="gmres", rtol=1e-5,
+                                                    max_it=10000, restart=30)),
+        schur_ksp=opts.ksp_config("schur_", KSPConfig(type="gmres", rtol=1e-5,
+                                                      max_it=10000, restart=30)),
+        # float32 cannot reach the float64 default tolerance: follow the dtype
+        newton=opts.newton_config(NewtonConfig(
+            rtol=1e-8 if dtype == torch.float64 else 1e-5, max_it=50)),
+        cont_predictor=opts.get_string("cont_predictor", "none"),
+    )
+    print(f"Stokes problem  dim = [{','.join(map(str, dims))}]")
+    print(f"  hardness = {cfg.hardness:f}    exponent = {cfg.exponent:8f}"
+          f"    regularization = {cfg.regularization:8f}    gamma0 = {cfg.gamma0:8f}")
+    p = StokesProblem(Grid(dims, intervals=_domain_intervals(opts, len(dims)),
+                           device=device, dtype=dtype), cfg)
+    print(p.census())
+
+    # exact residual check (stokes.C:191-205)
+    residual = p.make_residual(p.params_at(cfg.cont))
+    xex = p.exact_state()
+    F, _ = residual(xex)
+
+    def amax(t):
+        return max(float(torch.max(torch.abs(t["v"]))), float(torch.max(torch.abs(t["p"]))))
+
+    print(f"Norm of solution {amax(xex):9.3e}  norm of forcing {amax(p.force):9.3e}"
+          f"  norm of residual {amax(F):9.3e}")
+
+    def _uvp_print2(state, name):
+        """VecPrint2 of a (v, p) state's interior as the reference does
+        (m-2, n-2, 'uvp'); on d > 2 grids the axis-2 midplane."""
+        v, pr = (np.asarray(a.cpu().numpy() if isinstance(a, torch.Tensor) else a)
+                 for a in (state["v"], state["p"]))
+        if v.ndim > 3:
+            mid = v.shape[2] // 2
+            v, pr = v[:, :, mid], pr[:, :, mid]
+        field = np.concatenate([v, pr[..., None]], axis=-1)[1:-1, 1:-1]
+        comp = "uvw"[:field.shape[-1] - 1] + "p"
+        vec_print2(field, dims[0] - 2, dims[1] - 2, name, comp)
+
+    if debug >= 1:
+        _uvp_print2(xex, "exact global")
+        _uvp_print2(F, "exact residual")
+    if debug >= 2:
+        coords = p.grid.coords_np
+        if coords.ndim > 3:
+            coords = coords[:, :, coords.shape[2] // 2]
+        vec_print2(coords[..., :2], dims[0], dims[1], "coordinates", "xy")
+        _uvp_print2(p.force_np, "exact forcing")
+        for idx in np.argwhere(p.nm_mask_np):
+            t = tuple(int(i) for i in idx)
+            kind = "MIXED" if bool(p.mixed_mask_np[t]) else "NEUMANN"
+            print(f"boundary type {kind}, index = {t}, "
+                  f"normal = {p.normal_np[t].tolist()}")
+
+    monitor = opts.has("snes_monitor")
+    results = p.solve_continuation(monitor=monitor)
+    res = results[-1]
+    if monitor and res.lin_state is not None:
+        eta = res.lin_state[0]
+        print(f"Minimum eta = {float(torch.min(eta)):9.3e}   "
+              f"Maximum eta = {float(torch.max(eta)):9.3e}")
+    err = p.error_vs_exact(res.x)
+    if debug >= 1:
+        pm = p.p_mask_np
+        dp = np.where(pm, res.x["p"].cpu().numpy() - p.exact_p_np, 0.0)
+        dp -= np.where(pm, dp.sum() / max(pm.sum(), 1), 0.0)
+        _uvp_print2({"v": res.x["v"].cpu().numpy() - p.exact_v_np, "p": dp}, "final error")
+    print(f"Number of nonlinear iterations = {res.iters}")
+    print(f"Reason for solver termination: {res.reason_str()}")
+    print(f"{'Norm of error':<25}: abs = {err:8e}")
+    print(f"Continuation steps: Newton {[int(r.iters) for r in results]}  "
+          f"Krylov {[[int(k) for k in r.ksp_iters] for r in results]}")
+    if opts.has("ksp_monitor"):
+        for i, rn in enumerate(res.ksp_history_last):
+            print(f"{i:5d} KSP Residual norm {rn:.12e}")
+    _print_unused(opts)
+    return 0 if res.reason > 0 else 2

@@ -132,6 +132,28 @@ class Grid:
     def interior_mask(self) -> torch.Tensor:
         return torch.as_tensor(~self.boundary_mask_np, device=self.device)
 
+    @cached_property
+    def normal_np(self) -> np.ndarray:
+        """(dims..., d) outward unit normal on the boundary, zero inside,
+        float64.  util.C:70-82 convention: +1 on the index-0 face (x=+1),
+        -1 on the last face; normalized at edges and corners."""
+        n = np.zeros(self.dims + (self.ndim,))
+        for ax in range(self.ndim):
+            sl0 = [slice(None)] * self.ndim + [ax]
+            sl1 = [slice(None)] * self.ndim + [ax]
+            sl0[ax] = 0
+            sl1[ax] = -1
+            n[tuple(sl0)] = 1.0
+            n[tuple(sl1)] = -1.0
+        norm = np.linalg.norm(n, axis=-1, keepdims=True)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            n = np.where(norm > 0, n / np.where(norm > 0, norm, 1.0), 0.0)
+        return n
+
+    @cached_property
+    def normal(self) -> torch.Tensor:
+        return torch.as_tensor(self.normal_np, dtype=self.dtype, device=self.device)
+
     @property
     def num_boundary(self) -> int:
         return int(self.boundary_mask_np.sum())

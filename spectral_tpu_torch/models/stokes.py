@@ -1,0 +1,840 @@
+"""Stokes saddle-point model with non-Newtonian rheology.
+
+Counterpart of ``spectral_tpu/models/stokes.py`` (flat domains).  The
+system is
+
+    [ VV  VP ] [v]   [f_v]        VV: Newton-linearized viscous operator
+    [ PV  0  ] [p] = [f_p]        PV: divergence, VP: pressure gradient
+
+on the CGL tensor grid (stokes.C), preconditioned by a Schur-complement
+block factorization with configurable nested solves (``-vel_``,
+``-svel_``, ``-schur_``; saddle types 0-3, stokes.C:1710-1817), wrapped in
+Newton with parameter continuation (stokes.C:217-235).
+
+- A state is a dict {"v": (dims..., d), "p": dims} of full-grid tensors;
+  the reference's index sets and scatters are boolean mask tensors.
+- Every function runs in the dtype of the state it is given, on the
+  grid's device.  Boundary data, forcing and exact fields are float64
+  numpy masters, cast once per dtype.
+- Derivatives are ``chebdiff``.  The velocity's component axis is last,
+  so its derivatives take the library product; the pressure's last axis
+  (the gradient) and the velocity's last component along the last axis
+  (the Schur complement's divergence) reach kernel K1 on a CUDA tensor.
+- The velocity preconditioner is an exact fast-diagonalization solve of
+  the FD Laplacian surrogate, an eta-weighted multigrid V-cycle, or the
+  surrogate's diagonal.
+
+Mixed and Neumann boundaries are ported in the residual and the Jacobian;
+their velocity preconditioner, the traction-block correction, the other
+``pcvel`` families, the dense saddle PC, the fused solves, parameter
+families, the adjoint, the unsteady mass shift, curved domains and the
+pencil mesh raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from functools import cached_property
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from spectral_tpu_torch.grid import Grid
+from spectral_tpu_torch.models import stokes_exact as SE
+from spectral_tpu_torch.models.rheology import RHEOLOGIES, PowerLawParams
+from spectral_tpu_torch.ops.chebyshev import chebdiff, chebdiff_np
+from spectral_tpu_torch.ops.extrapolation import _reduce_matrix_np, pressure_reduce_order
+from spectral_tpu_torch.ops.fastdiag import FastDiagSolver
+from spectral_tpu_torch.solvers.krylov import KSPConfig
+from spectral_tpu_torch.solvers.newton import NewtonConfig, NewtonResult, _norm, newton_solve
+
+# pcvel families of the JAX package that this package does not carry yet
+_PCVEL_NOT_PORTED = ("nodal", "q1fem", "q1sep", "probed", "probed1")
+
+
+def _todo(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class StokesConfig:
+    """-exact/-boundary/-rheology/... options (StokesProcessOptions,
+    stokes.C:391-495) plus the nested solver configurations; the JAX
+    package's fields and defaults."""
+
+    exact: int = 0
+    boundary: int = 0
+    rheology: int = 0
+    hardness: float = 1.0
+    exponent: float = 1.0
+    regularization: float = 1.0   # -eps
+    gamma0: float = 1.0
+    cont0: int = 0
+    cont: int = 1
+    scaleM: float = 1.0
+    scaleN: float = 1.0
+    zeroN: int = 0
+    zeroV: float = 1.0
+    pcvel: str = "fastdiag"       # fastdiag | mg | jacobi here
+    saddle_pc: str = "schur"
+    pcvel_smoother: str = "chebyshev"
+    tbc: int = 0
+    traction_p: bool = False
+    mixed_tang: bool = False
+    mass_shift: float = 0.0
+    saddle: int = 0               # -pc_saddle_type: 0 LU, 1 upper, 2 diag, 3 lower
+    outer_ksp: KSPConfig = KSPConfig(type="fgmres", rtol=1e-10, max_it=200, restart=50)
+    vel_ksp: KSPConfig = KSPConfig(type="gmres", rtol=1e-5, max_it=4, restart=4)
+    svel_ksp: KSPConfig = KSPConfig(type="preonly")
+    schur_ksp: KSPConfig = KSPConfig(type="gmres", rtol=1e-5, max_it=3, restart=3)
+    newton: NewtonConfig = NewtonConfig(rtol=1e-8, max_it=50)
+    # "none" restarts Newton from the previous solution (stokes.C:217-235);
+    # "secant" extrapolates through the last two, guarded by the residual
+    cont_predictor: str = "none"
+
+
+class StokesProblem:
+    """The static domain structure (masks, boundary data, forcing) and the
+    operators of one Stokes problem on ``grid``."""
+
+    def __init__(self, grid: Grid, config: StokesConfig = StokesConfig(),
+                 mesh=None, phi: Callable | None = None):
+        if mesh is not None:
+            raise _todo("StokesProblem(mesh=...)", "item 7: parallel")
+        if phi is not None:
+            raise _todo("StokesProblem(phi=...)", "item 6: curvilinear")
+        if config.mass_shift:
+            raise _todo("StokesConfig(mass_shift=...), the unsteady step operator",
+                        "item 4: models/stokes_unsteady.py")
+        if config.saddle_pc != "schur":
+            raise _todo(f"saddle_pc {config.saddle_pc!r} (make_dense_pc)",
+                        "item 4: ops/dense.py")
+        self.grid = grid
+        self.config = config
+        self.d = grid.ndim
+        self._consts: dict = {}
+        self._fastdiag: dict = {}
+        self._setup_domain()
+        self._setup_exact_and_force()
+
+    def _dif(self, v: torch.Tensor, axis: int) -> torch.Tensor:
+        return self.grid.apply_dif_weight(chebdiff(v, axis), axis)
+
+    # ------------------------------------------------------------------
+    # Domain setup: masks instead of IS/scatters (StokesSetupDomain analog)
+    # ------------------------------------------------------------------
+    def _setup_domain(self):
+        g, d = self.grid, self.d
+        cfg = self.config
+        bmask = g.boundary_mask_np
+        coords_b = g.coords_np[bmask]
+        normal_np = g.normal_np
+        out = SE.BOUNDARY_FUNCS[cfg.boundary](coords_b, normal_np[bmask],
+                                              SE.EXACT_SOLUTIONS[cfg.exact],
+                                              full_traction=cfg.traction_p)
+        # boundary funcs may return an inhomogeneous normal-flux field
+        # (manufactured sliding, boundary 5): v.n = vnormal at MIXED nodes
+        if len(out) == 4:
+            types_b, values_b, alpha_b, vnormal_b = out
+        else:
+            types_b, values_b, alpha_b = out
+            vnormal_b = np.zeros(len(types_b))
+
+        types = np.full(g.dims, -1, dtype=np.int32)
+        types[bmask] = types_b
+        bc_vel = np.zeros(g.dims + (d,))
+        bc_vel[bmask] = values_b
+        alpha = np.zeros(g.dims)
+        alpha[bmask] = alpha_b
+        bc_vnormal = np.zeros(g.dims)
+        bc_vnormal[bmask] = vnormal_b
+
+        dirichlet_mask = types == SE.BdyType.DIRICHLET
+        neumann_mask = types == SE.BdyType.NEUMANN
+        mixed_mask = types == SE.BdyType.MIXED
+        nm_mask = neumann_mask | mixed_mask
+        self.num_neumann = int(neumann_mask.sum())
+        # -traction_p rows pin the pressure constant: no null space left
+        self.has_p_null = not (cfg.traction_p and self.num_neumann > 0)
+
+        # one-hot of the most-normal component at mixed nodes (stokes.C:836-851)
+        in_onehot = np.zeros(g.dims + (d,))
+        if mixed_mask.any():
+            nvecs = normal_np[mixed_mask]
+            comp = np.argmax(np.abs(nvecs), axis=-1)
+            oh = np.zeros_like(nvecs)
+            oh[np.arange(len(comp)), comp] = 1.0
+            in_onehot[mixed_mask] = oh
+
+        vel_mask = np.ones(g.dims + (d,), dtype=bool)
+        vel_mask[dirichlet_mask] = False
+        vel_mask &= in_onehot == 0.0  # mixed normal component removed
+
+        # float64 host masters; tensors per dtype come from _c
+        self.types_np = types
+        self.bc_vel_np = bc_vel
+        self.bc_vnormal_np = bc_vnormal
+        self.alpha_np = alpha
+        self.normal_np = normal_np
+        self.in_onehot_np = in_onehot
+        self.vel_mask_np = vel_mask
+        self.p_mask_np = ~bmask
+        self.dirichlet_mask_np = dirichlet_mask
+        self.nm_mask_np = nm_mask
+        self.mixed_mask_np = mixed_mask
+        self.neumann_mask_np = neumann_mask
+
+        def b(a):
+            return torch.as_tensor(a, device=g.device)
+
+        self.vel_mask = b(vel_mask)
+        self.p_mask = b(~bmask)
+        self.dirichlet_mask = b(dirichlet_mask)
+        self.nm_mask = b(nm_mask)
+        self.mixed_mask = b(mixed_mask)
+        self.neumann_mask = b(neumann_mask)
+        self._dirichlet_v = self.dirichlet_mask[..., None]
+        self._nm_v = self.nm_mask[..., None]
+        self._mixed_v = self.mixed_mask[..., None]
+        self._neumann_v = self.neumann_mask[..., None]
+        self.num_mixed = int(nm_mask.sum())
+        # boundary 6 manufactures tangentially-projected sliding data and
+        # boundary 7 (free-slip box) imposes zero tangential traction, so
+        # the operator's mixed rows must use the matching P_t form
+        self.mixed_tang = bool(cfg.mixed_tang or cfg.boundary in (6, 7))
+        if cfg.boundary == 5 and self.mixed_tang:
+            raise ValueError(
+                "-boundary 5 manufactures FULL-COMPONENT mixed data; "
+                "-mixed_tang rows would converge to a wrong solution — "
+                "use -boundary 6 for the tangentially-projected form")
+        if cfg.boundary in (5, 6) and (cfg.scaleM != 1.0 or cfg.scaleN != 1.0):
+            raise ValueError(
+                "boundary 5/6 manufactured data assumes scaleM = scaleN = 1")
+
+    def census(self) -> str:
+        """DOF distribution print (stokes.C:891)."""
+        g, d = self.grid, self.d
+        gv = int(self.vel_mask_np.sum())
+        gp = int(self.p_mask_np.sum())
+        dv = int(self.dirichlet_mask_np.sum()) * d
+        return (f"DOF distribution: {gv + gp} global   {gp}/{g.size} pressure"
+                f"    {gv}/{g.size * d} velocity    {dv} dirichlet"
+                f"    {self.num_mixed} mixed")
+
+    def _setup_exact_and_force(self):
+        d = self.d
+        value, rhs = SE.EXACT_SOLUTIONS[self.config.exact](self.grid.coords_np)
+        rhs_v = np.where(self.nm_mask_np[..., None], self.bc_vel_np, rhs[..., :d])
+        self.exact_v_np = np.where(self.vel_mask_np, value[..., :d], 0.0)
+        self.exact_p_np = np.where(self.p_mask_np, value[..., d], 0.0)
+        self.force_np = {"v": np.where(self.vel_mask_np, rhs_v, 0.0),
+                         "p": np.where(self.p_mask_np, rhs[..., d], 0.0)}
+
+    def _c(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """The float64 host master ``<name>_np`` (or force_np["v"|"p"] as
+        "force_v"/"force_p") as a tensor in ``dtype`` on the grid's device,
+        cast once per dtype."""
+        key = (name, dtype)
+        t = self._consts.get(key)
+        if t is None:
+            a = (self.force_np[name[-1]] if name.startswith("force_")
+                 else getattr(self, name + "_np"))
+            t = self._consts[key] = torch.as_tensor(a, dtype=dtype, device=self.grid.device)
+        return t
+
+    # the grid dtype's copies, as the JAX package names them
+    @property
+    def bc_vel(self) -> torch.Tensor:
+        return self._c("bc_vel", self.grid.dtype)
+
+    @property
+    def normal(self) -> torch.Tensor:
+        return self._c("normal", self.grid.dtype)
+
+    @property
+    def alpha(self) -> torch.Tensor:
+        return self._c("alpha", self.grid.dtype)
+
+    @property
+    def in_onehot(self) -> torch.Tensor:
+        return self._c("in_onehot", self.grid.dtype)
+
+    @property
+    def exact_v(self) -> torch.Tensor:
+        return self._c("exact_v", self.grid.dtype)
+
+    @property
+    def exact_p(self) -> torch.Tensor:
+        return self._c("exact_p", self.grid.dtype)
+
+    @property
+    def force(self) -> dict:
+        return {"v": self._c("force_v", self.grid.dtype),
+                "p": self._c("force_p", self.grid.dtype)}
+
+    # ------------------------------------------------------------------
+    # Masked "scatters"
+    # ------------------------------------------------------------------
+    def mask_v(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.vel_mask, v, 0.0)
+
+    def mask_p(self, p: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.p_mask, p, 0.0)
+
+    def recover_mixed(self, v: torch.Tensor, inhomogeneous: bool = False) -> torch.Tensor:
+        """StokesMixedVelocity (stokes.C:1133-1156): reconstruct the removed
+        most-normal component for the normal-flux constraint.  The residual
+        path (``inhomogeneous``) enforces v.n = bc_vnormal; the Jacobian
+        path keeps the homogeneous v.n = 0."""
+        if self.num_mixed == 0:
+            return v
+        oh = self._c("in_onehot", v.dtype)
+        n = self._c("normal", v.dtype)
+        v_excl = v * (1.0 - oh)
+        num = torch.sum(v_excl * n, dim=-1, keepdim=True)
+        if inhomogeneous:
+            num = num - self._c("bc_vnormal", v.dtype)[..., None]
+        n_in = torch.sum(n * oh, dim=-1, keepdim=True)
+        vin = -num / torch.where(torch.abs(n_in) > 1e-14, n_in, 1.0)
+        return torch.where(self._mixed_v, v_excl + oh * vin, v)
+
+    def local_velocity(self, vG: torch.Tensor, with_dirichlet: bool = True, *,
+                       inhomogeneous: bool | None = None) -> torch.Tensor:
+        """The full velocity field of a global one: masked, the mixed
+        normal component recovered and, on the residual path
+        (``with_dirichlet``), the Dirichlet data set."""
+        if inhomogeneous is None:
+            inhomogeneous = with_dirichlet
+        v = self.recover_mixed(self.mask_v(vG), inhomogeneous=inhomogeneous)
+        if with_dirichlet:
+            v = torch.where(self._dirichlet_v, self._c("bc_vel", v.dtype), v)
+        return v
+
+    # ------------------------------------------------------------------
+    # Differential pieces
+    # ------------------------------------------------------------------
+    def _grad_tensor(self, vL: torch.Tensor) -> torch.Tensor:
+        """G[..., j, k] = d v_k / d x_j."""
+        return torch.stack([self._dif(vL, j) for j in range(self.d)], dim=-2)
+
+    def _strain(self, vL: torch.Tensor) -> torch.Tensor:
+        G = self._grad_tensor(vL)
+        return 0.5 * (G + G.transpose(-1, -2))
+
+    def _tensor_divergence(self, flux: torch.Tensor) -> torch.Tensor:
+        """y_k = sum_j d flux[..., j, k] / d x_j (summed from j = 0, as the
+        JAX package sums onto zeros)."""
+        y = self._dif(flux[..., 0, :], 0)
+        for j in range(1, self.d):
+            y = y + self._dif(flux[..., j, :], j)
+        return y
+
+    def divergence(self, vG: torch.Tensor, with_dirichlet: bool) -> torch.Tensor:
+        """StokesDivergence (stokes.C:569-595)."""
+        vL = self.local_velocity(vG, with_dirichlet)
+        div = self._dif(vL[..., 0], 0)
+        for i in range(1, self.d):
+            div = div + self._dif(vL[..., i], i)
+        return self.mask_p(div)
+
+    def pressure_gradient(self, pG: torch.Tensor) -> torch.Tensor:
+        """VP block (stokes.C:598-619): reduce the pressure order, take the
+        gradient, zero mixed/Neumann rows (with -traction_p the Neumann rows
+        carry the pressure's share of the traction), mask to the global
+        velocity."""
+        cfg = self.config
+        pL = pressure_reduce_order(self.mask_p(pG), self.grid.nodes_1d)
+        gp = torch.stack([self._dif(pL, i) for i in range(self.d)], dim=-1)
+        if self.num_mixed:
+            gp = torch.where(self._nm_v, 0.0, gp)
+        if cfg.traction_p and self.num_neumann > 0:
+            rows = cfg.scaleM * cfg.scaleN * (-pL[..., None] * self._c("normal", gp.dtype))
+            gp = torch.where(self._neumann_v, rows, gp)
+        return self.mask_v(gp)
+
+    def _mixed_rows(self, y, stress, vL):
+        """StokesMixedApply (stokes.C:1083-1110): replace Neumann/mixed rows
+        with scaleM*(scaleN * stress.n + alpha * v); with ``mixed_tang`` the
+        mixed rows are tangentially projected."""
+        if self.num_mixed == 0:
+            return y
+        cfg = self.config
+        n = self._c("normal", y.dtype)
+        traction = torch.einsum("...jk,...k->...j", stress, n)
+        load = cfg.scaleN * traction + self._c("alpha", y.dtype)[..., None] * vL
+        rows = cfg.scaleM * load
+        if self.mixed_tang:
+            tang = load - torch.sum(load * n, dim=-1, keepdim=True) * n
+            rows = torch.where(self._mixed_v, cfg.scaleM * tang, rows)
+        return torch.where(self._nm_v, rows, y)
+
+    def rheology(self, gamma: torch.Tensor, params: PowerLawParams):
+        return RHEOLOGIES[self.config.rheology](gamma, params)
+
+    # ------------------------------------------------------------------
+    # Residual and Jacobian blocks
+    # ------------------------------------------------------------------
+    def _viscous_rows(self, vfull: torch.Tensor, params: PowerLawParams):
+        """(masked momentum rows, lin_state) of -div(eta(eps) eps) at a full
+        velocity field, with the mixed/Neumann traction rows."""
+        S = self._strain(vfull)
+        gamma = 0.5 * torch.sum(S * S, dim=(-1, -2))
+        eta, deta = self.rheology(gamma, params)
+        flux = eta[..., None, None] * S
+        yv = -self._tensor_divergence(flux)
+        yv = self._mixed_rows(yv, flux, vfull)
+        return self.mask_v(yv), (eta, deta, S)
+
+    def make_residual(self, params: PowerLawParams, monitor_eta: bool = False):
+        """StokesFunction (stokes.C:679-758) as x -> (F, lin_state), in x's
+        dtype.  ``monitor_eta`` prints the viscosity extremes at every
+        evaluation (stokes.C:730-735), which synchronises with the host."""
+
+        def residual(xG):
+            vL = self.local_velocity(xG["v"], with_dirichlet=True)
+            rows, (eta, deta, S) = self._viscous_rows(vL, params)
+            if monitor_eta:
+                print(f"Minimum eta = {float(torch.min(eta)):.3e}   "
+                      f"Maximum eta = {float(torch.max(eta)):.3e}")
+            Fv = rows + self.pressure_gradient(xG["p"])
+            # div v is the trace of the strain already computed
+            Fp = self._div_from_strain(S)
+            dt = Fv.dtype
+            F = {"v": Fv - self._c("force_v", dt), "p": Fp - self._c("force_p", dt)}
+            return F, (eta, deta, S)
+
+        return residual
+
+    def _div_from_strain(self, S: torch.Tensor) -> torch.Tensor:
+        """Velocity divergence as the strain-tensor trace (the diagonal of
+        G survives symmetrization bitwise, 0.5*(x+x) == x)."""
+        div = S[..., 0, 0]
+        for i in range(1, self.d):
+            div = div + S[..., i, i]
+        return self.mask_p(div)
+
+    def _vv_core(self, lin_state, wv: torch.Tensor):
+        """VV action and the strain of the perturbation (shared with PV)."""
+        eta, deta, S0 = lin_state
+        wL = self.recover_mixed(self.mask_v(wv))
+        Sw = self._strain(wL)
+        z = torch.sum(Sw * S0, dim=(-1, -2))
+        e = eta[..., None, None]
+        flux = e * Sw + deta[..., None, None] * S0 * z[..., None, None]
+        yv = -self._tensor_divergence(flux)
+        if self.num_mixed:
+            yv = self._mixed_rows(yv, e * Sw, wL)
+        return self.mask_v(yv), Sw
+
+    def vv_action(self, lin_state, wv: torch.Tensor) -> torch.Tensor:
+        """VV block (StokesMatMultVV, stokes.C:622-676): exact Newton
+        linearization of the viscous term about the frozen state."""
+        return self._vv_core(lin_state, wv)[0]
+
+    def jacobian_action(self, x, lin_state, w) -> dict:
+        """Full block matvec (StokesMatMult, stokes.C:497-519); the PV row
+        reuses the VV row's strain (its trace is the divergence)."""
+        yv, Sw = self._vv_core(lin_state, w["v"])
+        return {"v": yv + self.pressure_gradient(w["p"]), "p": self._div_from_strain(Sw)}
+
+    # ------------------------------------------------------------------
+    # Null space (StokesRemoveConstantPressure, stokes.C:1006-1025)
+    # ------------------------------------------------------------------
+    def project_p(self, p: torch.Tensor) -> torch.Tensor:
+        if not self.has_p_null:   # -traction_p pins the constant
+            return self.mask_p(p)
+        count = float(self.grid.num_interior)
+        mean = torch.sum(self.mask_p(p)) / count
+        return self.mask_p(p - mean)
+
+    def null_project(self, x: dict) -> dict:
+        if not self.has_p_null:
+            return x
+        return {"v": x["v"], "p": self.project_p(x["p"])}
+
+    # ------------------------------------------------------------------
+    # Preconditioning (PCSetUp0 + PCApply0..3)
+    # ------------------------------------------------------------------
+    def _vel_fastdiag(self, dtype: torch.dtype) -> FastDiagSolver:
+        fd = self._fastdiag.get(dtype)
+        if fd is None:
+            fd = self._fastdiag[dtype] = FastDiagSolver.build(self.grid, dtype=dtype)
+        return fd
+
+    @cached_property
+    def _vel_mg(self):
+        from spectral_tpu_torch.models.stokes_pc import velocity_fd_stencil
+        from spectral_tpu_torch.ops.multigrid import Multigrid
+
+        def builder(grid, coeffs):
+            eta = coeffs.get("eta")
+            if eta is None:
+                eta = torch.ones(grid.dims, dtype=grid.dtype, device=grid.device)
+            return velocity_fd_stencil(grid, eta)
+
+        return Multigrid.build(self.grid, builder=builder,
+                               smoother=self.config.pcvel_smoother)
+
+    def make_vel_pc(self):
+        """(setup: lin_state -> vstate, apply: (vstate, r) -> z), the
+        strong approximate inverse of the FD velocity surrogate (MatVVPC,
+        solved with hypre in the reference)."""
+        if self.config.tbc > 0 and self.num_mixed:
+            raise _todo("the traction-block correction (tbc > 0)", "item 3c")
+        return self._make_vel_pc_base()
+
+    def _make_vel_pc_base(self):
+        """- "fastdiag": exact constant-coefficient tensor solve (the setup
+          picks the factors of the linearization's dtype);
+        - "mg": one eta-weighted multigrid V-cycle (StokesPCSetUp0 stencil
+          rediscretized per level);
+        - "jacobi": the stencil's diagonal."""
+        pcvel = self.config.pcvel
+        if pcvel in _PCVEL_NOT_PORTED:
+            raise _todo(f"pcvel {pcvel!r}", "item 3c")
+        if self.num_mixed and pcvel in ("fastdiag", "mg"):
+            raise _todo("the mixed/Neumann velocity PC (_mixed_fd_stencil, "
+                        "_mixed_line_*, ops/tridiag.py)", "item 3c")
+        if pcvel == "fastdiag":
+            return (lambda lin_state: self._vel_fastdiag(lin_state[0].dtype),
+                    lambda fd, r: self.mask_v(fd.apply(r)))
+        if pcvel == "mg":
+            mg = self._vel_mg
+            return (lambda lin_state: mg.setup({"eta": lin_state[0]}),
+                    lambda vstate, r: self.mask_v(mg.vcycle(vstate, r)))
+        if pcvel == "jacobi":
+            from spectral_tpu_torch.models.stokes_pc import velocity_fd_stencil
+            return (lambda lin_state: velocity_fd_stencil(
+                        self.grid, lin_state[0]).diag()[..., None],
+                    lambda diag, r: self.mask_v(r / diag))
+        raise ValueError(f"unknown pcvel {pcvel!r}")
+
+    def make_pc(self, adjoint: bool = False):
+        """(pc_setup, pc_apply) of the saddle-point preconditioner: saddle
+        type 0 full block LU, 1 upper, 2 block diagonal, 3 lower
+        triangular (stokes.C:1710-1817), each with the nested ``-vel_``
+        solves and the ``-schur_`` solve of S = -PV VV^-1 VP."""
+        if adjoint:
+            raise _todo("make_pc(adjoint=True)", "item 5: solvers/adjoint.py")
+        cfg = self.config
+        if cfg.saddle not in (0, 1, 2, 3):
+            raise ValueError(f"pc_saddle_type {cfg.saddle} not implemented")
+        vel_setup, vel_apply = self.make_vel_pc()
+        grad_op = self.pressure_gradient
+
+        def div_op(v):
+            return self.divergence(v, with_dirichlet=False)
+
+        def vel_solve(state, rv, ksp):
+            lin_state, vstate = state
+            return ksp.solve(lambda w: self.vv_action(lin_state, w), rv,
+                             M=lambda r: vel_apply(vstate, r)).x
+
+        def schur_solve(state, rp):
+            eta = state[0][0]
+
+            def schur_action(wp):   # S = -PV VV^{-1} VP with the -svel_ solve
+                return -div_op(vel_solve(state, grad_op(wp), cfg.svel_ksp))
+
+            # Jacobi PC with diag = 1/eta (StokesMatGetDiagonalSchur,
+            # stokes.C:538-553): the apply multiplies by eta
+            return cfg.schur_ksp.solve(schur_action, rp, M=lambda r: self.mask_p(r * eta),
+                                       null_project=self.project_p).x
+
+        def pc_setup(x, lin_state):
+            return (lin_state, vel_setup(lin_state))
+
+        def pc_apply(state, r):
+            rv, rp = r["v"], r["p"]
+            if cfg.saddle == 0:    # full block LU (stokes.C:1710-1741)
+                v1 = vel_solve(state, rv, cfg.vel_ksp)
+                p1 = schur_solve(state, rp - div_op(v1))
+                v2 = vel_solve(state, -grad_op(p1), cfg.vel_ksp)
+                return {"v": v1 + v2, "p": p1}
+            if cfg.saddle == 1:    # upper triangular (stokes.C:1743-1767)
+                p1 = schur_solve(state, rp)
+                return {"v": vel_solve(state, rv - grad_op(p1), cfg.vel_ksp), "p": p1}
+            if cfg.saddle == 2:    # block diagonal (stokes.C:1769-1791)
+                return {"v": vel_solve(state, rv, cfg.vel_ksp), "p": schur_solve(state, rp)}
+            v1 = vel_solve(state, rv, cfg.vel_ksp)   # 3: lower (stokes.C:1793-1817)
+            return {"v": v1, "p": schur_solve(state, rp - div_op(v1))}
+
+        return pc_setup, pc_apply
+
+    def make_dense_pc(self, *args, **kwargs):
+        raise _todo("make_dense_pc", "item 4: ops/dense.py")
+
+    def make_dense_pc_var(self, *args, **kwargs):
+        raise _todo("make_dense_pc_var", "item 4: ops/dense.py")
+
+    # ------------------------------------------------------------------
+    # Drivers (main, stokes.C:119-253)
+    # ------------------------------------------------------------------
+    def zero_state(self, dtype: torch.dtype | None = None) -> dict:
+        dt = dtype or self.grid.dtype
+        dev = self.grid.device
+        return {"v": torch.zeros(self.grid.dims + (self.d,), dtype=dt, device=dev),
+                "p": torch.zeros(self.grid.dims, dtype=dt, device=dev)}
+
+    def exact_state(self, dtype: torch.dtype | None = None) -> dict:
+        dt = dtype or self.grid.dtype
+        return {"v": self._c("exact_v", dt), "p": self._c("exact_p", dt)}
+
+    def params_at(self, i: int) -> PowerLawParams:
+        """Continuation schedule (stokes.C:218-219), Python floats."""
+        cfg = self.config
+        if cfg.cont <= 0:
+            return PowerLawParams(cfg.hardness, cfg.exponent, cfg.regularization, cfg.gamma0)
+        t = i / cfg.cont
+        exponent = 1.0 + t**0.8 * (cfg.exponent - 1.0)
+        reg = math.exp(math.log(cfg.regularization) * t) if cfg.regularization > 0 else 0.0
+        return PowerLawParams(cfg.hardness, exponent, reg, cfg.gamma0)
+
+    @staticmethod
+    def _dtype_ksp(ksp: KSPConfig, dtype: torch.dtype) -> KSPConfig:
+        """Clamp a KSP rtol to 50 eps of the state's dtype: a float32 Krylov
+        solve chasing rtol 1e-10 drags below its round-off floor with no
+        gain when a float64 refinement follows.  Float64 is untouched."""
+        floor = 50.0 * float(torch.finfo(dtype).eps)
+        if ksp.rtol >= floor:
+            return ksp
+        return dataclasses.replace(ksp, rtol=floor)
+
+    def solve(self, x0: dict | None = None, params: Optional[PowerLawParams] = None,
+              monitor: bool = False, clamp_f32: bool = False,
+              recycle_U0=None) -> NewtonResult:
+        """One SNES solve at fixed rheology parameters, in x0's dtype
+        (default: the grid's).  ``clamp_f32`` clamps the outer rtol to the
+        dtype's floor, right only when a refinement stage follows."""
+        if recycle_U0 is not None:
+            raise _todo("Krylov recycling (recycle_U0)", "item 1b: solve_recycled")
+        cfg = self.config
+        params = params or self.params_at(cfg.cont)
+        residual_raw = self.make_residual(params, monitor_eta=monitor)
+
+        def residual(x):
+            # the constant-pressure mode leaves every residual (KSPSetNullSpace
+            # removes it from every right-hand side, stokes.C:1006-1025)
+            F, lin_state = residual_raw(x)
+            return {"v": F["v"], "p": self.project_p(F["p"])}, lin_state
+
+        pc_setup, pc_apply = self.make_pc()
+        x0 = x0 if x0 is not None else self.zero_state()
+        ksp = self._dtype_ksp(cfg.outer_ksp, x0["p"].dtype) if clamp_f32 else cfg.outer_ksp
+        return newton_solve(residual, x0, jacobian_action=self.jacobian_action,
+                            pc_setup=pc_setup, pc_apply=pc_apply, ksp=ksp,
+                            config=dataclasses.replace(cfg.newton, monitor=monitor),
+                            null_project=self.null_project)
+
+    def solve_family(self, *args, **kwargs):
+        raise _todo("solve_family", "item 7: batched solves")
+
+    def solve_continuation(self, monitor: bool = False, checkpoint_dir: str | None = None,
+                           clamp_f32: bool = False,
+                           dtype: torch.dtype | None = None) -> list[NewtonResult]:
+        """The continuation loop (stokes.C:217-235): ramp exponent and
+        regularization, each solution the next initial guess, in ``dtype``
+        (default: the grid's)."""
+        if checkpoint_dir is not None:
+            raise _todo("solve_continuation(checkpoint_dir=...)",
+                        "item 8: utils/checkpoint.py")
+        cfg = self.config
+        results = []
+        x = self.zero_state(dtype)
+        x_prev = None      # previous step's solution (secant predictor)
+        exp_prev = None    # its exponent (continuation parameter)
+        for i in range(cfg.cont0, cfg.cont + 1):
+            p = self.params_at(i)
+            if monitor:
+                print(f"## [{i}/{cfg.cont}] Solving with exponent = {p.exponent:5f} "
+                      f"regularization {p.regularization:8.2e}")
+            x_start = x
+            if cfg.cont_predictor == "secant" and x_prev is not None:
+                # extrapolate the warm start through the last two solutions,
+                # x + theta (x - x_prev), used only if its residual is smaller
+                de_new = p.exponent - (exp_prev if exp_prev is not None else 0.0)
+                de_old = exp_prev - self.params_at(i - 2).exponent if i >= 2 else 0.0
+                theta = de_new / de_old if abs(de_old) > 1e-12 else 1.0
+                theta = min(max(theta, 0.0), 2.0)
+                x_pred = {k: x[k] + theta * (x[k] - x_prev[k]) for k in x}
+                rfn = self.make_residual(p)
+                fn_plain = float(_norm(rfn(x)[0]))
+                fn_pred = float(_norm(rfn(x_pred)[0]))
+                if fn_pred < fn_plain:
+                    x_start = x_pred
+                if monitor:
+                    print(f"##   predictor theta={theta:.3f} "
+                          f"fnorm plain {fn_plain:.3e} secant {fn_pred:.3e} "
+                          f"-> {'secant' if fn_pred < fn_plain else 'plain'}")
+            res = self.solve(x_start, params=p, monitor=monitor, clamp_f32=clamp_f32)
+            x_prev, exp_prev = x, p.exponent
+            x = res.x
+            results.append(res)
+        return results
+
+    def solve_continuation_fused(self, *args, **kwargs):
+        raise _todo("solve_continuation_fused", "item 3c: make_fused_newton")
+
+    # ------------------------------------------------------------------
+    # Mixed precision: float64 host residual + defect-correction solve
+    # ------------------------------------------------------------------
+    def make_residual_dev64(self, *args, **kwargs):
+        raise _todo("make_residual_dev64", "item 3c: solve_refined_fused")
+
+    def make_residual_np(self, params: PowerLawParams):
+        """Host float64 Stokes residual (numpy transforms), mirroring
+        make_residual; the high-precision side of solve_refined."""
+        g, d, cfg = self.grid, self.d, self.config
+        apply_w = g.apply_dif_weight_np
+        vel_mask, p_mask = self.vel_mask_np, self.p_mask_np
+        dmask, nm, mixed = self.dirichlet_mask_np, self.nm_mask_np, self.mixed_mask_np
+        neumann = self.neumann_mask_np
+        normal, onehot = self.normal_np, self.in_onehot_np
+        alpha, bc_vel, bc_vnormal = self.alpha_np, self.bc_vel_np, self.bc_vnormal_np
+        force_v, force_p = self.force_np["v"], self.force_np["p"]
+        E_T = [_reduce_matrix_np(tuple(float(v) for v in g.nodes_1d[ax])).T
+               for ax in range(d)]
+
+        def rheology_hi(gamma):
+            if cfg.rheology in (0, "linear"):
+                return np.ones_like(gamma), np.zeros_like(gamma)
+            n = params.exponent
+            p = (1.0 - n) / (2.0 * n)
+            base = params.regularization + gamma / params.gamma0
+            eta = params.hardness * base**p
+            deta = (params.hardness * p / params.gamma0 * base ** (p - 1.0)
+                    if abs(n) > 1e-5 else np.zeros_like(gamma))
+            return eta, deta
+
+        def reduce_order(p):
+            for ax in reversed(range(d)):
+                p = np.moveaxis(np.moveaxis(p, ax, -1) @ E_T[ax], -1, ax)
+            return p
+
+        def recover(v):
+            # residual path: inhomogeneous flux v.n = bc_vnormal (boundary 5)
+            if self.num_mixed == 0:
+                return v
+            v_excl = v * (1.0 - onehot)
+            num = np.sum(v_excl * normal, axis=-1, keepdims=True)
+            num = num - bc_vnormal[..., None]
+            n_in = np.sum(normal * onehot, axis=-1, keepdims=True)
+            vin = -num / np.where(np.abs(n_in) > 1e-14, n_in, 1.0)
+            return np.where(mixed[..., None], v_excl + onehot * vin, v)
+
+        def residual(x):
+            vL = recover(np.where(vel_mask, x["v"], 0.0))
+            vL = np.where(dmask[..., None], bc_vel, vL)
+            G = np.stack([apply_w(chebdiff_np(vL, j), j) for j in range(d)], axis=-2)
+            S = 0.5 * (G + np.swapaxes(G, -1, -2))
+            gamma = 0.5 * np.sum(S * S, axis=(-1, -2))
+            eta, deta = rheology_hi(gamma)
+            flux = eta[..., None, None] * S
+            yv = np.zeros_like(vL)
+            for j in range(d):
+                yv = yv - apply_w(chebdiff_np(flux[..., j, :], j), j)
+            if self.num_mixed:
+                traction = np.einsum("...jk,...k->...j", flux, normal)
+                load = cfg.scaleN * traction + alpha[..., None] * vL
+                rows = cfg.scaleM * load
+                if self.mixed_tang:
+                    tang = load - np.sum(load * normal, axis=-1, keepdims=True) * normal
+                    rows = np.where(mixed[..., None], cfg.scaleM * tang, rows)
+                yv = np.where(nm[..., None], rows, yv)
+            pL = reduce_order(np.where(p_mask, x["p"], 0.0))
+            gp = np.stack([apply_w(chebdiff_np(pL, i), i) for i in range(d)], axis=-1)
+            gp = np.where(nm[..., None], 0.0, gp)
+            if cfg.traction_p and self.num_neumann > 0:
+                rows = cfg.scaleM * cfg.scaleN * (-pL[..., None] * normal)
+                gp = np.where(neumann[..., None], rows, gp)
+            Fv = np.where(vel_mask, yv + gp, 0.0) - force_v
+            div = np.zeros(g.dims, np.float64)
+            for i in range(d):
+                div = div + apply_w(chebdiff_np(vL[..., i], i), i)
+            Fp = np.where(p_mask, div, 0.0) - force_p
+            return {"v": Fv, "p": Fp}
+
+        return residual
+
+    def solve_refined(self, *, rtol: float = 1e-10, max_refine: int = 10,
+                      monitor: bool = False):
+        """Defect-correction Stokes solve: the continuation and Newton in
+        float32 on the grid's device (outer rtol clamped to the float32
+        floor), then steps x -= J32^-1 F64(x) with float64 host residuals
+        and float32 saddle-point-preconditioned linear solves, until
+        ||F64|| <= rtol ||f||.  Returns (x float64 numpy dict, info)."""
+        cfg = self.config
+        f32 = torch.float32
+        params = self.params_at(cfg.cont)
+        results = self.solve_continuation(monitor=monitor, clamp_f32=True, dtype=f32)
+        x = {k: v.cpu().numpy().astype(np.float64) for k, v in results[-1].x.items()}
+
+        residual_hi = self.make_residual_np(params)
+        residual_lo = self.make_residual(params)
+        pc_setup, pc_apply = self.make_pc()
+        ksp32 = self._dtype_ksp(cfg.outer_ksp, f32)
+        dev = self.grid.device
+
+        def to32(t):
+            return {k: torch.as_tensor(np.asarray(a), dtype=f32, device=dev)
+                    for k, a in t.items()}
+
+        def lin_solve(x32, r32):
+            _, lin_state = residual_lo(x32)
+            pc_state = pc_setup(x32, lin_state)
+            out = ksp32.solve(lambda w: self.jacobian_action(x32, lin_state, w), r32,
+                              M=lambda r: pc_apply(pc_state, r),
+                              null_project=self.null_project)
+            return out.x, out.iters
+
+        p_mask = self.p_mask_np
+        count = float(self.grid.num_interior)
+
+        def project_np(t):
+            p = np.where(p_mask, t["p"], 0.0)
+            if not self.has_p_null:
+                return {"v": t["v"], "p": p}
+            return {"v": t["v"], "p": p - np.where(p_mask, p.sum() / count, 0.0)}
+
+        def tnorm(t):
+            return float(np.sqrt(sum(np.vdot(v, v).real for v in t.values())))
+
+        bnorm = max(tnorm(self.force_np), 1e-300)
+        hist = []
+        inner = 0
+        for _ in range(max_refine):
+            r = project_np(residual_hi(x))
+            rnorm = tnorm(r)
+            hist.append(rnorm)
+            if rnorm <= rtol * bnorm:
+                break
+            dx, its = lin_solve(to32(x), to32(r))
+            if dx["v"].dtype != f32 or dx["p"].dtype != f32:
+                raise TypeError("the inner solve must stay float32")
+            inner += int(its)
+            x = {k: x[k] - dx[k].cpu().numpy().astype(np.float64) for k in x}
+        else:
+            hist.append(tnorm(project_np(residual_hi(x))))
+        info = {"continuation": results, "refine_history": hist,
+                "refine_inner_iters": inner, "rel_residual": hist[-1] / bnorm}
+        return x, info
+
+    def solve_refined_fused(self, *args, **kwargs):
+        raise _todo("solve_refined_fused", "item 3c")
+
+    def adjoint_gradient(self, *args, **kwargs):
+        raise _todo("adjoint_gradient", "item 5: solvers/adjoint.py")
+
+    def error_vs_exact(self, x: dict) -> float:
+        """Max-norm error with the constant-pressure mode removed
+        (stokes.C:222-228); x a state of tensors or of numpy arrays (taken
+        in float64)."""
+        x = {k: (v if isinstance(v, torch.Tensor)
+                 else torch.as_tensor(np.asarray(v, np.float64), device=self.grid.device))
+             for k, v in x.items()}
+        dt = x["v"].dtype
+        dv = x["v"] - self._c("exact_v", dt)
+        dp = self.project_p(x["p"] - self._c("exact_p", dt))
+        return max(float(torch.max(torch.abs(dv))), float(torch.max(torch.abs(dp))))

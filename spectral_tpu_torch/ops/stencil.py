@@ -176,3 +176,80 @@ def elliptic_jacobian_stencil(grid: Grid, eta: torch.Tensor, deta: torch.Tensor,
     center = torch.where(interior, center, torch.ones((), dtype=eta.dtype,
                                                       device=eta.device))
     return StencilOp(center, tuple(lowers), tuple(uppers))
+
+
+def anisotropic_fd_stencil(grid: Grid, caxes: Sequence[torch.Tensor],
+                           row_scale: torch.Tensor | None = None,
+                           neumann_axes: Sequence[int] = (),
+                           with_folds: bool = False):
+    """Variable-coefficient FD stencil of -sum_i d_i(c_i(x) d_i .) with a
+    different coefficient field per axis (midpoint arithmetic means), plus
+    an optional interior row scaling.  Dirichlet rows identity, couplings
+    into the boundary dropped: the anisotropic generalization of
+    ``elliptic_jacobian_stencil``'s flux form.  Runs in the coefficients'
+    dtype on their device.
+
+    ``neumann_axes``: axes whose end faces carry a zero-flux row
+    (u_end - u_adj)/h = r instead of the Dirichlet identity; the
+    first-interior center absorbs the (dropped) coupling into the face, as
+    in ``ops/fastdiag.py``.  With ``with_folds`` returns (StencilOp, folds),
+    folds[ax] = (h_lo, f_lo, h_hi, f_hi): the 1-D end spacings and the
+    full-grid fold-coefficient fields (the scaled face coupling, nonzero
+    only on the face-adjacent interior slice)."""
+    d = grid.ndim
+    c0 = caxes[0]
+    dtype, device = c0.dtype, c0.device
+    interior = grid.interior_mask.to(device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    center = torch.zeros(grid.dims, dtype=dtype, device=device)
+    lowers, uppers = [], []
+    folds: dict = {}
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    for ax in range(d):
+        z = grid.nodes_1d[ax]
+        n = len(z)
+        idxM = np.zeros(n)
+        idxP = np.zeros(n)
+        idx = np.zeros(n)
+        idxM[1:-1] = 1.0 / (z[1:-1] - z[:-2])
+        idxP[1:-1] = 1.0 / (z[2:] - z[1:-1])
+        idx[1:-1] = 2.0 / (z[2:] - z[:-2])
+        idxM = dev(_bcast_axis(idxM, ax, d))
+        idxP = dev(_bcast_axis(idxP, ax, d))
+        idx = dev(_bcast_axis(idx, ax, d))
+        c = caxes[ax]
+        cM = 0.5 * (shift(c, ax, -1) + c)
+        cP = 0.5 * (shift(c, ax, +1) + c)
+        lo = -idx * idxM * cM
+        up = -idx * idxP * cP
+        center = center + idx * (idxP * cP + idxM * cM)
+        if ax in neumann_axes:
+            adj_lo = np.zeros(grid.dims, bool)
+            adj_hi = np.zeros(grid.dims, bool)
+            sl = [slice(None)] * d
+            sl[ax] = 1
+            adj_lo[tuple(sl)] = True
+            sl[ax] = -2
+            adj_hi[tuple(sl)] = True
+            adj_lo = torch.as_tensor(adj_lo, device=device) & interior
+            adj_hi = torch.as_tensor(adj_hi, device=device) & interior
+            center = center + torch.where(adj_lo, lo, zero) + torch.where(adj_hi, up, zero)
+            if with_folds:
+                f_lo = torch.where(adj_lo, lo, zero)
+                f_hi = torch.where(adj_hi, up, zero)
+                if row_scale is not None:
+                    f_lo, f_hi = f_lo * row_scale, f_hi * row_scale
+                folds[ax] = (abs(float(z[1] - z[0])), f_lo,
+                             abs(float(z[-1] - z[-2])), f_hi)
+        lowers.append(torch.where(interior & shift(interior, ax, -1), lo, zero))
+        uppers.append(torch.where(interior & shift(interior, ax, +1), up, zero))
+    if row_scale is not None:
+        center = center * row_scale
+        lowers = [lo * row_scale for lo in lowers]
+        uppers = [up * row_scale for up in uppers]
+    center = torch.where(interior, center, torch.ones((), dtype=dtype, device=device))
+    S = StencilOp(center, tuple(lowers), tuple(uppers))
+    return (S, folds) if with_folds else S

@@ -1,8 +1,10 @@
 """Restarted GMRES / FGMRES on torch tensors: the PETSc KSP replacement.
 
 Counterpart of ``spectral_tpu/solvers/krylov.py`` for ``gmres``,
-``fgmres`` and ``KSPConfig.solve``.  It keeps the JAX package's algorithm
-step for step:
+``fgmres``, ``preonly`` and ``KSPConfig.solve``.  A state is a tensor or
+a dict of tensors (the Stokes state {"v": (dims..., d), "p": dims}),
+flattened by concatenation in sorted key order, as ``ravel_pytree``
+flattens it.  It keeps the JAX package's algorithm step for step:
 
 - CGS2 orthogonalization as two basis products per step;
 - the restart residual reconstructed from the basis (one inverse Givens
@@ -22,14 +24,14 @@ the convergence test needs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from spectral_tpu_torch.solvers.types import ConvergedReason, SolveResult
 
-Operator = Callable[[torch.Tensor], torch.Tensor]
+Operator = Callable[[Any], Any]
 
 HISTORY_LEN = 256
 _TINY = 1e-300
@@ -49,26 +51,55 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.dot(v, v))
 
 
+def _ravel(x, dtype):
+    """(flat vector in ``dtype``, unravel) of a tensor, or of a dict of
+    tensors (a Stokes state {"v": ..., "p": ...}): the leaves concatenated
+    in sorted key order, as the JAX package's ``ravel_pytree`` orders a
+    dict, and split back into views of the flat vector."""
+    if isinstance(x, torch.Tensor):
+        shape = x.shape
+        return x.reshape(-1).to(dtype), (lambda vf: vf.reshape(shape))
+    keys = sorted(x)
+    shapes = [x[k].shape for k in keys]
+    sizes = [x[k].numel() for k in keys]
+    flat = torch.cat([x[k].reshape(-1).to(dtype) for k in keys])
+
+    def unravel(vf):
+        return {k: part.reshape(shp)
+                for k, part, shp in zip(keys, torch.split(vf, sizes), shapes)}
+
+    return flat, unravel
+
+
+def _leaf_dtype(b) -> torch.dtype:
+    if isinstance(b, torch.Tensor):
+        return b.dtype
+    dtypes = [v.dtype for v in b.values()]
+    if len(set(dtypes)) != 1:
+        raise TypeError(f"the leaves of a state must share one dtype, got {dtypes}")
+    return dtypes[0]
+
+
 def _flatten_system(A, b, x0, M, null_project):
-    """Reduce a grid-shaped system to flat vectors.
+    """Reduce a grid-shaped system to flat vectors: b a tensor, or a dict
+    of tensors flattened by concatenation.
 
     The solve runs in b's dtype: operator and PC outputs are cast back to
     it, so f64 constants meeting f32 state cannot change the working type.
     """
-    shape = b.shape
-    dtype = b.dtype
-    bf = b.reshape(-1)
+    dtype = _leaf_dtype(b)
+    bf, unravel = _ravel(b, dtype)
 
     def wrap(op):
         if op is None:
             return None
-        return lambda vf: op(vf.reshape(shape)).reshape(-1).to(dtype)
+        return lambda vf: _ravel(op(unravel(vf)), dtype)[0]
 
     Af = wrap(A)
     Mf = wrap(M) or _identity
     Pf = wrap(null_project) or _identity
-    x0f = torch.zeros_like(bf) if x0 is None else x0.reshape(-1).to(dtype)
-    return Af, bf, x0f, Mf, Pf, (lambda vf: vf.reshape(shape))
+    x0f = torch.zeros_like(bf) if x0 is None else _ravel(x0, dtype)[0]
+    return Af, bf, x0f, Mf, Pf, unravel
 
 
 def _gmres_flat(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
@@ -201,7 +232,7 @@ def _gmres_like(A, b, x0, *, M, rtol, atol, dtol, max_it, restart,
     return SolveResult(unravel(xf), it, reason, rnorm, hist)
 
 
-def gmres(A: Operator, b: torch.Tensor, x0=None, *, M: Optional[Operator] = None,
+def gmres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
           rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000, restart=30,
           null_project=None, history_len=HISTORY_LEN) -> SolveResult:
     """Restarted GMRES with left preconditioning (PETSc KSPGMRES semantics)."""
@@ -210,7 +241,7 @@ def gmres(A: Operator, b: torch.Tensor, x0=None, *, M: Optional[Operator] = None
                        history_len=history_len, flexible=False)
 
 
-def fgmres(A: Operator, b: torch.Tensor, x0=None, *, M: Optional[Operator] = None,
+def fgmres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
            rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000, restart=30,
            null_project=None, history_len=HISTORY_LEN) -> SolveResult:
     """Flexible GMRES, right preconditioning (PETSc KSPFGMRES semantics):
@@ -220,10 +251,21 @@ def fgmres(A: Operator, b: torch.Tensor, x0=None, *, M: Optional[Operator] = Non
                        history_len=history_len, flexible=True)
 
 
-_KSP_TYPES = {"gmres": gmres, "fgmres": fgmres}
+def preonly(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
+            null_project=None, history_len=HISTORY_LEN, **_) -> SolveResult:
+    """Apply the preconditioner once (PETSc KSPPREONLY, e.g. ``-svel_ksp_type
+    preonly``).  It computes no residual: rnorm is 0, not NaN (PETSc runs
+    it with KSP_NORM_NONE and reports 0), and the history holds no entry."""
+    Mf = M or _identity
+    Pf = null_project or _identity
+    x = Mf(Pf(b))
+    hist = torch.full((history_len,), -1.0, dtype=_leaf_dtype(b))
+    return SolveResult(x, 1, int(ConvergedReason.CONVERGED_ITS), 0.0, hist)
+
+
+_KSP_TYPES = {"gmres": gmres, "fgmres": fgmres, "preonly": preonly}
 # KSP types of the JAX package that this package does not carry yet.
-_NOT_PORTED = ("cg", "bcgs", "bicgstab", "richardson", "chebyshev", "minres",
-               "preonly")
+_NOT_PORTED = ("cg", "bcgs", "bicgstab", "richardson", "chebyshev", "minres")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,15 +280,17 @@ class KSPConfig:
     restart: int = 30
     history_len: int = HISTORY_LEN
 
-    def solve(self, A: Operator, b: torch.Tensor, x0=None, *, M=None,
+    def solve(self, A: Operator, b, x0=None, *, M=None,
               null_project=None) -> SolveResult:
+        """Solve A x = b; b (and x0) a tensor or a dict of tensors."""
         if self.type in _NOT_PORTED:
             raise NotImplementedError(
                 f"KSP type {self.type!r} is not ported yet "
                 "(ROADMAP.md queue 1, item 1b)")
         if self.type not in _KSP_TYPES:
             raise ValueError(f"unknown KSP type {self.type!r}")
-        return _KSP_TYPES[self.type](
-            A, b, x0, M=M, null_project=null_project,
-            history_len=self.history_len, rtol=self.rtol, atol=self.atol,
-            dtol=self.dtol, max_it=self.max_it, restart=self.restart)
+        kwargs = dict(M=M, null_project=null_project, history_len=self.history_len)
+        if self.type != "preonly":
+            kwargs.update(rtol=self.rtol, atol=self.atol, dtol=self.dtol,
+                          max_it=self.max_it, restart=self.restart)
+        return _KSP_TYPES[self.type](A, b, x0, **kwargs)

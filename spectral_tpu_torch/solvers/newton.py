@@ -10,7 +10,9 @@ preconditioner):
 - without a Jacobian action the step uses ``torch.func.jvp`` of the
   residual (JFNK, the reference's ``-snes_mf``);
 - line search: backtracking with Armijo sufficient decrease ("bt"), the
-  full step ("basic"), or a user callable.
+  full step ("basic"), or a user callable;
+- a state is a tensor or a dict of tensors (the Stokes state); norms run
+  over every leaf, updates leaf by leaf.
 
 The JAX package compiles one Newton step; here the step runs eagerly.
 Every line-search trial makes one host transfer, which carries the trial's
@@ -31,8 +33,20 @@ from spectral_tpu_torch.solvers.krylov import KSPConfig
 from spectral_tpu_torch.solvers.types import ConvergedReason
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.vector_norm(x.reshape(-1))
+def _norm(x) -> torch.Tensor:
+    """2-norm of a tensor, or over every leaf of a dict of tensors (sorted
+    key order, as the JAX package sums a pytree's leaves); a 0-d tensor."""
+    if isinstance(x, torch.Tensor):
+        return torch.linalg.vector_norm(x.reshape(-1))
+    return torch.sqrt(sum(torch.dot(x[k].reshape(-1), x[k].reshape(-1))
+                          for k in sorted(x)))
+
+
+def _step(x, dx, lam: float):
+    """x - lam dx on tensors, or leaf by leaf on dicts of tensors."""
+    if isinstance(x, torch.Tensor):
+        return x - lam * dx
+    return {k: x[k] - lam * dx[k] for k in x}
 
 
 @dataclasses.dataclass
@@ -99,7 +113,7 @@ newton_solve_family = _unported("newton_solve_family", "item 7")
 def _trial(residual_fn, x, dx, lam: float, dxnorm: torch.Tensor):
     """x - lam dx and its residual; one host transfer returns
     (fnorm, dxnorm, xnorm) as floats."""
-    xt = x - lam * dx
+    xt = _step(x, dx, lam)
     Ft, lst = residual_fn(xt)
     host = torch.stack([_norm(Ft), dxnorm, _norm(xt)]).cpu().tolist()
     return xt, Ft, lst, host
@@ -124,7 +138,7 @@ def _line_search_bt(residual_fn, x, dx, fnorm0: float, dxnorm, cfg: NewtonConfig
 
 def newton_solve(
     residual_fn: Callable[[Any], tuple[Any, Any]],
-    x0: torch.Tensor,
+    x0,
     *,
     jacobian_action: Optional[Callable[[Any, Any, Any], Any]] = None,
     pc_setup: Optional[Callable[[Any, Any], Any]] = None,
@@ -138,7 +152,8 @@ def newton_solve(
 
     Args:
       residual_fn: x -> (F(x), lin_state).
-      x0: initial guess (its dtype and device are the solve's).
+      x0: initial guess, a tensor or a dict of tensors (its dtype and
+        device are the solve's).
       jacobian_action: (x, lin_state, w) -> J(x) @ w; defaults to jvp (JFNK).
       pc_setup: (x, lin_state) -> pc_state (PCSetUp analog).
       pc_apply: (pc_state, r) -> z (PCApply analog).

@@ -48,7 +48,10 @@ def fastdiag_from_numpy(grid: Grid, V, Vinv, lam_sum, shift_const=0.0,
                                        folds, dtype=dtype)
 
 
-def _np(a) -> np.ndarray:
+def _np(a):
+    """A tensor or array as numpy; a dict (a Stokes state) leaf by leaf."""
+    if isinstance(a, dict):
+        return {k: _np(v) for k, v in a.items()}
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
@@ -56,7 +59,8 @@ def _np(a) -> np.ndarray:
 
 def solve_result_to_numpy(res) -> dict[str, np.ndarray]:
     """x, iters, reason, rnorm and history of a SolveResult of either
-    package as numpy arrays (history trimmed of its -1 padding)."""
+    package as numpy arrays (history trimmed of its -1 padding; x a dict
+    of arrays for a dict state)."""
     hist = _np(res.history)
     return {"x": _np(res.x), "iters": int(_np(res.iters)),
             "reason": int(_np(res.reason)), "rnorm": float(_np(res.rnorm)),
@@ -87,3 +91,39 @@ def newton_result_to_numpy(res) -> dict:
             "fnorm_history": np.asarray([float(v) for v in res.fnorm_history]),
             "ksp_iters": [int(k) for k in res.ksp_iters],
             "ksp_history_last": np.asarray([float(v) for v in res.ksp_history_last])}
+
+
+def stokes_state_from_numpy(state, *, device: torch.device | str,
+                            dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """A Stokes state {"v": (dims..., d), "p": dims} of either package (or
+    of numpy arrays) as this package's tensors in ``dtype`` on ``device``."""
+    return {k: _dev(_np(state[k]), device, dtype) for k in ("v", "p")}
+
+
+def stokes_state_to_numpy(state) -> dict[str, np.ndarray]:
+    """A Stokes state of either package as float64 numpy arrays."""
+    return {k: np.asarray(_np(state[k]), np.float64) for k in ("v", "p")}
+
+
+# the set-up fields two StokesProblems must agree on, by attribute name
+_STOKES_MASKS = ("vel_mask", "p_mask", "dirichlet_mask", "nm_mask", "mixed_mask",
+                 "neumann_mask")
+_STOKES_FIELDS = ("bc_vel", "bc_vnormal_np", "alpha", "normal", "in_onehot",
+                  "exact_v", "exact_p")
+
+
+def stokes_problem_fields_to_numpy(problem) -> dict:
+    """The set-up of a StokesProblem of either package as numpy: the masks
+    (bool), boundary data, normals, the exact fields, the forcing
+    ("force_v", "force_p"), the node types and the counts (num_mixed,
+    num_neumann, has_p_null), so that two problems can be held equal field
+    by field."""
+    out = {k: np.asarray(_np(getattr(problem, k)), bool) for k in _STOKES_MASKS}
+    for k in _STOKES_FIELDS:
+        out[k.removesuffix("_np")] = np.asarray(_np(getattr(problem, k)), np.float64)
+    out["force_v"] = np.asarray(_np(problem.force["v"]), np.float64)
+    out["force_p"] = np.asarray(_np(problem.force["p"]), np.float64)
+    out["types"] = np.asarray(problem.types_np)
+    for k in ("num_mixed", "num_neumann", "has_p_null"):
+        out[k] = getattr(problem, k)
+    return out

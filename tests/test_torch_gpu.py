@@ -293,3 +293,74 @@ def test_elliptic_refined_on_card(cuda):
         assert info["rel_residual"] <= 1e-10, (name, info["rel_residual"])
         assert np.max(np.abs(x - u)) <= 1e-6   # 7.68e-7: the 12^3 discretisation error
     assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0
+
+
+def _stokes_state(p, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    v = np.where(p.vel_mask_np, scale * rng.standard_normal(p.vel_mask_np.shape), 0.0)
+    q = np.where(p.p_mask_np, scale * rng.standard_normal(p.p_mask_np.shape), 0.0)
+    return {"v": torch.from_numpy(v), "p": torch.from_numpy(q)}
+
+
+@pytest.mark.parametrize("rheology", [0, 1])
+def test_stokes_residual_and_jacobian_on_card(cuda, rheology):
+    """The Stokes residual and Jacobian action at 8^3 on the card (K1 on the
+    pressure gradient's last axis) against the port on the host, to 1e-12
+    relative to the largest entry."""
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+
+    cfg = StokesConfig(exact=2, rheology=rheology, exponent=3.0, regularization=1e-2)
+    host = StokesProblem(Grid((8, 8, 8), device="cpu"), cfg)
+    card = StokesProblem(Grid((8, 8, 8), device=cuda), cfg)
+    x, w = _stokes_state(host, 1, 0.3), _stokes_state(host, 2)
+    xc, wc = ({k: v.to(cuda) for k, v in s.items()} for s in (x, w))
+    F_h, ls_h = host.make_residual(host.params_at(1))(x)
+    cuda_cheb.reset_launch_counts()
+    F_c, ls_c = card.make_residual(card.params_at(1))(xc)
+    J_h, J_c = host.jacobian_action(x, ls_h, w), card.jacobian_action(xc, ls_c, wc)
+    for got, ref in ((F_c, F_h), (J_c, J_h)):
+        for k in ("v", "p"):
+            assert _rel(got[k].cpu(), ref[k]) <= 1e-12, k
+    key = (torch.Size((8, 8, 8)), torch.float64)
+    assert cuda_cheb.K1_LAUNCHES_BY_SHAPE.get(key, 0) == 2   # one a pressure gradient
+
+
+def test_stokes_linear_solve_on_card(cuda):
+    """test_linear_stokes_2d's configuration (12x12) on the card: the host's
+    Newton and Krylov counts, the solution to 1e-10 relative (over both
+    fields: the exact pressure is 0, so the computed one is all solve
+    error, 1e-7 of itself between the two summation orders), and K1 on
+    every pressure gradient and Schur divergence, (12, 12) float64."""
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+
+    res, k1 = {}, {}
+    for dev in ("cpu", cuda):
+        p = StokesProblem(Grid((12, 12), device=dev), StokesConfig(exact=2, cont0=1))
+        cuda_cheb.reset_launch_counts()
+        res[str(dev)] = r = p.solve()
+        k1[str(dev)] = dict(cuda_cheb.K1_LAUNCHES_BY_SHAPE)
+        print(json.dumps({"device": str(dev), "newton": r.iters, "krylov": r.ksp_iters,
+                          "error": p.error_vs_exact(r.x),
+                          "k1_by_shape": {str(tuple(s)) + " " + str(d): c
+                                          for (s, d), c in k1[str(dev)].items()}}))
+    host, card = res["cpu"], res[str(cuda)]
+    assert card.iters == host.iters == 1 and card.reason == host.reason > 0
+    assert card.ksp_iters == host.ksp_iters
+    diff = sum(float(torch.sum((card.x[k].cpu() - host.x[k]) ** 2)) for k in ("v", "p"))
+    norm = sum(float(torch.sum(host.x[k] ** 2)) for k in ("v", "p"))
+    assert (diff / norm) ** 0.5 <= 1e-10, (diff / norm) ** 0.5
+    assert k1["cpu"] == {}
+    assert set(k1[str(cuda)]) == {(torch.Size((12, 12)), torch.float64)}
+    assert k1[str(cuda)][(torch.Size((12, 12)), torch.float64)] > 0
+
+
+def test_stokes_refined_on_card(cuda):
+    """Mixed precision at 10x10 on the card: float32 continuation and inner
+    solves (K1 in float32), float64 host residuals, rel residual 1e-10."""
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+
+    p = StokesProblem(Grid((10, 10), device=cuda), StokesConfig(exact=2, cont0=1))
+    cuda_cheb.reset_launch_counts()
+    x, info = p.solve_refined(rtol=1e-10)
+    assert info["rel_residual"] <= 1e-10, info["rel_residual"]
+    assert cuda_cheb.K1_LAUNCHES_BY_SHAPE.get((torch.Size((10, 10)), torch.float32), 0) > 0
