@@ -37,9 +37,18 @@ paths at their real sizes through the entry points a user calls:
      20^3, ``__graft_entry__.entry()``'s forward step at 32^3 (residual and
      one Jacobian action, float64 and float32), and
      ``StokesProblem.solve_refined`` in bench.py's stokes20 configurations
-     (K1 on the pressure's last axis in every path).
+     (K1 on the pressure's last axis in every path);
+  9. the rest of the Stokes flagship, gated on STOKES_ORACLE: (a) the
+     ``stokes`` CLI in float64 with Neumann boundaries, the physical
+     traction rows with the traction-block correction at 20^3 and the
+     reference's pressure-free rows at 12^3; (b) the mixed and Neumann
+     configurations of the JAX package's tests at 16^2 (line-relaxed
+     traction rows on fastdiag and on a V-cycle, tbc); (c) README:52 with
+     the line-smoothed eta-aware multigrid at 20^3; (d) the fused tier,
+     ``solve_refined_fused`` in bench.py's stokes20 configurations (the
+     power law with ``fused_continuation``).
 
-Each path (phases 3-8) is driven with the launch counts set to 0 just
+Each path (phases 3-9) is driven with the launch counts set to 0 just
 before it and read just after (K1's also by shape), and times nothing
 inside it (a call captured in a CUDA graph counts once and launches at
 every replay); every phase raises on failure.  A timed comparison gives
@@ -71,8 +80,10 @@ BOUND = {"float32": 1e-5, "float64": 1e-12}   # max |kernel - plain| / max |plai
 # The shapes the paths give K1: 64^3 (the Poisson CLI), 32^3 and 12^5 (the
 # elliptic paths, float64 in phase 6, float32 and float64 in phase 7; the
 # Stokes forward step, phase 8), 20^3 (the Stokes CLI in float64, and
-# solve_refined's float32 inner solves, phase 8)
-K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5, (20, 20, 20))
+# solve_refined's float32 inner solves, phase 8; phase 9's 20^3 paths),
+# (16, 16) and (12, 12, 12) (phase 9's 2-D mixed solves and the 12^3
+# Neumann CLI, float64)
+K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5, (20, 20, 20), (16, 16), (12, 12, 12))
 K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
 # K3's ragged cases, each in float32 and float64: (rows, n, pack, row tile,
 # offset of u2d in its storage).  n % 4 == 0 goes by bulk copies (n = 12:
@@ -171,6 +182,13 @@ STOKES_README43 = ["-exact", "2", "-cont0", "1", "-schur_ksp_max_it", "3", "-vel
 STOKES_README52 = ["-exact", "2", "-cont", "4", "-rheology", "1", "-eps", "1e-4", "-exponent",
                    "3", "-schur_ksp_max_it", "3", "-vel_ksp_max_it", "4", "-svel_ksp_type",
                    "preonly", "-ksp_type", "fgmres", "-dim", "20,20,20"]
+CLI43_SOLVER = ["-cont0", "1", "-schur_ksp_max_it", "3", "-vel_ksp_max_it", "4",
+                "-svel_ksp_type", "preonly", "-ksp_type", "fgmres", "-ksp_rtol", "1e-10"]
+STOKES_NEUMANN3D = {
+    "tbc 20^3": ["-exact", "1", "-boundary", "1", "-traction_p", "1", "-tbc", "1",
+                 "-dim", "20,20,20", *CLI43_SOLVER],
+    "free 12^3": ["-exact", "2", "-boundary", "1", "-dim", "12,12,12", *CLI43_SOLVER],
+}
 STOKES_ORACLE = {
     "README:43": dict(argv=STOKES_README43, newton=[1], krylov=[[14]], error=2.792477e-07),
     "README:52": dict(argv=STOKES_README52, newton=[2, 3, 3, 4, 5],
@@ -202,6 +220,43 @@ STOKES_ORACLE = {
     # the port on the CPU at 3.22e-13 / 1.37e-13 and 4.35e-12 / 0.6057081634662824
     "refined linear": dict(rel=3.194402332219898e-13, error=2.9405057785374996e-14),
     "refined powerlaw": dict(rel=4.313229162342449e-12, error=0.6057081634662875),
+    # phase 9 (stokes_oracle.py neumann3d, mixed2d, line52, fused).  9a: the
+    # stokes CLI, Krylov counts from its continuation results; at 16^3 and
+    # 20^3 the JAX package stagnates on the pressure-free rows, so they run
+    # at 12^3.  9b: tests/test_stokes.py's solver settings at 16^2, with
+    # the JAX test's own bounds (max_krylov, max_error).  Boundary 2's
+    # Krylov counts are chaotic: the JAX package started from the zero
+    # state plus masked noise of 1e-13 (seeds 0-7) or 1e-11 (seed 0)
+    # takes the counts in "perturbed" (stokes_oracle.py perturb2d), 186-288
+    # with fastdiag (over its test's bound of 260 in four of nine runs)
+    # and 199-370 with the multigrid, at the same Newton count and an
+    # error within 1e-3 relative; they are held to that range as README:52
+    # is (stokes_krylov_range), and the error to 1e-3 relative.  9c:
+    # test_stokes_20cubed_powerlaw_fixture's configuration.  9d: the JAX
+    # package's float32 stages (x64 off), printed beside the port's.
+    "neumann tbc 20^3": dict(argv=STOKES_NEUMANN3D["tbc 20^3"], newton=[1], krylov=[[35]],
+                             reasons=["CONVERGED_RTOL"], error=3.573403e-07),
+    "neumann free 12^3": dict(argv=STOKES_NEUMANN3D["free 12^3"], newton=[1], krylov=[[280]],
+                              reasons=["CONVERGED_RTOL"], error=4.779435e-07),
+    "mixed boundary 2": dict(newton=[1], krylov=[[193]], reasons=["CONVERGED_RTOL"],
+                             error=37.59593473349248,
+                             perturbed=[[[k]] for k in (195, 234, 195, 270, 186, 288, 272,
+                                                        274, 199)]),
+    "mixed boundary 5": dict(newton=[1], krylov=[[107]], reasons=["CONVERGED_RTOL"],
+                             error=2.649785391106718e-09, max_error=1e-7),
+    "mixed boundary 6 tbc": dict(newton=[1], krylov=[[34]], reasons=["CONVERGED_RTOL"],
+                                 error=2.2434321067521523e-09, max_krylov=45, max_error=1e-4),
+    "mixed boundary 2 mg": dict(newton=[1], krylov=[[284]], reasons=["CONVERGED_RTOL"],
+                                error=37.59119298474984,
+                                perturbed=[[[k]] for k in (276, 296, 199, 370, 336, 284, 281,
+                                                           353, 299)]),
+    "line52": dict(newton=[1, 3, 3, 4, 5],
+                   krylov=[[9], [17, 15, 17], [21, 24, 24], [27, 26, 23, 25], [28, 26, 22, 24, 28]],
+                   total=356, error=0.6057081634662841, max_krylov=35),
+    "fused linear": dict(refine_steps=3, refine_inner=27, rel=3.94099115084575e-13,
+                         error=5.22528405016006e-12),
+    "fused powerlaw": dict(newton=[3, 8, 8, 18, 13], refine_steps=3, refine_inner=60,
+                           rel=1.5326435677810032e-12, error=0.6057081634662976),
 }
 
 
@@ -243,6 +298,70 @@ def stokes_cli_ok(name: str, newton, krylov, err) -> str | None:
     if abs(err - spec["error"]) > 1e-6 * spec["error"]:
         return f"error {err:.6e}, oracle {spec['error']:.6e} (1e-6 relative)"
     return None
+
+
+def stokes_phase9_ok(name: str, newton, krylov, reasons, err) -> str | None:
+    """Why a phase 9a/9b solve misses STOKES_ORACLE[name]'s gates, or None:
+    Newton counts and reasons equal, each Krylov count within max(3, 10%)
+    of the oracle's (of the range its perturbed runs span, where it has
+    them), the error within 2x (within 1e-3 relative where the oracle has
+    perturbed runs: boundary 2's error is its distance from a field that
+    does not meet its boundary conditions, about 37.6 wherever the solve
+    lands, and the JAX package's perturbed runs keep it within 1e-3
+    relative), and the JAX test's own bounds where it has them."""
+    spec = STOKES_ORACLE[name]
+    if newton != spec["newton"] or reasons != spec["reasons"]:
+        return f"Newton {newton} {reasons}, oracle {spec['newton']} {spec['reasons']}"
+    (lo, hi), _ = stokes_krylov_range({"perturbed": [], **spec})
+    if [len(k) for k in krylov] != newton or any(
+            not _within(k, a, b) for got, ls, hs in zip(krylov, lo, hi)
+            for k, a, b in zip(got, ls, hs)):
+        return f"Krylov {krylov}, the JAX runs span {lo}..{hi} (max(3, 10%) beyond)"
+    if "perturbed" in spec:
+        if not abs(err - spec["error"]) <= 1e-3 * spec["error"]:
+            return f"error {err:.10e}, oracle {spec['error']:.10e} (within 1e-3 relative)"
+    elif not spec["error"] / 2 <= err <= 2 * spec["error"]:
+        return f"error {err:.6e}, oracle {spec['error']:.6e} (within 2x)"
+    if max(map(max, krylov)) > spec.get("max_krylov", float("inf")):
+        return f"Krylov {krylov} over the JAX test's {spec['max_krylov']}"
+    if err >= spec.get("max_error", float("inf")):
+        return f"error {err:.6e} over the JAX test's {spec['max_error']:.0e}"
+    return None
+
+
+def stokes_mixed_runs(dev) -> dict:
+    """name -> problem for phase 9b: tests/test_stokes.py's mixed and
+    Neumann configurations at 16^2 in float64 on ``dev``."""
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+
+    b2 = dict(exact=2, boundary=2, cont0=1,
+              outer_ksp=KSPConfig(type="fgmres", rtol=1e-8, max_it=400, restart=100),
+              newton=NewtonConfig(rtol=1e-8, max_it=10))
+    man = dict(exact=1, traction_p=True, newton=NewtonConfig(rtol=1e-10, max_it=20),
+               outer_ksp=KSPConfig(type="fgmres", rtol=1e-12, max_it=800, restart=200))
+    cfgs = {"mixed boundary 2": b2,
+            "mixed boundary 5": dict(man, boundary=5),
+            "mixed boundary 6 tbc": dict(man, boundary=6, tbc=1, outer_ksp=KSPConfig(
+                type="fgmres", rtol=1e-12, max_it=400, restart=200)),
+            "mixed boundary 2 mg": dict(b2, pcvel="mg")}
+    return {name: StokesProblem(Grid((16, 16), device=dev),
+                                StokesConfig(**cfg)) for name, cfg in cfgs.items()}
+
+
+def stokes_line52(dev):
+    """README:52 with the line-smoothed eta-aware multigrid velocity PC and
+    6-step velocity GMRES at 20^3 in float64 (phase 9c)."""
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+    cfg = StokesConfig(exact=2, rheology=1, cont=4, regularization=1e-4, exponent=3.0,
+                       pcvel="mg", pcvel_smoother="line",
+                       vel_ksp=KSPConfig(type="gmres", rtol=1e-5, max_it=6, restart=6))
+    return StokesProblem(Grid((20, 20, 20), device=dev), cfg)
 
 
 def stokes_refined_runs(dev) -> dict:
@@ -362,20 +481,21 @@ def both_ms(fn) -> tuple[float, float]:
 def timed_twice(run, warm_reps: int = 2):
     """(result, first_s, best_warm_s): the first call pays one-time costs
     (library handles, allocator growth, constant uploads); the best warm
-    call is the solve time."""
+    call is the solve time (None with no warm call)."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run()
+    out = run()
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    best, out = float("inf"), None
+    best = None
     for _ in range(warm_reps):
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
+        t = time.perf_counter() - t0
+        best = t if best is None else min(best, t)
     return out, first, best
 
 
@@ -876,6 +996,7 @@ def main() -> int:
         phase8[name]["device_ms"], phase8[name]["call_ms"] = both_ms(forward)
         del F, JF
     # 8d: mixed precision, float32 continuation and Newton, float64 host residuals
+    refined_x = {}   # 9d holds the fused power law to this solution
     for name, prob in stokes_refined_runs(dev).items():
         ((x, info), first_s, warm_s), counts = path(
             f"phase8 {name}", lambda: timed_twice(lambda: prob.solve_refined(rtol=1e-10),
@@ -889,6 +1010,7 @@ def main() -> int:
             require(err <= 1e-12, f"{name}: error {err:.3e} > 1e-12")
         else:
             require(abs(err - ref) <= 1e-6 * ref, f"{name}: error {err!r}, oracle {ref!r}")
+        refined_x[name] = x
         res = info["continuation"]
         phase8[name] = {"newton": [r.iters for r in res], "krylov": [r.ksp_iters for r in res],
                         "reasons": [r.reason_str() for r in res],
@@ -899,6 +1021,85 @@ def main() -> int:
                         "k1_launches_by_shape": k1_shapes[f"phase8 {name}"]}
     phase8["seconds"] = time.perf_counter() - t_phase
     print("phase8 " + json.dumps(phase8))
+
+    # -- phase 9: the rest of the Stokes flagship (STOKES_ORACLE) -------------
+    t_phase = time.perf_counter()
+    phase9 = {}
+
+    def record(name, counts, first_s, warm_s, **out):
+        phase9[name] = {**out, "first_s": first_s, "solve_s": warm_s,
+                        "k1_launches": counts[K1],
+                        "k1_launches_by_shape": k1_shapes[f"phase9 {name}"]}
+
+    for name in ("neumann tbc 20^3", "neumann free 12^3"):   # 9a: the CLI in float64
+        argv = ["stokes", *STOKES_ORACLE[name]["argv"]]
+        ((rc, out), first_s, warm_s), counts = path(
+            f"phase9 {name}", lambda: timed_twice(lambda: run_cli(cli_main, argv),
+                                                  warm_reps=1), [K1])
+        mc = re.search(r"Continuation steps: Newton (\[.*\])  Krylov (\[.*\])", out)
+        mr = re.search(r"Reason for solver termination: (\S+)", out)
+        me = re.search(r"Norm of error\s*: abs = (\S+)", out)
+        require(rc == 0 and mc and mr and me, f"stokes {name} failed (rc {rc}): {out!r}")
+        newton, krylov = json.loads(mc.group(1)), json.loads(mc.group(2))
+        err = float(me.group(1))
+        why = stokes_phase9_ok(name, newton, krylov, [mr.group(1)], err)
+        require(why is None, f"stokes {name}: {why}")
+        record(name, counts, first_s, warm_s, cli=" ".join(argv), newton=newton, krylov=krylov,
+               reason=mr.group(1), error=err, oracle_krylov=STOKES_ORACLE[name]["krylov"])
+    # 9b: the API in float64 at 16^2, one call each (the script's time limit)
+    for name, prob in stokes_mixed_runs(dev).items():
+        (res, first_s, warm_s), counts = path(
+            f"phase9 {name}", lambda: timed_twice(prob.solve, warm_reps=0), [K1])
+        err = prob.error_vs_exact(res.x)
+        why = stokes_phase9_ok(name, [res.iters], [res.ksp_iters], [res.reason_str()], err)
+        require(why is None, f"stokes {name}: {why}")
+        record(name, counts, first_s, warm_s, newton=res.iters, krylov=res.ksp_iters,
+               reason=res.reason_str(), error=err, oracle_krylov=STOKES_ORACLE[name]["krylov"])
+    # 9c: README:52 with the line-smoothed multigrid, the API in float64
+    name, spec, prob = "line52", STOKES_ORACLE["line52"], stokes_line52(dev)
+    (res, first_s, warm_s), counts = path(
+        f"phase9 {name}", lambda: timed_twice(prob.solve_continuation, warm_reps=1), [K1])
+    newton, krylov = [r.iters for r in res], [r.ksp_iters for r in res]
+    total, err = sum(map(sum, krylov)), prob.error_vs_exact(res[-1].x)
+    require(all(r.reason > 0 for r in res), f"{name}: {[r.reason_str() for r in res]}")
+    require(newton == spec["newton"], f"{name}: Newton {newton}, oracle {spec['newton']}")
+    require(max(map(max, krylov)) <= spec["max_krylov"],
+            f"{name}: Krylov {krylov}, a step over the JAX test's {spec['max_krylov']}")
+    require(abs(total - spec["total"]) <= 0.2 * spec["total"],
+            f"{name}: total Krylov {total}, oracle {spec['total']} (20%)")
+    require(abs(err - spec["error"]) <= 1e-6 * spec["error"],
+            f"{name}: error {err!r}, oracle {spec['error']!r} (1e-6 relative)")
+    record(name, counts, first_s, warm_s, newton=newton, krylov=krylov, total_krylov=total,
+           reasons=[r.reason_str() for r in res], error=err, oracle_krylov=spec["krylov"])
+    del prob, res
+    # 9d: the fused tier in bench.py's stokes20 configurations (phase 8d's gates)
+    for name, prob in stokes_refined_runs(dev).items():
+        fname = name.replace("refined", "fused")
+        ((x, info), first_s, warm_s), counts = path(
+            f"phase9 {fname}", lambda: timed_twice(lambda: prob.solve_refined_fused(
+                rtol=1e-10, fused_continuation=fname == "fused powerlaw"), warm_reps=1), [K1])
+        rel, err = info["rel_residual"], prob.error_vs_exact(x)
+        require(rel <= 1e-10, f"{fname}: rel residual {rel:.3e} > 1e-10")
+        dv = None
+        if fname == "fused linear":
+            # from zero, the last refine step leaves rel ~3e-13 and error ~5e-12
+            # (the JAX package's own 5.2e-12, STOKES_ORACLE): within 2x of it
+            ref = STOKES_ORACLE[fname]["error"]
+            require(err <= 2 * ref, f"{fname}: error {err:.3e} > 2 x {ref:.3e}")
+        else:
+            ref = STOKES_ORACLE[name]["error"]
+            require(abs(err - ref) <= 1e-6 * ref, f"{fname}: error {err!r}, oracle {ref!r}")
+            # the JAX test's rule (tests/test_refined_fused.py:137-139)
+            dv = float(np.max(np.abs(x["v"] - refined_x[name]["v"])))
+            require(dv <= 1e-7, f"{fname}: velocity {dv:.3e} off phase 8d's solve_refined")
+        res = info["continuation"]
+        record(fname, counts, first_s, warm_s, newton=[r.iters for r in res],
+               krylov=[r.ksp_iters for r in res], reasons=[r.reason_str() for r in res],
+               refine_steps=info["refine_steps"], refine_history=info["refine_history"],
+               refine_inner=info["refine_inner_iters"], rel_residual=rel, error=err,
+               velocity_vs_refined=dv, oracle=STOKES_ORACLE[fname])
+    phase9["seconds"] = time.perf_counter() - t_phase
+    print("phase9 " + json.dumps(phase9))
 
     # -- the kernels line ------------------------------------------------------
     k1_main = next(c for c in k1 if c["case"] == "(64, 64, 64) scale=None"

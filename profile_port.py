@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's time goes on one GPU: torch.profiler over one warm run
-of each elliptic and Stokes path that chip_smoke.py drives (its phases 6,
-7 and 8, taken from its tables).
+of each elliptic and Stokes path that chip_smoke.py drives (its phases 6
+to 9, taken from its tables).
 
     python3 profile_port.py [substring ...]
 
@@ -47,7 +47,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import (ELLIPTIC_ORACLE, STOKES_ORACLE, refined_runs, run_cli,
-                            stokes_forward, stokes_refined_runs)
+                            stokes_forward, stokes_line52, stokes_mixed_runs,
+                            stokes_refined_runs)
     from spectral_tpu_torch.cli.main import main as cli_main
 
     def cli(driver, opts):
@@ -58,7 +59,7 @@ def main() -> int:
         return run
 
     dev = torch.device("cuda")
-    # the paths of chip_smoke.py phases 6, 7 and 8, from its tables
+    # the paths of chip_smoke.py phases 6 to 9, from its tables
     paths = {f"elliptic CLI {name} f64": cli("elliptic", opts)
              for name, (opts, *_) in ELLIPTIC_ORACLE.items()}
     paths.update({name: run for name, (run, _) in refined_runs(dev).items()})
@@ -67,6 +68,14 @@ def main() -> int:
     paths["stokes entry 32^3 f64"] = stokes_forward(dev, torch.float64)
     paths.update({f"stokes {name}": (lambda p=p: p.solve_refined(rtol=1e-10))
                   for name, p in stokes_refined_runs(dev).items()})
+    paths.update({f"stokes CLI {name} f64": cli("stokes", STOKES_ORACLE[name]["argv"])
+                  for name in ("neumann tbc 20^3", "neumann free 12^3")})
+    paths.update({f"stokes {name}": p.solve for name, p in stokes_mixed_runs(dev).items()})
+    paths["stokes line52"] = stokes_line52(dev).solve_continuation
+    paths.update({f"stokes {name.replace('refined', 'fused')}": (
+        lambda p=p, fc=name == "refined powerlaw": p.solve_refined_fused(
+            rtol=1e-10, fused_continuation=fc))
+        for name, p in stokes_refined_runs(dev).items()})
     wanted = sys.argv[1:]
     for name, run in paths.items():
         if wanted and not any(w in name for w in wanted):

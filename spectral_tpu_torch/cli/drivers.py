@@ -172,7 +172,6 @@ def _pcvel_option(opts: Options) -> str:
 # stokes driver options whose code is not ported yet, with their ROADMAP item
 _STOKES_NOT_PORTED = {
     "map": "item 6: curvilinear",
-    "fused": "item 3c: solve_continuation_fused",
     "snes_grid_sequence": "item 2: cheb_regrid",
     "checkpoint_dir": "item 8: utils/checkpoint.py",
     "ksp_compute_singularvalues": "item 2: extreme_singular_values",
@@ -192,6 +191,9 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
     from spectral_tpu_torch.solvers.newton import NewtonConfig
     from spectral_tpu_torch.utils.printing import vec_print2
 
+    if opts.has("fused") and opts.get_string("checkpoint_dir", ""):
+        raise SystemExit("-fused and -checkpoint_dir are mutually exclusive (fused runs "
+                         "have no host loop to checkpoint)")
     for key, item in _STOKES_NOT_PORTED.items():
         if opts.has(key):
             raise NotImplementedError(
@@ -277,7 +279,15 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
                   f"normal = {p.normal_np[t].tolist()}")
 
     monitor = opts.has("snes_monitor")
-    results = p.solve_continuation(monitor=monitor)
+    if opts.has("fused"):
+        # -fused: solve_continuation_fused (make_fused_newton's rules, the
+        # JAX package's single-dispatch solve); no monitor
+        results = p.solve_continuation_fused()
+        for i, r in enumerate(results):
+            print(f"  [fused {i}/{len(results) - 1}] {int(r.iters)} Newton / "
+                  f"{int(np.sum(np.asarray(r.ksp_iters)))} Krylov, reason {r.reason_str()}")
+    else:
+        results = p.solve_continuation(monitor=monitor)
     res = results[-1]
     if monitor and res.lin_state is not None:
         eta = res.lin_state[0]

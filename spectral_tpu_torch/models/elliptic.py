@@ -210,7 +210,7 @@ class EllipticModel:
         if pc_type == "q1fem":
             raise NotImplementedError(
                 "pc_type q1fem needs ops/fem.py, which is not ported yet "
-                "(ROADMAP.md queue 1, item 3)")
+                "(ROADMAP.md queue 1, item 3d: ops/fem.py)")
 
         def _stencil(lin_state):
             eta, deta, gradu = lin_state

@@ -21,14 +21,23 @@ Newton with parameter continuation (stokes.C:217-235).
   (the gradient) and the velocity's last component along the last axis
   (the Schur complement's divergence) reach kernel K1 on a CUDA tensor.
 - The velocity preconditioner is an exact fast-diagonalization solve of
-  the FD Laplacian surrogate, an eta-weighted multigrid V-cycle, or the
-  surrogate's diagonal.
+  the FD Laplacian surrogate, an eta-weighted multigrid V-cycle (its
+  smoother Chebyshev, Jacobi or line relaxation), the V-cycle on the
+  nodal Jacobian stencil (``-pcvel 3``), or the surrogate's diagonal.
+  With mixed/Neumann boundaries the fastdiag and multigrid PCs add a
+  damped boundary-normal line sweep on the surrogate with the one-sided
+  traction rows, and ``tbc`` a multiplicative correction by the exact
+  velocity block on the traction layer (a dense LU).
+- The fused solves (``solve_continuation_fused``, ``solve_refined_fused``)
+  run the host loops' control flow: the iterate and the residual stay on
+  the card, and the stopping test, the forcing and the histories are host
+  scalars read from it (one transfer a line-search trial or refine step).
+  The JAX package compiles each into one dispatch; eager PyTorch issues
+  the same kernels one by one (no CUDA graph is captured).
 
-Mixed and Neumann boundaries are ported in the residual and the Jacobian;
-their velocity preconditioner, the traction-block correction, the other
-``pcvel`` families, the dense saddle PC, the fused solves, parameter
-families, the adjoint, the unsteady mass shift, curved domains and the
-pencil mesh raise ``NotImplementedError`` naming their ROADMAP item.
+The Q1 and probed velocity PCs, the dense saddle PC, parameter families,
+the adjoint, the unsteady mass shift, curved domains and the pencil mesh
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,7 +60,10 @@ from spectral_tpu_torch.solvers.krylov import KSPConfig
 from spectral_tpu_torch.solvers.newton import NewtonConfig, NewtonResult, _norm, newton_solve
 
 # pcvel families of the JAX package that this package does not carry yet
-_PCVEL_NOT_PORTED = ("nodal", "q1fem", "q1sep", "probed", "probed1")
+_PCVEL_NOT_PORTED = ("q1fem", "q1sep", "probed", "probed1")
+# bytes of one-hot columns (times the intermediates of one velocity-block
+# action) that the traction-block setup evaluates at once
+_TBC_BATCH_BYTES = 1 << 29
 
 
 def _todo(what: str, item: str):
@@ -172,6 +184,14 @@ class StokesProblem:
         vel_mask[dirichlet_mask] = False
         vel_mask &= in_onehot == 0.0  # mixed normal component removed
 
+        # the principal normal axis (or axes, tied at edges and corners) of
+        # every mixed/Neumann node, for the one-sided rows of the velocity
+        # PC (stokes.C:1183-1199): float64, as the JAX package takes it,
+        # so every dtype picks the same rows
+        oh = np.where(nm_mask[..., None], 1.0, 0.0) * np.abs(normal_np) \
+            / np.maximum(np.max(np.abs(normal_np), -1, keepdims=True), 1e-14)
+        nm_onehot = (oh >= 1.0).astype(np.float64)
+
         # float64 host masters; tensors per dtype come from _c
         self.types_np = types
         self.bc_vel_np = bc_vel
@@ -179,6 +199,7 @@ class StokesProblem:
         self.alpha_np = alpha
         self.normal_np = normal_np
         self.in_onehot_np = in_onehot
+        self.nm_onehot_np = nm_onehot
         self.vel_mask_np = vel_mask
         self.p_mask_np = ~bmask
         self.dirichlet_mask_np = dirichlet_mask
@@ -463,45 +484,186 @@ class StokesProblem:
             fd = self._fastdiag[dtype] = FastDiagSolver.build(self.grid, dtype=dtype)
         return fd
 
+    def _mg_builder(self, stencil):
+        """A multigrid level builder: ``stencil(grid, eta)`` on each level's
+        restricted eta (ones where absent)."""
+        def builder(grid, coeffs):
+            eta = coeffs.get("eta")
+            if eta is None:
+                eta = torch.ones(grid.dims, dtype=grid.dtype, device=grid.device)
+            return stencil(grid, eta)
+
+        return builder
+
     @cached_property
     def _vel_mg(self):
         from spectral_tpu_torch.models.stokes_pc import velocity_fd_stencil
         from spectral_tpu_torch.ops.multigrid import Multigrid
 
-        def builder(grid, coeffs):
-            eta = coeffs.get("eta")
-            if eta is None:
-                eta = torch.ones(grid.dims, dtype=grid.dtype, device=grid.device)
-            return velocity_fd_stencil(grid, eta)
-
-        return Multigrid.build(self.grid, builder=builder,
+        return Multigrid.build(self.grid, builder=self._mg_builder(velocity_fd_stencil),
                                smoother=self.config.pcvel_smoother)
+
+    @cached_property
+    def _vel_mg_nodal(self):
+        """-pcvel 3 (StokesPCSetUp3, stokes.C:1569-1641): one V-cycle on the
+        nodal Jacobian stencil, rediscretized per level."""
+        from spectral_tpu_torch.models.stokes_pc import nodal_jacfwd_stencil
+        from spectral_tpu_torch.ops.multigrid import Multigrid
+
+        return Multigrid.build(self.grid, builder=self._mg_builder(nodal_jacfwd_stencil),
+                               smoother=self.config.pcvel_smoother)
+
+    def _mixed_fd_stencil(self, eta: torch.Tensor):
+        """The FD velocity surrogate with the one-sided traction rows,
+        scaled like the residual's mixed rows (scaleM*(scaleN*traction +
+        alpha*v), stokes.C:1183-1200), in eta's dtype."""
+        from spectral_tpu_torch.models.stokes_pc import velocity_fd_stencil
+
+        cfg = self.config
+        dt = eta.dtype
+        normal = self._c("normal", dt)
+        return velocity_fd_stencil(
+            self.grid, eta, scaleN=cfg.scaleM * cfg.scaleN, nm_mask=self.nm_mask,
+            nm_onehot=self._c("nm_onehot", dt), normal=normal, ref_normal=normal,
+            alpha=cfg.scaleM * self._c("alpha", dt))
+
+    @cached_property
+    def _nm_axes(self) -> tuple:
+        """Axes that are a principal normal of some mixed/Neumann node."""
+        oh = np.where(self.nm_mask_np[..., None], np.abs(self.normal_np), 0.0)
+        mx = oh.max(axis=-1, keepdims=True)
+        return tuple(ax for ax in range(self.d)
+                     if bool(((oh[..., ax] >= mx[..., 0]) & (oh[..., ax] > 0)).any()))
+
+    def _mixed_line_state(self, eta: torch.Tensor):
+        """(stencil, per-axis line solvers) of the mixed-row correction,
+        built once per PC setup."""
+        from spectral_tpu_torch.ops.tridiag import build_line_solvers
+
+        S = self._mixed_fd_stencil(eta)
+        axes = self._nm_axes or tuple(range(self.d))
+        return S, build_line_solvers(S, axes, mask=self.vel_mask)
+
+    def _mixed_line_correct(self, state, z: torch.Tensor, r: torch.Tensor,
+                            omega: float = 0.5, sweeps: int = 1) -> torch.Tensor:
+        """Damped boundary-normal line relaxation on the mixed-row FD
+        surrogate, seeded by the interior solve z: the one-sided traction
+        rows are inverted exactly along their normal (the cure for the
+        reference's "convergence is terrible" mixed regime, README:124-153).
+        omega 0.5: the component-decoupled two-point rows only approximate
+        the spectral, component-coupled traction rows, and a full
+        inversion overshoots."""
+        from spectral_tpu_torch.ops.tridiag import line_smooth
+
+        S, solvers = state
+        zs = line_smooth(S, z, r, axes=self._nm_axes or tuple(range(self.d)),
+                         sweeps=sweeps, mask=self.vel_mask, solvers=solvers)
+        return self.mask_v(z + omega * (zs - z))
+
+    @cached_property
+    def _tbc_idx(self) -> torch.Tensor:
+        """Flat indices (into the (dims..., d) velocity array) of the
+        traction-block DOFs: the free velocity components at mixed/Neumann
+        nodes, the node set dilated by ``tbc - 1`` one-step neighbour
+        layers along every axis."""
+        nodes = self.nm_mask_np.copy()
+        for _ in range(max(0, self.config.tbc - 1)):
+            grown = nodes.copy()
+            for ax in range(self.d):
+                lo = [slice(None)] * self.d
+                hi = [slice(None)] * self.d
+                lo[ax] = slice(None, -1)
+                hi[ax] = slice(1, None)
+                grown[tuple(lo)] |= nodes[tuple(hi)]
+                grown[tuple(hi)] |= nodes[tuple(lo)]
+            nodes = grown
+        idx = np.flatnonzero((nodes[..., None] & self.vel_mask_np).reshape(-1))
+        return torch.as_tensor(idx, device=self.grid.device)
+
+    def _tbc_setup(self, lin_state):
+        """LU factors of the exact velocity block on the traction layer,
+        A_BB, in the linearization's dtype: column j is vv_action of the
+        j-th one-hot sampled at the block DOFs.  The one-hots go through
+        ``torch.func.vmap(vv_action)`` in batches of about
+        _TBC_BATCH_BYTES."""
+        idx = self._tbc_idx
+        m = idx.numel()
+        dt = lin_state[0].dtype
+        shape = self.grid.dims + (self.d,)
+        size = math.prod(shape)
+        itemsize = torch.finfo(dt).bits // 8
+        batch = max(1, min(m, _TBC_BATCH_BYTES // (16 * self.d * size * itemsize)))
+        action = torch.func.vmap(lambda e: self.vv_action(lin_state, e))
+        rows = []
+        for start in range(0, m, batch):
+            cols = idx[start:start + batch]
+            e = torch.zeros((cols.numel(), size), dtype=dt, device=idx.device)
+            e[torch.arange(cols.numel(), device=idx.device), cols] = 1.0
+            rows.append(action(e.reshape((-1,) + shape)).reshape(cols.numel(), size)[:, idx])
+        A_BB = torch.cat(rows).T   # (m, m): row i of `rows` is column i
+        lu, piv = torch.linalg.lu_factor(A_BB)
+        return lu, piv, lin_state
+
+    def _tbc_correct(self, tb_state, z: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        """z += R^T A_BB^{-1} R (r - A z), with the exact residual update
+        (one vv_action): the preconditioned operator acts as the identity
+        on error modes supported in the traction block."""
+        lu, piv, lin_state = tb_state
+        idx = self._tbc_idx
+        rz = (r - self.vv_action(lin_state, z)).reshape(-1)
+        dB = torch.linalg.lu_solve(lu, piv, rz[idx][:, None].to(lu.dtype))[:, 0]
+        z = z.reshape(-1).index_add(0, idx, dB.to(z.dtype)).reshape(z.shape)
+        return self.mask_v(z)
 
     def make_vel_pc(self):
         """(setup: lin_state -> vstate, apply: (vstate, r) -> z), the
         strong approximate inverse of the FD velocity surrogate (MatVVPC,
-        solved with hypre in the reference)."""
-        if self.config.tbc > 0 and self.num_mixed:
-            raise _todo("the traction-block correction (tbc > 0)", "item 3c")
-        return self._make_vel_pc_base()
+        solved with hypre in the reference), with the traction-block
+        correction (``tbc``) composed multiplicatively on top."""
+        setup, apply = self._make_vel_pc_base()
+        if self.config.tbc <= 0 or self.num_mixed == 0:
+            return setup, apply
+
+        def setup_tbc(lin_state):
+            return setup(lin_state), self._tbc_setup(lin_state)
+
+        def apply_tbc(vstate, r):
+            inner, tb = vstate
+            return self._tbc_correct(tb, apply(inner, r), r)
+
+        return setup_tbc, apply_tbc
 
     def _make_vel_pc_base(self):
         """- "fastdiag": exact constant-coefficient tensor solve (the setup
           picks the factors of the linearization's dtype);
         - "mg": one eta-weighted multigrid V-cycle (StokesPCSetUp0 stencil
           rediscretized per level);
-        - "jacobi": the stencil's diagonal."""
+        - "nodal": one V-cycle on the nodal Jacobian stencil (-pcvel 3);
+        - "jacobi": the stencil's diagonal.
+        With mixed/Neumann nodes, fastdiag and mg add the line-relaxed
+        traction rows (_mixed_line_correct)."""
         pcvel = self.config.pcvel
         if pcvel in _PCVEL_NOT_PORTED:
-            raise _todo(f"pcvel {pcvel!r}", "item 3c")
-        if self.num_mixed and pcvel in ("fastdiag", "mg"):
-            raise _todo("the mixed/Neumann velocity PC (_mixed_fd_stencil, "
-                        "_mixed_line_*, ops/tridiag.py)", "item 3c")
+            raise _todo(f"pcvel {pcvel!r}", "item 3d: Q1 and probed velocity PCs")
+        mixed = self.num_mixed > 0
         if pcvel == "fastdiag":
+            if mixed:
+                return (lambda ls: (self._vel_fastdiag(ls[0].dtype),
+                                    self._mixed_line_state(ls[0])),
+                        lambda st, r: self._mixed_line_correct(
+                            st[1], self.mask_v(st[0].apply(r)), r))
             return (lambda lin_state: self._vel_fastdiag(lin_state[0].dtype),
                     lambda fd, r: self.mask_v(fd.apply(r)))
         if pcvel == "mg":
             mg = self._vel_mg
+            if mixed:
+                return (lambda ls: (mg.setup({"eta": ls[0]}), self._mixed_line_state(ls[0])),
+                        lambda st, r: self._mixed_line_correct(
+                            st[1], self.mask_v(mg.vcycle(st[0], r)), r))
+            return (lambda lin_state: mg.setup({"eta": lin_state[0]}),
+                    lambda vstate, r: self.mask_v(mg.vcycle(vstate, r)))
+        if pcvel == "nodal":
+            mg = self._vel_mg_nodal
             return (lambda lin_state: mg.setup({"eta": lin_state[0]}),
                     lambda vstate, r: self.mask_v(mg.vcycle(vstate, r)))
         if pcvel == "jacobi":
@@ -604,10 +766,12 @@ class StokesProblem:
 
     def solve(self, x0: dict | None = None, params: Optional[PowerLawParams] = None,
               monitor: bool = False, clamp_f32: bool = False,
-              recycle_U0=None) -> NewtonResult:
+              recycle_U0=None, fused: bool = False) -> NewtonResult:
         """One SNES solve at fixed rheology parameters, in x0's dtype
         (default: the grid's).  ``clamp_f32`` clamps the outer rtol to the
-        dtype's floor, right only when a refinement stage follows."""
+        dtype's floor, right only when a refinement stage follows.
+        ``fused`` takes make_fused_newton's rules: the stopping test and
+        the forcing in the state's dtype, no monitor."""
         if recycle_U0 is not None:
             raise _todo("Krylov recycling (recycle_U0)", "item 1b: solve_recycled")
         cfg = self.config
@@ -625,18 +789,21 @@ class StokesProblem:
         ksp = self._dtype_ksp(cfg.outer_ksp, x0["p"].dtype) if clamp_f32 else cfg.outer_ksp
         return newton_solve(residual, x0, jacobian_action=self.jacobian_action,
                             pc_setup=pc_setup, pc_apply=pc_apply, ksp=ksp,
-                            config=dataclasses.replace(cfg.newton, monitor=monitor),
-                            null_project=self.null_project)
+                            config=dataclasses.replace(cfg.newton, monitor=monitor and not fused),
+                            null_project=self.null_project,
+                            control_dtype=x0["p"].dtype if fused else None)
 
     def solve_family(self, *args, **kwargs):
         raise _todo("solve_family", "item 7: batched solves")
 
     def solve_continuation(self, monitor: bool = False, checkpoint_dir: str | None = None,
-                           clamp_f32: bool = False,
-                           dtype: torch.dtype | None = None) -> list[NewtonResult]:
+                           clamp_f32: bool = False, dtype: torch.dtype | None = None,
+                           fused: bool = False) -> list[NewtonResult]:
         """The continuation loop (stokes.C:217-235): ramp exponent and
         regularization, each solution the next initial guess, in ``dtype``
-        (default: the grid's)."""
+        (default: the grid's).  ``fused`` is solve_continuation_fused's
+        loop: each solve by make_fused_newton's rules, the outer rtol
+        clamped, no secant predictor."""
         if checkpoint_dir is not None:
             raise _todo("solve_continuation(checkpoint_dir=...)",
                         "item 8: utils/checkpoint.py")
@@ -651,7 +818,7 @@ class StokesProblem:
                 print(f"## [{i}/{cfg.cont}] Solving with exponent = {p.exponent:5f} "
                       f"regularization {p.regularization:8.2e}")
             x_start = x
-            if cfg.cont_predictor == "secant" and x_prev is not None:
+            if cfg.cont_predictor == "secant" and x_prev is not None and not fused:
                 # extrapolate the warm start through the last two solutions,
                 # x + theta (x - x_prev), used only if its residual is smaller
                 de_new = p.exponent - (exp_prev if exp_prev is not None else 0.0)
@@ -668,20 +835,44 @@ class StokesProblem:
                     print(f"##   predictor theta={theta:.3f} "
                           f"fnorm plain {fn_plain:.3e} secant {fn_pred:.3e} "
                           f"-> {'secant' if fn_pred < fn_plain else 'plain'}")
-            res = self.solve(x_start, params=p, monitor=monitor, clamp_f32=clamp_f32)
+            res = self.solve(x_start, params=p, monitor=monitor,
+                             clamp_f32=clamp_f32 or fused, fused=fused)
             x_prev, exp_prev = x, p.exponent
             x = res.x
             results.append(res)
         return results
 
-    def solve_continuation_fused(self, *args, **kwargs):
-        raise _todo("solve_continuation_fused", "item 3c: make_fused_newton")
+    def solve_continuation_fused(self, dtype: torch.dtype | None = None) -> list[NewtonResult]:
+        """The JAX package's fused continuation, in ``dtype`` (default: the
+        grid's): the schedule params_at(cont0..cont), each step warm-started
+        from the previous one, each Newton solve by make_fused_newton's
+        rules with the outer rtol clamped to the state's dtype (_dtype_ksp:
+        float32 stops at 50 eps, float64 is untouched), no secant predictor,
+        no checkpointing.  One NewtonResult a step, ``x`` only on the last.
+        The JAX package compiles each step into one dispatch; here the
+        host loop issues the same kernels and reads its stopping scalars."""
+        results = self.solve_continuation(dtype=dtype, fused=True)
+        for r in results[:-1]:
+            r.x = None
+        return results
 
     # ------------------------------------------------------------------
-    # Mixed precision: float64 host residual + defect-correction solve
+    # Mixed precision: float64 residuals + defect-correction solves
     # ------------------------------------------------------------------
-    def make_residual_dev64(self, *args, **kwargs):
-        raise _todo("make_residual_dev64", "item 3c: solve_refined_fused")
+    def make_residual_dev64(self, params: PowerLawParams):
+        """The float64 Stokes residual on the grid's device: x -> F for a
+        float64 state.  make_residual's algorithm on the float64 masters
+        that make_residual_np reads (``_c`` casts them once per dtype), so
+        no float32 copy enters; the float64 side of solve_refined_fused."""
+        residual = self.make_residual(params)
+
+        def residual64(x: dict) -> dict:
+            if x["v"].dtype != torch.float64 or x["p"].dtype != torch.float64:
+                raise TypeError(f"make_residual_dev64 takes a float64 state, "
+                                f"got {x['v'].dtype} and {x['p'].dtype}")
+            return residual(x)[0]
+
+        return residual64
 
     def make_residual_np(self, params: PowerLawParams):
         """Host float64 Stokes residual (numpy transforms), mirroring
@@ -758,71 +949,97 @@ class StokesProblem:
 
         return residual
 
+    def _refine(self, x: dict, residual64: Callable, *, rtol: float, max_refine: int):
+        """Defect correction, x -= J32^-1 F64(x), until ||F64|| <= rtol ||f||
+        or max_refine steps: each step a float32 saddle-preconditioned
+        Krylov solve about the float32 copy of x (the PC rebuilt there).
+        x is a float64 state of numpy arrays or of tensors on the grid's
+        device, and residual64 maps it to its projected residual of the
+        same kind; the host reads one norm a step.  Returns (x, info)."""
+        cfg = self.config
+        f32, f64 = torch.float32, torch.float64
+        on_host = isinstance(x["v"], np.ndarray)
+        residual_lo = self.make_residual(self.params_at(cfg.cont))
+        pc_setup, pc_apply = self.make_pc()
+        ksp32 = self._dtype_ksp(cfg.outer_ksp, f32)
+
+        def to32(t):
+            return {k: torch.as_tensor(a, dtype=f32, device=self.grid.device)
+                    for k, a in t.items()}
+
+        def tnorm(t):
+            if on_host:
+                return float(np.sqrt(sum(np.vdot(v, v).real for v in t.values())))
+            return float(_norm(t))
+
+        bnorm = max(float(np.sqrt(sum(np.vdot(v, v).real for v in self.force_np.values()))),
+                    1e-300)
+        r = residual64(x)
+        hist, inner = [tnorm(r)], 0
+        while len(hist) <= max_refine and hist[-1] > rtol * bnorm and np.isfinite(hist[-1]):
+            x32 = to32(x)
+            _, lin_state = residual_lo(x32)
+            pc_state = pc_setup(x32, lin_state)
+            out = ksp32.solve(lambda w: self.jacobian_action(x32, lin_state, w), to32(r),
+                              M=lambda z: pc_apply(pc_state, z), null_project=self.null_project)
+            if out.x["v"].dtype != f32 or out.x["p"].dtype != f32:
+                raise TypeError("the inner solve must stay float32")
+            inner += int(out.iters)
+            x = {k: x[k] - (out.x[k].cpu().numpy().astype(np.float64) if on_host
+                            else out.x[k].to(f64)) for k in x}
+            r = residual64(x)
+            hist.append(tnorm(r))
+        return x, {"refine_history": hist, "refine_steps": len(hist) - 1,
+                   "refine_inner_iters": inner, "rel_residual": hist[-1] / bnorm}
+
     def solve_refined(self, *, rtol: float = 1e-10, max_refine: int = 10,
                       monitor: bool = False):
         """Defect-correction Stokes solve: the continuation and Newton in
         float32 on the grid's device (outer rtol clamped to the float32
-        floor), then steps x -= J32^-1 F64(x) with float64 host residuals
-        and float32 saddle-point-preconditioned linear solves, until
-        ||F64|| <= rtol ||f||.  Returns (x float64 numpy dict, info)."""
-        cfg = self.config
-        f32 = torch.float32
-        params = self.params_at(cfg.cont)
-        results = self.solve_continuation(monitor=monitor, clamp_f32=True, dtype=f32)
+        floor), then _refine with float64 host residuals.  Returns
+        (x float64 numpy dict, info)."""
+        results = self.solve_continuation(monitor=monitor, clamp_f32=True, dtype=torch.float32)
         x = {k: v.cpu().numpy().astype(np.float64) for k, v in results[-1].x.items()}
-
-        residual_hi = self.make_residual_np(params)
-        residual_lo = self.make_residual(params)
-        pc_setup, pc_apply = self.make_pc()
-        ksp32 = self._dtype_ksp(cfg.outer_ksp, f32)
-        dev = self.grid.device
-
-        def to32(t):
-            return {k: torch.as_tensor(np.asarray(a), dtype=f32, device=dev)
-                    for k, a in t.items()}
-
-        def lin_solve(x32, r32):
-            _, lin_state = residual_lo(x32)
-            pc_state = pc_setup(x32, lin_state)
-            out = ksp32.solve(lambda w: self.jacobian_action(x32, lin_state, w), r32,
-                              M=lambda r: pc_apply(pc_state, r),
-                              null_project=self.null_project)
-            return out.x, out.iters
-
+        residual_hi = self.make_residual_np(self.params_at(self.config.cont))
         p_mask = self.p_mask_np
         count = float(self.grid.num_interior)
 
-        def project_np(t):
-            p = np.where(p_mask, t["p"], 0.0)
-            if not self.has_p_null:
-                return {"v": t["v"], "p": p}
-            return {"v": t["v"], "p": p - np.where(p_mask, p.sum() / count, 0.0)}
+        def residual64(t):
+            F = residual_hi(t)
+            p = np.where(p_mask, F["p"], 0.0)
+            if self.has_p_null:
+                p = p - np.where(p_mask, p.sum() / count, 0.0)
+            return {"v": F["v"], "p": p}
 
-        def tnorm(t):
-            return float(np.sqrt(sum(np.vdot(v, v).real for v in t.values())))
+        x, info = self._refine(x, residual64, rtol=rtol, max_refine=max_refine)
+        return x, {"continuation": results, **info}
 
-        bnorm = max(tnorm(self.force_np), 1e-300)
-        hist = []
-        inner = 0
-        for _ in range(max_refine):
-            r = project_np(residual_hi(x))
-            rnorm = tnorm(r)
-            hist.append(rnorm)
-            if rnorm <= rtol * bnorm:
-                break
-            dx, its = lin_solve(to32(x), to32(r))
-            if dx["v"].dtype != f32 or dx["p"].dtype != f32:
-                raise TypeError("the inner solve must stay float32")
-            inner += int(its)
-            x = {k: x[k] - dx[k].cpu().numpy().astype(np.float64) for k in x}
-        else:
-            hist.append(tnorm(project_np(residual_hi(x))))
-        info = {"continuation": results, "refine_history": hist,
-                "refine_inner_iters": inner, "rel_residual": hist[-1] / bnorm}
-        return x, info
+    def solve_refined_fused(self, *, rtol: float = 1e-10, max_refine: int = 10,
+                            monitor: bool = False, fused_continuation: bool = False):
+        """solve_refined with the state on the grid's device: float64
+        residuals there (make_residual_dev64) and float64 updates, so only
+        the residual norm comes to the host, once a refine step.  Linear
+        rheology starts from zero (the first pass is the float32 solve);
+        the power law runs the float32 continuation first, by the host loop
+        or, with ``fused_continuation``, solve_continuation_fused.  Returns
+        (x float64 numpy dict, info) with solve_refined's info keys."""
+        cfg = self.config
+        f32, f64 = torch.float32, torch.float64
+        results = []
+        if cfg.rheology not in (0, "linear"):
+            results = (self.solve_continuation_fused(dtype=f32) if fused_continuation
+                       else self.solve_continuation(monitor=monitor, clamp_f32=True,
+                                                    dtype=f32))
+        residual_hi = self.make_residual_dev64(self.params_at(cfg.cont))
 
-    def solve_refined_fused(self, *args, **kwargs):
-        raise _todo("solve_refined_fused", "item 3c")
+        def residual64(t):   # -traction_p pins the constant: p is only masked
+            F = residual_hi(t)
+            return {"v": F["v"], "p": self.project_p(F["p"])}
+
+        x = ({k: v.to(f64) for k, v in results[-1].x.items()} if results
+             else self.zero_state(f64))
+        x, info = self._refine(x, residual64, rtol=rtol, max_refine=max_refine)
+        return {k: v.cpu().numpy() for k, v in x.items()}, {"continuation": results, **info}
 
     def adjoint_gradient(self, *args, **kwargs):
         raise _todo("adjoint_gradient", "item 5: solvers/adjoint.py")

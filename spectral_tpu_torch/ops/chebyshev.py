@@ -33,7 +33,7 @@ MATMUL_MAX_N = 512
 
 
 # ---------------------------------------------------------------------------
-# Host-side numpy builders (copied from spectral_tpu/ops/chebyshev.py)
+# Host-side numpy builders (copies of the JAX package's ops/chebyshev.py ones)
 # ---------------------------------------------------------------------------
 
 def cgl_nodes_np(n: int, dtype=np.float64) -> np.ndarray:

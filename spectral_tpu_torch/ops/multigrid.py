@@ -4,7 +4,9 @@ Counterpart of ``spectral_tpu/ops/multigrid.py``: every level is a CGL
 tensor grid, transfers are 1-D interpolation matrices in theta = acos(x),
 coarse operators are rediscretized from restricted coefficient fields,
 and the smoother is Chebyshev-accelerated Jacobi with its eigenvalue bound
-from power iteration.  The coarsest level is a dense LU solve.
+from power iteration, damped Jacobi, or alternating-direction line
+relaxation (``ops/tridiag.py``: per-line dense inverses built at setup).
+The coarsest level is a dense LU solve.
 
 Works on full-grid tensors with identity Dirichlet rows and zero boundary
 values; trailing component axes broadcast through every level.  JAX's
@@ -25,6 +27,7 @@ import torch
 from spectral_tpu_torch.grid import Grid
 from spectral_tpu_torch.ops.stencil import StencilOp, elliptic_jacobian_stencil
 from spectral_tpu_torch.ops.tensorops import apply_axis_matmul, stencil_to_dense
+from spectral_tpu_torch.ops.tridiag import build_line_solvers, line_smooth
 
 
 def _theta_interp_np(n_f: int, n_c: int) -> np.ndarray:
@@ -103,15 +106,11 @@ class Multigrid:
     pre_smooth: int = 2
     post_smooth: int = 2
     omega: float = 0.8
-    smoother: str = "chebyshev"  # "chebyshev" | "jacobi"
+    smoother: str = "chebyshev"  # "chebyshev" | "jacobi" | "line"
     cycles: int = 1              # V-cycles per apply (residual-corrected)
 
     def __post_init__(self):
-        if self.smoother == "line":
-            raise NotImplementedError(
-                "Multigrid(smoother='line') needs ops/tridiag.py, which is not "
-                "ported yet (ROADMAP.md queue 1, item 2)")
-        if self.smoother not in ("chebyshev", "jacobi"):
+        if self.smoother not in ("chebyshev", "jacobi", "line"):
             raise ValueError(f"unknown smoother {self.smoother!r}")
 
     @staticmethod
@@ -122,7 +121,10 @@ class Multigrid:
               cycles: int = 1) -> "Multigrid":
         """Halve every axis ((n + 1) // 2, at least 3 nodes) until the
         coarsest axis has ``coarsest`` nodes or fewer, or the level has at
-        most 200 nodes; every level lives on the fine grid's device."""
+        most 200 nodes; every level lives on the fine grid's device.
+        smoother="line": alternating-direction line relaxation along every
+        axis, for the high-aspect CGL cells near the boundary (spacing
+        ~1/n^2 normal, ~1/n tangential) where point smoothers stall."""
         grids = [grid]
         while len(grids) < max_levels:
             dims = grids[-1].dims
@@ -180,9 +182,16 @@ class Multigrid:
             lam_max = self._power_lambda_max(lvl, S, diag)
         return S, diag, lam_max
 
-    def _coarse_lu(self, levels):
+    def _finish(self, levels) -> dict:
+        """The state of per-level (stencil, diagonal, bound) triples: the
+        coarsest level's dense LU and, for the line smoother, every
+        level's line solvers (state["line"])."""
         A = stencil_to_dense(levels[-1][0], self.grids[-1].dims)
-        return torch.linalg.lu_factor(A)
+        state = {"levels": levels, "coarse_lu": torch.linalg.lu_factor(A)}
+        if self.smoother == "line":
+            state["line"] = [build_line_solvers(S, tuple(range(S.grid_ndim)))
+                             for S, _, _ in levels]
+        return state
 
     def setup(self, coeffs: dict | None = None) -> dict:
         """Restrict coefficient fields, rediscretize every level, estimate
@@ -194,13 +203,13 @@ class Multigrid:
             levels.append(self._level(lvl, self.builder(g, coeffs)))
             if lvl < len(self.grids) - 1:
                 coeffs = _map_fields(lambda f, lvl=lvl: self._restrict(lvl, f), coeffs)
-        return {"levels": levels, "coarse_lu": self._coarse_lu(levels)}
+        return self._finish(levels)
 
     def shift_state(self, state: dict, shift) -> dict:
         """State solving (S + shift) on the interior of every level, from a
         shift-free ``setup`` state: centers get ``shift`` on interior rows;
-        diagonals, eigenvalue bounds and the coarse LU are recomputed.
-        ``shift`` may be a number or a 0-d tensor."""
+        diagonals, eigenvalue bounds, line solvers and the coarse LU are
+        recomputed.  ``shift`` may be a number or a 0-d tensor."""
         levels = []
         for lvl, (S, _diag, _lam) in enumerate(state["levels"]):
             interior = self.grids[lvl].interior_mask
@@ -208,7 +217,7 @@ class Multigrid:
             Ss = dataclasses.replace(S, center=torch.where(interior, S.center + sh,
                                                            S.center))
             levels.append(self._level(lvl, Ss))
-        return {"levels": levels, "coarse_lu": self._coarse_lu(levels)}
+        return self._finish(levels)
 
     def _power_lambda_max(self, lvl: int, S: StencilOp, diag: torch.Tensor,
                           iters: int = 12) -> torch.Tensor:
@@ -224,7 +233,11 @@ class Multigrid:
         return 1.1 * num / torch.clamp_min(den, 1e-30)
 
     # -- cycle ----------------------------------------------------------------
-    def _smooth(self, S: StencilOp, diag: torch.Tensor, lam_max, x, b, iters: int):
+    def _smooth(self, S: StencilOp, diag: torch.Tensor, lam_max, x, b, iters: int,
+                solvers=None):
+        if self.smoother == "line":
+            return line_smooth(S, x, b, axes=tuple(range(S.grid_ndim)), sweeps=iters,
+                               solvers=solvers)
         d = diag if x.ndim == diag.ndim else diag.reshape(
             diag.shape + (1,) * (x.ndim - diag.ndim))
         if self.smoother == "jacobi" or lam_max is None:
@@ -257,12 +270,13 @@ class Multigrid:
             LU, piv = state["coarse_lu"]
             z = torch.linalg.lu_solve(LU, piv, b.reshape(size, -1).to(LU.dtype))
             return z.reshape(b.shape).to(b.dtype)
-        x = self._smooth(S, diag, lam_max, torch.zeros_like(b), b, self.pre_smooth)
+        solvers = state["line"][lvl] if self.smoother == "line" else None
+        x = self._smooth(S, diag, lam_max, torch.zeros_like(b), b, self.pre_smooth, solvers)
         r = b - S.apply(x)
         rc = self._mask(lvl + 1, self._restrict(lvl, r))
         ec = self._cycle(state, lvl + 1, rc)
         x = x + self._mask(lvl, self._prolong(lvl, ec))
-        return self._smooth(S, diag, lam_max, x, b, self.post_smooth)
+        return self._smooth(S, diag, lam_max, x, b, self.post_smooth, solvers)
 
     def vcycle(self, state: dict, b: torch.Tensor) -> torch.Tensor:
         """``cycles`` residual-corrected V-cycles as one preconditioner

@@ -19,6 +19,10 @@ Every line-search trial makes one host transfer, which carries the trial's
 residual norm, the step norm and the new iterate's norm together: a Newton
 step whose full step is accepted synchronises once beyond its Krylov solve
 (the single ``device_get`` of the JAX step).
+
+``make_fused_newton`` gives the JAX package's whole-solve interface (one
+compiled ``while_loop`` there) over this loop: the stopping test and the
+forcing in the state's dtype, the histories as -1-padded tensors.
 """
 
 from __future__ import annotations
@@ -102,7 +106,6 @@ def _unported(name: str, item: str):
     return fn
 
 
-make_fused_newton = _unported("make_fused_newton", "item 2")
 newton_tr_solve = _unported("newton_tr_solve", "item 2")
 quasi_newton_solve = _unported("quasi_newton_solve", "item 2")
 anderson_solve = _unported("anderson_solve", "item 2")
@@ -147,6 +150,7 @@ def newton_solve(
     config: NewtonConfig = NewtonConfig(),
     null_project: Optional[Callable] = None,
     callback: Optional[Callable] = None,
+    control_dtype: Optional[torch.dtype] = None,
 ) -> NewtonResult:
     """Solve F(x) = 0 by Newton-Krylov.
 
@@ -161,6 +165,9 @@ def newton_solve(
       config: Newton configuration.
       null_project: null-space projector for the linear solves.
       callback: optional host hook (it, x, fnorm).
+      control_dtype: the dtype of the stopping test and the EW forcing;
+        None computes them in Python floats (the JAX package's host loop),
+        make_fused_newton passes the state's (its compiled loop).
     """
     if config.recycle > 0:
         raise NotImplementedError(
@@ -170,12 +177,13 @@ def newton_solve(
         def jacobian_action(x, lin_state, w):  # noqa: F811  (JFNK via jvp)
             return torch.func.jvp(lambda z: residual_fn(z)[0], (x,), (w,))[1]
 
+    sc = float if control_dtype is None else torch.empty(0, dtype=control_dtype).numpy().dtype.type
     lagging = config.pc_lag > 1 and pc_setup is not None
     x = x0
     F, lin_state = residual_fn(x)
-    fnorm = float(_norm(F))
-    fnorm0 = max(fnorm, 1e-300)
-    hist = [fnorm]
+    fnorm = sc(_norm(F).item())
+    fnorm0 = max(fnorm, sc(1e-300))
+    hist = [float(fnorm)]
     ksp_iters: list[int] = []
     ksp_history_last: list[float] = []
     reason = int(ConvergedReason.ITERATING)
@@ -190,10 +198,10 @@ def newton_solve(
             callback(it, x, fnorm)
         if config.monitor:
             print(f"{it:3d} SNES Function norm {fnorm:.12e}")
-        if fnorm <= config.atol:
+        if fnorm <= sc(config.atol):
             reason = int(ConvergedReason.CONVERGED_ATOL)
             break
-        if fnorm <= config.rtol * fnorm0:
+        if fnorm <= sc(config.rtol) * fnorm0:
             reason = int(ConvergedReason.CONVERGED_RTOL)
             break
         if not np.isfinite(fnorm):
@@ -206,7 +214,7 @@ def newton_solve(
         if pc_setup is not None and (not lagging or it % config.pc_lag == 0):
             pc_state = pc_setup(x, lin_state)
 
-        lin_rtol = ksp.rtol
+        lin_rtol = sc(ksp.rtol)
         if config.ksp_ew:
             # Eisenstat-Walker choice 2 (PETSc SNESKSPSetUseEW defaults):
             # eta_k = gamma (|F_k|/|F_{k-1}|)^alpha, safeguarded by
@@ -214,16 +222,16 @@ def newton_solve(
             # eta_max, floored so the last step still reaches the
             # nonlinear tolerance.
             if eta_prev is None:
-                eta = config.ew_eta0
+                eta = sc(config.ew_eta0)
             else:
-                eta = config.ew_gamma * (fnorm / fnorm_prev) ** config.ew_alpha
-                guard = config.ew_gamma * eta_prev ** config.ew_alpha
-                if guard > 0.1:
+                eta = sc(config.ew_gamma) * (fnorm / fnorm_prev) ** sc(config.ew_alpha)
+                guard = sc(config.ew_gamma) * eta_prev ** sc(config.ew_alpha)
+                if guard > sc(0.1):
                     eta = max(eta, guard)
-            eta = min(eta, config.ew_etamax)
-            eta = max(eta, 0.5 * config.rtol * fnorm0 / fnorm)
-            eta = min(eta, config.ew_etamax)
-            lin_rtol = max(eta, ksp.rtol)
+            eta = min(eta, sc(config.ew_etamax))
+            eta = max(eta, sc(0.5) * sc(config.rtol) * fnorm0 / fnorm)
+            eta = min(eta, sc(config.ew_etamax))
+            lin_rtol = max(eta, sc(ksp.rtol))
             eta_prev = lin_rtol
         fnorm_prev = fnorm
 
@@ -236,7 +244,7 @@ def newton_solve(
         dx = lres.x
         dxnorm = _norm(dx)
         if callable(config.line_search):
-            x, F, lin_state, fn, ok = config.line_search(residual_fn, x, dx, fnorm)
+            x, F, lin_state, fn, ok = config.line_search(residual_fn, x, dx, float(fnorm))
             fnorm, ok = float(fn), bool(ok)
             dxn, xnorm = torch.stack([dxnorm, _norm(x)]).cpu().tolist()
         elif config.line_search == "basic":
@@ -244,21 +252,67 @@ def newton_solve(
             ok = bool(np.isfinite(fnorm))
         elif config.line_search == "bt":
             (x, F, lin_state, (fnorm, dxn, xnorm)), ok = _line_search_bt(
-                residual_fn, x, dx, fnorm, dxnorm, config)
+                residual_fn, x, dx, float(fnorm), dxnorm, config)
         else:
             raise ValueError(f"unknown line search {config.line_search!r}")
+        fnorm = sc(fnorm)
         ksp_iters.append(int(lres.iters))
         ksp_history_last = lres.history_list()
-        hist.append(fnorm)
+        hist.append(float(fnorm))
         if config.line_search != "basic" and not ok:
             newton_its = it + 1
             reason = int(ConvergedReason.DIVERGED_LINE_SEARCH)
             break
-        if dxn <= config.stol * max(xnorm, 1e-30):
+        if sc(dxn) <= sc(config.stol) * max(sc(xnorm), sc(1e-30)):
             newton_its = it + 1
             reason = int(ConvergedReason.CONVERGED_SNORM_RELATIVE)
             break
 
-    return NewtonResult(x=x, iters=newton_its, reason=reason, fnorm=fnorm,
+    return NewtonResult(x=x, iters=newton_its, reason=reason, fnorm=float(fnorm),
                         fnorm_history=hist, ksp_iters=ksp_iters,
                         lin_state=lin_state, ksp_history_last=ksp_history_last)
+
+
+def make_fused_newton(
+    residual_fn: Callable[[Any, Any], tuple[Any, Any]],
+    *,
+    jacobian_action: Optional[Callable[[Any, Any, Any], Any]] = None,
+    pc_setup: Optional[Callable[[Any, Any], Any]] = None,
+    pc_apply: Optional[Callable[[Any, Any], Any]] = None,
+    ksp: KSPConfig = KSPConfig(type="gmres", rtol=1e-5),
+    config: NewtonConfig = NewtonConfig(),
+    null_project: Optional[Callable] = None,
+):
+    """The JAX package's whole-solve Newton interface over ``newton_solve``.
+
+    ``residual_fn(x, theta)`` takes the parameter explicitly, so one solver
+    serves a parameter schedule.  Returns ``run(x0, theta) -> (x, fnorm,
+    fnorm0, iters, kits_hist, fnorm_hist, reason)``: x on x0's device,
+    fnorm and fnorm0 floats, the Krylov counts (int32, ``max_it``) and the
+    residual norms (x's dtype, ``max_it + 1``) as tensors on x0's device
+    padded with -1.
+
+    The JAX package compiles this solve into one ``while_loop``; eager
+    PyTorch has nothing to fuse it into, so ``run`` is ``newton_solve``
+    under the JAX loop's rules: the stopping test and the Eisenstat-Walker
+    forcing in the state's dtype, no monitor, no recycling.  The control
+    flow and its scalars are the host loop's; the iterate and the residual
+    stay on x0's device."""
+    if config.recycle > 0:
+        raise ValueError("Krylov recycling is host-loop-only (newton_solve)")
+    config = dataclasses.replace(config, monitor=False)
+
+    def run(x0, theta):
+        leaf = x0 if isinstance(x0, torch.Tensor) else x0[sorted(x0)[0]]
+        res = newton_solve(lambda z: residual_fn(z, theta), x0,
+                           jacobian_action=jacobian_action, pc_setup=pc_setup,
+                           pc_apply=pc_apply, ksp=ksp, config=config,
+                           null_project=null_project, control_dtype=leaf.dtype)
+        kits = torch.full((config.max_it,), -1, dtype=torch.int32)
+        kits[:len(res.ksp_iters)] = torch.tensor(res.ksp_iters, dtype=torch.int32)
+        hist = torch.full((config.max_it + 1,), -1.0, dtype=leaf.dtype)
+        hist[:len(res.fnorm_history)] = torch.tensor(res.fnorm_history, dtype=leaf.dtype)
+        return (res.x, res.fnorm, max(res.fnorm_history[0], 1e-300), res.iters,
+                kits.to(leaf.device), hist.to(leaf.device), res.reason)
+
+    return run

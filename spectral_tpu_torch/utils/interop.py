@@ -2,7 +2,7 @@
 
 The JAX package (``spectral_tpu``) is the reference the port is held
 against.  These functions take its state as plain numpy arrays (never JAX
-objects: this module does not import jax) and build the port's objects
+objects: JAX is never imported here) and build the port's objects
 on a given device and dtype, so both packages can apply identical factors
 and coefficients.
 """

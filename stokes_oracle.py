@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The JAX package's Stokes numbers on the CPU: the oracle that
-``chip_smoke.py`` phase 8 (``STOKES_ORACLE``) holds the port to.
+``chip_smoke.py`` phases 8 and 9 (``STOKES_ORACLE``) hold the port to.
 
     JAX_PLATFORMS=cpu python3 stokes_oracle.py [section ...]
 
@@ -17,7 +17,26 @@ Sections (all by default), each one JSON line:
   2-norms over both fields of F and of J F, float64 and float32;
 - ``refined``: ``solve_refined`` in ``bench.py``'s
   ``bench_stokes20_linear`` and ``bench_stokes20_powerlaw``
-  configurations, x64 off (float32 device arithmetic, as the bench runs).
+  configurations, x64 off (float32 device arithmetic, as the bench runs);
+- ``neumann3d``: README:43's solver options with Neumann boundaries
+  (``-boundary 1``) through the ``stokes`` driver in float64: the
+  physical-traction rows with the traction-block correction at 20^3
+  (``-exact 1 -traction_p 1 -tbc 1``) and the reference's pressure-free
+  rows at 12^3 (``-exact 2``; at 16^3 and above the JAX package
+  stagnates on them);
+- ``mixed2d``: the mixed and Neumann configurations of
+  ``tests/test_stokes.py`` at 16^2 in float64 (boundary 2; boundary 5
+  and 6 with ``traction_p``, boundary 6 with ``tbc=1``; boundary 2 with
+  the multigrid velocity PC): counts, reasons, error;
+- ``perturb2d``: the two boundary-2 solves of ``mixed2d`` again from a
+  zero state plus masked normal noise of 1e-13 (seeds 0-7) and 1e-11
+  (seed 0): their Krylov counts move with the round-off of the start;
+- ``line52``: README:52 through ``solve_continuation`` with the
+  line-smoothed eta-aware multigrid velocity PC
+  (``test_stokes_20cubed_powerlaw_fixture``'s configuration, float64);
+- ``fused``: ``solve_refined_fused`` in ``bench.py``'s
+  ``bench_stokes20_fused`` and ``bench_stokes20_powerlaw_fused``
+  configurations, x64 off for the float32 stages.
 """
 
 from __future__ import annotations
@@ -135,6 +154,107 @@ def refined() -> dict:
     return out
 
 
+CLI43_SOLVER = ["-cont0", "1", "-schur_ksp_max_it", "3", "-vel_ksp_max_it", "4",
+                "-svel_ksp_type", "preonly", "-ksp_type", "fgmres", "-ksp_rtol", "1e-10"]
+NEUMANN3D = {
+    "tbc 20^3": ["-exact", "1", "-boundary", "1", "-traction_p", "1", "-tbc", "1",
+                 "-dim", "20,20,20", *CLI43_SOLVER],
+    "free 12^3": ["-exact", "2", "-boundary", "1", "-dim", "12,12,12", *CLI43_SOLVER],
+}
+
+
+def _mixed_configs() -> dict:
+    """name -> StokesConfig keywords of the 16^2 mixed/Neumann solves
+    (tests/test_stokes.py:382, :409, :458; boundary 2 on a V-cycle)."""
+    from spectral_tpu.solvers.krylov import KSPConfig
+    from spectral_tpu.solvers.newton import NewtonConfig
+
+    b2 = dict(exact=2, boundary=2, cont0=1,
+              outer_ksp=KSPConfig(type="fgmres", rtol=1e-8, max_it=400, restart=100),
+              newton=NewtonConfig(rtol=1e-8, max_it=10))
+    man = dict(outer_ksp=KSPConfig(type="fgmres", rtol=1e-12, max_it=800, restart=200),
+               newton=NewtonConfig(rtol=1e-10, max_it=20))
+    return {"boundary 2": b2,
+            "boundary 5": dict(exact=1, boundary=5, traction_p=True, **man),
+            "boundary 6 tbc": dict(exact=1, boundary=6, traction_p=True, tbc=1,
+                                   **dict(man, outer_ksp=KSPConfig(
+                                       type="fgmres", rtol=1e-12, max_it=400, restart=200))),
+            "boundary 2 mg": dict(b2, pcvel="mg")}
+
+
+def mixed2d(names=None, starts=((0.0, 0),)) -> list:
+    """The 16^2 solves ``names`` (all by default), each from the zero
+    state plus masked normal noise of each (size, seed) in ``starts``."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.stokes import StokesConfig, StokesProblem
+
+    out = []
+    for name, kw in _mixed_configs().items():
+        if names and name not in names:
+            continue
+        p = StokesProblem(Grid((16, 16)), StokesConfig(**kw))
+        for perturb, seed in starts:
+            z = p.zero_state()
+            rng = np.random.default_rng(seed)
+            x0 = {"v": p.mask_v(z["v"] + perturb * jnp.asarray(
+                rng.standard_normal(z["v"].shape))), "p": z["p"]}
+            t0 = time.perf_counter()
+            res = p.solve(x0)
+            seconds = time.perf_counter() - t0
+            out.append({"name": name, "perturb": perturb, "seed": seed, **_counts([res]),
+                        "error": float(p.error_vs_exact(res.x)), "seconds": seconds})
+    return out
+
+
+def line52() -> dict:
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu.solvers.krylov import KSPConfig
+
+    cfg = StokesConfig(exact=2, rheology=1, cont=4, regularization=1e-4, exponent=3.0,
+                       pcvel="mg", pcvel_smoother="line",
+                       vel_ksp=KSPConfig(type="gmres", rtol=1e-5, max_it=6, restart=6))
+    p = StokesProblem(Grid((20, 20, 20)), cfg)
+    t0 = time.perf_counter()
+    results = p.solve_continuation()
+    seconds = time.perf_counter() - t0
+    c = _counts(results)
+    return {**c, "total_krylov": sum(map(sum, c["krylov"])),
+            "error": float(p.error_vs_exact(results[-1].x)), "seconds": seconds}
+
+
+def fused() -> dict:
+    """solve_refined_fused in the two bench configurations, x64 off for
+    the float32 stages (the refinement switches it on itself)."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu.solvers.krylov import KSPConfig
+    from spectral_tpu.solvers.newton import NewtonConfig
+
+    cfgs = {"linear": (dict(exact=2, cont0=1), False),
+            "powerlaw": (dict(exact=2, rheology=1, cont=4, regularization=1e-4, exponent=3.0,
+                              pcvel="mg",
+                              outer_ksp=KSPConfig(type="fgmres", rtol=1e-5, max_it=120,
+                                                  restart=60),
+                              newton=NewtonConfig(rtol=2e-4, max_it=30, ksp_ew=True)), True)}
+    out = {}
+    for name, (kw, fc) in cfgs.items():
+        with jax.enable_x64(False):
+            p = StokesProblem(Grid((20, 20, 20)), StokesConfig(**kw))
+            t0 = time.perf_counter()
+            x, info = p.solve_refined_fused(rtol=1e-10, fused_continuation=fc)
+            seconds = time.perf_counter() - t0
+        pm = np.asarray(p.p_mask)
+        dp = np.where(pm, x["p"] - p.exact_p_np, 0.0)
+        dp -= np.where(pm, dp.sum() / pm.sum(), 0.0)
+        err = max(float(np.max(np.abs(x["v"] - p.exact_v_np))), float(np.max(np.abs(dp))))
+        out[name] = {**_counts(info["continuation"]), "refine_history": info["refine_history"],
+                     "refine_steps": info["refine_steps"],
+                     "refine_inner": info["refine_inner_iters"],
+                     "rel_residual": info["rel_residual"], "error": err, "seconds": seconds}
+    return out
+
+
 SECTIONS = {
     "cli43": lambda: run_cli(README43),
     "cli52": lambda: run_cli(README52),
@@ -142,6 +262,12 @@ SECTIONS = {
                         + [run_cli(README52, 1e-11, 0)]),
     "entry": entry_norms,
     "refined": refined,
+    "neumann3d": lambda: [dict(run_cli(argv), name=name) for name, argv in NEUMANN3D.items()],
+    "mixed2d": mixed2d,
+    "perturb2d": lambda: mixed2d(("boundary 2", "boundary 2 mg"),
+                                 [(1e-13, seed) for seed in range(8)] + [(1e-11, 0)]),
+    "line52": line52,
+    "fused": fused,
 }
 
 

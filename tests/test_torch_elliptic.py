@@ -214,8 +214,7 @@ def test_unported_options_raise():
                   ["-ksp_compute_singularvalues"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _run(t_main, base + extra)
-    for fn in (newton.make_fused_newton, newton.newton_tr_solve,
-               newton.quasi_newton_solve, newton.anderson_solve,
+    for fn in (newton.newton_tr_solve, newton.quasi_newton_solve, newton.anderson_solve,
                newton.ngmres_solve, newton.newton_solve_family):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(None, None)

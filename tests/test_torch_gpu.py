@@ -364,3 +364,74 @@ def test_stokes_refined_on_card(cuda):
     x, info = p.solve_refined(rtol=1e-10)
     assert info["rel_residual"] <= 1e-10, info["rel_residual"]
     assert cuda_cheb.K1_LAUNCHES_BY_SHAPE.get((torch.Size((10, 10)), torch.float32), 0) > 0
+
+
+def test_line_solves_on_card(cuda):
+    """ops/tridiag.py on the card (batched torch.linalg.inv and matmul,
+    the Thomas loop) against the host on the same inputs, with a
+    component-dependent mask, to 1e-12 relative in float64."""
+    from spectral_tpu_torch.ops import tridiag
+    from spectral_tpu_torch.ops.stencil import StencilOp
+
+    rng = np.random.default_rng(7)
+    dims = (7, 6, 5)
+    lower = [-(0.2 + rng.random(dims)) for _ in dims]
+    upper = [-(0.2 + rng.random(dims)) for _ in dims]
+    center = 8.5 + rng.random(dims)
+    x, b = rng.standard_normal(dims + (3,)), rng.standard_normal(dims + (3,))
+    mask = rng.random(dims + (3,)) > 0.3
+    out = {}
+    for dev in ("cpu", cuda):
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+        S = StencilOp(t(center), tuple(map(t, lower)), tuple(map(t, upper)))
+        sv = tridiag.build_line_solvers(S, (0, 1, 2), mask=t(mask))
+        out[str(dev)] = (tridiag.line_smooth(S, t(x), t(b), (0, 1, 2), sweeps=2, mask=t(mask),
+                                             solvers=sv),
+                         tridiag.line_smooth(S, t(x), t(b), (0, 1, 2), sweeps=2, mask=t(mask)),
+                         tridiag.thomas(S.lower[1], S.center, S.upper[1], t(b), 1))
+    for got, ref in zip(out[str(cuda)], out["cpu"]):
+        assert got.device.type == "cuda" and _rel(got.cpu(), ref) <= 1e-12
+
+
+@pytest.mark.parametrize("pcvel,boundary,tbc", [("fastdiag", 1, 1), ("mg", 2, 0),
+                                                ("mg", 2, 1), ("nodal", 0, 0)])
+def test_mixed_velocity_pc_on_card(cuda, pcvel, boundary, tbc):
+    """One velocity PC apply at 8^3 on the card (line-relaxed traction
+    rows, the traction-block LU, the nodal stencil's V-cycle; line
+    smoother with nodal) against the host, 1e-11 relative in float64."""
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+
+    cfg = StokesConfig(exact=2, rheology=1, exponent=3.0, regularization=1e-2, pcvel=pcvel,
+                       boundary=boundary, tbc=tbc,
+                       pcvel_smoother="line" if pcvel == "nodal" else "chebyshev")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = StokesProblem(Grid((8, 8, 8), device=dev), cfg)
+        x, r = _stokes_state(p, 3, 0.3), _stokes_state(p, 4)
+        _, ls = p.make_residual(p.params_at(1))({k: v.to(dev) for k, v in x.items()})
+        setup, apply = p.make_vel_pc()
+        out[str(dev)] = apply(setup(ls), r["v"].to(dev))
+    assert _rel(out[str(cuda)].cpu(), out["cpu"]) <= 1e-11
+
+
+def test_stokes_refined_fused_on_card(cuda):
+    """solve_refined_fused at 12^3 on the card (linear, the whole solve in
+    the refinement loop) against the same on the host: rel residual
+    <= 1e-10 on both, the solutions within 1e-9, K1 launched in float64
+    (the device residual) and float32 (the inner solves)."""
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+
+    xs = {}
+    for dev in ("cpu", cuda):
+        p = StokesProblem(Grid((12, 12, 12), device=dev), StokesConfig(exact=2, cont0=1))
+        cuda_cheb.reset_launch_counts()
+        xs[str(dev)], info = p.solve_refined_fused(rtol=1e-10)
+        print(json.dumps({"device": str(dev), "refine_steps": info["refine_steps"],
+                          "inner": info["refine_inner_iters"], "rel": info["rel_residual"],
+                          "error": p.error_vs_exact(xs[str(dev)])}))
+        assert info["rel_residual"] <= 1e-10, info
+    for dt in (torch.float32, torch.float64):
+        assert cuda_cheb.K1_LAUNCHES_BY_SHAPE.get((torch.Size((12, 12, 12)), dt), 0) > 0
+    for k in ("v", "p"):
+        np.testing.assert_allclose(xs[str(cuda)][k], xs["cpu"][k], rtol=0, atol=1e-9)

@@ -197,8 +197,11 @@ def test_float32_rhs_against_float64_factors(pair):
 
 
 def test_line_smoother_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Multigrid.build(Grid((8, 8), device="cpu"), smoother="line")
+    """The line smoother is ported (held to the JAX package in
+    tests/test_torch_stokes_mixed.py); an unknown smoother raises."""
+    assert Multigrid.build(Grid((8, 8), device="cpu"), smoother="line").smoother == "line"
+    with pytest.raises(ValueError, match="unknown smoother"):
+        Multigrid.build(Grid((8, 8), device="cpu"), smoother="lines")
 
 
 def test_stencil_of_jax_matches_port_apply():

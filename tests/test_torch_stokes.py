@@ -408,9 +408,13 @@ def jax_cli2d():
 @pytest.fixture(scope="module")
 def jax_power_law():
     """test_power_law_continuation's configuration (10x10, -cont 2, eps
-    1e-2, exponent 3) through the JAX package's solve_continuation."""
+    1e-2, exponent 3) through the JAX package's solve_continuation_fused:
+    one compiled program where the host loop compiles a Newton step per
+    continuation step, and the JAX package's own test holds the two equal
+    step for step in this configuration
+    (tests/test_refined_fused.py::test_fused_continuation_matches_host_loop)."""
     jp = JProblem(JGrid((10, 10)), JConfig(**POWER_LAW))
-    res = jp.solve_continuation()
+    res = jp.solve_continuation_fused()
     newton, krylov = _counts(res)
     return {"newton": newton, "krylov": krylov, "reasons": [int(r.reason) for r in res],
             "error": float(jp.error_vs_exact(res[-1].x))}
@@ -449,6 +453,27 @@ def test_power_law_continuation_matches_jax(jax_power_law):
     assert float(torch.max(eta)) / float(torch.min(eta)) > 1.5
 
 
+def test_fused_continuation_matches_jax(jax_power_law):
+    """solve_continuation_fused in the same configuration, held to the JAX
+    package's host loop by test_power_law_continuation_matches_jax's rule
+    (its fused and host loops agree step for step in float64,
+    tests/test_refined_fused.py:108-131); the state only on the last
+    step."""
+    ref = jax_power_law
+    tp = StokesProblem(Grid((10, 10), device="cpu"), StokesConfig(**POWER_LAW))
+    tres = tp.solve_continuation_fused()
+    assert [r.iters for r in tres] == ref["newton"]
+    assert [r.reason for r in tres] == ref["reasons"]
+    for a, kb in zip(tres, ref["krylov"]):
+        ka = list(a.ksp_iters)
+        assert ka[:-1] == kb[:-1], (ka, kb)
+        assert abs(ka[-1] - kb[-1]) <= 1, (ka, kb)
+        assert len(a.fnorm_history) == a.iters + 1
+    assert all(r.x is None for r in tres[:-1]) and tres[-1].x["v"].dtype == torch.float64
+    err = tp.error_vs_exact(tres[-1].x)
+    assert ref["error"] / 2 <= err <= 2 * ref["error"], err
+
+
 def test_secant_predictor_reaches_the_same_solution():
     tp = StokesProblem(Grid((6, 6), device="cpu"), StokesConfig(**POWER_LAW))
     ts = StokesProblem(Grid((6, 6), device="cpu"),
@@ -484,6 +509,28 @@ def test_solve_refined_2d(dims, cfg, oracle, request):
         assert err <= ref, err
 
 
+@pytest.mark.parametrize("dims,cfg,oracle", [
+    ((12, 12), dict(exact=2, cont0=1), "jax_cli2d"),
+    ((10, 10), dict(POWER_LAW, outer_ksp=KSPConfig(type="fgmres", rtol=1e-5, max_it=120,
+                                                   restart=60),
+                    newton=NewtonConfig(rtol=2e-4, max_it=30, ksp_ew=True)), "jax_power_law")])
+def test_solve_refined_fused_2d(dims, cfg, oracle, request):
+    """solve_refined_fused (the power law with the fused continuation) in
+    test_solve_refined_2d's configurations, held to the same JAX oracles
+    by the same rules."""
+    ref = request.getfixturevalue(oracle)["error"]
+    tp = StokesProblem(Grid(dims, device="cpu"), StokesConfig(**cfg))
+    x, info = tp.solve_refined_fused(rtol=1e-10, fused_continuation=True)
+    assert info["rel_residual"] <= 1e-10, info
+    assert x["v"].dtype == np.float64
+    err = tp.error_vs_exact(x)
+    if oracle == "jax_power_law":
+        assert info["continuation"][-1].x["v"].dtype == torch.float32
+        assert abs(err - ref) <= 1e-8 * ref, err
+    else:
+        assert info["continuation"] == [] and err <= ref, err
+
+
 def test_dtype_ksp_clamps_to_the_state_dtype():
     """The outer rtol floor is 50 eps of the state's dtype, whatever the
     grid's dtype or a global default."""
@@ -507,10 +554,9 @@ def test_state_interop_round_trip():
 
 def test_unported_options_raise():
     g = Grid((8, 8), device="cpu")
-    item = {"item 3c": [dict(pcvel="nodal"), dict(pcvel="q1fem"), dict(pcvel="q1sep"),
+    item = {"item 3d": [dict(pcvel="q1fem"), dict(pcvel="q1sep"),
                         dict(pcvel="probed"), dict(pcvel="probed1"),
-                        dict(boundary=2), dict(boundary=1, pcvel="mg"),
-                        dict(boundary=2, tbc=1, pcvel="jacobi")]}
+                        dict(boundary=2, pcvel="probed"), dict(boundary=2, tbc=1, pcvel="q1fem")]}
     for name, cfgs in item.items():
         for cfg in cfgs:
             with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {name}"):
@@ -523,22 +569,23 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         StokesProblem(g, phi=lambda x: x)
     p = StokesProblem(g, StokesConfig(exact=2))
-    for fn in (stokes_pc.nodal_jacfwd_stencil, stokes_pc.colored_probe_stencil,
-               stokes_pc.colored_probe_stencil_full):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3c"):
+    for fn in (stokes_pc.colored_probe_stencil, stokes_pc.colored_probe_stencil_full):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3d"):
             fn(g, None)
-    for fn, name in ((p.solve_family, "item 7"), (p.solve_continuation_fused, "item 3c"),
-                     (p.make_residual_dev64, "item 3c"),
-                     (p.solve_refined_fused, "item 3c"), (p.adjoint_gradient, "item 5"),
+    for fn, name in ((p.solve_family, "item 7"), (p.adjoint_gradient, "item 5"),
                      (p.make_dense_pc, "item 4"), (p.make_dense_pc_var, "item 4"),
                      (lambda: p.make_pc(adjoint=True), "item 5"),
                      (lambda: p.solve_continuation(checkpoint_dir="x"), "item 8"),
                      (lambda: p.solve(recycle_U0=object()), "item 1b")):
         with pytest.raises(NotImplementedError, match=name):
             fn()
-    for opt, name in (("-fused", "item 3c"), ("-snes_grid_sequence 1", "item 2"),
+    for opt, name in (("-snes_grid_sequence 1", "item 2"),
                       ("-checkpoint_dir d", "item 8"), ("-ksp_compute_singularvalues", "item 2"),
                       ("-output_vtk", "item 8"), ("-map bump:0.1", "item 6"),
                       ("-log_summary", "item 8")):
         with pytest.raises(NotImplementedError, match=name):
             t_main(["stokes", "-device", "cpu", "-dim", "6,6", *opt.split()])
+    # the rest of item 3c runs: every pcvel, the mixed PC with tbc, the fused paths
+    for cfg in (dict(pcvel="nodal"), dict(boundary=2), dict(boundary=1, pcvel="mg"),
+                dict(boundary=2, tbc=1, pcvel="jacobi")):
+        StokesProblem(g, StokesConfig(exact=2, **cfg)).make_pc()
