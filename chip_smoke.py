@@ -46,9 +46,16 @@ paths at their real sizes through the entry points a user calls:
      traction rows on fastdiag and on a V-cycle, tbc); (c) README:52 with
      the line-smoothed eta-aware multigrid at 20^3; (d) the fused tier,
      ``solve_refined_fused`` in bench.py's stokes20 configurations (the
-     power law with ``fused_continuation``).
+     power law with ``fused_continuation``);
+ 10. the CLI in float64, gated on PHASE10_ORACLE: (a) README:43 at 20^3
+     with the Q1 FEM, separable-Q1 and probed velocity PCs (``-pcvel 1``,
+     ``q1sep``, ``2``); (b) README:52 with ``-pcvel 1``; (c) the elliptic
+     32^3 solve with ``-pc_type q1fem``; (d) grid sequencing, the 32^3
+     mg3 elliptic solve over two coarser levels and README:52 with its
+     continuation on (10, 10, 10); (e) ``-ksp_compute_singularvalues`` on
+     the 5-D elliptic solve and README:43.
 
-Each path (phases 3-9) is driven with the launch counts set to 0 just
+Each path (phases 3-10) is driven with the launch counts set to 0 just
 before it and read just after (K1's also by shape), and times nothing
 inside it (a call captured in a CUDA graph counts once and launches at
 every replay); every phase raises on failure.  A timed comparison gives
@@ -82,8 +89,12 @@ BOUND = {"float32": 1e-5, "float64": 1e-12}   # max |kernel - plain| / max |plai
 # Stokes forward step, phase 8), 20^3 (the Stokes CLI in float64, and
 # solve_refined's float32 inner solves, phase 8; phase 9's 20^3 paths),
 # (16, 16) and (12, 12, 12) (phase 9's 2-D mixed solves and the 12^3
-# Neumann CLI, float64)
-K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5, (20, 20, 20), (16, 16), (12, 12, 12))
+# Neumann CLI, float64), and the coarse levels of phase 10's grid
+# sequencing, K1_GSEQ_SHAPES (float64; K1 is bit for bit its plain
+# version there, a gate)
+K1_GSEQ_SHAPES = ((8, 8, 8), (10, 10, 10), (16, 16, 16))
+K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5, (20, 20, 20), (16, 16),
+                  (12, 12, 12)) + K1_GSEQ_SHAPES
 K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
 # K3's ragged cases, each in float32 and float64: (rows, n, pack, row tile,
 # offset of u2d in its storage).  n % 4 == 0 goes by bulk copies (n = 12:
@@ -258,6 +269,236 @@ STOKES_ORACLE = {
     "fused powerlaw": dict(newton=[3, 8, 8, 18, 13], refine_steps=3, refine_inner=60,
                            rel=1.5326435677810032e-12, error=0.6057081634662976),
 }
+
+
+# Phase 10: the Q1 and probed velocity PCs, the elliptic q1fem PC, grid
+# sequencing and the singular-value estimate, through the CLI in float64.
+# PHASE10_ORACLE: the JAX package on the CPU in float64 (``python3
+# stokes_oracle.py q1`` for the stokes lines; the elliptic lines from
+# ``python -m spectral_tpu.cli elliptic -platform cpu`` with the same
+# options: 32^3 q1fem 5 Newton, [5, 27, 23, 21, 24], 1.461442e-12; 32^3
+# mg3 with -snes_grid_sequence 2: (8, 8, 8) 5 Newton / 30 Krylov
+# CONVERGED_RTOL, (16, 16, 16) 3 / 22 CONVERGED_SNORM_RELATIVE, then 1
+# Newton, [5], CONVERGED_SNORM_RELATIVE, 1.015854e-14; 12^5 fastdiag with
+# -ksp_compute_singularvalues 1 Newton, [11], 2.017631e-11, max
+# 4.350312e+00 min 2.039389e+00 cond 2.133145e+00).  "krylov" per Newton
+# step, "levels" (name, Newton, total Krylov, reason) per coarse level.
+# Two phase 10 numbers are chaotic in the JAX package itself, so they are
+# held to the range of the oracle and of its runs from the zero state plus
+# masked noise of 1e-13 (seeds 0-31) and 1e-11 (seed 0), listed here in
+# that order (``stokes_oracle.py perturb_probed`` / ``perturb_sv``, with
+# ``--seeds 8-31`` for the later seeds): README:43 with -pcvel 2, whose
+# velocity PC is damped Jacobi on a probe of the spectral block (the
+# oracle's 177, the perturbed runs 131-284 FGMRES, error 4.7e-8 to
+# 1.9e-7), and README:43's singular-value estimate, an Arnoldi process on
+# a preconditioner made of inner Krylov solves, which are not linear in
+# their right-hand side (max 1.0255-1.0436, min 0.1613-0.1946, cond
+# 5.327-6.410).  (FGMRES iterations, error) for -pcvel 2:
+PROBED_PERTURBED = (
+    (229, 1.283599e-07), (284, 9.830109e-08), (138, 8.403683e-08), (205, 1.460282e-07),
+    (131, 1.08005e-07), (186, 1.765694e-07), (172, 9.140188e-08), (171, 8.753442e-08),
+    (183, 1.090935e-07), (164, 7.359899e-08), (263, 9.880046e-08), (193, 1.918811e-07),
+    (161, 7.808826e-08), (245, 1.72741e-07), (210, 6.26025e-08), (229, 1.29524e-07),
+    (172, 9.419474e-08), (166, 4.724459e-08), (167, 1.164688e-07), (151, 6.84912e-08),
+    (197, 9.341033e-08), (251, 1.359379e-07), (149, 1.190675e-07), (243, 9.878804e-08),
+    (218, 9.256733e-08), (168, 7.552276e-08), (176, 1.088767e-07), (176, 1.154514e-07),
+    (199, 1.36192e-07), (200, 1.194251e-07), (186, 1.529564e-07), (191, 1.38634e-07),
+    (211, 1.023488e-07))
+# The port's own -pcvel 2 runs on the card from the same starts
+# (``port_perturb.py --seeds 0-31``, one NVIDIA H100 80GB HBM3 at 700.00 W:
+# 126-284 FGMRES, error 3.8e-8 to 2.1e-7): the port sums in another order
+# than the JAX package, which moves the count as the perturbations do, so
+# the gate spans both samples.
+PROBED_PORT_PERTURBED = (
+    (270, 1.230527e-07), (195, 9.308136e-08), (227, 1.663084e-07), (231, 1.565741e-07),
+    (246, 1.334379e-07), (177, 1.784516e-07), (195, 9.772304e-08), (186, 1.497986e-07),
+    (168, 9.769574e-08), (126, 6.818642e-08), (179, 9.340613e-08), (164, 1.488553e-07),
+    (149, 7.819824e-08), (201, 5.407805e-08), (135, 1.184235e-07), (173, 9.560712e-08),
+    (218, 2.113956e-07), (191, 1.090683e-07), (204, 4.861964e-08), (242, 1.373415e-07),
+    (243, 9.747777e-08), (205, 3.81223e-08), (246, 1.227107e-07), (187, 8.729575e-08),
+    (163, 7.133147e-08), (153, 7.649024e-08), (284, 1.256316e-07), (174, 8.253841e-08),
+    (172, 1.11041e-07), (227, 1.866481e-07), (247, 1.544126e-07), (151, 6.412307e-08),
+    (155, 5.889017e-08))
+SV_PERTURBED = (
+    (1.033252, 0.1725587, 5.987829), (1.039419, 0.1889093, 5.50221),
+    (1.034763, 0.1919162, 5.391743), (1.030782, 0.1750039, 5.890052),
+    (1.030869, 0.1794238, 5.745444), (1.033347, 0.1776454, 5.816912),
+    (1.029336, 0.1784973, 5.766674), (1.034182, 0.1616036, 6.3995),
+    (1.034584, 0.1685767, 6.13717), (1.043619, 0.1866787, 5.590458),
+    (1.040809, 0.1639339, 6.348956), (1.031233, 0.1716592, 6.007442),
+    (1.030307, 0.1735329, 5.937246), (1.025539, 0.1648593, 6.220695),
+    (1.037212, 0.1695712, 6.116674), (1.026147, 0.178943, 5.73449),
+    (1.029324, 0.1628493, 6.320716), (1.034025, 0.1613185, 6.409834),
+    (1.038488, 0.1754374, 5.919419), (1.036547, 0.1945737, 5.327272),
+    (1.03077, 0.1751807, 5.884039), (1.038849, 0.1793885, 5.791056),
+    (1.031279, 0.16486, 6.255482), (1.032203, 0.1767674, 5.83933),
+    (1.030607, 0.1715896, 6.006233), (1.028176, 0.1648021, 6.238853),
+    (1.031055, 0.1894598, 5.442079), (1.03001, 0.1659584, 6.206437),
+    (1.031827, 0.1717262, 6.008556), (1.036696, 0.1810062, 5.727405),
+    (1.039012, 0.1803839, 5.760003), (1.037784, 0.1862119, 5.573138),
+    (1.029448, 0.1729441, 5.952489))
+PHASE10_ORACLE = {
+    "10a q1fem README:43": dict(argv=["stokes", *STOKES_README43, "-pcvel", "1"], newton=[1],
+                                krylov=[[47]], reasons=["CONVERGED_RTOL"], error=3.679132e-07),
+    "10a q1sep README:43": dict(argv=["stokes", *STOKES_README43, "-pcvel", "q1sep"],
+                                newton=[1], krylov=[[38]], reasons=["CONVERGED_RTOL"],
+                                error=3.78899e-07),
+    "10a probed README:43": dict(argv=["stokes", *STOKES_README43, "-pcvel", "2"], newton=[1],
+                                 krylov=[[177]], reasons=["CONVERGED_RTOL"], error=1.645493e-07,
+                                 perturbed=[[[k]] for k, _ in
+                                            PROBED_PERTURBED + PROBED_PORT_PERTURBED],
+                                 perturbed_errors=[e for _, e in
+                                                   PROBED_PERTURBED + PROBED_PORT_PERTURBED]),
+    "10b q1fem README:52": dict(argv=["stokes", *STOKES_README52, "-pcvel", "1"],
+                                newton=[2, 3, 3, 4, 5],
+                                krylov=[[9, 35], [37, 32, 45], [33, 43, 52], [26, 24, 27, 33],
+                                        [34, 25, 29, 32, 60]], total=576, error=6.057082e-01),
+    "10c elliptic 32^3 q1fem": dict(argv=["elliptic", "-dim", "32,32,32", "-exact", "0",
+                                          "-gamma", "1", "-pc_type", "q1fem", "-snes_rtol",
+                                          "1e-10", "-debug", "1"],
+                                    newton=[5], krylov=[[5, 27, 23, 21, 24]],
+                                    reasons=["CONVERGED_RTOL"], error=1.461442e-12),
+    "10d elliptic 32^3 mg3 gseq 2": dict(
+        argv=["elliptic", *ELLIPTIC_ORACLE["32^3 mg3"][0], "-snes_grid_sequence", "2"],
+        levels=[("(8, 8, 8)", 5, 30, "CONVERGED_RTOL"),
+                ("(16, 16, 16)", 3, 22, "CONVERGED_SNORM_RELATIVE")],
+        newton=[1], krylov=[[5]], reasons=["CONVERGED_SNORM_RELATIVE"], error=1.015854e-14,
+        max_error=1e-13),
+    "10d gseq README:52": dict(
+        argv=["stokes", *STOKES_README52, "-snes_grid_sequence", "1"],
+        coarse_newton=[2, 3, 3, 4, 4],
+        coarse_krylov=[[4, 9], [9, 9, 10], [12, 11, 11], [18, 14, 15, 16], [22, 16, 19, 22]],
+        coarse_total=217, newton=[22],
+        krylov=[[30, 63, 43, 41, 41, 45, 43, 37, 53, 44, 107, 31, 33, 47, 54, 91, 52, 60, 29,
+                 52, 56, 58]], reasons=["CONVERGED_RTOL"], error=6.057082e-01),
+    "10e elliptic 5d singular values": dict(
+        argv=["elliptic", *ELLIPTIC_ORACLE["5d"][0], "-ksp_compute_singularvalues"],
+        newton=[1], krylov=[[11]], reasons=["CONVERGED_RTOL"], error=2.017631e-11,
+        singular_values=(4.350312e+00, 2.039389e+00, 2.133145e+00)),
+    "10e singular values README:43": dict(
+        argv=["stokes", *STOKES_README43, "-ksp_compute_singularvalues"], newton=[1],
+        krylov=[[14]], reasons=["CONVERGED_RTOL"], error=2.792477e-07,
+        singular_values=(1.033295e+00, 1.621493e-01, 6.372493e+00),
+        perturbed_sv=SV_PERTURBED),
+}
+
+
+def parse_cli(out: str) -> dict:
+    """The counts, reasons, error, grid-sequence levels and singular values
+    a stokes or elliptic CLI run printed."""
+    got = {}
+    mc = re.search(r"Continuation steps: Newton (\[.*\])  Krylov (\[.*\])", out)
+    if mc:   # stokes: the last solve's (or the continuation's) counts
+        got["newton"], got["krylov"] = json.loads(mc.group(1)), json.loads(mc.group(2))
+    else:    # elliptic: one Newton solve
+        mn = re.search(r"Number of nonlinear iterations = (\d+)", out)
+        mk = re.search(r"KSP iterations per Newton step: (\[.*\])", out)
+        if mn and mk:
+            got["newton"], got["krylov"] = [int(mn.group(1))], [json.loads(mk.group(1))]
+    mr = re.search(r"Reason for solver termination: (\S+)", out)
+    me = re.search(r"Norm of error\s*: abs = (\S+)", out)
+    got["reasons"] = [mr.group(1)] if mr else None
+    got["error"] = float(me.group(1)) if me else None
+    got["levels"] = [(m.group(1), int(m.group(2)), int(m.group(3)), m.group(4))
+                     for m in re.finditer(r"grid sequence level (\(.*?\)): (\d+) Newton / "
+                                          r"(\d+) Krylov, reason (\S+)", out)]
+    mcc = re.search(r"Continuation steps on level \(.*?\): Newton (\[.*\])  Krylov (\[.*\])", out)
+    if mcc:
+        got["coarse_newton"], got["coarse_krylov"] = json.loads(mcc.group(1)), \
+            json.loads(mcc.group(2))
+    ms = re.search(r"extreme singular values: max (\S+) min (\S+) cond (\S+)", out)
+    got["singular_values"] = tuple(map(float, ms.groups())) if ms else None
+    return got
+
+
+def phase10_ok(name: str, got: dict) -> str | None:
+    """Why a phase 10 run misses PHASE10_ORACLE[name]'s gates, or None:
+    Newton counts equal; 10a, 10c, 10e: the reason equal, each Krylov count
+    within max(3, 10%) of the range of the oracle and its perturbed runs
+    (10c: within 2 a step), the error within 2x of that range (10c: at
+    most 2x); 10b: every continuation step converged, the total within
+    20%, the error to 1e-6; 10d: each level's Newton count and reason
+    equal and its Krylov total within max(3, 10%) (README:52: the coarse
+    continuation's Newton counts equal, its total within 20%), the fine
+    solve's Krylov total within max(3, 10%), the error at most max_error
+    (README:52: to 1e-6); singular values within 1e-4 relative of the
+    range of the oracle and its perturbed runs."""
+    spec = PHASE10_ORACLE[name]
+    newton, krylov, err = got.get("newton"), got.get("krylov"), got["error"]
+    if newton != spec["newton"] or [len(k) for k in krylov] != newton:
+        return f"Newton {newton} ({krylov}), oracle {spec['newton']}"
+    if "total" in spec:   # 10b
+        total = sum(map(sum, krylov))
+        if not all(r.startswith("CONVERGED") for r in got["reasons"]):
+            return f"reason {got['reasons']}"
+        if abs(total - spec["total"]) > 0.2 * spec["total"]:
+            return f"total Krylov {total}, oracle {spec['total']} (20%)"
+        if abs(err - spec["error"]) > 1e-6 * spec["error"]:
+            return f"error {err:.6e}, oracle {spec['error']:.6e} (1e-6 relative)"
+        return None
+    if got["reasons"] != spec["reasons"]:
+        return f"reason {got['reasons']}, oracle {spec['reasons']}"
+    if "coarse_newton" in spec:   # 10d README:52
+        ctotal, ftotal = sum(map(sum, got["coarse_krylov"])), sum(map(sum, krylov))
+        otot = sum(map(sum, spec["krylov"]))
+        if got["coarse_newton"] != spec["coarse_newton"]:
+            return f"coarse Newton {got['coarse_newton']}, oracle {spec['coarse_newton']}"
+        if abs(ctotal - spec["coarse_total"]) > 0.2 * spec["coarse_total"]:
+            return f"coarse total Krylov {ctotal}, oracle {spec['coarse_total']} (20%)"
+        if not _within(ftotal, otot, otot):
+            return f"fine total Krylov {ftotal}, oracle {otot} (max(3, 10%))"
+        if abs(err - spec["error"]) > 1e-6 * spec["error"]:
+            return f"error {err:.6e}, oracle {spec['error']:.6e} (1e-6 relative)"
+        return None
+    if "levels" in spec:          # 10d elliptic
+        if [lv[:2] + lv[3:] for lv in got["levels"]] != [lv[:2] + lv[3:] for lv in spec["levels"]]:
+            return f"levels {got['levels']}, oracle {spec['levels']}"
+        for lv, ov in zip(got["levels"], spec["levels"]):
+            if not _within(lv[2], ov[2], ov[2]):
+                return f"level {lv[0]}: {lv[2]} Krylov, oracle {ov[2]} (max(3, 10%))"
+        total, otot = sum(krylov[0]), sum(spec["krylov"][0])
+        if not _within(total, otot, otot):
+            return f"Krylov {krylov}, oracle {spec['krylov']} (max(3, 10%))"
+        return None if err <= spec["max_error"] else \
+            f"error {err:.6e} > {spec['max_error']:.0e}"
+    if name.startswith("10c"):
+        if any(abs(a - b) > 2 for a, b in zip(krylov[0], spec["krylov"][0])):
+            return f"Krylov {krylov}, oracle {spec['krylov']} (within 2 a step)"
+    else:   # max(3, 10%) beyond the range of the oracle and its perturbed runs
+        (lo, hi), _ = stokes_krylov_range({"perturbed": [], **spec})
+        if any(not _within(k, a, b) for got_k, ls, hs in zip(krylov, lo, hi)
+               for k, a, b in zip(got_k, ls, hs)):
+            return f"Krylov {krylov}, the runs span {lo}..{hi} (max(3, 10%) beyond)"
+    errs = [spec["error"], *spec.get("perturbed_errors", [])]
+    elo = 0.0 if name.startswith("10c") else min(errs) / 2
+    if not elo <= err <= 2 * max(errs):
+        return f"error {err:.6e}, the runs span {min(errs):.6e}..{max(errs):.6e} (within 2x)"
+    if "singular_values" in spec:   # 1e-4 relative beyond the JAX runs' range
+        sv = got["singular_values"]
+        runs = [spec["singular_values"], *spec.get("perturbed_sv", [])]
+        if sv is None or any(not min(r) * (1 - 1e-4) <= v <= max(r) * (1 + 1e-4)
+                             for v, r in zip(sv, zip(*runs))):
+            return f"singular values {sv}, the JAX runs span {runs} (1e-4 relative beyond)"
+    return None
+
+
+def phase10(cli_main, path) -> dict:
+    """Phase 10: every PHASE10_ORACLE run through the CLI, gated on it;
+    the 20^3 README:52 runs (10b, 10d) one call each, the rest a first and
+    a warm call.  ``path(name, fn, kernels)`` runs fn as a counted path."""
+    out = {}
+    for name, spec in PHASE10_ORACLE.items():
+        warm = 0 if name.startswith(("10b", "10d gseq")) else 1
+        ((rc, text), first_s, warm_s), counts = path(
+            name, lambda: timed_twice(lambda: run_cli(cli_main, spec["argv"]),
+                                      warm_reps=warm), ["chebdiff_last_kernel"])
+        require(rc == 0, f"{name} failed (rc {rc}): {text[-3000:]!r}")
+        got = parse_cli(text)
+        why = phase10_ok(name, got)
+        require(why is None, f"{name}: {why}")
+        out[name] = {"cli": " ".join(spec["argv"]), **got, "first_s": first_s,
+                     "solve_s": warm_s, "k1_launches": counts["chebdiff_last_kernel"]}
+    return out
 
 
 def stokes_krylov_range(spec: dict):
@@ -637,6 +878,8 @@ def main() -> int:
             k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u, scale),
                               lambda: cuda_cheb.chebdiff_last_ref(u, scale), u,
                               f"{shape} scale={scale}"))
+            if shape in K1_GSEQ_SHAPES and dtype == torch.float64:
+                require(k1[-1]["bitwise"], f"K1 {shape} float64: not bit for bit its plain version")
             if shape in K1_PATH_SHAPES:   # a path's shape: its bound and library call
                 n = shape[-1]
                 dt = cuda_cheb._diffmat_t(n, None, dtype, dev)
@@ -841,7 +1084,7 @@ def main() -> int:
     u = randn((1 << 20, 64), torch.float32, 98)   # 256 x 64^3 dofs, exp_pallas.py main
     dofs = u.numel()
     dt = cuda_cheb._diffmat_t(64, K3_SCALE, torch.float32, dev)
-    library_ms = device_ms(lambda: torch.matmul(u, dt))
+    library_ms, library_call_ms = both_ms(lambda: torch.matmul(u, dt))
     k3_bound = bound(2 * dofs * 4 + 64 * 64 * 4, 2 * 64 * dofs, "float32")
     # the same values one element into a buffer: K3's synchronous branch
     u_sync = torch.empty(dofs + 1, device=dev, dtype=torch.float32)[1:].view_as(u)
@@ -895,6 +1138,8 @@ def main() -> int:
                  stages=cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4),
                  blocks_per_sm=blocks_per_sm(regs, {"threads": 288, "smem": smem}))
     print("phase5 sweep " + json.dumps({"library_gdofs": dofs / library_ms / 1e6,
+                                        "library_ms": library_ms,
+                                        "library_call_ms": library_call_ms,
                                         "k3_launches": counts[K3],
                                         "cases": list(sweep.values()), "stages": stages,
                                         "seconds": time.perf_counter() - t_phase}))
@@ -1055,10 +1300,11 @@ def main() -> int:
         require(why is None, f"stokes {name}: {why}")
         record(name, counts, first_s, warm_s, newton=res.iters, krylov=res.ksp_iters,
                reason=res.reason_str(), error=err, oracle_krylov=STOKES_ORACLE[name]["krylov"])
-    # 9c: README:52 with the line-smoothed multigrid, the API in float64
+    # 9c: README:52 with the line-smoothed multigrid, the API in float64, one
+    # call (~100 s; the script stays under 600 s with phase 10)
     name, spec, prob = "line52", STOKES_ORACLE["line52"], stokes_line52(dev)
     (res, first_s, warm_s), counts = path(
-        f"phase9 {name}", lambda: timed_twice(prob.solve_continuation, warm_reps=1), [K1])
+        f"phase9 {name}", lambda: timed_twice(prob.solve_continuation, warm_reps=0), [K1])
     newton, krylov = [r.iters for r in res], [r.ksp_iters for r in res]
     total, err = sum(map(sum, krylov)), prob.error_vs_exact(res[-1].x)
     require(all(r.reason > 0 for r in res), f"{name}: {[r.reason_str() for r in res]}")
@@ -1100,6 +1346,14 @@ def main() -> int:
                velocity_vs_refined=dv, oracle=STOKES_ORACLE[fname])
     phase9["seconds"] = time.perf_counter() - t_phase
     print("phase9 " + json.dumps(phase9))
+
+    # -- phase 10: Q1 and probed PCs, grid sequencing, singular values ---------
+    t_phase = time.perf_counter()
+    phase10_out = phase10(cli_main, path)
+    for name, rec in phase10_out.items():
+        rec["k1_launches_by_shape"] = k1_shapes[name]
+    phase10_out["seconds"] = time.perf_counter() - t_phase
+    print("phase10 " + json.dumps(phase10_out))
 
     # -- the kernels line ------------------------------------------------------
     k1_main = next(c for c in k1 if c["case"] == "(64, 64, 64) scale=None"

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Where the port's time goes on one GPU: torch.profiler over one warm run
 of each elliptic and Stokes path that chip_smoke.py drives (its phases 6
-to 9, taken from its tables).
+to 10, taken from its tables).
 
     python3 profile_port.py [substring ...]
 
 With arguments, only the paths whose names contain one of them.
 
 For each path it prints one JSON line: the host wall time of one
-unprofiled warm run and of the profiled run, the device busy time (the sum
-of the kernel and copy times on the card, one stream, so nothing
-overlaps), the idle share 1 - busy / profiled wall, the number of device
-operations, and the eight largest by device time.  A warm-up run comes
+unprofiled warm run and of the profiled run (the profiler traces device
+activity only), the device busy time (the sum of the kernel and copy
+times on the card, one stream, so nothing overlaps), the idle share 1 -
+busy / profiled wall, the number of device operations, and the eight
+largest by device time.  A warm-up run comes
 first, so set-up caches are warm.  Without CUDA it exits non-zero.
 """
 
@@ -46,8 +47,8 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (ELLIPTIC_ORACLE, STOKES_ORACLE, refined_runs, run_cli,
-                            stokes_forward, stokes_line52, stokes_mixed_runs,
+    from chip_smoke import (ELLIPTIC_ORACLE, PHASE10_ORACLE, STOKES_ORACLE, refined_runs,
+                            run_cli, stokes_forward, stokes_line52, stokes_mixed_runs,
                             stokes_refined_runs)
     from spectral_tpu_torch.cli.main import main as cli_main
 
@@ -59,7 +60,7 @@ def main() -> int:
         return run
 
     dev = torch.device("cuda")
-    # the paths of chip_smoke.py phases 6 to 9, from its tables
+    # the paths of chip_smoke.py phases 6 to 10, from its tables
     paths = {f"elliptic CLI {name} f64": cli("elliptic", opts)
              for name, (opts, *_) in ELLIPTIC_ORACLE.items()}
     paths.update({name: run for name, (run, _) in refined_runs(dev).items()})
@@ -76,6 +77,8 @@ def main() -> int:
         lambda p=p, fc=name == "refined powerlaw": p.solve_refined_fused(
             rtol=1e-10, fused_continuation=fc))
         for name, p in stokes_refined_runs(dev).items()})
+    paths.update({f"phase{name}": cli(spec["argv"][0], spec["argv"][1:])
+                  for name, spec in PHASE10_ORACLE.items()})
     wanted = sys.argv[1:]
     for name, run in paths.items():
         if wanted and not any(w in name for w in wanted):
@@ -86,7 +89,9 @@ def main() -> int:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # device activity only: host-side events add no device time and, on
+        # paths of ~10^6 operations, overhead enough to stall the run
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()

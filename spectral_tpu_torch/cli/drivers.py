@@ -94,7 +94,8 @@ def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) ->
     with a line search.  Exit code 0 when Newton converged, 2 when not."""
     from spectral_tpu_torch.grid import Grid
     from spectral_tpu_torch.models.elliptic import EllipticModel
-    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.ops.chebyshev import cheb_regrid
+    from spectral_tpu_torch.solvers.krylov import KSPConfig, extreme_singular_values
     from spectral_tpu_torch.solvers.newton import NewtonConfig
     from spectral_tpu_torch.utils.printing import vec_print2
 
@@ -114,22 +115,20 @@ def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) ->
     if snes_type not in ("newtonls", "newton"):
         raise NotImplementedError(f"-snes_type {snes_type} is not ported yet "
                                   "(ROADMAP.md queue 1, item 2)")
-    if opts.get_int("snes_grid_sequence", 0) > 0:
-        raise NotImplementedError("-snes_grid_sequence is not ported yet "
-                                  "(ROADMAP.md queue 1, item 2: cheb_regrid)")
-    if opts.has("ksp_compute_singularvalues"):
-        raise NotImplementedError("-ksp_compute_singularvalues is not ported yet "
-                                  "(ROADMAP.md queue 1, item 2: extreme_singular_values)")
+    intervals = _domain_intervals(opts, len(dims))
 
-    model = EllipticModel(Grid(dims, intervals=_domain_intervals(opts, len(dims)),
-                               device=device, dtype=dtype),
-                          gamma=gamma, exponent=exponent)
+    def make_model(dims_l):
+        return EllipticModel(Grid(dims_l, intervals=intervals, device=device, dtype=dtype),
+                             gamma=gamma, exponent=exponent)
+
+    model = make_model(tuple(dims))
     g = model.grid
     print(g.census())
     u, b, dirichlet = model.setup_problem(exact=exact, cos_scale=cos_scale)
 
     # CHECK_EXACT (elliptic.C:193-209)
-    F = model.make_residual(b, dirichlet)(u)[0].cpu().numpy()
+    residual = model.make_residual(b, dirichlet)
+    F = residual(u)[0].cpu().numpy()
     print(f"{'Norm of exact residual':<25}: abs = {np.max(np.abs(F)):8e}   "
           f"rel = {_max_rel(F, b.cpu().numpy()):8e}")
 
@@ -137,8 +136,25 @@ def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) ->
     # float32 cannot reach the float64 default tolerance: follow the dtype
     newton = opts.newton_config(NewtonConfig(
         rtol=1e-8 if dtype == torch.float64 else 1e-5, max_it=50))
-    res = model.solve(b, dirichlet, ksp=ksp, newton=newton,
-                      pc_type=opts.pc_type("", "fastdiag"))
+    pc = opts.pc_type("", "fastdiag")
+    x0 = None
+    gseq = opts.get_int("snes_grid_sequence", 0)
+    if gseq > 0:
+        # -snes_grid_sequence k (PETSc SNESSetGridSequence): solve the same
+        # problem on k successively coarser grids, each finer level
+        # warm-started from the spectrally regridded coarse solution
+        levels = _sequence_levels(dims, gseq, floor=5)
+        for i, dl in enumerate(levels):
+            ml = make_model(dl)
+            _, bl, drl = ml.setup_problem(exact=exact, cos_scale=cos_scale)
+            rl = ml.solve(bl, drl, x0=x0, ksp=ksp, newton=newton, pc_type=pc)
+            print(f"  grid sequence level {dl}: {int(rl.iters)} Newton / "
+                  f"{int(np.sum(np.asarray(rl.ksp_iters)))} Krylov, "
+                  f"reason {rl.reason_str()}")
+            nxt = levels[i + 1] if i + 1 < len(levels) else tuple(dims)
+            x0 = Grid(nxt, intervals=intervals, device=device, dtype=dtype).zero_boundary(
+                cheb_regrid(ml.grid.set_boundary(rl.x, drl), nxt))
+    res = model.solve(b, dirichlet, x0=x0, ksp=ksp, newton=newton, pc_type=pc)
 
     x = res.x.cpu().numpy()
     if debug >= 2:
@@ -157,8 +173,36 @@ def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) ->
     if opts.has("ksp_monitor"):
         for i, rn in enumerate(res.ksp_history_last):
             print(f"{i:5d} KSP Residual norm {rn:.12e}")
+    if opts.has("ksp_compute_singularvalues"):
+        pcs, pca = model.make_pc(pc, dtype=b.dtype)
+        Ff, lin_state = residual(res.x)
+        pc_state = pcs(res.x, lin_state) if pcs else None
+        _print_singular_values(extreme_singular_values(
+            lambda w: model.jacobian_action(res.x, lin_state, w), Ff,
+            M=(lambda r: pca(pc_state, r)) if pca else None))
     _print_unused(opts)
     return 0 if res.reason > 0 else 2
+
+
+def _sequence_levels(dims, k: int, floor: int) -> list[tuple[int, ...]]:
+    """The coarser grids of -snes_grid_sequence k, coarsest first: (n - 1) /
+    2^l + 1 nodes an axis for l = k..1, at least ``floor``; a level equal
+    to ``dims`` or to a coarser one (deep sequences hit the floor) is
+    dropped, so each warm start has the next level's shape."""
+    levels = []
+    for lvl in range(k, 0, -1):
+        dl = tuple(max(floor, ((n - 1) >> lvl) + 1) for n in dims)
+        if dl != tuple(dims) and dl not in levels:
+            levels.append(dl)
+    return levels
+
+
+def _print_singular_values(extremes) -> None:
+    """-ksp_compute_singularvalues: the Arnoldi estimate of the
+    preconditioned Jacobian's extreme singular values at the solution."""
+    smax, smin = extremes
+    print(f"Iteratively computed extreme singular values: "
+          f"max {smax:9.6e} min {smin:9.6e} cond {smax / max(smin, 1e-300):9.6e}")
 
 
 def _pcvel_option(opts: Options) -> str:
@@ -172,9 +216,7 @@ def _pcvel_option(opts: Options) -> str:
 # stokes driver options whose code is not ported yet, with their ROADMAP item
 _STOKES_NOT_PORTED = {
     "map": "item 6: curvilinear",
-    "snes_grid_sequence": "item 2: cheb_regrid",
     "checkpoint_dir": "item 8: utils/checkpoint.py",
-    "ksp_compute_singularvalues": "item 2: extreme_singular_values",
     "output_vtk": "item 8: utils/vtk.py",
     "log_summary": "item 8: utils/profiling.py",
 }
@@ -183,11 +225,14 @@ _STOKES_NOT_PORTED = {
 def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
     """Stokes driver (stokes.C:119-253) with continuation, flat domain.
     Prints the JAX driver's lines, then the Newton and Krylov counts of
-    every continuation step.  Exit code 0 when the last Newton solve
+    every continuation step; with -snes_grid_sequence, also those of the
+    coarse level's continuation (``Continuation steps on level ...``, a line
+    the JAX driver does not print).  Exit code 0 when the last Newton solve
     converged, 2 when it did not."""
     from spectral_tpu_torch.grid import Grid
     from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
-    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.ops.chebyshev import cheb_regrid
+    from spectral_tpu_torch.solvers.krylov import KSPConfig, extreme_singular_values
     from spectral_tpu_torch.solvers.newton import NewtonConfig
     from spectral_tpu_torch.utils.printing import vec_print2
 
@@ -236,8 +281,12 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
     print(f"Stokes problem  dim = [{','.join(map(str, dims))}]")
     print(f"  hardness = {cfg.hardness:f}    exponent = {cfg.exponent:8f}"
           f"    regularization = {cfg.regularization:8f}    gamma0 = {cfg.gamma0:8f}")
-    p = StokesProblem(Grid(dims, intervals=_domain_intervals(opts, len(dims)),
-                           device=device, dtype=dtype), cfg)
+    intervals = _domain_intervals(opts, len(dims))
+
+    def make_p(dims_l):
+        return StokesProblem(Grid(dims_l, intervals=intervals, device=device, dtype=dtype), cfg)
+
+    p = make_p(tuple(dims))
     print(p.census())
 
     # exact residual check (stokes.C:191-205)
@@ -279,7 +328,32 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
                   f"normal = {p.normal_np[t].tolist()}")
 
     monitor = opts.has("snes_monitor")
-    if opts.has("fused"):
+    gseq = opts.get_int("snes_grid_sequence", 0)
+    if gseq > 0:
+        # -snes_grid_sequence k: the whole continuation on the coarsest grid
+        # only, then the finer grids at
+        # the final parameters, each from the regridded, masked state
+        seq = _sequence_levels(dims, gseq, floor=6)
+        x0 = None
+        for i, dl in enumerate(seq):
+            pl = make_p(dl)
+            if x0 is None:
+                coarse = pl.solve_continuation(monitor=monitor)
+                print(f"Continuation steps on level {dl}: Newton "
+                      f"{[int(r.iters) for r in coarse]}  "
+                      f"Krylov {[[int(k) for k in r.ksp_iters] for r in coarse]}")
+                rl = coarse[-1]
+            else:
+                rl = pl.solve(x0, monitor=monitor)
+            nxt = seq[i + 1] if i + 1 < len(seq) else tuple(dims)
+            pn = make_p(nxt) if nxt != tuple(dims) else p
+            x0 = {"v": pn.mask_v(cheb_regrid(rl.x["v"], nxt)),
+                  "p": pn.mask_p(cheb_regrid(rl.x["p"], nxt))}
+            print(f"  grid sequence level {dl}: {int(rl.iters)} Newton / "
+                  f"{int(np.sum(np.asarray(rl.ksp_iters)))} Krylov, "
+                  f"reason {rl.reason_str()}")
+        results = [p.solve(x0, monitor=monitor)]
+    elif opts.has("fused"):
         # -fused: solve_continuation_fused (make_fused_newton's rules, the
         # JAX package's single-dispatch solve); no monitor
         results = p.solve_continuation_fused()
@@ -307,5 +381,12 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
     if opts.has("ksp_monitor"):
         for i, rn in enumerate(res.ksp_history_last):
             print(f"{i:5d} KSP Residual norm {rn:.12e}")
+    if opts.has("ksp_compute_singularvalues"):
+        Ff, lin_state = residual(res.x)
+        pcs, pca = p.make_pc()
+        pc_state = pcs(res.x, lin_state)
+        _print_singular_values(extreme_singular_values(
+            lambda w: p.jacobian_action(res.x, lin_state, w), Ff,
+            M=lambda r: pca(pc_state, r), null_project=p.null_project))
     _print_unused(opts)
     return 0 if res.reason > 0 else 2

@@ -13,7 +13,8 @@ is ``chebdiff``; on a CUDA tensor the last-axis ones run kernel K1, in
 float32 and float64 alike.
 
 The surrogate is solved by fast diagonalization, dense LU (the reference's
-``-pc_type lu``), Jacobi, or geometric multigrid (``mg``, ``mg<k>``).
+``-pc_type lu``), Jacobi, or geometric multigrid (``mg``, ``mg<k>``); or
+the separable Q1 FEM Laplacian is solved exactly (``q1fem``).
 """
 
 from __future__ import annotations
@@ -200,6 +201,8 @@ class EllipticModel:
         - "lu": dense LU of the assembled variable-coefficient FD stencil
           (the reference's ``-pc_type lu``), small grids only;
         - "jacobi": the stencil's diagonal;
+        - "q1fem": exact solve of the separable Q1 FEM Laplacian
+          (ops.fem.Q1FastDiag), its factors in ``dtype``;
         - "mg" / "mg<k>": geometric multigrid, k residual-corrected
           V-cycles per apply (2 for "mg").
         The stencil-based types follow the dtype of the linearization state.
@@ -207,10 +210,6 @@ class EllipticModel:
         g = self.grid
         if pc_type == "none":
             return None, None
-        if pc_type == "q1fem":
-            raise NotImplementedError(
-                "pc_type q1fem needs ops/fem.py, which is not ported yet "
-                "(ROADMAP.md queue 1, item 3d: ops/fem.py)")
 
         def _stencil(lin_state):
             eta, deta, gradu = lin_state
@@ -219,6 +218,14 @@ class EllipticModel:
         if pc_type == "fastdiag":
             fd = self._fastdiag(dtype or g.dtype)
             return (lambda x, lin_state: None), (lambda state, r: fd.apply(r))
+        if pc_type == "q1fem":
+            from spectral_tpu_torch.ops.fem import Q1FastDiag
+
+            key = ("q1fem", dtype or g.dtype)
+            if key not in self._pc_cache:
+                self._pc_cache[key] = Q1FastDiag.build(g, dtype=key[1])
+            q1 = self._pc_cache[key]
+            return (lambda x, lin_state: None), (lambda state, r: q1.apply(r))
         if pc_type == "jacobi":
             return (lambda x, lin_state: _stencil(lin_state).diag()), \
                    (lambda diag, r: r / diag)

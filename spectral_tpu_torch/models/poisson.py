@@ -71,9 +71,13 @@ class PoissonModel:
             diag = self.fd_stencil.diag().to(dtype)
             return lambda r: r / diag
         if pc_type.startswith("mg"):
-            raise NotImplementedError(
-                "pc_type mg is not ported yet (ROADMAP.md queue 1, item 2: "
-                "ops/multigrid.py)")
+            # "mg<k>": k residual-corrected V-cycles an apply (2 for "mg"),
+            # the constant-coefficient hierarchy in the grid's dtype
+            from spectral_tpu_torch.ops.multigrid import Multigrid
+
+            mg = Multigrid.build(self.grid, cycles=int(pc_type[2:]) if pc_type[2:] else 2)
+            state = mg.setup({})
+            return lambda r: mg.vcycle(state, r)
         if pc_type == "lu":
             # Dense LU of the assembled FD surrogate, the reference's
             # -pc_type lu; small grids only.  torch.linalg solves are

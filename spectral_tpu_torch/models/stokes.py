@@ -23,7 +23,10 @@ Newton with parameter continuation (stokes.C:217-235).
 - The velocity preconditioner is an exact fast-diagonalization solve of
   the FD Laplacian surrogate, an eta-weighted multigrid V-cycle (its
   smoother Chebyshev, Jacobi or line relaxation), the V-cycle on the
-  nodal Jacobian stencil (``-pcvel 3``), or the surrogate's diagonal.
+  nodal Jacobian stencil (``-pcvel 3``), the surrogate's diagonal, the
+  strain-coupled Q1 element matrix on an exact separable-Q1 solve
+  (``-pcvel 1``, ``ops/fem.py``), the separable Q1 solve alone, or a
+  stencil probed from the velocity block (``-pcvel 2``).
   With mixed/Neumann boundaries the fastdiag and multigrid PCs add a
   damped boundary-normal line sweep on the surrogate with the one-sided
   traction rows, and ``tbc`` a multiplicative correction by the exact
@@ -35,9 +38,9 @@ Newton with parameter continuation (stokes.C:217-235).
   The JAX package compiles each into one dispatch; eager PyTorch issues
   the same kernels one by one (no CUDA graph is captured).
 
-The Q1 and probed velocity PCs, the dense saddle PC, parameter families,
-the adjoint, the unsteady mass shift, curved domains and the pencil mesh
-raise ``NotImplementedError`` naming their ROADMAP item.
+The dense saddle PC, parameter families, the adjoint, the unsteady mass
+shift, curved domains and the pencil mesh raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -59,8 +62,6 @@ from spectral_tpu_torch.ops.fastdiag import FastDiagSolver
 from spectral_tpu_torch.solvers.krylov import KSPConfig
 from spectral_tpu_torch.solvers.newton import NewtonConfig, NewtonResult, _norm, newton_solve
 
-# pcvel families of the JAX package that this package does not carry yet
-_PCVEL_NOT_PORTED = ("q1fem", "q1sep", "probed", "probed1")
 # bytes of one-hot columns (times the intermediates of one velocity-block
 # action) that the traction-block setup evaluates at once
 _TBC_BATCH_BYTES = 1 << 29
@@ -89,7 +90,7 @@ class StokesConfig:
     scaleN: float = 1.0
     zeroN: int = 0
     zeroV: float = 1.0
-    pcvel: str = "fastdiag"       # fastdiag | mg | jacobi here
+    pcvel: str = "fastdiag"   # fastdiag | mg | nodal | jacobi | q1fem | q1sep | probed | probed1
     saddle_pc: str = "schur"
     pcvel_smoother: str = "chebyshev"
     tbc: int = 0
@@ -633,18 +634,37 @@ class StokesProblem:
 
         return setup_tbc, apply_tbc
 
+    def _q1_fastdiag(self, dtype: torch.dtype):
+        """The exact separable-Q1 solve (ops.fem.Q1FastDiag), its factors
+        in ``dtype``, built once per dtype."""
+        from spectral_tpu_torch.ops.fem import Q1FastDiag
+
+        key = ("q1", dtype)
+        fd = self._fastdiag.get(key)
+        if fd is None:
+            fd = self._fastdiag[key] = Q1FastDiag.build(self.grid, dtype=dtype)
+        return fd
+
     def _make_vel_pc_base(self):
         """- "fastdiag": exact constant-coefficient tensor solve (the setup
           picks the factors of the linearization's dtype);
         - "mg": one eta-weighted multigrid V-cycle (StokesPCSetUp0 stencil
           rediscretized per level);
         - "nodal": one V-cycle on the nodal Jacobian stencil (-pcvel 3);
-        - "jacobi": the stencil's diagonal.
+        - "jacobi": the stencil's diagonal;
+        - "q1fem" (-pcvel 1, StokesPCSetUp1): the strain-coupled Q1 element
+          matrix of the linearization (ops.fem.assemble_q1_strain), solved
+          approximately by 1/eta-scaled Richardson, two corrections on the
+          exact separable-Q1 solve;
+        - "q1sep": the separable Q1 Laplacian, solved exactly;
+        - "probed" (-pcvel 2, StokesPCSetUp2): the velocity block probed
+          onto the upstream d (4d+1)-entry pattern, 4 damped-Jacobi sweeps
+          at 0.7; "probed1": the component-diagonal (2d+1)-point probe, the
+          same sweeps a component.
         With mixed/Neumann nodes, fastdiag and mg add the line-relaxed
-        traction rows (_mixed_line_correct)."""
+        traction rows (_mixed_line_correct); the Q1 and probed PCs add no
+        line correction, as in the JAX package."""
         pcvel = self.config.pcvel
-        if pcvel in _PCVEL_NOT_PORTED:
-            raise _todo(f"pcvel {pcvel!r}", "item 3d: Q1 and probed velocity PCs")
         mixed = self.num_mixed > 0
         if pcvel == "fastdiag":
             if mixed:
@@ -671,6 +691,68 @@ class StokesProblem:
             return (lambda lin_state: velocity_fd_stencil(
                         self.grid, lin_state[0]).diag()[..., None],
                     lambda diag, r: self.mask_v(r / diag))
+        if pcvel == "q1fem":
+            from spectral_tpu_torch.ops.fem import assemble_q1_strain
+            cfg = self.config
+
+            def setup(lin_state):
+                eta, deta, S = lin_state
+                A = assemble_q1_strain(self.grid, eta, deta, S, self.vel_mask,
+                                       zeroN=cfg.zeroN, zeroV=cfg.zeroV)
+                return A, 1.0 / eta[..., None], self._q1_fastdiag(eta.dtype)
+
+            def apply(state, r):
+                A, inv_eta, fd = state
+                z = self.mask_v(fd.apply(r * inv_eta))
+                for _ in range(2):
+                    z = z + self.mask_v(fd.apply((r - A.apply(z)) * inv_eta))
+                return self.mask_v(z)
+
+            return setup, apply
+        if pcvel == "q1sep":
+            return (lambda lin_state: self._q1_fastdiag(lin_state[0].dtype),
+                    lambda fd, r: self.mask_v(fd.apply(r)))
+        if pcvel == "probed":
+            from spectral_tpu_torch.models.stokes_pc import colored_probe_stencil_full
+
+            def setup(lin_state):
+                S = colored_probe_stencil_full(lambda w: self.vv_action(lin_state, w),
+                                               self.grid, self.vel_mask,
+                                               dtype=lin_state[0].dtype)
+                diag = S.diag()
+                return S, torch.where(diag == 0, 1.0, diag)
+
+            def apply(state, r):
+                S, diag = state
+                z = torch.zeros_like(r)
+                for _ in range(4):   # damped Jacobi on the probed matrix
+                    z = z + 0.7 * (r - S.apply(z)) / diag
+                return self.mask_v(z)
+
+            return setup, apply
+        if pcvel == "probed1":
+            from spectral_tpu_torch.models.stokes_pc import colored_probe_stencil
+
+            def setup(lin_state):
+                def mv(x, c):
+                    w = torch.zeros(self.grid.dims + (self.d,), dtype=x.dtype, device=x.device)
+                    w[..., c] = x
+                    return self.vv_action(lin_state, w)[..., c]
+
+                return [colored_probe_stencil(lambda x, c=c: mv(x, c), self.grid,
+                                              dtype=lin_state[0].dtype)
+                        for c in range(self.d)]
+
+            def apply(stencils, r):
+                z = torch.zeros_like(r)
+                for c, S in enumerate(stencils):
+                    zc = torch.zeros_like(r[..., c])
+                    for _ in range(4):   # damped Jacobi on the probed stencil
+                        zc = zc + 0.7 * (r[..., c] - S.apply(zc)) / S.diag()
+                    z[..., c] = zc
+                return self.mask_v(z)
+
+            return setup, apply
         raise ValueError(f"unknown pcvel {pcvel!r}")
 
     def make_pc(self, adjoint: bool = False):

@@ -7,11 +7,14 @@ finite-difference Laplacian (StokesPCSetUp0, stokes.C:1159-1241), with the
 one-sided rows of mixed/Neumann nodes, and the nodal Jacobian of
 ``-pcvel 3`` (StokesPCSetUp3: ``torch.func.jacfwd`` of the nodal residual
 where the reference tapes it with CppAD), both as a ``StencilOp`` of
-coefficient fields.  The colored probes (``-pcvel 2``) raise
-``NotImplementedError`` naming their ROADMAP item.
+coefficient fields, and the colored probes of ``-pcvel 2`` (StokesPCSetUp2)
+that extract a stencil from the matrix-free velocity block.
 """
 
 from __future__ import annotations
+
+import itertools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -136,14 +139,84 @@ def nodal_jacfwd_stencil(grid: Grid, eta: torch.Tensor, *,
     return StencilOp(center, lowers, uppers)
 
 
-def _unported(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md queue 1, item 3d: probed PCs)")
+def colored_probe_stencil(matvec: Callable, grid: Grid,
+                          dtype: torch.dtype | None = None) -> StencilOp:
+    """StokesPCSetUp2 replacement: the (2d+1)-point stencil of a
+    matrix-free operator, probed with striped (colored) basis vectors in
+    ``dtype`` (default: the grid's) on the grid's device, the MatFDColoring
+    analog (stokes.C:1503-1507) with exact matvecs instead of finite
+    differences.  Distance-2 striping per axis (3^d colors) isolates each
+    node's row.  As the reference documents (README:60-61), subsampling
+    the spectral matrix this way is a poor preconditioner; it is kept for
+    parity and as a validation tool."""
+    d = grid.ndim
+    dims = grid.dims
+    dtype = dtype or grid.dtype
+    dev = grid.device
+    idx = np.indices(dims)
+    color = sum(idx[ax] % 3 * 3**ax for ax in range(d))
+    cols = [matvec(torch.as_tensor(color == c, dtype=dtype, device=dev))
+            for c in range(3**d)]
 
-    fn.__name__ = name
-    return fn
+    def coef(offset_ax: int | None, s: int) -> torch.Tensor:
+        """A[r, r + o] sits in the probe of color(r + o), at row r."""
+        shifted = color if offset_ax is None else np.roll(color, -s, axis=offset_ax)
+        out = torch.zeros(dims, dtype=cols[0].dtype, device=dev)
+        for c, col in enumerate(cols):
+            out = torch.where(torch.as_tensor(shifted == c, device=dev), col, out)
+        return out
+
+    interior = grid.interior_mask.to(dev)
+    lowers = tuple(torch.where(interior & shift(interior, ax, -1), coef(ax, -1), 0.0)
+                   for ax in range(d))
+    uppers = tuple(torch.where(interior & shift(interior, ax, +1), coef(ax, +1), 0.0)
+                   for ax in range(d))
+    return StencilOp(torch.where(interior, coef(None, 0), 1.0), lowers, uppers)
 
 
-colored_probe_stencil = _unported("colored_probe_stencil")
-colored_probe_stencil_full = _unported("colored_probe_stencil_full")
+def colored_probe_stencil_full(matvec: Callable, grid: Grid, vel_mask: torch.Tensor,
+                               dtype: torch.dtype | None = None):
+    """StokesPCSetUp2 with the upstream sparsity pattern (stokes.C:1477-1497):
+    per velocity row, the couplings to all d components at the node itself
+    and at its +-1 and +-2 neighbours along every axis, d (4d+1) entries a
+    row, probed from the matrix-free VV operator in ``dtype`` (default: the
+    grid's).
+
+    Coloring: a stride-5 lattice per axis (5^d colors x d component
+    probes; the MatGetColoring/MatFDColoringApply analog,
+    stokes.C:1503-1507).  Two nodes of one color differ by >= 5 along some
+    axis while every pattern offset is along one axis with |s| <= 2, so
+    every response entry is attributable.  Rows and columns at non-free
+    dofs are dropped.  Returns the (4d+1)-offset coupled stencil
+    (``ops.fem.Q1StrainStencil``)."""
+    from spectral_tpu_torch.ops.fem import Q1StrainStencil
+
+    d = grid.ndim
+    dims = grid.dims
+    dtype = dtype or grid.dtype
+    dev = vel_mask.device
+    offsets = [(0,) * d]
+    for ax in range(d):
+        for s in (-1, 1, -2, 2):
+            off = [0] * d
+            off[ax] = s
+            offsets.append(tuple(off))
+    idx = np.indices(dims)
+    maskf = vel_mask.to(dtype)
+    coef = {off: torch.zeros(dims + (d, d), dtype=dtype, device=dev) for off in offsets}
+    for cvec in itertools.product(range(5), repeat=d):
+        lat = torch.as_tensor(np.all(np.stack([idx[ax] % 5 == cvec[ax] for ax in range(d)]),
+                                     axis=0), device=dev)
+        for b in range(d):
+            v = torch.zeros(dims + (d,), dtype=dtype, device=dev)
+            v[..., b] = lat.to(dtype)
+            y = matvec(v * maskf)          # non-free columns dropped
+            for off in offsets:
+                sel = lat                  # the rows whose probed column is n + off
+                for ax, o in enumerate(off):
+                    if o:
+                        sel = shift(sel, ax, o)
+                C = coef[off]
+                C[..., :, b] = torch.where(sel[..., None], y, C[..., :, b])
+    return Q1StrainStencil(offsets=tuple(offsets),
+                           coef=tuple(coef[o] * maskf[..., :, None] for o in offsets))

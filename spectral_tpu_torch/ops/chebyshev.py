@@ -216,3 +216,50 @@ def chebdiff(u: torch.Tensor, axis: int = 0, method: str = "auto") -> torch.Tens
     if method == "fft":
         return _chebdiff_fft(u, axis)
     raise ValueError(f"unknown method {method!r}")
+
+
+# ---------------------------------------------------------------------------
+# Coefficient space: modal <-> nodal transforms and spectral regridding
+# ---------------------------------------------------------------------------
+
+def cheb_coefficients(u: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Chebyshev modal coefficients a_k of nodal values along ``axis``:
+    u = sum_k a_k T_k(x) with a_k = W_k / (N c_k), c_0 = c_N = 2 (DCT-I)."""
+    u = torch.movedim(u, axis, -1)
+    n = u.shape[-1]
+    c = np.ones(n)
+    c[0] = c[-1] = 2.0
+    a = dct1(u, -1) / _const((n - 1) * c, u)
+    return torch.movedim(a, -1, axis)
+
+
+def cheb_nodal(a: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Inverse of cheb_coefficients: the Chebyshev series at the CGL nodes
+    (DCT-I is self-inverse up to scaling)."""
+    a = torch.movedim(a, axis, -1)
+    c = np.ones(a.shape[-1])
+    c[0] = c[-1] = 2.0
+    u = dct1(a * _const(c, a) / 2.0, -1)
+    return torch.movedim(u, -1, axis)
+
+
+def cheb_regrid(u: torch.Tensor, new_dims: tuple[int, ...]) -> torch.Tensor:
+    """Spectral interpolation of nodal values onto another CGL tensor grid:
+    per axis, the modal transform, a coefficient zero-pad (refine) or
+    truncation (coarsen), and the inverse transform; exact for fields the
+    coarser grid resolves.  Trailing component axes (beyond
+    ``len(new_dims)``) batch through, so velocity fields regrid directly.
+    Grid sequencing warm-starts a fine solve from a coarse one with it."""
+    for ax, n_new in enumerate(new_dims):
+        n_old, n_new = u.shape[ax], int(n_new)
+        if n_new == n_old:
+            continue
+        a = cheb_coefficients(u, ax)
+        if n_new > n_old:
+            pad = list(a.shape)
+            pad[ax] = n_new - n_old
+            a = torch.cat([a, a.new_zeros(pad)], dim=ax)
+        else:
+            a = a.narrow(ax, 0, n_new)
+        u = cheb_nodal(a, ax)
+    return u

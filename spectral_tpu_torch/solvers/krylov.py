@@ -1,7 +1,8 @@
 """Restarted GMRES / FGMRES on torch tensors: the PETSc KSP replacement.
 
 Counterpart of ``spectral_tpu/solvers/krylov.py`` for ``gmres``,
-``fgmres``, ``preonly`` and ``KSPConfig.solve``.  A state is a tensor or
+``fgmres``, ``preonly``, ``extreme_singular_values`` and
+``KSPConfig.solve``.  A state is a tensor or
 a dict of tensors (the Stokes state {"v": (dims..., d), "p": dims}),
 flattened by concatenation in sorted key order, as ``ravel_pytree``
 flattens it.  It keeps the JAX package's algorithm step for step:
@@ -261,6 +262,49 @@ def preonly(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
     x = Mf(Pf(b))
     hist = torch.full((history_len,), -1.0, dtype=_leaf_dtype(b))
     return SolveResult(x, 1, int(ConvergedReason.CONVERGED_ITS), 0.0, hist)
+
+
+def extreme_singular_values(A: Operator, b, *, m: int = 30,
+                            M: Optional[Operator] = None,
+                            null_project=None) -> tuple[float, float]:
+    """(sigma_max, sigma_min) estimate of the (preconditioned) operator from
+    ``m`` Arnoldi steps, the PETSc ``KSPComputeExtremeSingularValues`` /
+    ``-ksp_compute_singularvalues`` analog: the Krylov basis of M P A
+    built from M P b, then the SVD of the (k+1, k) Hessenberg.  The basis
+    and the SVD are float64 numpy on the host, as in the JAX package; each
+    step applies the operator (and the PC) once on b's device, in b's
+    dtype.  b is a tensor or a dict of tensors."""
+    Af, bf, _, Mf, Pf, _ = _flatten_system(A, b, None, M, null_project)
+
+    def op(v: np.ndarray) -> np.ndarray:
+        vt = torch.as_tensor(v, dtype=bf.dtype, device=bf.device)
+        return Mf(Pf(Af(vt))).cpu().numpy().astype(np.float64)
+
+    r0 = Mf(Pf(bf)).cpu().numpy().astype(np.float64)
+    beta = np.linalg.norm(r0)
+    if beta == 0:
+        return 0.0, 0.0
+    n = r0.shape[0]
+    m = min(m, n)
+    V = np.zeros((m + 1, n))
+    H = np.zeros((m + 1, m))
+    V[0] = r0 / beta
+    k = m
+    for j in range(m):
+        w = op(V[j])
+        for _ in range(2):              # MGS, twice for robustness
+            for i in range(j + 1):
+                h = V[i] @ w
+                H[i, j] += h
+                w -= h * V[i]
+        hn = np.linalg.norm(w)
+        H[j + 1, j] = hn
+        if hn < 1e-14 * beta:           # happy breakdown: exact subspace
+            k = j + 1
+            break
+        V[j + 1] = w / hn
+    s = np.linalg.svd(H[:k + 1, :k], compute_uv=False)
+    return float(s[0]), float(s[-1])
 
 
 _KSP_TYPES = {"gmres": gmres, "fgmres": fgmres, "preonly": preonly}

@@ -127,3 +127,18 @@ def stokes_problem_fields_to_numpy(problem) -> dict:
     for k in ("num_mixed", "num_neumann", "has_p_null"):
         out[k] = getattr(problem, k)
     return out
+
+
+def linearization_from_numpy(lin_state, *, device: torch.device | str,
+                             dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
+    """A linearization state (eta, deta, S) of either package (or of numpy
+    arrays) as this package's tensors in ``dtype`` on ``device``."""
+    return tuple(_dev(_np(a), device, dtype) for a in lin_state)
+
+
+def coupled_stencil_to_numpy(stencil) -> tuple[tuple, tuple]:
+    """(offsets, coefficient arrays) of a coupled stencil (``Q1StrainStencil``
+    of either package: the Q1 assembly or the full colored probe)."""
+    return (tuple(tuple(int(o) for o in off) for off in stencil.offsets),
+            tuple(np.asarray(_np(c), np.float64) for c in stencil.coef))
+

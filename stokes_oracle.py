@@ -36,7 +36,24 @@ Sections (all by default), each one JSON line:
   (``test_stokes_20cubed_powerlaw_fixture``'s configuration, float64);
 - ``fused``: ``solve_refined_fused`` in ``bench.py``'s
   ``bench_stokes20_fused`` and ``bench_stokes20_powerlaw_fused``
-  configurations, x64 off for the float32 stages.
+  configurations, x64 off for the float32 stages;
+- ``q1``: the Q1 and probed velocity PCs, grid sequencing and the
+  singular-value estimate through the ``stokes`` driver at 20^3 in
+  float64: README:43 with ``-pcvel 1``, ``-pcvel q1sep`` and ``-pcvel 2``,
+  README:52 with ``-pcvel 1`` and with ``-snes_grid_sequence 1`` (the
+  continuation on the coarse level, then the 20^3 solve, whose own counts
+  are in ``final_solve``), README:43 with ``-ksp_compute_singularvalues``
+  (its printed extremes in ``singular_values``);
+- ``q1cpu8``: README:43 at 8x8 with ``-pcvel 1``, ``q1sep`` and ``2``,
+  the counts, error and printed lines that
+  ``tests/test_torch_stokes_q1.py`` holds the port's CLI to;
+- ``perturb_probed``, ``perturb_sv``, ``perturb_q1fem52``,
+  ``perturb_gseq52``: README:43 with ``-pcvel 2``, README:43 with
+  ``-ksp_compute_singularvalues``, README:52 with ``-pcvel 1`` and with
+  ``-snes_grid_sequence 1``, each from a zero state plus masked normal
+  noise of 1e-13 (seeds 0-7) and 1e-11 (seed 0), as ``perturb`` runs
+  README:52; ``--seeds a-b`` runs the perturbed sections from 1e-13
+  noise of seeds a to b instead (more samples of a wide spread).
 """
 
 from __future__ import annotations
@@ -70,19 +87,26 @@ def _counts(results) -> dict:
 
 
 def run_cli(argv, perturb: float = 0.0, seed: int = 0) -> dict:
-    """The JAX stokes driver on ``argv``; its continuation results are
-    captured as it runs.  ``perturb`` adds masked normal noise of that
-    size (from ``seed``) to the zero state the continuation starts from."""
+    """The JAX stokes driver on ``argv``; its continuation results, and
+    the last Newton solve it ran (``final_solve``: the fine solve of a grid
+    sequence), are captured as it runs.  ``perturb`` adds masked normal
+    noise of that size (from ``seed``) to the zero state the continuation
+    starts from."""
     from spectral_tpu.cli.drivers import stokes_main
     from spectral_tpu.models.stokes import StokesProblem
     from spectral_tpu.utils.options import Options
 
-    captured = []
+    captured, solves = [], []
     orig_cont, orig_zero = StokesProblem.solve_continuation, StokesProblem.zero_state
+    orig_solve = StokesProblem.solve
 
     def cont(self, *a, **kw):
         captured.extend(orig_cont(self, *a, **kw))
         return captured
+
+    def solve(self, *a, **kw):
+        solves.append(orig_solve(self, *a, **kw))
+        return solves[-1]
 
     def zero(self):
         z = orig_zero(self)
@@ -93,6 +117,7 @@ def run_cli(argv, perturb: float = 0.0, seed: int = 0) -> dict:
             rng.standard_normal(z["v"].shape))), "p": z["p"]}
 
     StokesProblem.solve_continuation, StokesProblem.zero_state = cont, zero
+    StokesProblem.solve = solve
     try:
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -101,11 +126,17 @@ def run_cli(argv, perturb: float = 0.0, seed: int = 0) -> dict:
         seconds = time.perf_counter() - t0
     finally:
         StokesProblem.solve_continuation, StokesProblem.zero_state = orig_cont, orig_zero
+        StokesProblem.solve = orig_solve
     out = buf.getvalue()
     err = float(out.split("Norm of error")[1].split("abs =")[1].split()[0])
+    sv = [ln.split()[-5::2] for ln in out.splitlines()
+          if ln.startswith("Iteratively computed extreme singular values")]
     return {"argv": " ".join(argv), "rc": rc, "perturb": perturb, "seed": seed,
             **_counts(captured),
             "total_krylov": sum(sum(k) for k in _counts(captured)["krylov"]),
+            "final_solve": _counts(solves[-1:]),
+            "singular_values": dict(zip(("max", "min", "cond"), map(float, sv[0])))
+            if sv else None,
             "error": err, "seconds": seconds, "lines": out.splitlines()}
 
 
@@ -255,11 +286,40 @@ def fused() -> dict:
     return out
 
 
+Q1_STOKES = {
+    "README:43 pcvel 1": [*README43, "-pcvel", "1"],
+    "README:43 pcvel q1sep": [*README43, "-pcvel", "q1sep"],
+    "README:43 pcvel 2": [*README43, "-pcvel", "2"],
+    "README:52 pcvel 1": [*README52, "-pcvel", "1"],
+    "README:52 grid sequence 1": [*README52, "-snes_grid_sequence", "1"],
+    "README:43 singular values": [*README43, "-ksp_compute_singularvalues"],
+}
+# README:43's options at 8x8: what tests/test_torch_stokes_q1.py holds the
+# port's stokes CLI to (Q1_CPU8 there)
+Q1_CPU8 = {f"README:43 8x8 pcvel {p}":
+           [*README43[:-4], "-dim", "8,8", "-ksp_rtol", "1e-10", "-pcvel", p]
+           for p in ("1", "q1sep", "2")}
+
+
+SEEDS = None   # --seeds a-b: the perturbed sections' 1e-13 starts from seeds a..b only
+
+
+def perturbed(argv):
+    """``argv`` from the zero state plus masked noise of 1e-13 (seeds 0-7)
+    and 1e-11 (seed 0), or of 1e-13 from SEEDS, one run at a time; the
+    compiled programs of a run are dropped after it (each run compiles its
+    own)."""
+    starts = ([(1e-13, seed) for seed in range(8)] + [(1e-11, 0)] if SEEDS is None
+              else [(1e-13, seed) for seed in SEEDS])
+    for size, seed in starts:
+        yield run_cli(argv, size, seed)
+        jax.clear_caches()
+
+
 SECTIONS = {
     "cli43": lambda: run_cli(README43),
     "cli52": lambda: run_cli(README52),
-    "perturb": lambda: ([run_cli(README52, 1e-13, seed) for seed in range(8)]
-                        + [run_cli(README52, 1e-11, 0)]),
+    "perturb": lambda: perturbed(README52),
     "entry": entry_norms,
     "refined": refined,
     "neumann3d": lambda: [dict(run_cli(argv), name=name) for name, argv in NEUMANN3D.items()],
@@ -268,13 +328,25 @@ SECTIONS = {
                                  [(1e-13, seed) for seed in range(8)] + [(1e-11, 0)]),
     "line52": line52,
     "fused": fused,
+    "q1": lambda: [dict(run_cli(argv), name=name) for name, argv in Q1_STOKES.items()],
+    "q1cpu8": lambda: [dict(r, name=name, printed=r["lines"])
+                       for name, r in ((n, run_cli(argv)) for n, argv in Q1_CPU8.items())],
+    "perturb_probed": lambda: perturbed(Q1_STOKES["README:43 pcvel 2"]),
+    "perturb_sv": lambda: perturbed(Q1_STOKES["README:43 singular values"]),
+    "perturb_q1fem52": lambda: perturbed(Q1_STOKES["README:52 pcvel 1"]),
+    "perturb_gseq52": lambda: perturbed(Q1_STOKES["README:52 grid sequence 1"]),
 }
 
 
 def main(argv: list[str]) -> int:
+    global SEEDS
+    if "--seeds" in argv:
+        i = argv.index("--seeds")
+        lo, hi = map(int, argv[i + 1].split("-"))
+        SEEDS, argv = range(lo, hi + 1), argv[:i] + argv[i + 2:]
     for name in argv or list(SECTIONS):
         out = SECTIONS[name]()
-        for item in out if isinstance(out, list) else [out]:
+        for item in [out] if isinstance(out, dict) else out:
             item = {k: v for k, v in item.items() if k != "lines"}
             print(json.dumps({"section": name, **item}), flush=True)
     return 0

@@ -206,12 +206,9 @@ def test_unported_options_raise():
         EllipticModel(g, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EllipticModel(g, phi=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EllipticModel(g).make_pc("q1fem")
     base = ["elliptic", "-device", "cpu", "-dim", "8,8"]
     for extra in (["-map", "bump:0.1"], ["-snes_type", "newtontr"],
-                  ["-snes_type", "qn"], ["-snes_grid_sequence", "2"],
-                  ["-ksp_compute_singularvalues"]):
+                  ["-snes_type", "qn"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _run(t_main, base + extra)
     for fn in (newton.newton_tr_solve, newton.quasi_newton_solve, newton.anderson_solve,

@@ -435,3 +435,88 @@ def test_stokes_refined_fused_on_card(cuda):
         assert cuda_cheb.K1_LAUNCHES_BY_SHAPE.get((torch.Size((12, 12, 12)), dt), 0) > 0
     for k in ("v", "p"):
         np.testing.assert_allclose(xs[str(cuda)][k], xs["cpu"][k], rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8), (10, 10, 10), (16, 16, 16)])
+def test_k1_grid_sequence_shapes(cuda, shape):
+    """K1 at the shapes grid sequencing adds (the coarse levels of the
+    32^3 elliptic and 20^3 Stokes runs): bit for bit its plain version in
+    float64, 1e-5 relative in float32."""
+    for dtype in (torch.float64, torch.float32):
+        u = _randn(shape, dtype, cuda, 5)
+        got, ref = cuda_cheb.chebdiff_last(u), cuda_cheb.chebdiff_last_ref(u)
+        assert torch.equal(got, ref) if dtype == torch.float64 else _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_q1_fem_on_card(cuda, dtype):
+    """assemble_q1_strain (with -zeroN), Q1StrainStencil.apply and
+    Q1FastDiag.apply at 8^3 on the card against the host."""
+    from spectral_tpu_torch.ops.fem import Q1FastDiag, assemble_q1_strain
+
+    dims, tol = (8, 8, 8), (1e-12 if dtype == torch.float64 else 1e-5)
+    rng = np.random.default_rng(9)
+    eta, deta = 1.0 + rng.random(dims), 0.3 * rng.standard_normal(dims)
+    Sr = rng.standard_normal(dims + (3, 3))
+    S = 0.5 * (Sr + np.swapaxes(Sr, -1, -2))
+    vm = ~np.broadcast_to(Grid(dims, device="cpu").boundary_mask_np[..., None], dims + (3,))
+    x = rng.standard_normal(dims + (3,))
+    out = {}
+    for dev in ("cpu", cuda):
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+        A = assemble_q1_strain(Grid(dims, device=dev), t(eta), t(deta), t(S),
+                               torch.as_tensor(np.ascontiguousarray(vm), device=dev), zeroN=7)
+        fd = Q1FastDiag.build(Grid(dims, device=dev), dtype=dtype)
+        out[str(dev)] = [*A.coef, A.apply(t(x)), fd.apply(t(x))]
+    for got, ref in zip(out[str(cuda)], out["cpu"]):
+        assert got.device.type == "cuda" and _rel(got.cpu(), ref) <= tol
+
+
+def test_colored_probes_on_card(cuda):
+    """Both colored probes of the Stokes velocity block at (9, 7) on the
+    card against the host, float64."""
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.models.stokes_pc import (colored_probe_stencil,
+                                                     colored_probe_stencil_full)
+
+    cfg = StokesConfig(exact=2, rheology=1, exponent=3.0, regularization=1e-2)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = StokesProblem(Grid((9, 7), device=dev), cfg)
+        x = {k: v.to(dev) for k, v in _stokes_state(p, 3, 0.3).items()}
+        _, ls = p.make_residual(p.params_at(1))(x)
+
+        def mv(s):   # the x-component block
+            w = torch.zeros((9, 7, 2), dtype=s.dtype, device=s.device)
+            w[..., 0] = s
+            return p.vv_action(ls, w)[..., 0]
+
+        S1 = colored_probe_stencil(mv, p.grid)
+        S2 = colored_probe_stencil_full(lambda w: p.vv_action(ls, w), p.grid, p.vel_mask)
+        out[str(dev)] = [S1.center, *S1.lower, *S1.upper, *S2.coef]
+    for got, ref in zip(out[str(cuda)], out["cpu"]):
+        assert got.device.type == "cuda"
+        assert _rel(got.cpu(), ref) <= 1e-12 if float(torch.max(torch.abs(ref))) > 0 \
+            else float(torch.max(torch.abs(got))) == 0.0
+
+
+@pytest.mark.parametrize("pcvel,boundary,tbc", [("q1fem", 0, 0), ("q1sep", 0, 0),
+                                                ("probed", 0, 0), ("probed1", 0, 0),
+                                                ("q1fem", 1, 1)])
+def test_q1_and_probed_velocity_pc_on_card(cuda, pcvel, boundary, tbc):
+    """One Q1 or probed velocity PC apply at 8^3 on the card (with the
+    traction-block correction on Neumann boundaries for q1fem) against the
+    host, 1e-11 relative in float64."""
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+
+    cfg = StokesConfig(exact=2, rheology=1, exponent=3.0, regularization=1e-2, pcvel=pcvel,
+                       boundary=boundary, tbc=tbc)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = StokesProblem(Grid((8, 8, 8), device=dev), cfg)
+        x, r = _stokes_state(p, 3, 0.3), _stokes_state(p, 4)
+        _, ls = p.make_residual(p.params_at(1))({k: v.to(dev) for k, v in x.items()})
+        setup, apply = p.make_vel_pc()
+        out[str(dev)] = apply(setup(ls), r["v"].to(dev))
+    assert _rel(out[str(cuda)].cpu(), out["cpu"]) <= 1e-11

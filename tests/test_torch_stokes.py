@@ -42,7 +42,6 @@ from spectral_tpu_torch.cli.main import main as t_main
 from spectral_tpu_torch.grid import Grid
 from spectral_tpu_torch.models import rheology as t_rheology
 from spectral_tpu_torch.models import stokes_exact as TSE
-from spectral_tpu_torch.models import stokes_pc
 from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
 from spectral_tpu_torch.models.stokes_pc import velocity_fd_stencil
 from spectral_tpu_torch.ops.extrapolation import pressure_reduce_order
@@ -554,13 +553,6 @@ def test_state_interop_round_trip():
 
 def test_unported_options_raise():
     g = Grid((8, 8), device="cpu")
-    item = {"item 3d": [dict(pcvel="q1fem"), dict(pcvel="q1sep"),
-                        dict(pcvel="probed"), dict(pcvel="probed1"),
-                        dict(boundary=2, pcvel="probed"), dict(boundary=2, tbc=1, pcvel="q1fem")]}
-    for name, cfgs in item.items():
-        for cfg in cfgs:
-            with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {name}"):
-                StokesProblem(g, StokesConfig(exact=2, **cfg)).make_pc()
     for kw, name in ((dict(mass_shift=1.0), "item 4"), (dict(saddle_pc="dense"), "item 4")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {name}"):
             StokesProblem(g, StokesConfig(**kw))
@@ -569,9 +561,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         StokesProblem(g, phi=lambda x: x)
     p = StokesProblem(g, StokesConfig(exact=2))
-    for fn in (stokes_pc.colored_probe_stencil, stokes_pc.colored_probe_stencil_full):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3d"):
-            fn(g, None)
     for fn, name in ((p.solve_family, "item 7"), (p.adjoint_gradient, "item 5"),
                      (p.make_dense_pc, "item 4"), (p.make_dense_pc_var, "item 4"),
                      (lambda: p.make_pc(adjoint=True), "item 5"),
@@ -579,13 +568,13 @@ def test_unported_options_raise():
                      (lambda: p.solve(recycle_U0=object()), "item 1b")):
         with pytest.raises(NotImplementedError, match=name):
             fn()
-    for opt, name in (("-snes_grid_sequence 1", "item 2"),
-                      ("-checkpoint_dir d", "item 8"), ("-ksp_compute_singularvalues", "item 2"),
-                      ("-output_vtk", "item 8"), ("-map bump:0.1", "item 6"),
-                      ("-log_summary", "item 8")):
+    for opt, name in (("-checkpoint_dir d", "item 8"), ("-output_vtk", "item 8"),
+                      ("-map bump:0.1", "item 6"), ("-log_summary", "item 8")):
         with pytest.raises(NotImplementedError, match=name):
             t_main(["stokes", "-device", "cpu", "-dim", "6,6", *opt.split()])
-    # the rest of item 3c runs: every pcvel, the mixed PC with tbc, the fused paths
+    # items 3c and 3d run: every pcvel, the mixed PC with tbc, the fused paths
     for cfg in (dict(pcvel="nodal"), dict(boundary=2), dict(boundary=1, pcvel="mg"),
-                dict(boundary=2, tbc=1, pcvel="jacobi")):
+                dict(boundary=2, tbc=1, pcvel="jacobi"), dict(pcvel="q1fem"),
+                dict(pcvel="q1sep"), dict(pcvel="probed"), dict(pcvel="probed1"),
+                dict(boundary=2, pcvel="probed"), dict(boundary=2, tbc=1, pcvel="q1fem")):
         StokesProblem(g, StokesConfig(exact=2, **cfg)).make_pc()
