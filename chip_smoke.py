@@ -53,9 +53,16 @@ paths at their real sizes through the entry points a user calls:
      32^3 solve with ``-pc_type q1fem``; (d) grid sequencing, the 32^3
      mg3 elliptic solve over two coarser levels and README:52 with its
      continuation on (10, 10, 10); (e) ``-ksp_compute_singularvalues`` on
-     the 5-D elliptic solve and README:43.
+     the 5-D elliptic solve and README:43;
+ 11. the CLI in float64, gated on UNSTEADY_ORACLE: (a) ``heat`` at 64^3,
+     Crank-Nicolson, BDF2 and ``-ts_adapt`` (CG on the spectral Laplacian,
+     K1); (b) ``ustokes`` at 20^3, linear CN and BDF2 and the power law
+     (a Newton loop a step); (c) the dense tier, ``-saddle_pc
+     dense-device`` at 16^3 and ``dense`` (a host float64 inverse) at
+     12^3, K1 under ``torch.func.vmap`` in the assembly (phase 1 holds K1
+     to its plain version at that batched shape, bit for bit).
 
-Each path (phases 3-10) is driven with the launch counts set to 0 just
+Each path (phases 3-11) is driven with the launch counts set to 0 just
 before it and read just after (K1's also by shape), and times nothing
 inside it (a call captured in a CUDA graph counts once and launches at
 every replay); every phase raises on failure.  A timed comparison gives
@@ -72,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -93,6 +101,8 @@ BOUND = {"float32": 1e-5, "float64": 1e-12}   # max |kernel - plain| / max |plai
 # sequencing, K1_GSEQ_SHAPES (float64; K1 is bit for bit its plain
 # version there, a gate)
 K1_GSEQ_SHAPES = ((8, 8, 8), (10, 10, 10), (16, 16, 16))
+# the dense assembly's batch of 1024 one-hot states at 16^3 (phase 11c)
+K1_BATCHED_SHAPE = (1024, 16, 16, 16)
 K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5, (20, 20, 20), (16, 16),
                   (12, 12, 12)) + K1_GSEQ_SHAPES
 K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
@@ -501,6 +511,142 @@ def phase10(cli_main, path) -> dict:
     return out
 
 
+# Phase 11: the dense tier, time stepping, heat and unsteady Stokes,
+# through the CLI in float64.  UNSTEADY_ORACLE: the JAX package on the CPU
+# in float64 (``python3 stokes_oracle.py unsteady``: its heat and ustokes
+# drivers with the same options; the power law's per-step counts from
+# UnsteadyStokes.rollout).  The heat lines it printed:
+#   heat -dim 64,64,64 -dt 0.01 -nsteps 20
+#     Norm of error vs analytic decay 1.535308e-04
+#   heat -dim 64,64,64 -dt 0.01 -nsteps 20 -ts_type bdf2
+#     Norm of error vs analytic decay 6.126108e-04
+#   heat -dim 64,64,64 -dt 0.01 -nsteps 20 -ts_adapt
+#     ts_adapt: 46 accepted steps, 4 rejected, dt 0.000598 .. 0.00548
+#     Norm of error vs analytic decay 1.335599e-04
+# (the default 16^2 run's 7.267423e-05 is tests/test_torch_heat.py's).
+# Gates: heat errors to 1e-5 relative (-ts_adapt: 1e-4, its counts equal,
+# its dt range to the 3 printed digits); ustokes outer min and max within
+# 1 (dense: equal); the power law's count at each step within max(3, 10%)
+# of the range of the oracle and its 8 runs from starts perturbed by 1e-13
+# (``stokes_oracle.py perturb_unsteady``), its error to 1e-5 relative; the
+# dense runs' errors to 1e-2 relative.  Changed criterion (ROADMAP queue
+# 3): the linear CN and BDF2 errors move with the summation order (each
+# step's FGMRES stops at rtol 1e-9 of a right-hand side of size sigma |v|,
+# sigma 40 and 30, which leaves ~1e-7 of solve error a step beside the
+# time integration's 1.5e-6): from starts perturbed by 1e-13 the JAX
+# package takes CN 1.447e-06 .. 1.561e-06 (oracle 1.596369e-06) and BDF2
+# 5.258e-06 .. 5.397e-06 (oracle 5.300682e-06), seeds 0-15 each, the port
+# on the CPU 1.451447e-06 and 5.329930e-06.  So each is held within 1e-2
+# relative of the range its oracle and perturbed runs span.
+HEAT64 = ["-dim", "64,64,64", "-dt", "0.01", "-nsteps", "20"]
+USTOKES20 = ["-dim", "20,20,20", "-dt", "0.05"]
+UNSTEADY_ORACLE = {
+    "11a heat 64^3 cn": dict(argv=["heat", *HEAT64], error=1.535308e-04, rtol=1e-5),
+    "11a heat 64^3 bdf2": dict(argv=["heat", *HEAT64, "-ts_type", "bdf2"], error=6.126108e-04,
+                               rtol=1e-5),
+    "11a heat 64^3 adapt": dict(argv=["heat", *HEAT64, "-ts_adapt"], error=1.335599e-04,
+                                rtol=1e-4, accepted=46, rejected=4, dt=(0.000598, 0.00548)),
+    "11b ustokes 20^3 cn": dict(
+        argv=["ustokes", *USTOKES20, "-nsteps", "10"], outer=(18, 20), error=1.596369e-06,
+        rtol=1e-2, perturbed_errors=(
+            1.489344e-06, 1.559899e-06, 1.473492e-06, 1.503197e-06, 1.447232e-06,
+            1.495369e-06, 1.513686e-06, 1.506643e-06, 1.484984e-06, 1.561074e-06,
+            1.498722e-06, 1.493145e-06, 1.534897e-06, 1.469913e-06, 1.481198e-06,
+            1.486751e-06)),
+    "11b ustokes 20^3 bdf2": dict(
+        argv=["ustokes", *USTOKES20, "-nsteps", "10", "-scheme", "bdf2"], outer=(17, 18),
+        error=5.300682e-06, rtol=1e-2, perturbed_errors=(
+            5.376331e-06, 5.370763e-06, 5.295032e-06, 5.328956e-06, 5.333727e-06,
+            5.28572e-06, 5.309365e-06, 5.275203e-06, 5.295776e-06, 5.312573e-06,
+            5.295936e-06, 5.283946e-06, 5.257911e-06, 5.318776e-06, 5.397492e-06,
+            5.332955e-06)),
+    "11b ustokes 20^3 powerlaw": dict(
+        argv=["ustokes", *USTOKES20, "-nsteps", "5", "-rheology", "1", "-exponent", "3"],
+        per_step=[43, 61, 61, 77, 74], error=7.428252e-07, rtol=1e-5, warm=0,
+        perturbed=([42, 59, 59, 77, 72], [43, 60, 59, 77, 71], [42, 61, 59, 76, 74],
+                   [41, 62, 59, 78, 73], [42, 62, 59, 78, 73], [42, 61, 58, 78, 73],
+                   [42, 61, 60, 75, 74], [42, 61, 59, 78, 70])),
+    "11c ustokes 16^3 dense-device": dict(
+        argv=["ustokes", "-dim", "16,16,16", "-dt", "0.05", "-nsteps", "10", "-saddle_pc",
+              "dense-device"], outer=(1, 1), error=1.462653e-06, rtol=1e-2,
+        batched="(1024, 16, 16, 16) float64"),
+    "11c ustokes 12^3 dense": dict(
+        argv=["ustokes", "-dim", "12,12,12", "-dt", "0.05", "-nsteps", "10", "-saddle_pc",
+              "dense"], outer=(1, 1), error=1.388043e-06, rtol=1e-2, warm=0,
+        batched="(1024, 12, 12, 12) float64"),
+}
+
+
+def parse_unsteady(out: str) -> dict:
+    """The error and counts a heat or ustokes CLI run printed."""
+    got = {}
+    me = re.search(r"Norm of error.*?([-+\d.]+e[-+]\d+)", out)
+    got["error"] = float(me.group(1)) if me else None
+    ma = re.search(r"ts_adapt: (\d+) accepted steps, (\d+) rejected, dt (\S+) \.\. (\S+)", out)
+    if ma:
+        got.update(accepted=int(ma.group(1)), rejected=int(ma.group(2)),
+                   dt=(float(ma.group(3)), float(ma.group(4))))
+    mo = re.search(r"Outer iterations per step: min (\d+)  max (\d+)", out)
+    if mo:
+        got["outer"] = (int(mo.group(1)), int(mo.group(2)))
+    ms = re.search(r"Outer iterations each step: (\[.*\])", out)
+    if ms:
+        got["per_step"] = json.loads(ms.group(1))
+    return got
+
+
+def phase11_ok(name: str, got: dict) -> str | None:
+    """Why a phase 11 run misses UNSTEADY_ORACLE[name]'s gates, or None
+    (the gates are listed above the table)."""
+    spec = UNSTEADY_ORACLE[name]
+    err = got["error"]
+    if err is None or not math.isfinite(err):
+        return f"error {err}"
+    if "accepted" in spec:
+        if (got.get("accepted"), got.get("rejected"), got.get("dt")) != \
+                (spec["accepted"], spec["rejected"], spec["dt"]):
+            return (f"ts_adapt {got.get('accepted')} / {got.get('rejected')}, dt {got.get('dt')}; "
+                    f"oracle {spec['accepted']} / {spec['rejected']}, dt {spec['dt']}")
+    if "outer" in spec:
+        slack = 0 if spec["outer"] == (1, 1) else 1
+        if got.get("outer") is None or any(abs(a - b) > slack
+                                           for a, b in zip(got["outer"], spec["outer"])):
+            return f"outer min/max {got.get('outer')}, oracle {spec['outer']} (within {slack})"
+    if "per_step" in spec:
+        runs = [spec["per_step"], *spec["perturbed"]]
+        ks = got.get("per_step") or []
+        if len(ks) != len(spec["per_step"]) or any(
+                not _within(k, min(r), max(r)) for k, r in zip(ks, zip(*runs))):
+            return f"per step {ks}, the runs span {list(zip(*runs))} (max(3, 10%) beyond)"
+    errs = [spec["error"], *spec.get("perturbed_errors", ())]
+    lo, hi = min(errs) * (1 - spec["rtol"]), max(errs) * (1 + spec["rtol"])
+    if not lo <= err <= hi:
+        return f"error {err:.6e} outside {lo:.6e} .. {hi:.6e}"
+    return None
+
+
+def phase11(cli_main, path, k1_shapes) -> dict:
+    """Phase 11: every UNSTEADY_ORACLE run through the CLI, gated on it,
+    a first and a warm call each (one call where ``warm`` is 0); the dense
+    runs must launch K1 on their batched assembly shape."""
+    out = {}
+    for name, spec in UNSTEADY_ORACLE.items():
+        ((rc, text), first_s, warm_s), counts = path(
+            name, lambda: timed_twice(lambda: run_cli(cli_main, spec["argv"]),
+                                      warm_reps=spec.get("warm", 1)), ["chebdiff_last_kernel"])
+        require(rc == 0, f"{name} failed (rc {rc}): {text[-3000:]!r}")
+        got = parse_unsteady(text)
+        why = phase11_ok(name, got)
+        require(why is None, f"{name}: {why}")
+        if "batched" in spec:
+            require(k1_shapes[name].get(spec["batched"], 0) > 0,
+                    f"{name}: K1 was not launched on the assembly's {spec['batched']}")
+        out[name] = {"cli": " ".join(spec["argv"]), **got, "first_s": first_s,
+                     "solve_s": warm_s, "k1_launches": counts["chebdiff_last_kernel"],
+                     "k1_launches_by_shape": k1_shapes[name]}
+    return out
+
+
 def stokes_krylov_range(spec: dict):
     """Per Newton step, and in total, the least and the most Krylov
     iterations among the oracle's run and its perturbed runs."""
@@ -902,6 +1048,24 @@ def main() -> int:
     k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 4 + 64 * 64 * 4,
                                                    2 * 64 * u.numel(), "float32")
     del u
+    # the dense assembly's batched shape (phase 11c): K1 bit for bit its
+    # plain version, on the tensor and under torch.func.vmap (one launch)
+    from spectral_tpu_torch.ops.chebyshev import chebdiff
+
+    u = randn(K1_BATCHED_SHAPE, torch.float64, 100)
+    k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u),
+                      lambda: cuda_cheb.chebdiff_last_ref(u), u, f"{K1_BATCHED_SHAPE} batched"))
+    cuda_cheb.reset_launch_counts()
+    got = torch.func.vmap(lambda x: chebdiff(x, -1))(u)
+    require(cuda_cheb.LAUNCHES["chebdiff_last_kernel"] == 1, "K1 under vmap: not one launch")
+    require(k1[-1]["bitwise"] and torch.equal(got, cuda_cheb.chebdiff_last_ref(u)),
+            f"K1 {K1_BATCHED_SHAPE} float64: not bit for bit its plain version")
+    dt = cuda_cheb._diffmat_t(16, None, torch.float64, dev)
+    k1[-1]["vmap_bitwise"] = True
+    k1[-1]["library_ms"], k1[-1]["library_call_ms"] = both_ms(lambda: torch.matmul(u, dt))
+    k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 8 + 16 * 16 * 8,
+                                                   2 * 16 * u.numel(), "float64")
+    del u, got
     print("phase1 K1 " + json.dumps(k1))
     print(f"phase1 seconds {time.perf_counter() - t_phase:.3f}")
 
@@ -1354,6 +1518,12 @@ def main() -> int:
         rec["k1_launches_by_shape"] = k1_shapes[name]
     phase10_out["seconds"] = time.perf_counter() - t_phase
     print("phase10 " + json.dumps(phase10_out))
+
+    # -- phase 11: the dense tier, time stepping, heat and unsteady Stokes -----
+    t_phase = time.perf_counter()
+    phase11_out = phase11(cli_main, path, k1_shapes)
+    phase11_out["seconds"] = time.perf_counter() - t_phase
+    print("phase11 " + json.dumps(phase11_out))
 
     # -- the kernels line ------------------------------------------------------
     k1_main = next(c for c in k1 if c["case"] == "(64, 64, 64) scale=None"

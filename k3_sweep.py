@@ -13,8 +13,11 @@ one JSON line: the checkout and, as [device_ms, call_ms] (chip_smoke.py's
 ``device_ms`` and ``call_ms``):
 
 - K3's six sweep cases at u of (1,048,576, 64) float32 (phase 5);
-- K1 at the five shapes the solves give it and at (256, 64, 64, 64)
-  float32, and ``torch.matmul`` on the same inputs (phase 1);
+- K1 at the shapes the solves give it, at the dense assembly's batch
+  (1024, 16, 16, 16) float64 and at (256, 64, 64, 64) float32, and
+  ``torch.matmul`` on the same inputs (phase 1); at the solve shapes also
+  ``chebyshev.chebdiff`` on the last axis, the route the solves call
+  (its checks before K1's launch);
 - K2 at 64^3 with the boundary mask in float32 and float64 (phase 2).
 
 Without CUDA it exits non-zero.
@@ -31,7 +34,8 @@ import chip_smoke
 
 # (shape, dtype name) of K1's timed cases: the solves' shapes, then cheb_matvec's
 K1_CASES = (((64, 64, 64), "float64"), ((32, 32, 32), "float32"), ((32, 32, 32), "float64"),
-            ((12,) * 5, "float32"), ((12,) * 5, "float64"), ((256, 64, 64, 64), "float32"))
+            ((12,) * 5, "float32"), ((12,) * 5, "float64"), ((20, 20, 20), "float64"),
+            ((1024, 16, 16, 16), "float64"), ((256, 64, 64, 64), "float32"))
 
 
 def main(argv: list[str]) -> int:
@@ -43,7 +47,7 @@ def main(argv: list[str]) -> int:
     root = Path(argv[0] if argv else Path(__file__).parent).resolve()
     sys.path.insert(0, str(root))
     from spectral_tpu_torch.grid import Grid
-    from spectral_tpu_torch.ops import cuda_cheb
+    from spectral_tpu_torch.ops import chebyshev, cuda_cheb
 
     if not Path(cuda_cheb.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {cuda_cheb.__file__}, not the checkout at {root}")
@@ -66,6 +70,9 @@ def main(argv: list[str]) -> int:
         k1[f"{shape} {dname}"] = {
             "k1": chip_smoke.both_ms(lambda: cuda_cheb.chebdiff_last(u)),
             "matmul": chip_smoke.both_ms(lambda: torch.matmul(u, dt))}
+        if len(shape) < 4:   # a solve's shape: the route it calls
+            k1[f"{shape} {dname}"]["chebdiff"] = chip_smoke.both_ms(
+                lambda: chebyshev.chebdiff(u, u.ndim - 1))
         del u
     k2 = {}
     mask = Grid((64, 64, 64), device="cuda").boundary_mask

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's time goes on one GPU: torch.profiler over one warm run
 of each elliptic and Stokes path that chip_smoke.py drives (its phases 6
-to 10, taken from its tables).
+to 10, taken from its tables), and of phase 11's heat and linear unsteady
+Stokes Crank-Nicolson runs.
 
     python3 profile_port.py [substring ...]
 
@@ -47,9 +48,9 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (ELLIPTIC_ORACLE, PHASE10_ORACLE, STOKES_ORACLE, refined_runs,
-                            run_cli, stokes_forward, stokes_line52, stokes_mixed_runs,
-                            stokes_refined_runs)
+    from chip_smoke import (ELLIPTIC_ORACLE, PHASE10_ORACLE, STOKES_ORACLE, UNSTEADY_ORACLE,
+                            refined_runs, run_cli, stokes_forward, stokes_line52,
+                            stokes_mixed_runs, stokes_refined_runs)
     from spectral_tpu_torch.cli.main import main as cli_main
 
     def cli(driver, opts):
@@ -79,6 +80,10 @@ def main() -> int:
         for name, p in stokes_refined_runs(dev).items()})
     paths.update({f"phase{name}": cli(spec["argv"][0], spec["argv"][1:])
                   for name, spec in PHASE10_ORACLE.items()})
+    # phase 11's heat CN and linear unsteady CN runs
+    paths.update({f"phase{name}": cli(UNSTEADY_ORACLE[name]["argv"][0],
+                                      UNSTEADY_ORACLE[name]["argv"][1:])
+                  for name in ("11a heat 64^3 cn", "11b ustokes 20^3 cn")})
     wanted = sys.argv[1:]
     for name, run in paths.items():
         if wanted and not any(w in name for w in wanted):

@@ -390,3 +390,135 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
             M=lambda r: pca(pc_state, r), null_project=p.null_project))
     _print_unused(opts)
     return 0 if res.reason > 0 else 2
+
+
+def heat_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
+    """Time-dependent diffusion driver (models/heat.py), flat domain:
+
+    heat -dim 16,16 -dt 0.01 -nsteps 20 [-theta 0.5] [-ts_type theta|bdf2]
+        [-ts_adapt [-ts_rtol 1e-5 -ts_atol 1e-9 -ts_dt0 dt -ts_max_steps N -ts_monitor]]
+
+    Decays u0 = prod cos(pi x_j / 2) and prints the max error against the
+    analytic decay.  Exit code 0 when the error is under 1, 2 when not."""
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.heat import HeatModel
+
+    dims = opts.get_int_array("dim", (16, 16))
+    dt = opts.get_real("dt", 0.01)
+    nsteps = opts.get_int("nsteps", 20)
+    theta = opts.get_real("theta", 0.5)
+    if opts.get_string("map", ""):
+        raise NotImplementedError("heat -map (curved domains) is not ported yet "
+                                  "(ROADMAP.md queue 1, item 6: curvilinear)")
+    print(f"Heat problem  dims = [{','.join(map(str, dims))}]  dt = {dt}"
+          f"  theta = {theta}  steps = {nsteps}")
+    ts_type = opts.get_string("ts_type", "theta")
+    ts_adapt = opts.get_bool("ts_adapt", False)
+    g = Grid(dims, intervals=_domain_intervals(opts, len(dims)), device=device, dtype=dtype)
+    m = HeatModel(g, dt=dt, theta=theta)
+    u0 = g.zero_boundary(torch.prod(torch.cos(0.5 * np.pi * g.coords), dim=-1))
+    z = torch.zeros_like(u0)
+    T_end = dt * nsteps
+    if ts_adapt:
+        # adaptive variable-step BDF2 over the same horizon (TSAdapt role)
+        from spectral_tpu_torch.solvers.ts import TSConfig, integrate_adaptive
+        cfg = TSConfig(rtol=opts.get_real("ts_rtol", 1e-5),
+                       atol=opts.get_real("ts_atol", 1e-9),
+                       dt0=opts.get_real("ts_dt0", dt),
+                       max_steps=opts.get_int("ts_max_steps", 10_000),
+                       monitor=opts.get_bool("ts_monitor", False))
+        u, info = integrate_adaptive(m, u0, 0.0, T_end, z, z, cfg)
+        print(f"  ts_adapt: {info['steps']} accepted steps, "
+              f"{info['rejects']} rejected, dt "
+              f"{min(info['dts']):.3g} .. {max(info['dts']):.3g}")
+    elif ts_type == "bdf2":
+        from spectral_tpu_torch.solvers.ts import rollout_bdf2
+        u = rollout_bdf2(m, u0, z, z, dt, nsteps)
+    elif ts_type == "theta":
+        u = m.rollout(u0, z, z, nsteps)
+    else:
+        raise SystemExit(f"unknown -ts_type {ts_type!r} (theta|bdf2)")
+    lam = g.ndim * (0.5 * np.pi) ** 2
+    exact = u0.cpu().numpy() * np.exp(-lam * T_end)
+    err = float(np.max(np.abs(u.cpu().numpy() - exact)))
+    print(f"Norm of error vs analytic decay {err:e}")
+    _print_unused(opts)
+    return 0 if err < 1.0 else 2
+
+
+def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
+    """Time-dependent Stokes driver (models/stokes_unsteady.py), flat domain:
+
+    ustokes -dim 12,12 -dt 0.05 -nsteps 10 [-theta 0.5] [-scheme theta|bdf2]
+        [-omega 1.0] [-exact 1] [-pcvel fastdiag|mg] [-saddle_pc schur|dense|dense-device]
+        [-rheology 1 -exponent 3] [-no_scan]
+
+    Integrates the manufactured solution u0(x) cos(omega t) (u0 the steady
+    exact solution) and prints the JAX driver's lines (the outer
+    iterations' min and max over the steps, the end-time error, the time
+    integration's), then every step's count.  Exit code 0 when the error is
+    finite and under 1e-2, 2 when not."""
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.stokes import StokesConfig
+    from spectral_tpu_torch.models.stokes_unsteady import UnsteadyStokes
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+
+    for key, item in (("map", "item 6: curvilinear"), ("output_vtk", "item 8: utils/vtk.py")):
+        if opts.has(key):
+            raise NotImplementedError(
+                f"ustokes -{key} is not ported yet (ROADMAP.md queue 1, {item})")
+    dims = opts.get_int_array("dim", (12, 12))
+    dt = opts.get_real("dt", 0.05)
+    nsteps = opts.get_int("nsteps", 10)
+    if nsteps < 1:
+        raise SystemExit("-nsteps must be >= 1")
+    theta = opts.get_real("theta", 0.5)
+    omega = opts.get_real("omega", 1.0)
+    cfg = StokesConfig(
+        exact=opts.get_int("exact", 1), boundary=0,
+        rheology=opts.get_int("rheology", 0),
+        hardness=opts.get_real("hardness", 1.0),
+        exponent=opts.get_real("exponent", 1.0),
+        regularization=opts.get_real("eps", 1.0),
+        gamma0=opts.get_real("gamma0", 1.0),
+        pcvel=opts.get_string("pcvel", "fastdiag"),
+        # -saddle_pc dense|dense-device: the exact inverse of the fixed
+        # mass-shifted step operator (one matmul an apply)
+        saddle_pc=opts.get_string("saddle_pc", "schur"),
+        outer_ksp=opts.ksp_config("", KSPConfig(type="fgmres", rtol=1e-9,
+                                                max_it=400, restart=100)),
+        # float32 cannot reach the float64 default tolerance: follow the dtype
+        newton=opts.newton_config(NewtonConfig(
+            rtol=1e-8 if dtype == torch.float64 else 1e-5, max_it=25)))
+    scheme = opts.get_string("scheme", "theta")
+    print(f"Unsteady Stokes  dim = [{','.join(map(str, dims))}]  dt = {dt}"
+          f"  scheme = {scheme}" + ("" if scheme == "bdf2" else f"  theta = {theta}")
+          + f"  omega = {omega}  steps = {nsteps}")
+    m = UnsteadyStokes(Grid(dims, device=device, dtype=dtype), cfg, dt=dt, theta=theta,
+                       scheme=scheme)
+    print(m.problem.census())
+    u0, s_of_t, f_of_t, u_of_t, _ = m.manufactured(omega=omega)
+    times = np.arange(nsteps + 1) * dt
+    scan = m._linear and not opts.has("no_scan")
+    if scan and scheme == "bdf2" and nsteps >= 2:
+        ss = [s_of_t(t) for t in times[1:]]
+        f1s = torch.stack([f_of_t(t) for t in times[2:]])
+        fbar0 = 0.5 * f_of_t(times[1]) + 0.5 * f_of_t(times[0])
+        v, pres, its = m.rollout_scan_bdf2(u0, ss, f1s, fbar0)
+    elif scan and scheme == "theta":
+        # the linear path over precomputed per-step data (rollout_scan)
+        ss = [s_of_t(t) for t in times[1:]]
+        fbars = torch.stack([theta * f_of_t(t1) + (1.0 - theta) * f_of_t(t0)
+                             for t0, t1 in zip(times[:-1], times[1:])])
+        v, pres, its = m.rollout_scan(u0, ss, fbars)
+    else:
+        v, pres, its = m.rollout(u0, times, s_of_t, f_of_t)
+    its = [int(i) for i in its]
+    err = float(torch.max(torch.abs(v - u_of_t(times[-1]))))
+    print(f"Outer iterations per step: min {min(its)}  max {max(its)}")
+    print(f"Norm of error            : abs = {err:e} (time-integration)")
+    # a line the JAX driver does not print: the count of every step
+    print(f"Outer iterations each step: {its}")
+    _print_unused(opts)
+    return 0 if np.isfinite(err) and err < 1e-2 else 2

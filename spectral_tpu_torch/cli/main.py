@@ -4,6 +4,8 @@
     spectral-tpu-torch elliptic -dim 32,32,32 -exact 0 -gamma 1 -pc_type mg3
     spectral-tpu-torch stokes -exact 2 -cont0 1 -schur_ksp_max_it 3 -vel_ksp_max_it 4 \
         -svel_ksp_type preonly -ksp_type fgmres -dim 20,20,20 -ksp_rtol 1e-10
+    spectral-tpu-torch heat -dim 64,64,64 -dt 0.01 -nsteps 20 [-ts_type bdf2 | -ts_adapt]
+    spectral-tpu-torch ustokes -dim 20,20,20 -dt 0.05 -nsteps 10 [-scheme bdf2]
     spectral-tpu-torch cheb -m1 9 -m 8 -n 7 -p 6 -d 1
 
 Option names and output format follow the JAX package's CLI.  Float64 is
@@ -21,7 +23,7 @@ import torch
 from spectral_tpu_torch.utils.options import Options
 
 # Drivers of the JAX CLI that this package does not carry yet.
-_NOT_PORTED = ("heat", "ustokes", "convection")
+_NOT_PORTED = ("convection",)
 
 
 def _setup(opts: Options) -> tuple[torch.device, torch.dtype]:
@@ -41,9 +43,9 @@ def main(argv: list[str] | None = None) -> int:
     cmd, rest = argv[0], argv[1:]
     if cmd in _NOT_PORTED:
         raise NotImplementedError(
-            f"the {cmd} driver is not ported yet (ROADMAP.md queue 1, items 4-5)")
-    if cmd not in ("poisson", "elliptic", "stokes", "cheb"):
-        print(f"unknown driver {cmd!r}; one of: poisson elliptic stokes cheb")
+            f"the {cmd} driver is not ported yet (ROADMAP.md queue 1, item 5)")
+    if cmd not in ("poisson", "elliptic", "stokes", "heat", "ustokes", "cheb"):
+        print(f"unknown driver {cmd!r}; one of: poisson elliptic stokes heat ustokes cheb")
         return 1
     opts = Options(rest)
     device, dtype = _setup(opts)
@@ -54,6 +56,10 @@ def main(argv: list[str] | None = None) -> int:
         return drivers.elliptic_main(opts, device=device, dtype=dtype)
     if cmd == "stokes":
         return drivers.stokes_main(opts, device=device, dtype=dtype)
+    if cmd == "heat":
+        return drivers.heat_main(opts, device=device, dtype=dtype)
+    if cmd == "ustokes":
+        return drivers.unsteady_stokes_main(opts, device=device, dtype=dtype)
     return drivers.cheb_main(opts, device=device, dtype=dtype)
 
 

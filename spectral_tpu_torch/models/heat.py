@@ -1,0 +1,232 @@
+"""Time-dependent diffusion on the CGL grid (a capability extension).
+
+Counterpart of ``spectral_tpu/models/heat.py`` on flat domains: implicit
+theta-scheme time stepping (backward Euler / Crank-Nicolson) for
+
+    u_t = Laplace(u) + f,   u|boundary = g (time-independent),
+
+from the spectral Laplacian (``chebdiff``, K1 on the last axis of a CUDA
+tensor), masked Dirichlet rows, a Krylov solve (CG by default) and a
+shifted fast diagonalization as the exact preconditioner of the implicit
+operator (1/dt + theta * (-Laplace)).  ``neumann_axes`` insulates both
+faces of the listed axes (a zero-flux spectral row, preconditioned by the
+Neumann-eliminated fast diagonalization).
+
+The JAX package's ``rollout`` is one ``lax.scan``; here it is a host loop
+over the same step.  The steps that take dt as an argument
+(``step_theta_dt``, ``step_bdf2_dt``) are the substrate of
+``solvers/ts.py``: the preconditioner is the shift-free fast
+diagonalization applied with the run-time shift.  Curved domains
+(``phi=``) raise naming ROADMAP item 6, the differentiable ``step_diff``
+item 5.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import cached_property
+
+import numpy as np
+import torch
+
+from spectral_tpu_torch.grid import Grid
+from spectral_tpu_torch.ops.chebyshev import chebdiff
+from spectral_tpu_torch.ops.fastdiag import FastDiagSolver
+from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class HeatModel:
+    """theta = 1: backward Euler; theta = 0.5: Crank-Nicolson.
+
+    ``neumann_axes``: BOTH end faces of each listed axis carry the
+    spectral outward-derivative row dT/dn = 0 instead of Dirichlet.  Nodes
+    shared with a Dirichlet face keep the Dirichlet row; nodes shared by
+    two insulated faces (3-D edges) keep an identity row.
+    """
+
+    grid: Grid
+    dt: float
+    theta: float = 0.5
+    ksp: KSPConfig = KSPConfig(type="cg", rtol=1e-10, max_it=100)
+    phi: object = None
+    neumann_axes: tuple = ()
+
+    def __post_init__(self):
+        if self.phi is not None:
+            raise NotImplementedError("HeatModel(phi=...) is not ported yet "
+                                      "(ROADMAP.md queue 1, item 6: curvilinear)")
+        if self.neumann_axes:
+            if len(self.neumann_axes) >= self.grid.ndim:
+                raise ValueError("at least one axis must stay Dirichlet "
+                                 "(all-Neumann diffusion is singular)")
+            if self.ksp.type == "cg":
+                # the one-sided Neumann rows are nonsymmetric: CG (the
+                # default) is invalid; GMRES with the same tolerances
+                object.__setattr__(self, "ksp", dataclasses.replace(self.ksp, type="gmres"))
+
+    def laplacian(self, u: torch.Tensor) -> torch.Tensor:
+        """Spectral Laplacian with homogeneous rows at the boundary (the
+        solution's boundary values are held by the Dirichlet data)."""
+        g = self.grid
+        y = torch.zeros_like(u)
+        for ax in range(g.ndim):
+            du = g.apply_dif_weight(chebdiff(u, ax), ax)
+            y = y + g.apply_dif_weight(chebdiff(du, ax), ax)
+        return g.zero_boundary(y)
+
+    @cached_property
+    def _nm_masks(self):
+        """({(axis, "lo"|"hi"): nodes EXCLUSIVE to that end face}, the
+        any-Neumann-row mask), bool tensors on the grid's device."""
+        g = self.grid
+        face_count = np.zeros(g.dims, dtype=np.int32)
+        for ax in range(g.ndim):
+            sl0 = [slice(None)] * g.ndim
+            sl1 = [slice(None)] * g.ndim
+            sl0[ax], sl1[ax] = 0, -1
+            face_count[tuple(sl0)] += 1
+            face_count[tuple(sl1)] += 1
+        masks = {}
+        any_nm = np.zeros(g.dims, dtype=bool)
+        for ax in self.neumann_axes:
+            for end, lbl in ((0, "lo"), (-1, "hi")):
+                m = np.zeros(g.dims, dtype=bool)
+                sl = [slice(None)] * g.ndim
+                sl[ax] = end
+                m[tuple(sl)] = True
+                m &= face_count == 1
+                masks[(ax, lbl)] = torch.as_tensor(m, device=g.device)
+                any_nm |= m
+        return masks, torch.as_tensor(any_nm, device=g.device)
+
+    def _bc_rows(self, y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """Overwrite the boundary rows of an interior result: identity
+        Dirichlet rows; on insulated faces the outward spectral
+        derivative (index 0 = +1, outward +ax; the last, -ax)."""
+        g = self.grid
+        y = torch.where(g.boundary_mask, u, y)
+        if self.neumann_axes:
+            masks, _ = self._nm_masks
+            for ax in self.neumann_axes:
+                du = g.apply_dif_weight(chebdiff(u, ax), ax)
+                y = torch.where(masks[(ax, "lo")], du, y)
+                y = torch.where(masks[(ax, "hi")], -du, y)
+        return y
+
+    def _implicit_op_c(self, u: torch.Tensor, shift, c: float) -> torch.Tensor:
+        """shift*u - c*Laplace(u) on the interior, with the shared boundary
+        rows (shift-free: Dirichlet identity / dT/dn)."""
+        return self._bc_rows(shift * u - c * self.laplacian(u), u)
+
+    def implicit_operator(self, u: torch.Tensor) -> torch.Tensor:
+        """A = 1/dt - theta * Laplace on the interior; identity boundary
+        rows, except insulated faces, which carry dT/dn."""
+        return self._implicit_op_c(u, 1.0 / self.dt, self.theta)
+
+    def _fastdiag(self, shift: float, c: float) -> FastDiagSolver:
+        # the FD surrogate T_j approximates -(1/2) d^2/dx_j^2, so the
+        # operator shift - c Laplace matches axis_scale 2c
+        return FastDiagSolver.build(self.grid, shift=shift,
+                                    axis_scale=np.full(self.grid.ndim, 2.0 * c),
+                                    neumann_axes=tuple(self.neumann_axes))
+
+    @cached_property
+    def _pc_apply(self):
+        return self._fastdiag(1.0 / self.dt, self.theta).apply
+
+    def _step_rhs(self, u: torch.Tensor, f: torch.Tensor, dirichlet: torch.Tensor):
+        """(initial guess, rhs) of the theta-scheme step A u_next = rhs.
+        Insulated faces carry the zero-flux row (rhs 0) and keep the
+        current value as the initial guess."""
+        g = self.grid
+        uL = self._masked_state(u, dirichlet)
+        rhs = uL / self.dt + (1.0 - self.theta) * self.laplacian(uL) + g.zero_boundary(f)
+        return uL, self._bc_rhs(rhs, dirichlet)
+
+    def step(self, u: torch.Tensor, f: torch.Tensor, dirichlet: torch.Tensor) -> torch.Tensor:
+        """One theta-scheme step: solve A u_next = rhs."""
+        uL, rhs = self._step_rhs(u, f, dirichlet)
+        return self.ksp.solve(self.implicit_operator, rhs, x0=uL, M=self._pc_apply).x
+
+    def step_diff(self, *args, **kwargs):
+        raise NotImplementedError("HeatModel.step_diff (a differentiable step) is not "
+                                  "ported yet (ROADMAP.md queue 1, item 5: solvers/adjoint.py)")
+
+    def rollout(self, u0: torch.Tensor, f: torch.Tensor, dirichlet: torch.Tensor,
+                nsteps: int) -> torch.Tensor:
+        """``nsteps`` steps of time integration, a host loop."""
+        u = u0
+        for _ in range(nsteps):
+            u = self.step(u, f, dirichlet)
+        return u
+
+    # ------------------------------------------------------------------
+    # Steps with dt as an argument (solvers/ts.py): one shift-free fast
+    # diagonalization per Laplacian scale serves every step size
+    # ------------------------------------------------------------------
+    def _traced_pc(self, c: float, shift: float):
+        """r -> z preconditioner of (shift - c * Laplace): the shift-free
+        fastdiag applied with the run-time ``shift``.  ``c``: theta for the
+        theta step, 1.0 for BE/BDF2."""
+        if c == self.theta:
+            fd = self._fd0_theta
+        elif c == 1.0:
+            fd = self._fd0_unit
+        else:  # exotic theta override: exact surrogate for this c
+            fd = self._fastdiag(0.0, c)
+        return lambda r: fd.apply(r, shift=shift)
+
+    @cached_property
+    def _fd0_theta(self) -> FastDiagSolver:
+        """Shift-free fastdiag of theta * (-Laplace): the run-time shift
+        1/dt makes it the exact surrogate inverse of the theta step."""
+        return self._fastdiag(0.0, self.theta)
+
+    @cached_property
+    def _fd0_unit(self) -> FastDiagSolver:
+        """Shift-free fastdiag of (-Laplace): the run-time shift a/dt
+        preconditions the backward-Euler and BDF2 step operators."""
+        return self._fastdiag(0.0, 1.0)
+
+    def _masked_state(self, u: torch.Tensor, dirichlet: torch.Tensor) -> torch.Tensor:
+        """The state with the Dirichlet trace imposed (insulated faces
+        keep their evolved value)."""
+        uL = self.grid.set_boundary(u, dirichlet)
+        if self.neumann_axes:
+            _, any_nm = self._nm_masks
+            uL = torch.where(any_nm, u, uL)
+        return uL
+
+    def _bc_rhs(self, rhs: torch.Tensor, dirichlet: torch.Tensor) -> torch.Tensor:
+        rhs = torch.where(self.grid.boundary_mask, dirichlet, rhs)
+        if self.neumann_axes:
+            _, any_nm = self._nm_masks
+            rhs = torch.where(any_nm, 0.0, rhs)
+        return rhs
+
+    def step_theta_dt(self, u, f, dirichlet, dt: float, theta: float | None = None):
+        """One theta step of size ``dt`` (``theta=1.0`` overrides to
+        backward Euler: the BDF2 startup step)."""
+        th = self.theta if theta is None else float(theta)
+        uL = self._masked_state(u, dirichlet)
+        rhs = self._bc_rhs(uL / dt + (1.0 - th) * self.laplacian(uL)
+                           + self.grid.zero_boundary(f), dirichlet)
+        return self.ksp.solve(lambda w: self._implicit_op_c(w, 1.0 / dt, th), rhs,
+                              x0=uL, M=self._traced_pc(th, 1.0 / dt)).x
+
+    def step_bdf2_dt(self, u, u_prev, f, dirichlet, dt: float, rr: float):
+        """One variable-step BDF2 step of size ``dt`` with step ratio
+        rr = dt/dt_prev:
+
+            [(1+2r)/(1+r) u1 - (1+r) u + r^2/(1+r) u_prev]/dt = Lap u1 + f1
+
+        (A-stable for r <= 1+sqrt(2); the solvers/ts.py controller clips
+        growth well inside that).  History fields enter algebraically only,
+        so their boundary rows pass through."""
+        a = (1.0 + 2.0 * rr) / (1.0 + rr)
+        uL = self._masked_state(u, dirichlet)
+        rhs = self._bc_rhs(((1.0 + rr) * uL - (rr * rr / (1.0 + rr)) * u_prev) / dt
+                           + self.grid.zero_boundary(f), dirichlet)
+        return self.ksp.solve(lambda w: self._implicit_op_c(w, a / dt, 1.0), rhs,
+                              x0=uL, M=self._traced_pc(1.0, a / dt)).x

@@ -38,9 +38,14 @@ Newton with parameter continuation (stokes.C:217-235).
   The JAX package compiles each into one dispatch; eager PyTorch issues
   the same kernels one by one (no CUDA graph is captured).
 
-The dense saddle PC, parameter families, the adjoint, the unsteady mass
-shift, curved domains and the pencil mesh raise ``NotImplementedError``
-naming their ROADMAP item.
+- ``mass_shift`` sigma adds sigma I to the velocity rows of the Jacobian
+  (the unsteady step operator, ``models/stokes_unsteady.py``) and to the
+  fastdiag and multigrid surrogates; ``make_dense_pc`` and
+  ``make_dense_pc_var`` invert the assembled saddle Jacobian exactly
+  (``ops/dense.py``).
+
+Parameter families, the adjoint, curved domains and the pencil mesh raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -65,6 +70,11 @@ from spectral_tpu_torch.solvers.newton import NewtonConfig, NewtonResult, _norm,
 # bytes of one-hot columns (times the intermediates of one velocity-block
 # action) that the traction-block setup evaluates at once
 _TBC_BATCH_BYTES = 1 << 29
+
+
+_MASS_SHIFT_STEADY = ("mass_shift is the UNSTEADY step operator (the steady residual "
+                      "carries no mass term — use models/stokes_unsteady.UnsteadyStokes "
+                      "for time stepping)")
 
 
 def _todo(what: str, item: str):
@@ -118,12 +128,6 @@ class StokesProblem:
             raise _todo("StokesProblem(mesh=...)", "item 7: parallel")
         if phi is not None:
             raise _todo("StokesProblem(phi=...)", "item 6: curvilinear")
-        if config.mass_shift:
-            raise _todo("StokesConfig(mass_shift=...), the unsteady step operator",
-                        "item 4: models/stokes_unsteady.py")
-        if config.saddle_pc != "schur":
-            raise _todo(f"saddle_pc {config.saddle_pc!r} (make_dense_pc)",
-                        "item 4: ops/dense.py")
         self.grid = grid
         self.config = config
         self.d = grid.ndim
@@ -446,6 +450,9 @@ class StokesProblem:
         e = eta[..., None, None]
         flux = e * Sw + deta[..., None, None] * S0 * z[..., None, None]
         yv = -self._tensor_divergence(flux)
+        if self.config.mass_shift:
+            # before _mixed_rows: traction rows carry no time derivative
+            yv = yv + self.config.mass_shift * wL
         if self.num_mixed:
             yv = self._mixed_rows(yv, e * Sw, wL)
         return self.mask_v(yv), Sw
@@ -482,7 +489,8 @@ class StokesProblem:
     def _vel_fastdiag(self, dtype: torch.dtype) -> FastDiagSolver:
         fd = self._fastdiag.get(dtype)
         if fd is None:
-            fd = self._fastdiag[dtype] = FastDiagSolver.build(self.grid, dtype=dtype)
+            fd = self._fastdiag[dtype] = FastDiagSolver.build(
+                self.grid, dtype=dtype, shift=self.config.mass_shift)
         return fd
 
     def _mg_builder(self, stencil):
@@ -501,8 +509,18 @@ class StokesProblem:
         from spectral_tpu_torch.models.stokes_pc import velocity_fd_stencil
         from spectral_tpu_torch.ops.multigrid import Multigrid
 
-        return Multigrid.build(self.grid, builder=self._mg_builder(velocity_fd_stencil),
-                               smoother=self.config.pcvel_smoother)
+        base = self._mg_builder(velocity_fd_stencil)
+        sigma = self.config.mass_shift
+        if not sigma:
+            return Multigrid.build(self.grid, builder=base, smoother=self.config.pcvel_smoother)
+
+        def builder(grid, coeffs):
+            # the shifted surrogate sigma + A rediscretized on every level
+            S = base(grid, coeffs)
+            return dataclasses.replace(
+                S, center=torch.where(grid.interior_mask, S.center + sigma, S.center))
+
+        return Multigrid.build(self.grid, builder=builder, smoother=self.config.pcvel_smoother)
 
     @cached_property
     def _vel_mg_nodal(self):
@@ -665,6 +683,9 @@ class StokesProblem:
         traction rows (_mixed_line_correct); the Q1 and probed PCs add no
         line correction, as in the JAX package."""
         pcvel = self.config.pcvel
+        if self.config.mass_shift and pcvel not in ("fastdiag", "mg"):
+            raise ValueError(f"mass_shift (unsteady Stokes) supports pcvel fastdiag|mg, "
+                             f"not {pcvel!r}")
         mixed = self.num_mixed > 0
         if pcvel == "fastdiag":
             if mixed:
@@ -807,11 +828,84 @@ class StokesProblem:
 
         return pc_setup, pc_apply
 
-    def make_dense_pc(self, *args, **kwargs):
-        raise _todo("make_dense_pc", "item 4: ops/dense.py")
+    def _dense_free_and_nulls(self):
+        """(free, null vectors) of the flat saddle state in ``_ravel``'s
+        order, p then v: the free dofs (bool) and, with the pressure null
+        space, its constant mode on the pressure dofs."""
+        free = np.concatenate([self.p_mask_np.reshape(-1), self.vel_mask_np.reshape(-1)])
+        nulls = []
+        if self.has_p_null:
+            nulls.append(np.concatenate([self.p_mask_np.reshape(-1).astype(np.float64),
+                                         np.zeros(self.vel_mask_np.size)]))
+        return free, nulls
 
-    def make_dense_pc_var(self, *args, **kwargs):
-        raise _todo("make_dense_pc_var", "item 4: ops/dense.py")
+    def make_dense_pc(self, params=None, x=None, *, block: int = 1024,
+                      factor: str = "host", lin_state=None):
+        """The exact inverse of the full saddle Jacobian at a frozen
+        linearization: the ``-pc_type lu`` role that the reference's
+        matrix-free shell operator cannot offer.  The Jacobian is assembled
+        on the grid's device in the linearization's dtype (ops/dense.py,
+        K1 under ``torch.func.vmap`` on the pressure's last axis), then
+        inverted with the fixed dofs decoupled and the constant-pressure
+        mode shifted out: ``factor="host"`` in float64 numpy,
+        ``"device"`` with ``torch.linalg.inv`` in working precision.  Each
+        apply is one ``torch.matmul``.
+
+        The linearization is ``lin_state`` if given (UnsteadyStokes
+        freezes its own), else the residual's at ``x`` (default: the zero
+        state) under ``params`` (default: the final continuation step).
+        Returns ``(pc_setup, pc_apply, pc_apply_adjoint)``: the first two
+        match ``make_pc``'s interface, the third applies Ainv^T (the
+        preconditioner of the transposed saddle system)."""
+        from spectral_tpu_torch.ops.dense import (assemble_dense, assemble_dense_device,
+                                                  dense_apply, regularized_inverse,
+                                                  regularized_inverse_device)
+
+        if factor not in ("host", "device"):
+            raise ValueError(f"unknown factor {factor!r}")
+        if lin_state is None:
+            params = self.params_at(self.config.cont) if params is None else params
+            _, lin_state = self.make_residual(params)(self.zero_state() if x is None else x)
+        free, nulls = self._dense_free_and_nulls()
+        example = self.zero_state(lin_state[0].dtype)
+
+        def op(w):
+            return self.jacobian_action(None, lin_state, w)
+
+        if factor == "device":
+            A, unravel = assemble_dense_device(op, example, block=block)
+            Ainv = regularized_inverse_device(A, free=free, null_vecs=nulls)
+        else:
+            A, unravel = assemble_dense(op, example, block=block)
+            Ainv = regularized_inverse(A, free=free, null_vecs=nulls)
+        del A
+        fwd = dense_apply(Ainv, unravel)
+        adj = dense_apply(Ainv, unravel, transpose=True)
+        return (lambda x, lin_state: None, lambda state, r: fwd(r),
+                lambda state, r: adj(r))
+
+    def make_dense_pc_var(self, *, block: int = 512):
+        """The dense exact saddle inverse for variable-coefficient
+        operators: ``pc_setup(x, lin_state)`` assembles the Jacobian at
+        ``lin_state`` and inverts it on its device in its dtype, returning
+        the inverse as the PC state, so the caller sets the refresh cadence
+        by where it calls setup (the ``-pc_lag`` discipline on the
+        ``-pc_type lu`` tier).  Each apply is one ``torch.matmul``.
+        Returns (pc_setup, pc_apply, pc_apply_adjoint)."""
+        from spectral_tpu_torch.ops.dense import (assemble_dense_device, dense_apply,
+                                                  regularized_inverse_device)
+        from spectral_tpu_torch.solvers.krylov import _ravel
+
+        free, nulls = self._dense_free_and_nulls()
+        _, unravel = _ravel(self.zero_state(), self.grid.dtype)
+
+        def pc_setup(x, lin_state):
+            A, _ = assemble_dense_device(lambda w: self.jacobian_action(None, lin_state, w),
+                                         self.zero_state(lin_state[0].dtype), block=block)
+            return regularized_inverse_device(A, free=free, null_vecs=nulls)
+
+        return (pc_setup, lambda Ainv, r: dense_apply(Ainv, unravel)(r),
+                lambda Ainv, r: dense_apply(Ainv, unravel, transpose=True)(r))
 
     # ------------------------------------------------------------------
     # Drivers (main, stokes.C:119-253)
@@ -857,6 +951,8 @@ class StokesProblem:
         if recycle_U0 is not None:
             raise _todo("Krylov recycling (recycle_U0)", "item 1b: solve_recycled")
         cfg = self.config
+        if cfg.mass_shift:
+            raise ValueError(_MASS_SHIFT_STEADY)
         params = params or self.params_at(cfg.cont)
         residual_raw = self.make_residual(params, monitor_eta=monitor)
 
@@ -876,6 +972,8 @@ class StokesProblem:
                             control_dtype=x0["p"].dtype if fused else None)
 
     def solve_family(self, *args, **kwargs):
+        if self.config.mass_shift:
+            raise ValueError(_MASS_SHIFT_STEADY)
         raise _todo("solve_family", "item 7: batched solves")
 
     def solve_continuation(self, monitor: bool = False, checkpoint_dir: str | None = None,

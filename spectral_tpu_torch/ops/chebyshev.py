@@ -14,7 +14,9 @@ Execution paths of ``chebdiff``:
   extension, the algorithm of the reference's ChebD1Mult.
 - ``"kernel"``: the hand-written CUDA kernel K1
   (``ops.cuda_cheb.chebdiff_last``) for the last axis; other axes take the
-  matmul path.  It is the port's name for the JAX package's ``"pallas"``.
+  matmul path.  A tensor batched by ``torch.func.vmap`` goes through K1's
+  vmap rule (``chebdiff_last_batched``), one launch for the batch.  It is
+  the port's name for the JAX package's ``"pallas"``.
 - ``"auto"``: the production switch.  On a CUDA tensor a last-axis
   derivative with ``n <= K1_MAX_N`` goes to K1; otherwise ``n <=
   MATMUL_MAX_N`` takes the matmul path and larger ``n`` the fft path.
@@ -209,7 +211,10 @@ def chebdiff(u: torch.Tensor, axis: int = 0, method: str = "auto") -> torch.Tens
             method = "matmul"
     if method == "kernel":
         if last:
-            return cuda_cheb.chebdiff_last(u.contiguous())
+            u = u.contiguous()
+            if torch._C._functorch.is_batchedtensor(u):   # under torch.func.vmap
+                return cuda_cheb.chebdiff_last_batched(u)
+            return cuda_cheb.chebdiff_last(u)
         method = "matmul"  # K1 streams the minor axis only
     if method == "matmul":
         return _chebdiff_matmul(u, axis)

@@ -21,9 +21,12 @@ Each wrapper takes its plain version (``*_ref``, the same function in
 tensor it launches the kernel or raises: there is no fallback.  Each
 launch adds one to ``LAUNCHES[<kernel name>]`` (K2's call launches two
 kernels, its plane pass and its x pass, and adds one to each), and each
-K1 launch to ``K1_LAUNCHES_BY_SHAPE[(u.shape, u.dtype)]``.  A launch goes
-on the caller's current stream, so it can be captured in a CUDA graph; a
-captured call counts once, when it is captured, and its replays do not.
+K1 launch to ``K1_LAUNCHES_BY_SHAPE[(u.shape, u.dtype)]``.  Under
+``torch.func.vmap`` K1 goes through an autograd function whose vmap rule
+launches it once on the whole batch (``chebdiff_last_batched``).  A
+launch goes on the caller's current stream, so it can be captured in a
+CUDA graph; a captured call counts once, when it is captured, and its
+replays do not.
 """
 
 from __future__ import annotations
@@ -204,6 +207,34 @@ def chebdiff_last(u: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     key = (u.shape, u.dtype)
     K1_LAUNCHES_BY_SHAPE[key] = K1_LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return y
+
+
+class _BatchedK1(torch.autograd.Function):
+    """K1 for tensors batched by ``torch.func.vmap`` (a batched tensor has
+    no ``data_ptr``): its vmap rule moves the batch axis first and
+    launches K1 once on the physical (B, ...) tensor.  K1 takes any rank,
+    so the batch joins its rows.  Forward only (no backward)."""
+
+    @staticmethod
+    def forward(u):
+        return chebdiff_last(u.contiguous())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, u):
+        if in_dims[0] is None:
+            return _BatchedK1.apply(u), None
+        return _BatchedK1.apply(u.movedim(in_dims[0], 0)), 0
+
+
+def chebdiff_last_batched(u: torch.Tensor) -> torch.Tensor:
+    """``chebdiff_last`` of a tensor batched by ``torch.func.vmap``: one K1
+    launch on the batch, counted in K1_LAUNCHES_BY_SHAPE under the
+    batched shape (batch axis first)."""
+    return _BatchedK1.apply(u)
 
 
 _GRID_KEYS = ("rows", "blocks", "threads", "smem")

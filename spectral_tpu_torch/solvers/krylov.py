@@ -1,7 +1,7 @@
 """Restarted GMRES / FGMRES on torch tensors: the PETSc KSP replacement.
 
 Counterpart of ``spectral_tpu/solvers/krylov.py`` for ``gmres``,
-``fgmres``, ``preonly``, ``extreme_singular_values`` and
+``fgmres``, ``cg``, ``preonly``, ``extreme_singular_values`` and
 ``KSPConfig.solve``.  A state is a tensor or
 a dict of tensors (the Stokes state {"v": (dims..., d), "p": dims}),
 flattened by concatenation in sorted key order, as ``ravel_pytree``
@@ -252,6 +252,63 @@ def fgmres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
                        history_len=history_len, flexible=True)
 
 
+def _cg_flat(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len):
+    dtype = b.dtype
+    sc = torch.empty(0, dtype=dtype).numpy().dtype.type  # numpy scalar type
+    tiny, rtol, atol, dtol = sc(_TINY), sc(rtol), sc(atol), sc(dtol)
+
+    r = P(b - A(x0))
+    z = M(r)
+    beta0 = sc(_norm(r).item())
+    hist = np.full(history_len, -1.0, sc)
+    hist[0] = beta0
+    reason = int(ConvergedReason.CONVERGED_ATOL if beta0 <= atol
+                 else ConvergedReason.ITERATING)
+    rnorm0 = max(beta0, tiny)
+    x, p, rz = x0, z, torch.dot(r, z)
+    it, rnorm = 0, beta0
+    while reason == ConvergedReason.ITERATING:
+        Ap = P(A(p))
+        pAp = torch.dot(p, Ap)
+        alpha = rz / torch.where(torch.abs(pAp) > _TINY, pAp, 1.0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rn = _norm(r)
+        # the next direction is queued before the norm reaches the host,
+        # as the JAX loop body computes it on its last pass too
+        z = M(r)
+        rz_new = torch.dot(r, z)
+        p = z + (rz_new / torch.where(torch.abs(rz) > _TINY, rz, 1.0)) * p
+        rz = rz_new
+        rnorm = sc(rn.item())
+        it += 1
+        hist[min(it, history_len - 1)] = rnorm
+        tol = max(rtol * rnorm0, atol)
+        if not np.isfinite(rnorm):
+            reason = ConvergedReason.DIVERGED_NANORINF
+        elif rnorm <= tol:
+            reason = (ConvergedReason.CONVERGED_ATOL if rnorm <= atol
+                      else ConvergedReason.CONVERGED_RTOL)
+        elif it >= max_it:
+            reason = ConvergedReason.DIVERGED_ITS
+        elif rnorm >= dtol * rnorm0:
+            reason = ConvergedReason.DIVERGED_DTOL
+        reason = int(reason)
+    return x, it, reason, float(rnorm), torch.from_numpy(hist)
+
+
+def cg(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
+       rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
+       null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+    """Preconditioned conjugate gradients (for SPD operators); one host
+    synchronisation per iteration, the residual norm."""
+    Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
+    xf, it, reason, rnorm, hist = _cg_flat(
+        Af, Mf, Pf, bf, x0f, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it,
+        history_len=_hist_len(history_len, max_it))
+    return SolveResult(unravel(xf), it, reason, rnorm, hist)
+
+
 def preonly(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
             null_project=None, history_len=HISTORY_LEN, **_) -> SolveResult:
     """Apply the preconditioner once (PETSc KSPPREONLY, e.g. ``-svel_ksp_type
@@ -307,9 +364,9 @@ def extreme_singular_values(A: Operator, b, *, m: int = 30,
     return float(s[0]), float(s[-1])
 
 
-_KSP_TYPES = {"gmres": gmres, "fgmres": fgmres, "preonly": preonly}
+_KSP_TYPES = {"gmres": gmres, "fgmres": fgmres, "cg": cg, "preonly": preonly}
 # KSP types of the JAX package that this package does not carry yet.
-_NOT_PORTED = ("cg", "bcgs", "bicgstab", "richardson", "chebyshev", "minres")
+_NOT_PORTED = ("bcgs", "bicgstab", "richardson", "chebyshev", "minres")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,5 +393,7 @@ class KSPConfig:
         kwargs = dict(M=M, null_project=null_project, history_len=self.history_len)
         if self.type != "preonly":
             kwargs.update(rtol=self.rtol, atol=self.atol, dtol=self.dtol,
-                          max_it=self.max_it, restart=self.restart)
+                          max_it=self.max_it)
+        if self.type in ("gmres", "fgmres"):
+            kwargs["restart"] = self.restart
         return _KSP_TYPES[self.type](A, b, x0, **kwargs)

@@ -142,3 +142,17 @@ def coupled_stencil_to_numpy(stencil) -> tuple[tuple, tuple]:
     return (tuple(tuple(int(o) for o in off) for off in stencil.offsets),
             tuple(np.asarray(_np(c), np.float64) for c in stencil.coef))
 
+
+
+def dense_apply_from_numpy(Ainv, example, *, device: torch.device | str,
+                           dtype: torch.dtype, transpose: bool = False):
+    """The port's ``dense_apply`` of a dense inverse given as numpy (the
+    JAX package's ``regularized_inverse`` output), in ``dtype`` on
+    ``device``, for states shaped like ``example`` (a tensor or a dict of
+    tensors, e.g. ``StokesProblem.zero_state()``): both packages flatten a
+    state in the same order, so the factors carry across entry by entry."""
+    from spectral_tpu_torch.ops.dense import dense_apply
+    from spectral_tpu_torch.solvers.krylov import _ravel
+
+    _, unravel = _ravel(example, dtype)
+    return dense_apply(_dev(Ainv, device, dtype), unravel, transpose=transpose)

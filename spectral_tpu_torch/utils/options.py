@@ -73,6 +73,13 @@ class Options:
         v = self._get(key)
         return default if v is None else v
 
+    def get_bool(self, key: str, default: bool = False) -> bool:
+        """A bare flag is true; a value is false when it is 0, false or no."""
+        v = self._get(key)
+        if v is None:
+            return default
+        return v.lower() not in ("0", "false", "no")
+
     def get_int_array(self, key: str, default: Sequence[int]) -> tuple[int, ...]:
         v = self._get(key)
         if v is None:

@@ -61,6 +61,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import sys
 import time
 
@@ -316,6 +317,98 @@ def perturbed(argv):
         jax.clear_caches()
 
 
+# The heat and ustokes command lines of UNSTEADY_ORACLE (chip_smoke.py)
+HEAT = {
+    "heat 16^2": ["-dim", "16,16", "-dt", "0.01", "-nsteps", "20"],
+    "heat 64^3 cn": ["-dim", "64,64,64", "-dt", "0.01", "-nsteps", "20"],
+    "heat 64^3 bdf2": ["-dim", "64,64,64", "-dt", "0.01", "-nsteps", "20", "-ts_type", "bdf2"],
+    "heat 64^3 adapt": ["-dim", "64,64,64", "-dt", "0.01", "-nsteps", "20", "-ts_adapt"],
+}
+USTOKES20 = ["-dim", "20,20,20", "-dt", "0.05"]
+USTOKES = {
+    "ustokes 12^2": ["-dim", "12,12", "-dt", "0.05", "-nsteps", "10"],
+    "ustokes 20^3 cn": [*USTOKES20, "-nsteps", "10"],
+    "ustokes 20^3 bdf2": [*USTOKES20, "-nsteps", "10", "-scheme", "bdf2"],
+    "ustokes 20^3 powerlaw": [*USTOKES20, "-nsteps", "5", "-rheology", "1", "-exponent", "3"],
+    "ustokes 16^3 powerlaw bdf2": ["-dim", "16,16,16", "-dt", "0.05", "-nsteps", "5",
+                                   "-rheology", "1", "-exponent", "3", "-scheme", "bdf2"],
+    "ustokes 16^3 dense-device": ["-dim", "16,16,16", "-dt", "0.05", "-nsteps", "10",
+                                  "-saddle_pc", "dense-device"],
+    "ustokes 12^3 dense": ["-dim", "12,12,12", "-dt", "0.05", "-nsteps", "10",
+                           "-saddle_pc", "dense"],
+    "ustokes 12^3 cn": ["-dim", "12,12,12", "-dt", "0.05", "-nsteps", "10"],
+    "ustokes 12^3 no_scan": ["-dim", "12,12,12", "-dt", "0.05", "-nsteps", "10", "-no_scan"],
+}
+
+
+def run_unsteady(name, argv, perturb: float = 0.0, seed: int = 0) -> dict:
+    """The JAX heat or ustokes driver on ``argv``: its error and printed
+    counts, and the per-step outer counts of every ``UnsteadyStokes.rollout``
+    it ran.  ``perturb`` adds masked normal noise of that size (from
+    ``seed``) to the unknowns of the manufactured start."""
+    from spectral_tpu.cli.drivers import heat_main, unsteady_stokes_main
+    from spectral_tpu.models.stokes_unsteady import UnsteadyStokes
+    from spectral_tpu.utils.options import Options
+
+    rollouts = []
+    orig_roll, orig_man = UnsteadyStokes.rollout, UnsteadyStokes.manufactured
+
+    def roll(self, *a, **kw):
+        out = orig_roll(self, *a, **kw)
+        rollouts.append([int(i) for i in out[2]])
+        return out
+
+    def man(self, omega=1.0):
+        u0, *rest = orig_man(self, omega)
+        if perturb:
+            rng = np.random.default_rng(seed)
+            u0 = u0 + perturb * self.problem.mask_v(jnp.asarray(rng.standard_normal(u0.shape)))
+        return (u0, *rest)
+
+    UnsteadyStokes.rollout, UnsteadyStokes.manufactured = roll, man
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = (heat_main if name.startswith("heat") else unsteady_stokes_main)(Options(argv))
+        seconds = time.perf_counter() - t0
+    finally:
+        UnsteadyStokes.rollout, UnsteadyStokes.manufactured = orig_roll, orig_man
+    out = buf.getvalue()
+    err = float(re.search(r"Norm of error.*?([-+\d.]+e[-+]\d+)", out).group(1))
+    row = {"name": name, "argv": " ".join(argv), "rc": rc, "perturb": perturb, "seed": seed,
+           "error": err, "seconds": seconds}
+    m = re.search(r"ts_adapt: (\d+) accepted steps, (\d+) rejected, dt (\S+) \.\. (\S+)", out)
+    if m:
+        row.update(accepted=int(m.group(1)), rejected=int(m.group(2)),
+                   dt_min=float(m.group(3)), dt_max=float(m.group(4)))
+    m = re.search(r"Outer iterations per step: min (\d+)  max (\d+)", out)
+    if m:
+        row.update(outer_min=int(m.group(1)), outer_max=int(m.group(2)))
+    if rollouts:
+        row["per_step"] = rollouts[-1]
+    return row
+
+
+def unsteady():
+    """Every HEAT and USTOKES row, then perturbed_unsteady()."""
+    for name, argv in {**HEAT, **USTOKES}.items():
+        yield run_unsteady(name, argv)
+        jax.clear_caches()
+    yield from perturbed_unsteady()
+
+
+def perturbed_unsteady():
+    """The 20^3 power-law rollout from perturbed starts (SEEDS, or 0-7),
+    then the 20^3 linear CN and BDF2 rollouts (SEEDS, or 0-15), one run
+    at a time."""
+    for name, seeds in (("ustokes 20^3 powerlaw", range(8)), ("ustokes 20^3 cn", range(16)),
+                        ("ustokes 20^3 bdf2", range(16))):
+        for seed in (SEEDS if SEEDS is not None else seeds):
+            yield run_unsteady(name, USTOKES[name], 1e-13, seed)
+            jax.clear_caches()
+
+
 SECTIONS = {
     "cli43": lambda: run_cli(README43),
     "cli52": lambda: run_cli(README52),
@@ -335,6 +428,8 @@ SECTIONS = {
     "perturb_sv": lambda: perturbed(Q1_STOKES["README:43 singular values"]),
     "perturb_q1fem52": lambda: perturbed(Q1_STOKES["README:52 pcvel 1"]),
     "perturb_gseq52": lambda: perturbed(Q1_STOKES["README:52 grid sequence 1"]),
+    "unsteady": unsteady,
+    "perturb_unsteady": perturbed_unsteady,
 }
 
 

@@ -520,3 +520,83 @@ def test_q1_and_probed_velocity_pc_on_card(cuda, pcvel, boundary, tbc):
         setup, apply = p.make_vel_pc()
         out[str(dev)] = apply(setup(ls), r["v"].to(dev))
     assert _rel(out[str(cuda)].cpu(), out["cpu"]) <= 1e-11
+
+
+# -- the dense tier and time stepping -----------------------------------------------
+
+@pytest.mark.parametrize("shape,in_dims", [((64, 16, 16, 16), 0), ((12, 12, 9, 12), 2)])
+def test_k1_under_vmap_matches_plain(cuda, shape, in_dims):
+    """K1 under torch.func.vmap (the dense assembly's route): one launch on
+    the batch, batch axis first, bit for bit its plain version in float64."""
+    u = _randn(shape, torch.float64, cuda, 4)
+    got = torch.func.vmap(lambda x: chebyshev.chebdiff(x, -1), in_dims=in_dims)(u)
+    phys = u.movedim(in_dims, 0).contiguous()
+    assert torch.equal(got, cuda_cheb.chebdiff_last_ref(phys))
+    assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] == 1
+    assert cuda_cheb.K1_LAUNCHES_BY_SHAPE == {(phys.shape, torch.float64): 1}
+
+
+def test_dense_assembly_on_card(cuda):
+    """The mass-shifted saddle Jacobian assembled on the card (K1 under
+    vmap on the pressure's last axis) against the same assembly on the
+    host, and the device inverse's apply against the host float64 one."""
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.ops import dense
+
+    cfg = StokesConfig(exact=2, mass_shift=20.0)
+    mats = {}
+    for dev in ("cpu", cuda):
+        p = StokesProblem(Grid((8, 8, 8), device=dev), cfg)
+        lin = (torch.ones((8, 8, 8), dtype=torch.float64, device=dev),
+               torch.zeros((8, 8, 8), dtype=torch.float64, device=dev),
+               torch.zeros((8, 8, 8, 3, 3), dtype=torch.float64, device=dev))
+        mats[str(dev)] = p, lin, dense.assemble_dense_device(
+            lambda w: p.jacobian_action(None, lin, w), p.zero_state(), block=512)[0]
+    A_host, A_card = mats["cpu"][2], mats["cuda"][2].cpu()
+    assert _rel(A_card, A_host) <= 1e-13
+    assert cuda_cheb.K1_LAUNCHES_BY_SHAPE[(torch.Size((512, 8, 8, 8)), torch.float64)] == 4
+    p, lin, _ = mats["cuda"]
+    r = {k: v.to(cuda) for k, v in _stokes_state(p, 3).items()}
+    outs = [p.make_dense_pc(lin_state=lin, factor=f)[1](None, r) for f in ("host", "device")]
+    for k in ("v", "p"):
+        assert _rel(outs[1][k], outs[0][k]) <= 1e-9
+
+
+def test_cg_on_card(cuda):
+    """CG on the heat model's implicit operator (K1 in the Laplacian):
+    the card's counts and history equal the host's."""
+    from spectral_tpu_torch.models.heat import HeatModel
+    from spectral_tpu_torch.solvers.krylov import cg
+
+    out = {}
+    for dev in ("cpu", cuda):
+        m = HeatModel(Grid((24, 24, 24), device=dev), dt=0.01)
+        b = _randn((24, 24, 24), torch.float64, dev, 5)
+        out[str(dev)] = cg(m.implicit_operator, b, M=m._pc_apply, rtol=1e-10, max_it=100)
+    host, card = out["cpu"], out["cuda"]
+    assert card.iters == host.iters and card.reason == host.reason
+    assert _rel(card.x.cpu(), host.x) <= 1e-10
+    assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0
+
+
+def test_heat_and_unsteady_steps_on_card(cuda):
+    """A heat BDF2 step at 24^3 and a linear unsteady Stokes CN step at
+    12^3 on the card against the same steps on the host."""
+    from spectral_tpu_torch.models.heat import HeatModel
+    from spectral_tpu_torch.models.stokes import StokesConfig
+    from spectral_tpu_torch.models.stokes_unsteady import UnsteadyStokes
+
+    heat, us = {}, {}
+    for dev in ("cpu", cuda):
+        m = HeatModel(Grid((24, 24, 24), device=dev), dt=0.01)
+        u0 = _randn((24, 24, 24), torch.float64, dev, 6)
+        z = torch.zeros_like(u0)
+        heat[str(dev)] = m.step_bdf2_dt(u0, 0.9 * u0, z, z, 0.01, 1.0)
+        u = UnsteadyStokes(Grid((12, 12, 12), device=dev), StokesConfig(exact=1), dt=0.05)
+        v0, s_of_t, f_of_t, _, _ = u.manufactured()
+        us[str(dev)] = u.step(v0, s_of_t(0.05), 0.5 * (f_of_t(0.0) + f_of_t(0.05)))
+    assert _rel(heat["cuda"].cpu(), heat["cpu"]) <= 1e-10
+    (hv, hp, hits, _), (cv, cp, cits, _) = us["cpu"], us["cuda"]
+    assert abs(cits - hits) <= 1
+    assert _rel(cv.cpu(), hv) <= 1e-8 and _rel(cp.cpu(), hp) <= 1e-8
+    assert cuda_cheb.K1_LAUNCHES_BY_SHAPE[(torch.Size((12, 12, 12)), torch.float64)] > 0
