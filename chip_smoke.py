@@ -60,9 +60,19 @@ paths at their real sizes through the entry points a user calls:
      (a Newton loop a step); (c) the dense tier, ``-saddle_pc
      dense-device`` at 16^3 and ``dense`` (a host float64 inverse) at
      12^3, K1 under ``torch.func.vmap`` in the assembly (phase 1 holds K1
-     to its plain version at that batched shape, bit for bit).
+     to its plain version at that batched shape, bit for bit);
+ 12. thermal convection in float64, gated on CONVECTION_ORACLE: (a)
+     Blankenbach case 1a through the ``convection`` CLI, marched to steady
+     state on the dense saddle PC, 10 steps on the nested tree, 20 with the
+     3/2-rule advection, and ``-ts_adapt``; (b) its direct Newton steady
+     state (``-newton``); (c) ``-stability 2``, the critical Rayleigh number
+     and growth rates by the Krylov-Schur eigensolver; (d) the Busse et al.
+     square cell at (14, 14, 12) through ``steady_newton`` on the saddle
+     inverse factored on the card (K1 under vmap in its assembly), held to
+     BUSSE_LADDER.json; (e) variable viscosity on the lagged dense PC and
+     the eta-aware nested tree.
 
-Each path (phases 3-11) is driven with the launch counts set to 0 just
+Each path (phases 3-12) is driven with the launch counts set to 0 just
 before it and read just after (K1's also by shape), and times nothing
 inside it (a call captured in a CUDA graph counts once and launches at
 every replay); every phase raises on failure.  A timed comparison gives
@@ -97,14 +107,17 @@ BOUND = {"float32": 1e-5, "float64": 1e-12}   # max |kernel - plain| / max |plai
 # Stokes forward step, phase 8), 20^3 (the Stokes CLI in float64, and
 # solve_refined's float32 inner solves, phase 8; phase 9's 20^3 paths),
 # (16, 16) and (12, 12, 12) (phase 9's 2-D mixed solves and the 12^3
-# Neumann CLI, float64), and the coarse levels of phase 10's grid
-# sequencing, K1_GSEQ_SHAPES (float64; K1 is bit for bit its plain
-# version there, a gate)
+# Neumann CLI, float64), the coarse levels of phase 10's grid sequencing,
+# K1_GSEQ_SHAPES, and phase 12's convection shapes, K1_CONV_SHAPES (float64;
+# K1 is bit for bit its plain version at both sets, a gate)
 K1_GSEQ_SHAPES = ((8, 8, 8), (10, 10, 10), (16, 16, 16))
-# the dense assembly's batch of 1024 one-hot states at 16^3 (phase 11c)
-K1_BATCHED_SHAPE = (1024, 16, 16, 16)
+K1_CONV_SHAPES = ((12, 12), (14, 14, 12))
+# the dense assemblies' batches of one-hot states: 1024 at 16^3 (phase 11c)
+# and at (14, 14, 12) (phase 12d), 512 at 16^2 (phase 12e's lagged refresh);
+# K1 bit for bit its plain version on each, directly and under vmap
+K1_BATCHED_SHAPES = ((1024, 16, 16, 16), (1024, 14, 14, 12), (512, 16, 16))
 K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5, (20, 20, 20), (16, 16),
-                  (12, 12, 12)) + K1_GSEQ_SHAPES
+                  (12, 12, 12)) + K1_GSEQ_SHAPES + K1_CONV_SHAPES
 K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
 # K3's ragged cases, each in float32 and float64: (rows, n, pack, row tile,
 # offset of u2d in its storage).  n % 4 == 0 goes by bulk copies (n = 12:
@@ -647,6 +660,313 @@ def phase11(cli_main, path, k1_shapes) -> dict:
     return out
 
 
+# Phase 12: thermal convection and the Krylov-Schur eigensolver in float64.
+# CONVECTION_ORACLE: the JAX package on the CPU in float64 (``python3
+# stokes_oracle.py convection``: its convection driver on the same command
+# lines, with the full-precision diagnostics of each run and the
+# eigenvalues captured as it ran; the printed Nu(volume)).  12a:
+# Blankenbach case 1a marched with the dense saddle PC (bench.py's), its
+# steps within one chunk (50) of the oracle's, where they agree its
+# diagnostics within 1e-6 relative of the oracle's, and Nu(top) and Vrms
+# within 1% of the published 4.884409 and 42.864947; 10 steps on the
+# nested tree (tbc 1) and 20 with the 3/2-rule advection, Nu and Vrms to
+# 1e-8; -ts_adapt (tests/test_convection.py's adaptive case), accepted and
+# rejected steps within max(3, 10%), the dt range within 10%, Nu within
+# 2e-3.  12b: -newton on 12a's line, the Newton count equal, each Krylov
+# count within max(3, 10%), Nu and Vrms within 1e-8 of the oracle's and 1%
+# of the published values.  12c: -stability 2 at 12x12, Ra 2000: Ra_c
+# within 1e-6 relative of 8 pi^4 (tests/test_eig.py:189), converged, its
+# operator applications and the growth rates' within max(3, 10%) of the
+# oracle's, the growth rates within 1e-6 of the oracle's, the same verdict.
+BLANKENBACH = ["-dim", "16,16", "-ra", "1e4", "-dt", "5e-4", "-bc", "freeslip", "-sides",
+               "insulated"]
+PUBLISHED_1A = {"nu": 4.884409, "vrms": 42.864947}   # Blankenbach et al. (1989), case 1a
+CONVECTION_ORACLE = {
+    "12a blankenbach": dict(
+        argv=["convection", *BLANKENBACH, "-steady_tol", "1e-3", "-stokes_pc", "dense"],
+        steps=600, nu_top=4.891431405541178, nu_bottom=4.891431405541168, nu_volume=4.884664,
+        vrms=42.8665163561841, rtol=1e-6, published=True, warm=1),
+    "12a nested": dict(
+        argv=["convection", *BLANKENBACH, "-nsteps", "10"], nu_top=1.1123120618510973,
+        nu_bottom=1.1123120521316372, nu_volume=2.368198, vrms=24.914237533123497, rtol=1e-8),
+    "12a dealias": dict(
+        argv=["convection", "-dim", "12,12", "-ra", "1e4", "-dt", "5e-4", "-bc", "freeslip",
+              "-sides", "insulated", "-nsteps", "20", "-stokes_pc", "dense", "-dealias", "1"],
+        nu_top=2.1631584295610016, nu_bottom=2.1631584295609967, nu_volume=10.030181,
+        vrms=65.41113107379206, rtol=1e-8, warm=1),
+    "12a adapt": dict(
+        argv=["convection", "-ts_adapt", "-dim", "12,12", "-ra", "5e3", "-dt", "1e-3",
+              "-ts_dt0", "2e-5", "-steady_tol", "1e-4", "-stokes_pc", "dense"],
+        accepted=377, rejected=1, dt=(2e-05, 0.00219), nu_top=3.8051115171546765, warm=1),
+    "12b newton": dict(
+        argv=["convection", *BLANKENBACH, "-steady_tol", "1e-3", "-stokes_pc", "dense",
+              "-newton"],
+        newton=5, krylov=[4, 12, 12, 20, 28], nu_top=4.891494051655885,
+        nu_bottom=4.891494051656955, vrms=42.86685725327048, rtol=1e-8, published=True,
+        warm=1),
+    "12c stability": dict(
+        argv=["convection", "-stability", "2", "-dim", "12,12", "-ra", "2000", "-stokes_pc",
+              "dense"],
+        ra_c_matvecs=22, growth=[-9.869604401559814, -16.925454704631253, 30.921383023053693],
+        growth_matvecs=23, verdict="UNSTABLE", warm=1),
+}
+# 12d: the Busse et al. (1994) square cell at bench.py::bench_convection3d's
+# width through the model API: (14, 14, 12), Ra 3e4, rigid top and bottom,
+# insulated free-slip sidewalls, aspect (1.5, 1.5), the saddle inverse
+# factored on the card (n = 9,408), steady_newton(warmup=300, rtol 1e-7)
+# as tests/test_convection.py:407 runs it; held to BUSSE_LADDER.json's
+# "seed" (the JAX package on the CPU, 327 s): Nu and Vrms within 1e-3
+# relative, Nu(bottom) within 1e-3 of Nu(top), the x-y symmetry error under
+# 1e-5.  12e: bench.py::bench_convection_var_eta's configuration (16^2, Ra
+# 2e3, dt 2e-4, contrast 10, lag 25) for VAR_ETA_STEPS steps on the lagged
+# dense PC and on the eta-aware nested tree (``stokes_oracle.py
+# convection``'s var_eta): Nu within 1e-8 of the oracle's on both, the
+# outer count of a fresh solve at the rolled state within max(3, 10%).
+BUSSE_SEED = {"nu": 3.2733793704775707, "vrms": 39.01461680873072}
+VAR_ETA_STEPS = 12
+VAR_ETA_ORACLE = {"dense": dict(nu=1.0069876361283416, fresh_outer=1),
+                  "nested": dict(nu=1.006987637955556, fresh_outer=32)}
+
+
+def _max10(k: int, ref: int) -> bool:
+    return abs(k - ref) <= max(3, 0.1 * ref)
+
+
+def phase12_ok(name: str, got: dict) -> str | None:
+    """Why a phase 12 CLI run misses CONVECTION_ORACLE[name]'s gates, or
+    None (the gates are listed above the table)."""
+    spec = CONVECTION_ORACLE[name]
+    if "steps" in spec:
+        if abs(got["steps"] - spec["steps"]) > 50:
+            return f"steps {got['steps']}, oracle {spec['steps']} (one chunk, 50)"
+    if "rtol" in spec and ("steps" not in spec or got["steps"] == spec["steps"]):
+        for key in ("nu_top", "nu_bottom", "vrms"):
+            if abs(got[key] - spec[key]) > spec["rtol"] * abs(spec[key]):
+                return f"{key} {got[key]!r}, oracle {spec[key]!r} ({spec['rtol']:.0e})"
+        # printed to 6 decimals by both drivers
+        if "nu_volume" in spec and abs(got["nu_volume"] - spec["nu_volume"]) > max(
+                spec["rtol"] * spec["nu_volume"], 1.5e-6):
+            return f"Nu(volume) {got['nu_volume']}, oracle {spec['nu_volume']}"
+    if spec.get("published"):
+        for key, ref in (("nu_top", PUBLISHED_1A["nu"]), ("vrms", PUBLISHED_1A["vrms"])):
+            if abs(got[key] - ref) > 1e-2 * ref:
+                return f"{key} {got[key]!r}, published {ref} (1%)"
+    if "accepted" in spec:
+        if not (_max10(got["accepted"], spec["accepted"])
+                and _max10(got["rejected"], spec["rejected"])):
+            return (f"ts_adapt {got['accepted']} / {got['rejected']}, "
+                    f"oracle {spec['accepted']} / {spec['rejected']}")
+        if any(abs(a - b) > 0.1 * b for a, b in zip(got["dt"], spec["dt"])):
+            return f"dt range {got['dt']}, oracle {spec['dt']} (10%)"
+        if abs(got["nu_top"] - spec["nu_top"]) > 2e-3 * spec["nu_top"]:
+            return f"Nu {got['nu_top']!r}, oracle {spec['nu_top']!r} (2e-3)"
+    if "newton" in spec:
+        if got["newton"] != spec["newton"] or len(got["krylov"]) != len(spec["krylov"]) or \
+                not all(_max10(k, r) for k, r in zip(got["krylov"], spec["krylov"])):
+            return (f"Newton {got['newton']} Krylov {got['krylov']}, oracle {spec['newton']} "
+                    f"{spec['krylov']} (max(3, 10%))")
+    if "growth" in spec:
+        ra_c_exact = 8.0 * math.pi ** 4
+        if not got["ra_c_converged"] or abs(got["ra_c"] - ra_c_exact) > 1e-6 * ra_c_exact:
+            return f"Ra_c {got['ra_c']!r} (converged {got['ra_c_converged']}), 8 pi^4 (1e-6)"
+        if not (_max10(got["ra_c_matvecs"], spec["ra_c_matvecs"])
+                and _max10(got["growth_matvecs"], spec["growth_matvecs"])):
+            return (f"operator applications {got['ra_c_matvecs']} / {got['growth_matvecs']}, "
+                    f"oracle {spec['ra_c_matvecs']} / {spec['growth_matvecs']}")
+        if not got["growth_converged"] or len(got["growth"]) != len(spec["growth"]) or any(
+                abs(a - b) > 1e-6 for a, b in zip(sorted(got["growth"]), sorted(spec["growth"]))):
+            return f"growth rates {got['growth']}, oracle {spec['growth']} (1e-6)"
+        if got["verdict"] != spec["verdict"]:
+            return f"verdict {got['verdict']}, oracle {spec['verdict']}"
+    return None
+
+
+@contextlib.contextmanager
+def captured_convection():
+    """Capture what a convection CLI run computes, at full precision: the
+    diagnostics of its march, rollout or Newton solve (and that solve's
+    counts), its critical Rayleigh number and growth rates."""
+    from spectral_tpu_torch.models.convection import ConvectionModel as M
+
+    got = {}
+    orig = {k: getattr(M, k) for k in ("rollout", "march_to_steady", "march_adaptive",
+                                       "steady_newton", "critical_rayleigh",
+                                       "stability_eigenvalues")}
+
+    def diag(m, T, x):
+        got.update(m._diagnostics(T, x), nu_volume=float(m.nusselt_volume(T, x)))
+
+    def rollout(self, *a, **kw):
+        T, N, x = orig["rollout"](self, *a, **kw)
+        diag(self, T, x)
+        return T, N, x
+
+    def marcher(key):
+        def run(self, *a, **kw):
+            T, x, info = orig[key](self, *a, **kw)
+            diag(self, T, x)
+            got.update(steps=info["steps"], converged=info["converged"])
+            if key == "march_adaptive":
+                got.update(accepted=info["steps"], rejected=info["rejects"],
+                           dt=(min(info["dts"]), max(info["dts"])))
+            if key == "steady_newton":
+                got.update(newton=int(info["newton"].iters),
+                           krylov=[int(k) for k in info["newton"].ksp_iters],
+                           stokes_solves_lower_bound=info["steps"])
+            return T, x, info
+        return run
+
+    def critical_rayleigh(self, *a, **kw):
+        ra_c, res = orig["critical_rayleigh"](self, *a, **kw)
+        got.update(ra_c=float(ra_c), ra_c_converged=bool(res.converged),
+                   ra_c_matvecs=int(res.matvecs))
+        return ra_c, res
+
+    def stability_eigenvalues(self, *a, **kw):
+        res = orig["stability_eigenvalues"](self, *a, **kw)
+        growth = [float(z.real) for z in res.eigenvalues]
+        got.update(growth=growth, growth_converged=bool(res.converged),
+                   growth_matvecs=int(res.matvecs),
+                   verdict="UNSTABLE" if max(growth) > 0 else "stable")
+        return res
+
+    patched = {"rollout": rollout, "critical_rayleigh": critical_rayleigh,
+               "stability_eigenvalues": stability_eigenvalues,
+               **{k: marcher(k) for k in ("march_to_steady", "march_adaptive", "steady_newton")}}
+    for k, fn in patched.items():
+        setattr(M, k, fn)
+    try:
+        yield got
+    finally:
+        for k, fn in orig.items():
+            setattr(M, k, fn)
+
+
+def busse_model(dev):
+    """12d's model and initial temperature (bench.py::bench_convection3d)."""
+    import numpy as np
+    import torch
+
+    from spectral_tpu_torch.models.convection import ConvectionConfig, ConvectionModel
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+    cfg = ConvectionConfig(Ra=3e4, dt=2e-4, velocity_bc="rigid", side_bc="insulated",
+                           stokes_pc="dense-device",
+                           stokes_ksp=KSPConfig(type="fgmres", rtol=1e-7, max_it=200,
+                                                restart=80))
+    m = ConvectionModel.box((14, 14, 12), cfg, aspect=(1.5, 1.5), device=dev)
+    x, y, z = (m.grid.coords_np[..., i] for i in range(3))
+    T0 = (1.0 - z) + 0.05 * (np.cos(np.pi * x / 1.5) + np.cos(np.pi * y / 1.5)) * np.sin(np.pi * z)
+    return m, torch.as_tensor(T0, dtype=torch.float64, device=dev)
+
+
+def busse_newton():
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+    return NewtonConfig(rtol=1e-7, max_it=25, ksp_ew=True)
+
+
+def var_eta_model(dev, stokes_pc: str):
+    """12e's model (bench.py::bench_convection_var_eta's configuration)."""
+    from spectral_tpu_torch.models.convection import ConvectionConfig, ConvectionModel
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+    cfg = ConvectionConfig(Ra=2e3, dt=2e-4, velocity_bc="freeslip", side_bc="insulated",
+                           eta_contrast=10.0, stokes_pc=stokes_pc, stokes_pc_lag=25,
+                           stokes_ksp=KSPConfig(type="fgmres", rtol=1e-6, max_it=120,
+                                                restart=60))
+    return ConvectionModel.unit_box((16, 16), cfg, device=dev)
+
+
+def phase12(cli_main, path, k1_shapes) -> dict:
+    """Phase 12: every CONVECTION_ORACLE run through the CLI (first call;
+    a warm call too where ``warm`` is 1), then the Busse cell (12d, a
+    first and a warm call after the set-up) and the variable-viscosity
+    rollouts (12e, one call each with the model's set-up inside it)
+    through the model API; K1 launches by shape for each path."""
+    import numpy as np
+    import torch
+
+    K1 = "chebdiff_last_kernel"
+    dev = torch.device("cuda")
+    out = {}
+
+    def record(name, counts, first_s, warm_s, **rec):
+        out[name] = {**rec, "first_s": first_s, "warm_s": warm_s,
+                     "k1_launches": counts[K1], "k1_launches_by_shape": k1_shapes[name]}
+
+    for name, spec in CONVECTION_ORACLE.items():
+        with captured_convection() as got:
+            ((rc, text), first_s, warm_s), counts = path(
+                name, lambda: timed_twice(lambda: run_cli(cli_main, spec["argv"]),
+                                          warm_reps=spec.get("warm", 0)), [K1])
+        require(rc == 0, f"{name} failed (rc {rc}): {text[-3000:]!r}")
+        why = phase12_ok(name, got)
+        require(why is None, f"{name}: {why}")
+        record(name, counts, first_s, warm_s, cli=" ".join(spec["argv"]), **got)
+    # 12d: the Busse square cell through the model API: the model's set-up
+    # (the saddle inverse's assembly and factorization on the card), then
+    # steady_newton twice, a first and a warm call; the counts cover both
+    name = "12d busse"
+    solves = {"solve_stokes": 0, "_stability_dv": 0}
+
+    def busse():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, T0 = busse_model(dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        for key in solves:
+            def counted(*a, _key=key, _fn=getattr(m, key), **kw):
+                solves[_key] += 1
+                return _fn(*a, **kw)
+            setattr(m, key, counted)
+        return setup_s, timed_twice(lambda: m.steady_newton(T0, warmup=300,
+                                                            newton=busse_newton()), warm_reps=1)
+
+    (setup_s, ((T, x, info), first_s, warm_s)), counts = path(name, busse, [K1])
+    solves = {k: v // 2 for k, v in solves.items()}   # a run's, of the two
+    Tn = T.cpu().numpy()
+    sym = float(np.abs(Tn - np.swapaxes(Tn, 0, 1)).max())
+    nu, nu_b, vrms = info["nu_top"], info["nu_bottom"], info["vrms"]
+    require(info["converged"], f"{name}: Newton did not converge ({info['newton'].reason_str()})")
+    require(abs(nu - BUSSE_SEED["nu"]) <= 1e-3 * BUSSE_SEED["nu"],
+            f"{name}: Nu {nu!r}, BUSSE_LADDER.json {BUSSE_SEED['nu']!r} (1e-3)")
+    require(abs(vrms - BUSSE_SEED["vrms"]) <= 1e-3 * BUSSE_SEED["vrms"],
+            f"{name}: Vrms {vrms!r}, BUSSE_LADDER.json {BUSSE_SEED['vrms']!r} (1e-3)")
+    require(abs(nu_b - nu) <= 1e-3 * nu, f"{name}: Nu(bottom) {nu_b!r}, Nu(top) {nu!r}")
+    require(sym < 1e-5, f"{name}: x-y symmetry error {sym:.3e} >= 1e-5")
+    require(k1_shapes[name].get("(1024, 14, 14, 12) float64", 0) > 0,
+            f"{name}: K1 was not launched on the assembly's (1024, 14, 14, 12) float64")
+    record(name, counts, first_s, warm_s, setup_s=setup_s, nu_top=nu, nu_bottom=nu_b,
+           vrms=vrms, symmetry=sym,
+           newton=int(info["newton"].iters), krylov=[int(k) for k in info["newton"].ksp_iters],
+           stokes_solves_lower_bound=info["steps"], stokes_solves=solves,
+           converged=info["converged"])
+    del T, x, info
+    torch.cuda.empty_cache()
+    # 12e: variable viscosity, the lagged dense PC and the eta-aware nested tree
+    for pc, spec in VAR_ETA_ORACLE.items():
+        name = f"12e var eta {pc}"
+
+        def run():
+            m = var_eta_model(dev, pc)
+            T, _, x = m.rollout(m.conductive_state(amp=0.05), VAR_ETA_STEPS)
+            return T, float(m.nusselt_top(T)), m.solve_stokes(T, m.stokes.zero_state()).iters
+
+        ((T, nu, fresh), first_s, _), counts = path(
+            name, lambda: timed_twice(run, warm_reps=0), [K1])
+        require(abs(nu - spec["nu"]) <= 1e-8 * spec["nu"],
+                f"{name}: Nu {nu!r}, oracle {spec['nu']!r} (1e-8)")
+        require(_max10(int(fresh), spec["fresh_outer"]),
+                f"{name}: fresh outer {fresh}, oracle {spec['fresh_outer']} (max(3, 10%))")
+        if pc == "dense":
+            require(k1_shapes[name].get("(512, 16, 16) float64", 0) > 0,
+                    f"{name}: K1 was not launched on the refresh's (512, 16, 16) float64")
+        record(name, counts, first_s, None, steps=VAR_ETA_STEPS, nu_top=nu,
+               fresh_outer=int(fresh))
+    return out
+
+
 def stokes_krylov_range(spec: dict):
     """Per Newton step, and in total, the least and the most Krylov
     iterations among the oracle's run and its perturbed runs."""
@@ -1024,7 +1344,7 @@ def main() -> int:
             k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u, scale),
                               lambda: cuda_cheb.chebdiff_last_ref(u, scale), u,
                               f"{shape} scale={scale}"))
-            if shape in K1_GSEQ_SHAPES and dtype == torch.float64:
+            if shape in K1_GSEQ_SHAPES + K1_CONV_SHAPES and dtype == torch.float64:
                 require(k1[-1]["bitwise"], f"K1 {shape} float64: not bit for bit its plain version")
             if shape in K1_PATH_SHAPES:   # a path's shape: its bound and library call
                 n = shape[-1]
@@ -1048,24 +1368,26 @@ def main() -> int:
     k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 4 + 64 * 64 * 4,
                                                    2 * 64 * u.numel(), "float32")
     del u
-    # the dense assembly's batched shape (phase 11c): K1 bit for bit its
-    # plain version, on the tensor and under torch.func.vmap (one launch)
+    # the dense assemblies' batched shapes (phases 11c, 12d, 12e): K1 bit for
+    # bit its plain version, on the tensor and under torch.func.vmap (one launch)
     from spectral_tpu_torch.ops.chebyshev import chebdiff
 
-    u = randn(K1_BATCHED_SHAPE, torch.float64, 100)
-    k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u),
-                      lambda: cuda_cheb.chebdiff_last_ref(u), u, f"{K1_BATCHED_SHAPE} batched"))
-    cuda_cheb.reset_launch_counts()
-    got = torch.func.vmap(lambda x: chebdiff(x, -1))(u)
-    require(cuda_cheb.LAUNCHES["chebdiff_last_kernel"] == 1, "K1 under vmap: not one launch")
-    require(k1[-1]["bitwise"] and torch.equal(got, cuda_cheb.chebdiff_last_ref(u)),
-            f"K1 {K1_BATCHED_SHAPE} float64: not bit for bit its plain version")
-    dt = cuda_cheb._diffmat_t(16, None, torch.float64, dev)
-    k1[-1]["vmap_bitwise"] = True
-    k1[-1]["library_ms"], k1[-1]["library_call_ms"] = both_ms(lambda: torch.matmul(u, dt))
-    k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 8 + 16 * 16 * 8,
-                                                   2 * 16 * u.numel(), "float64")
-    del u, got
+    for seed, shape in enumerate(K1_BATCHED_SHAPES):
+        u = randn(shape, torch.float64, 100 + seed)
+        k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u),
+                          lambda: cuda_cheb.chebdiff_last_ref(u), u, f"{shape} batched"))
+        cuda_cheb.reset_launch_counts()
+        got = torch.func.vmap(lambda x: chebdiff(x, -1))(u)
+        require(cuda_cheb.LAUNCHES["chebdiff_last_kernel"] == 1, "K1 under vmap: not one launch")
+        require(k1[-1]["bitwise"] and torch.equal(got, cuda_cheb.chebdiff_last_ref(u)),
+                f"K1 {shape} float64: not bit for bit its plain version")
+        n = shape[-1]
+        dt = cuda_cheb._diffmat_t(n, None, torch.float64, dev)
+        k1[-1]["vmap_bitwise"] = True
+        k1[-1]["library_ms"], k1[-1]["library_call_ms"] = both_ms(lambda: torch.matmul(u, dt))
+        k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 8 + n * n * 8,
+                                                       2 * n * u.numel(), "float64")
+        del u, got
     print("phase1 K1 " + json.dumps(k1))
     print(f"phase1 seconds {time.perf_counter() - t_phase:.3f}")
 
@@ -1524,6 +1846,12 @@ def main() -> int:
     phase11_out = phase11(cli_main, path, k1_shapes)
     phase11_out["seconds"] = time.perf_counter() - t_phase
     print("phase11 " + json.dumps(phase11_out))
+
+    # -- phase 12: thermal convection and the Krylov-Schur eigensolver ----------
+    t_phase = time.perf_counter()
+    phase12_out = phase12(cli_main, path, k1_shapes)
+    phase12_out["seconds"] = time.perf_counter() - t_phase
+    print("phase12 " + json.dumps(phase12_out))
 
     # -- the kernels line ------------------------------------------------------
     k1_main = next(c for c in k1 if c["case"] == "(64, 64, 64) scale=None"

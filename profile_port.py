@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the port's time goes on one GPU: torch.profiler over one warm run
 of each elliptic and Stokes path that chip_smoke.py drives (its phases 6
-to 10, taken from its tables), and of phase 11's heat and linear unsteady
-Stokes Crank-Nicolson runs.
+to 10, taken from its tables), of phase 11's heat and linear unsteady
+Stokes Crank-Nicolson runs, and of phase 12's Blankenbach march (12a) and
+Busse cell (12d).
 
     python3 profile_port.py [substring ...]
 
@@ -48,9 +49,10 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (ELLIPTIC_ORACLE, PHASE10_ORACLE, STOKES_ORACLE, UNSTEADY_ORACLE,
-                            refined_runs, run_cli, stokes_forward, stokes_line52,
-                            stokes_mixed_runs, stokes_refined_runs)
+    from chip_smoke import (CONVECTION_ORACLE, ELLIPTIC_ORACLE, PHASE10_ORACLE, STOKES_ORACLE,
+                            UNSTEADY_ORACLE, busse_model, busse_newton, refined_runs, run_cli,
+                            stokes_forward, stokes_line52, stokes_mixed_runs,
+                            stokes_refined_runs)
     from spectral_tpu_torch.cli.main import main as cli_main
 
     def cli(driver, opts):
@@ -84,6 +86,18 @@ def main() -> int:
     paths.update({f"phase{name}": cli(UNSTEADY_ORACLE[name]["argv"][0],
                                       UNSTEADY_ORACLE[name]["argv"][1:])
                   for name in ("11a heat 64^3 cn", "11b ustokes 20^3 cn")})
+    # phase 12's Blankenbach march and Busse cell (its model built once)
+    spec = CONVECTION_ORACLE["12a blankenbach"]
+    paths["12a blankenbach"] = cli(spec["argv"][0], spec["argv"][1:])
+
+    def busse():
+        if "busse" not in built:
+            built["busse"] = busse_model(dev)
+        m, T0 = built["busse"]
+        m.steady_newton(T0, warmup=300, newton=busse_newton())
+
+    built = {}
+    paths["12d busse"] = busse
     wanted = sys.argv[1:]
     for name, run in paths.items():
         if wanted and not any(w in name for w in wanted):

@@ -522,3 +522,135 @@ def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dt
     print(f"Outer iterations each step: {its}")
     _print_unused(opts)
     return 0 if np.isfinite(err) and err < 1e-2 else 2
+
+
+def convection_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
+    """Coupled Boussinesq convection driver (models/convection.py):
+    infinite-Prandtl Rayleigh-Benard on the box, marched to steady state
+    with the Nusselt / Vrms diagnostics:
+
+    convection -dim 16,16 -ra 1e4 -dt 5e-4 -bc freeslip -sides insulated -steady_tol 1e-3
+        [-stokes_pc nested|dense|dense-device] [-nsteps N | -newton | -ts_adapt]
+        [-stability 1|2|3] [-eta_contrast c] [-heating H] [-dealias 1] [-aspect L]
+
+    (the Blankenbach case 1a configuration; published Nu = 4.884409, Vrms
+    = 42.864947).  Prints the JAX driver's lines.  ``-accel`` raises
+    naming ROADMAP item 2, ``-output_vtk`` item 8, ``-map`` item 6.  Exit
+    code 0 when the run converged, 2 when it did not."""
+    from spectral_tpu_torch.models.convection import ConvectionConfig, ConvectionModel
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+
+    for key, item in (("accel", "item 2: anderson_solve"), ("output_vtk", "item 8: utils/vtk.py"),
+                      ("map", "item 6: curvilinear")):
+        if opts.has(key):
+            raise NotImplementedError(
+                f"convection -{key} is not ported yet (ROADMAP.md queue 1, {item})")
+    dims = opts.get_int_array("dim", (16, 16))
+    cfg = ConvectionConfig(
+        Ra=opts.get_real("ra", 1e4),
+        dt=opts.get_real("dt", 5e-4),
+        theta=opts.get_real("theta", 0.5),
+        velocity_bc=opts.get_string("bc", "freeslip"),
+        side_bc=opts.get_string("sides", "insulated"),
+        eta_contrast=opts.get_real("eta_contrast", 1.0),
+        heating=opts.get_real("heating", 0.0),
+        tbc=opts.get_int("tbc", 0) if opts.has("tbc") else None,
+        pcvel=opts.get_string("pcvel", "fastdiag"),
+        stokes_pc=opts.get_string("stokes_pc", "nested"),
+        # -dealias 1 = the 3/2 rule; -dealias 2.0 etc. = an explicit ratio
+        dealias=(False if not opts.has("dealias")
+                 else (lambda r: True if r in (0.0, 1.0) else r)(opts.get_real("dealias", 1.0))),
+        stokes_ksp=opts.ksp_config("", KSPConfig(type="fgmres", rtol=1e-7, max_it=150,
+                                                 restart=60)))
+    aspect = opts.get_real("aspect", 1.0)
+    m = ConvectionModel.box(dims, cfg, aspect=aspect, device=device, dtype=dtype)
+    print(f"Convection  dim = [{','.join(map(str, dims))}]  Ra = {cfg.Ra}"
+          f"  dt = {cfg.dt}  theta = {cfg.theta}  bc = {cfg.velocity_bc}"
+          f"/{cfg.side_bc}  aspect = {aspect}")
+    print(m.stokes.census())
+    if opts.has("stability"):
+        # -stability 1: the critical Rayleigh number; 2: also the growth
+        # rates nearest 0 at the configured Ra (about the steady base when
+        # heating meets conducting sidewalls); 3: growth rates about the
+        # steady convecting state (steady_newton base)
+        level = opts.get_int("stability", 1)
+        ok = True
+        has_conduction_branch = m._conduction_base_is_equilibrium
+        if has_conduction_branch:
+            ra_c, resc = m.critical_rayleigh(k=2, m=opts.get_int("eps_ncv", 20),
+                                             tol=opts.get_real("eps_tol", 1e-9))
+            print(f"Critical Rayleigh number Ra_c = {ra_c:.6f}  "
+                  f"(converged: {resc.converged}, {resc.matvecs} operator "
+                  f"applications)   Ra/Ra_c = {cfg.Ra / ra_c:.4f}")
+            ok = resc.converged and np.isfinite(ra_c)
+        else:
+            print("No conduction branch (internal heating + conducting "
+                  "sidewalls drive a base flow at every Ra): growth rates "
+                  "are computed about the steady base state")
+        if level >= 2 or not has_conduction_branch:
+            base = None
+            if level >= 3:
+                Tb, xb, binfo = m.steady_newton(
+                    m.conductive_state(amp=opts.get_real("amp", 0.05)),
+                    warmup=opts.get_int("warmup", 150),
+                    newton=NewtonConfig(rtol=1e-9, max_it=20, ksp_ew=True))
+                print(f"Steady base: Nu = {binfo['nu_top']:.6f}  "
+                      f"converged: {binfo['converged']}")
+                ok = ok and binfo["converged"]
+                base = (Tb, xb)
+            res = m.stability_eigenvalues(k=opts.get_int("eps_nev", 3),
+                                          m=opts.get_int("eps_ncv", 20),
+                                          tol=opts.get_real("eps_tol", 1e-7), base=base)
+            lams = ", ".join(f"{z.real:+.6f}{z.imag:+.2e}j" for z in res.eigenvalues)
+            about = ("steady convecting state" if level >= 3
+                     else ("steady base state" if not has_conduction_branch
+                           else "conduction state"))
+            print(f"Growth rates nearest 0 at Ra = {cfg.Ra} "
+                  f"(about the {about}): [{lams}]  "
+                  f"(converged: {res.converged})")
+            verdict = "UNSTABLE" if max(z.real for z in res.eigenvalues) > 0 else "stable"
+            print(f"The {about} is {verdict}")
+            ok = ok and res.converged
+        _print_unused(opts)
+        return 0 if ok else 2
+    T0 = m.conductive_state(amp=opts.get_real("amp", 0.05))
+    nsteps = opts.get_int("nsteps", 0)
+    if nsteps:
+        T, _, x = m.rollout(T0, nsteps)
+        info = {"steps": nsteps, **m._diagnostics(T, x), "converged": True}
+    elif opts.has("newton"):
+        # direct Newton-Krylov steady state (exact coupled Jacobian, one
+        # Stokes solve a Krylov iteration)
+        T, x, info = m.steady_newton(
+            T0, warmup=opts.get_int("warmup", 150),
+            newton=NewtonConfig(rtol=opts.get_real("snes_rtol", 1e-9),
+                                max_it=opts.get_int("snes_max_it", 20),
+                                ksp_ew=True, monitor=opts.has("monitor")))
+        print(f"Newton: {int(info['newton'].iters)} steps, Krylov "
+              f"{[int(i) for i in info['newton'].ksp_iters]}, "
+              f"|R| = {info['rate']:.3e}")
+    elif opts.has("ts_adapt"):
+        # variable-step marching (error controller, ringing and stall caps)
+        T, x, info = m.march_adaptive(
+            T0, max_steps=opts.get_int("max_steps", 3000),
+            tol=opts.get_real("steady_tol", 1e-3),
+            rtol=opts.get_real("ts_rtol", 3e-3),
+            dt0=opts.get_real("ts_dt0", cfg.dt),
+            monitor=opts.has("monitor"))
+        print(f"  ts_adapt: {info['steps']} accepted / "
+              f"{info['rejects']} rejected, dt {min(info['dts']):.3g}"
+              f" .. {max(info['dts']):.3g}")
+    else:
+        T, x, info = m.march_to_steady(
+            T0, max_steps=opts.get_int("max_steps", 3000),
+            tol=opts.get_real("steady_tol", 1e-3),
+            chunk=opts.get_int("chunk", 50),
+            monitor=opts.has("monitor"))
+    print(f"Steps: {info['steps']}   converged: {info['converged']}")
+    print(f"Nu(top) = {info['nu_top']:.6f}   Nu(bottom) = "
+          f"{info['nu_bottom']:.6f}   Nu(volume) = "
+          f"{float(m.nusselt_volume(T, x)):.6f}")
+    print(f"Vrms = {info['vrms']:.6f}")
+    _print_unused(opts)
+    return 0 if info["converged"] and np.isfinite(info["nu_top"]) else 2

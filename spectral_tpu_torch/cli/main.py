@@ -6,6 +6,7 @@
         -svel_ksp_type preonly -ksp_type fgmres -dim 20,20,20 -ksp_rtol 1e-10
     spectral-tpu-torch heat -dim 64,64,64 -dt 0.01 -nsteps 20 [-ts_type bdf2 | -ts_adapt]
     spectral-tpu-torch ustokes -dim 20,20,20 -dt 0.05 -nsteps 10 [-scheme bdf2]
+    spectral-tpu-torch convection -dim 16,16 -ra 1e4 -bc freeslip -sides insulated
     spectral-tpu-torch cheb -m1 9 -m 8 -n 7 -p 6 -d 1
 
 Option names and output format follow the JAX package's CLI.  Float64 is
@@ -22,10 +23,6 @@ import torch
 
 from spectral_tpu_torch.utils.options import Options
 
-# Drivers of the JAX CLI that this package does not carry yet.
-_NOT_PORTED = ("convection",)
-
-
 def _setup(opts: Options) -> tuple[torch.device, torch.dtype]:
     device = torch.device(opts.get_string("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -41,11 +38,9 @@ def main(argv: list[str] | None = None) -> int:
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cmd} driver is not ported yet (ROADMAP.md queue 1, item 5)")
-    if cmd not in ("poisson", "elliptic", "stokes", "heat", "ustokes", "cheb"):
-        print(f"unknown driver {cmd!r}; one of: poisson elliptic stokes heat ustokes cheb")
+    if cmd not in ("poisson", "elliptic", "stokes", "heat", "ustokes", "convection", "cheb"):
+        print(f"unknown driver {cmd!r}; "
+              "one of: poisson elliptic stokes heat ustokes convection cheb")
         return 1
     opts = Options(rest)
     device, dtype = _setup(opts)
@@ -60,6 +55,8 @@ def main(argv: list[str] | None = None) -> int:
         return drivers.heat_main(opts, device=device, dtype=dtype)
     if cmd == "ustokes":
         return drivers.unsteady_stokes_main(opts, device=device, dtype=dtype)
+    if cmd == "convection":
+        return drivers.convection_main(opts, device=device, dtype=dtype)
     return drivers.cheb_main(opts, device=device, dtype=dtype)
 
 

@@ -20,7 +20,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from spectral_tpu_torch.ops.chebyshev import cgl_nodes_np
+from spectral_tpu_torch.ops.chebyshev import cc_weights_np, cgl_nodes_np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +99,29 @@ class Grid:
         if self.intervals is None:
             return v
         return v * self.deriv_scale_np[axis]
+
+    @cached_property
+    def quad_weights_1d_np(self) -> tuple[np.ndarray, ...]:
+        """Per-axis Clenshaw-Curtis weights on the physical nodes: the
+        reference weights divided by the chain-rule factor d(xi)/d(x).
+        Exact for the nodal interpolant along each axis."""
+        out = []
+        for ax, n in enumerate(self.dims):
+            w = cc_weights_np(n)
+            if self.intervals is not None:
+                w = w / float(self.deriv_scale_np[ax])
+            out.append(w)
+        return tuple(out)
+
+    @cached_property
+    def quad_weights_np(self) -> np.ndarray:
+        """Tensor-product quadrature weights over the full grid (float64)."""
+        W = np.ones(self.dims)
+        for ax, w in enumerate(self.quad_weights_1d_np):
+            shape = [1] * self.ndim
+            shape[ax] = len(w)
+            W = W * w.reshape(shape)
+        return W
 
     @cached_property
     def coords_np(self) -> np.ndarray:

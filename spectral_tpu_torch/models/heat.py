@@ -18,7 +18,7 @@ over the same step.  The steps that take dt as an argument
 ``solvers/ts.py``: the preconditioner is the shift-free fast
 diagonalization applied with the run-time shift.  Curved domains
 (``phi=``) raise naming ROADMAP item 6, the differentiable ``step_diff``
-item 5.
+item 5b.
 """
 
 from __future__ import annotations
@@ -151,7 +151,7 @@ class HeatModel:
 
     def step_diff(self, *args, **kwargs):
         raise NotImplementedError("HeatModel.step_diff (a differentiable step) is not "
-                                  "ported yet (ROADMAP.md queue 1, item 5: solvers/adjoint.py)")
+                                  "ported yet (ROADMAP.md queue 1, item 5b: solvers/adjoint.py)")
 
     def rollout(self, u0: torch.Tensor, f: torch.Tensor, dirichlet: torch.Tensor,
                 nsteps: int) -> torch.Tensor:

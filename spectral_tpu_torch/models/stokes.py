@@ -782,7 +782,7 @@ class StokesProblem:
         triangular (stokes.C:1710-1817), each with the nested ``-vel_``
         solves and the ``-schur_`` solve of S = -PV VV^-1 VP."""
         if adjoint:
-            raise _todo("make_pc(adjoint=True)", "item 5: solvers/adjoint.py")
+            raise _todo("make_pc(adjoint=True)", "item 5b: solvers/adjoint.py")
         cfg = self.config
         if cfg.saddle not in (0, 1, 2, 3):
             raise ValueError(f"pc_saddle_type {cfg.saddle} not implemented")
@@ -1222,7 +1222,7 @@ class StokesProblem:
         return {k: v.cpu().numpy() for k, v in x.items()}, {"continuation": results, **info}
 
     def adjoint_gradient(self, *args, **kwargs):
-        raise _todo("adjoint_gradient", "item 5: solvers/adjoint.py")
+        raise _todo("adjoint_gradient", "item 5b: solvers/adjoint.py")
 
     def error_vs_exact(self, x: dict) -> float:
         """Max-norm error with the constant-pressure mode removed

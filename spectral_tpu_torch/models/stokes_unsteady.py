@@ -28,7 +28,7 @@ whose exact Jacobian is the mass-shifted steady Jacobian.
 The JAX package compiles a step (and ``rollout_scan`` the whole rollout)
 into one program; here every rollout is a host loop over one cached step
 (its preconditioner built once).  The discrete adjoints raise naming
-ROADMAP item 5, ``family_rollout`` item 7, curved domains (``phi=``) item 6.
+ROADMAP item 5b, ``family_rollout`` item 7, curved domains (``phi=``) item 6.
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ class UnsteadyStokes:
         power-law Newton loops keep the nested tree: their linearization
         moves every iteration."""
         if adjoint:
-            raise _todo("UnsteadyStokes._saddle_pc(adjoint=True)", "item 5: solvers/adjoint.py")
+            raise _todo("UnsteadyStokes._saddle_pc(adjoint=True)", "item 5b: solvers/adjoint.py")
         p = self.problem
         if p.config.saddle_pc in ("dense", "dense-device") and self._linear:
             _, fwd, _ = self._dense_pc
@@ -342,14 +342,14 @@ class UnsteadyStokes:
         return v, pres, its
 
     def adjoint_gradient(self, *args, **kwargs):
-        raise _todo("UnsteadyStokes.adjoint_gradient", "item 5: solvers/adjoint.py")
+        raise _todo("UnsteadyStokes.adjoint_gradient", "item 5b: solvers/adjoint.py")
 
     def adjoint_gradient_checkpointed(self, *args, **kwargs):
         raise _todo("UnsteadyStokes.adjoint_gradient_checkpointed",
-                    "item 5: solvers/adjoint.py")
+                    "item 5b: solvers/adjoint.py")
 
     def _adjoint_sweep(self, *args, **kwargs):
-        raise _todo("UnsteadyStokes._adjoint_sweep", "item 5: solvers/adjoint.py")
+        raise _todo("UnsteadyStokes._adjoint_sweep", "item 5b: solvers/adjoint.py")
 
     def family_rollout(self, *args, **kwargs):
         raise _todo("UnsteadyStokes.family_rollout", "item 7: batched solves")

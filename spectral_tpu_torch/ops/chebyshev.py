@@ -14,8 +14,9 @@ Execution paths of ``chebdiff``:
   extension, the algorithm of the reference's ChebD1Mult.
 - ``"kernel"``: the hand-written CUDA kernel K1
   (``ops.cuda_cheb.chebdiff_last``) for the last axis; other axes take the
-  matmul path.  A tensor batched by ``torch.func.vmap`` goes through K1's
-  vmap rule (``chebdiff_last_batched``), one launch for the batch.  It is
+  matmul path.  A tensor wrapped by ``torch.func`` goes through K1's
+  rules (``chebdiff_last_batched``): under ``vmap`` one launch for the
+  batch, under ``jvp`` one for the primal and one for the tangent.  It is
   the port's name for the JAX package's ``"pallas"``.
 - ``"auto"``: the production switch.  On a CUDA tensor a last-axis
   derivative with ``n <= K1_MAX_N`` goes to K1; otherwise ``n <=
@@ -212,7 +213,7 @@ def chebdiff(u: torch.Tensor, axis: int = 0, method: str = "auto") -> torch.Tens
     if method == "kernel":
         if last:
             u = u.contiguous()
-            if torch._C._functorch.is_batchedtensor(u):   # under torch.func.vmap
+            if torch._C._functorch.is_functorch_wrapped_tensor(u):   # vmap, jvp
                 return cuda_cheb.chebdiff_last_batched(u)
             return cuda_cheb.chebdiff_last(u)
         method = "matmul"  # K1 streams the minor axis only
@@ -246,6 +247,24 @@ def cheb_nodal(a: torch.Tensor, axis: int = -1) -> torch.Tensor:
     c[0] = c[-1] = 2.0
     u = dct1(a * _const(c, a) / 2.0, -1)
     return torch.movedim(u, -1, axis)
+
+
+def cheb_pad_matrices_np(n: int, m: int) -> tuple[np.ndarray, np.ndarray]:
+    """(U, D) dealiasing transfer pair between CGL grids of n and m >= n
+    nodes: ``U`` (m, n) interpolates nodal values onto the fine grid
+    (Chebyshev coefficient zero-pad, exact), ``D`` (n, m) projects fine
+    nodal values back by coefficient truncation.  D @ U = I.  Products
+    evaluated as D @ ((U u) * (U v)) are alias-free when
+    m - 1 >= ceil(3 (n - 1) / 2) (the 3/2 rule)."""
+    if m < n:
+        raise ValueError(f"padding needs m >= n, got {m} < {n}")
+    jn = np.arange(n)
+    jm = np.arange(m)
+    Sn = np.cos(np.pi * np.outer(jn, jn) / (n - 1))   # values = S @ coeffs
+    Sm = np.cos(np.pi * np.outer(jm, jm) / (m - 1))
+    An = np.linalg.inv(Sn)                            # nodal -> coeffs
+    Am = np.linalg.inv(Sm)
+    return Sm[:, :n] @ An, Sn @ Am[:n, :]
 
 
 def cheb_regrid(u: torch.Tensor, new_dims: tuple[int, ...]) -> torch.Tensor:

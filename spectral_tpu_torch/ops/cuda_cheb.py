@@ -210,10 +210,11 @@ def chebdiff_last(u: torch.Tensor, scale: float | None = None) -> torch.Tensor:
 
 
 class _BatchedK1(torch.autograd.Function):
-    """K1 for tensors batched by ``torch.func.vmap`` (a batched tensor has
-    no ``data_ptr``): its vmap rule moves the batch axis first and
-    launches K1 once on the physical (B, ...) tensor.  K1 takes any rank,
-    so the batch joins its rows.  Forward only (no backward)."""
+    """K1 for tensors wrapped by ``torch.func`` (a batched or dual tensor
+    has no ``data_ptr``): its vmap rule moves the batch axis first and
+    launches K1 once on the physical (B, ...) tensor (K1 takes any rank,
+    so the batch joins its rows); K1 is linear, so its forward-mode rule
+    (``torch.func.jvp``) applies K1 to the tangent.  No backward."""
 
     @staticmethod
     def forward(u):
@@ -224,6 +225,10 @@ class _BatchedK1(torch.autograd.Function):
         pass
 
     @staticmethod
+    def jvp(ctx, u_dot):
+        return _BatchedK1.apply(u_dot)
+
+    @staticmethod
     def vmap(info, in_dims, u):
         if in_dims[0] is None:
             return _BatchedK1.apply(u), None
@@ -231,9 +236,10 @@ class _BatchedK1(torch.autograd.Function):
 
 
 def chebdiff_last_batched(u: torch.Tensor) -> torch.Tensor:
-    """``chebdiff_last`` of a tensor batched by ``torch.func.vmap``: one K1
-    launch on the batch, counted in K1_LAUNCHES_BY_SHAPE under the
-    batched shape (batch axis first)."""
+    """``chebdiff_last`` of a tensor wrapped by ``torch.func``: under
+    ``vmap`` one K1 launch on the batch, counted in K1_LAUNCHES_BY_SHAPE
+    under the batched shape (batch axis first); under ``jvp`` one launch
+    each for the primal and the tangent."""
     return _BatchedK1.apply(u)
 
 

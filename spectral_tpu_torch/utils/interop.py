@@ -156,3 +156,17 @@ def dense_apply_from_numpy(Ainv, example, *, device: torch.device | str,
 
     _, unravel = _ravel(example, dtype)
     return dense_apply(_dev(Ainv, device, dtype), unravel, transpose=transpose)
+
+
+def convection_state_from_numpy(T, x, *, device: torch.device | str,
+                                dtype: torch.dtype) -> tuple[torch.Tensor, dict]:
+    """A convection state (T, x) of the JAX package, T and the saddle
+    state x = {"v", "p"} as numpy arrays, as the port's tensors."""
+    return _dev(T, device, dtype), stokes_state_from_numpy(x, device=device, dtype=dtype)
+
+
+def eps_result_to_numpy(res) -> dict:
+    """An EPSResult (of either package) as a dict of numpy arrays and
+    Python scalars (None where the polish was off)."""
+    return {k: (None if v is None else v if np.isscalar(v) else np.asarray(v))
+            for k, v in res._asdict().items()}

@@ -54,6 +54,18 @@ Sections (all by default), each one JSON line:
   noise of 1e-13 (seeds 0-7) and 1e-11 (seed 0), as ``perturb`` runs
   README:52; ``--seeds a-b`` runs the perturbed sections from 1e-13
   noise of seeds a to b instead (more samples of a wide spread).
+- ``convection``: the JAX package's ``convection`` driver in float64 on
+  the command lines of ``chip_smoke.py``'s phase 12 (``CONVECTION``:
+  Blankenbach case 1a marched with the dense saddle PC, 10 steps on the
+  nested one, the 3/2-rule advection, ``-ts_adapt``, ``-newton``,
+  ``-stability 2``): the printed lines, the numbers they carry, and the
+  eigenvalues, matrix-vector counts and Newton history captured as it runs;
+  then bench.py's variable-viscosity configuration (``var_eta``);
+- ``convcpu8``: four of the convection driver's command lines at 8x8
+  (``-nsteps``, ``-newton``, ``-stability 1``, 15 steps of ``-ts_adapt``), the printed lines and
+  full-precision numbers that ``tests/test_torch_convection.py`` holds
+  the port's CLI to, then ``-newton`` from initial temperatures perturbed
+  by 1e-13 (seeds 0-7).
 """
 
 from __future__ import annotations
@@ -409,6 +421,158 @@ def perturbed_unsteady():
             jax.clear_caches()
 
 
+# The convection command lines of CONVECTION_ORACLE (chip_smoke.py phase 12)
+BLANKENBACH = ["-dim", "16,16", "-ra", "1e4", "-dt", "5e-4", "-bc", "freeslip", "-sides",
+               "insulated"]
+CONVECTION = {
+    "12a blankenbach": [*BLANKENBACH, "-steady_tol", "1e-3", "-stokes_pc", "dense"],
+    "12a nested": [*BLANKENBACH, "-nsteps", "10"],
+    "12a dealias": ["-dim", "12,12", "-ra", "1e4", "-dt", "5e-4", "-bc", "freeslip", "-sides",
+                    "insulated", "-nsteps", "20", "-stokes_pc", "dense", "-dealias", "1"],
+    "12a adapt": ["-ts_adapt", "-dim", "12,12", "-ra", "5e3", "-dt", "1e-3", "-ts_dt0", "2e-5",
+                  "-steady_tol", "1e-4", "-stokes_pc", "dense"],
+    "12b newton": [*BLANKENBACH, "-steady_tol", "1e-3", "-stokes_pc", "dense", "-newton"],
+    "12c stability": ["-stability", "2", "-dim", "12,12", "-ra", "2000", "-stokes_pc", "dense"],
+}
+# what tests/test_torch_convection.py holds the port's CLI to
+CONVECTION_CPU8 = {
+    "8x8 nsteps": ["-dim", "8,8", "-nsteps", "10", "-stokes_pc", "dense"],
+    "8x8 newton": ["-dim", "8,8", "-newton", "-warmup", "50", "-stokes_pc", "dense"],
+    "8x8 stability": ["-dim", "8,8", "-stability", "1", "-stokes_pc", "dense"],
+    "8x8 adapt": ["-ts_adapt", "-dim", "8,8", "-ra", "5e3", "-dt", "1e-3", "-ts_dt0", "2e-5",
+                  "-max_steps", "15", "-stokes_pc", "dense"],
+}
+VAR_ETA_STEPS = 12   # phase 12e's rollout length
+
+
+def run_convection(name, argv, perturb: float = 0.0, seed: int = 0) -> dict:
+    """The JAX convection driver on ``argv``: its printed lines and the
+    numbers they carry, with every EPSResult and NewtonResult it made and
+    the full-precision diagnostics of its run (``info``) captured as it
+    ran.  ``perturb`` adds masked normal noise of that size (from
+    ``seed``) to the initial temperature."""
+    from spectral_tpu.cli.drivers import convection_main
+    from spectral_tpu.models.convection import ConvectionModel
+    from spectral_tpu.solvers import eig, newton
+    from spectral_tpu.utils.options import Options
+
+    eps, newtons, infos = [], [], []
+    orig_eigs, orig_newton = eig.eigs, newton.newton_solve
+    M = ConvectionModel
+    orig = {k: getattr(M, k) for k in ("march_to_steady", "march_adaptive", "steady_newton",
+                                       "rollout", "conductive_state")}
+
+    def eigs(*a, **kw):
+        eps.append(orig_eigs(*a, **kw))
+        return eps[-1]
+
+    def newton_solve(*a, **kw):
+        newtons.append(orig_newton(*a, **kw))
+        return newtons[-1]
+
+    def marcher(key):
+        def run(self, *a, **kw):
+            T, x, info = orig[key](self, *a, **kw)
+            infos.append({k: float(info[k]) for k in ("nu_top", "nu_bottom", "vrms")})
+            return T, x, info
+        return run
+
+    def rollout(self, *a, **kw):
+        T, N, x = orig["rollout"](self, *a, **kw)
+        infos.append({"nu_top": float(self.nusselt_top(T)),
+                      "nu_bottom": float(self.nusselt_bottom(T)), "vrms": float(self.vrms(x))})
+        return T, N, x
+
+    def conductive_state(self, *a, **kw):
+        T = orig["conductive_state"](self, *a, **kw)
+        if perturb:
+            noise = np.random.default_rng(seed).standard_normal(T.shape)
+            T = T + perturb * self.grid.zero_boundary(jnp.asarray(noise))
+        return T
+
+    eig.eigs, newton.newton_solve = eigs, newton_solve
+    for key in ("march_to_steady", "march_adaptive", "steady_newton"):
+        setattr(M, key, marcher(key))
+    M.rollout, M.conductive_state = rollout, conductive_state
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = convection_main(Options(argv))
+        seconds = time.perf_counter() - t0
+    finally:
+        eig.eigs, newton.newton_solve = orig_eigs, orig_newton
+        for key, fn in orig.items():
+            setattr(M, key, fn)
+    out = buf.getvalue()
+    row = {"name": name, "argv": " ".join(argv), "rc": rc, "perturb": perturb, "seed": seed,
+           "seconds": seconds, "lines": out.splitlines(), "info": infos[-1] if infos else None}
+    for key, pat in (("steps", r"Steps: (\d+)"), ("nu", r"Nu\(top\) = (\S+)"),
+                     ("nu_bottom", r"Nu\(bottom\) = (\S+)"),
+                     ("nu_volume", r"Nu\(volume\) = (\S+)"), ("vrms", r"Vrms = (\S+)"),
+                     ("ra_c", r"Ra_c = (\S+)")):
+        m = re.search(pat, out)
+        if m:
+            row[key] = (int if key == "steps" else float)(m.group(1))
+    m = re.search(r"ts_adapt: (\d+) accepted / (\d+) rejected, dt (\S+) \.\. (\S+)", out)
+    if m:
+        row.update(accepted=int(m.group(1)), rejected=int(m.group(2)),
+                   dt_min=float(m.group(3)), dt_max=float(m.group(4)))
+    if newtons:
+        r = newtons[-1]
+        row.update(newton=int(r.iters), krylov=[int(k) for k in np.asarray(r.ksp_iters)],
+                   fnorm=float(r.fnorm), reason=int(r.reason))
+    row["eps"] = [{"eigenvalues": [[float(z.real), float(z.imag)] for z in r.eigenvalues],
+                   "polished": None if r.eigenvalues_polished is None else
+                   [[float(z.real), float(z.imag)] for z in r.eigenvalues_polished],
+                   "matvecs": int(r.matvecs), "restarts": int(r.restarts),
+                   "converged": bool(r.converged)} for r in eps]
+    return row
+
+
+def var_eta() -> dict:
+    """bench.py's bench_convection_var_eta configuration (16^2, Ra 2e3, dt
+    2e-4, contrast 10, lag 25), VAR_ETA_STEPS steps with the lagged dense
+    PC and with the eta-aware nested tree: Nu, Vrms, and the outer count of
+    a fresh solve at the rolled state."""
+    from spectral_tpu.models.convection import ConvectionConfig, ConvectionModel
+    from spectral_tpu.solvers.krylov import KSPConfig
+
+    row = {"name": "12e var eta", "steps": VAR_ETA_STEPS}
+    for pc in ("dense", "nested"):
+        cfg = ConvectionConfig(Ra=2e3, dt=2e-4, velocity_bc="freeslip", side_bc="insulated",
+                               eta_contrast=10.0, stokes_pc=pc, stokes_pc_lag=25,
+                               stokes_ksp=KSPConfig(type="fgmres", rtol=1e-6, max_it=120,
+                                                    restart=60))
+        m = ConvectionModel.unit_box((16, 16), cfg)
+        t0 = time.perf_counter()
+        T, _, x = m.rollout(m.conductive_state(amp=0.05), VAR_ETA_STEPS)
+        row[pc] = {"nu": float(m.nusselt_top(T)), "vrms": float(m.vrms(x)),
+                   "fresh_outer": int(m.solve_stokes(T, m.stokes.zero_state()).iters),
+                   "seconds": time.perf_counter() - t0}
+        jax.clear_caches()
+    return row
+
+
+def convection():
+    for name, argv in CONVECTION.items():
+        yield run_convection(name, argv)
+        jax.clear_caches()
+    yield var_eta()
+
+
+def convcpu8():
+    """CONVECTION_CPU8's lines, then "8x8 newton" from initial
+    temperatures perturbed by 1e-13 (seeds 0-7; SEEDS with --seeds): its
+    Krylov counts move with the round-off of the start."""
+    for name, argv in CONVECTION_CPU8.items():
+        r = run_convection(name, argv)
+        yield dict(r, printed=r["lines"])
+    for seed in (SEEDS if SEEDS is not None else range(8)):
+        yield run_convection("8x8 newton", CONVECTION_CPU8["8x8 newton"], 1e-13, seed)
+        jax.clear_caches()
+
+
 SECTIONS = {
     "cli43": lambda: run_cli(README43),
     "cli52": lambda: run_cli(README52),
@@ -430,6 +594,8 @@ SECTIONS = {
     "perturb_gseq52": lambda: perturbed(Q1_STOKES["README:52 grid sequence 1"]),
     "unsteady": unsteady,
     "perturb_unsteady": perturbed_unsteady,
+    "convection": convection,
+    "convcpu8": convcpu8,
 }
 
 

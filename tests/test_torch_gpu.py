@@ -600,3 +600,80 @@ def test_heat_and_unsteady_steps_on_card(cuda):
     assert abs(cits - hits) <= 1
     assert _rel(cv.cpu(), hv) <= 1e-8 and _rel(cp.cpu(), hp) <= 1e-8
     assert cuda_cheb.K1_LAUNCHES_BY_SHAPE[(torch.Size((12, 12, 12)), torch.float64)] > 0
+
+
+# -- convection and the eigensolver --------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(12, 12), (14, 14, 12), (1024, 14, 14, 12)])
+def test_k1_convection_shapes(cuda, shape):
+    """K1 at the convection paths' shapes, float64, bit for bit its plain
+    version; the batched assembly block also under torch.func.vmap."""
+    u = _randn(shape, torch.float64, cuda, 7)
+    assert torch.equal(cuda_cheb.chebdiff_last(u), cuda_cheb.chebdiff_last_ref(u))
+    if len(shape) == 4:
+        cuda_cheb.reset_launch_counts()
+        got = torch.func.vmap(lambda x: chebyshev.chebdiff(x, -1))(u)
+        assert torch.equal(got, cuda_cheb.chebdiff_last_ref(u))
+        assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] == 1
+
+
+def test_k1_under_jvp(cuda):
+    """K1's forward-mode rule (torch.func.jvp, the variable-viscosity
+    stability path): the primal and the tangent each one launch, both
+    equal to the plain derivative."""
+    u, t = _randn((6, 9, 12), torch.float64, cuda, 8), _randn((6, 9, 12), torch.float64, cuda, 9)
+    y, dy = torch.func.jvp(lambda x: chebyshev.chebdiff(x, -1), (u,), (t,))
+    assert torch.equal(y, cuda_cheb.chebdiff_last_ref(u))
+    assert torch.equal(dy, cuda_cheb.chebdiff_last_ref(t))
+    assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] == 2
+
+
+@pytest.mark.parametrize("velocity_bc,stokes_pc", [("noslip", "nested"), ("freeslip", "dense")])
+def test_convection_step_on_card(cuda, velocity_bc, stokes_pc):
+    """One coupled convection step at 12x12 on the card against the same
+    step on the host (K1 on the last axis of every derivative)."""
+    from spectral_tpu_torch.models.convection import ConvectionConfig, ConvectionModel
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+    cfg = ConvectionConfig(velocity_bc=velocity_bc, side_bc="insulated", stokes_pc=stokes_pc,
+                           stokes_ksp=KSPConfig(type="fgmres", rtol=1e-12, max_it=100,
+                                                restart=50))
+    out = {}
+    for dev in ("cpu", cuda):
+        m = ConvectionModel.unit_box((12, 12), cfg, device=dev)
+        T = m.conductive_state(amp=0.05)
+        out[str(dev)] = m.step(T, torch.zeros_like(T), m.stokes.zero_state())
+    (Th, Nh, xh), (Tc, Nc, xc) = out["cpu"], out["cuda"]
+    assert _rel(Tc.cpu(), Th) <= 1e-10 and _rel(Nc.cpu(), Nh) <= 1e-10
+    assert _rel(xc["v"].cpu(), xh["v"]) <= 1e-10
+    assert cuda_cheb.K1_LAUNCHES_BY_SHAPE[(torch.Size((12, 12)), torch.float64)] > 0
+
+
+def test_eigs_on_card(cuda):
+    """The Krylov-Schur eigensolver with its basis on the card against the
+    host basis on the host: the same eigenvalues (1e-10) and the basis
+    tensor on the card throughout."""
+    from spectral_tpu_torch.solvers import eig
+
+    rng = np.random.default_rng(10)
+    A = rng.standard_normal((300, 300)) * 0.3 + np.diag(np.linspace(-5.0, 5.0, 300))
+    v0 = rng.standard_normal(300)
+    devices = []
+    orig = eig._DeviceBasis.expand_step
+
+    def step(self, j):
+        devices.append(self.V.device.type)
+        return orig(self, j)
+
+    eig._DeviceBasis.expand_step = step
+    try:
+        Ac = torch.as_tensor(A, device=cuda)
+        card = eig.eigs(lambda v: Ac @ v, torch.as_tensor(v0, device=cuda), k=4, m=30, tol=1e-11)
+    finally:
+        eig._DeviceBasis.expand_step = orig
+    Ah = torch.as_tensor(A)
+    host = eig.eigs(lambda v: Ah @ v, torch.as_tensor(v0), k=4, m=30, tol=1e-11,
+                    device_basis=False)
+    assert card.converged and host.converged
+    assert devices and set(devices) == {"cuda"}
+    assert np.abs(card.eigenvalues - host.eigenvalues).max() <= 1e-10 * 5.0
