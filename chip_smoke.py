@@ -70,17 +70,34 @@ paths at their real sizes through the entry points a user calls:
      square cell at (14, 14, 12) through ``steady_newton`` on the saddle
      inverse factored on the card (K1 under vmap in its assembly), held to
      BUSSE_LADDER.json; (e) variable viscosity on the lagged dense PC and
-     the eta-aware nested tree.
+     the eta-aware nested tree;
+ 13. the differentiable tier in float64: (a) K1 in reverse mode (the
+     autograd pair, K1^T = the kernel with s D as its right factor) against
+     a plain pair of torch.matmul products at every path shape, in float32
+     at 20^3 and under vmap at the batched shapes, K1^T timed, K2 refusing
+     a graph; (b) ``StokesProblem.adjoint_gradient`` at README:52's 20^3
+     state under the nested ``make_pc(adjoint=True)``, against central
+     differences and the JAX adjoint count; (c) ``rollout_diff`` at
+     Blankenbach 1a (100 steps; gradients in Ra and T0 against central
+     differences, checkpointed equal to plain, the checkpointed backward's
+     memory growth) and at 12e's variable viscosity (the contrast); (d) the
+     transient adjoint at 11b's power law, full and checkpointed, against
+     central differences; (e) the ported ``adjoint_fit_demo -opt lbfgs -n
+     32`` and ``implicit_hvp`` against differences of ``implicit_gradient``.
 
-Each path (phases 3-12) is driven with the launch counts set to 0 just
-before it and read just after (K1's also by shape), and times nothing
-inside it (a call captured in a CUDA graph counts once and launches at
+``python3 chip_smoke.py --phases 3,8-13`` runs phase 0 and the phases
+listed (a check run: no kernels line, no result line); with no argument,
+every phase runs, as the smoke test is meant to run.
+
+Each path (phases 3-13) is driven with the launch counts set to 0 just
+before it and read just after (K1's forward and transposed launches also
+by shape), and times nothing inside it (a call captured in a CUDA graph counts once and launches at
 every replay); every phase raises on failure.  A timed comparison gives
 each side two times: ``device_ms`` (a CUDA graph of 20 calls, replayed
 between events) as ``ms`` and ``call_ms`` (the host clock over 100 calls
 and one synchronize).  Before the last line it prints the kernels as JSON
 (launches summed over the paths, errors and device times from the
-comparisons; K2 as its two passes); the last line is {"ok": true,
+comparisons; K2 as its two passes; K1^T as its own row); the last line is {"ok": true,
 "device": {...}}.  Without CUDA it exits non-zero and prints no result.
 """
 
@@ -507,11 +524,12 @@ def phase10_ok(name: str, got: dict) -> str | None:
 
 def phase10(cli_main, path) -> dict:
     """Phase 10: every PHASE10_ORACLE run through the CLI, gated on it;
-    the 20^3 README:52 runs (10b, 10d) one call each, the rest a first and
-    a warm call.  ``path(name, fn, kernels)`` runs fn as a counted path."""
+    the 32^3 elliptic runs (10c, 10d) a first and a warm call, the rest one
+    call each (the script's time limit).  ``path(name, fn, kernels)`` runs
+    fn as a counted path."""
     out = {}
     for name, spec in PHASE10_ORACLE.items():
-        warm = 0 if name.startswith(("10b", "10d gseq")) else 1
+        warm = 1 if name.startswith(("10c", "10d elliptic")) else 0
         ((rc, text), first_s, warm_s), counts = path(
             name, lambda: timed_twice(lambda: run_cli(cli_main, spec["argv"]),
                                       warm_reps=warm), ["chebdiff_last_kernel"])
@@ -561,14 +579,14 @@ UNSTEADY_ORACLE = {
                                 rtol=1e-4, accepted=46, rejected=4, dt=(0.000598, 0.00548)),
     "11b ustokes 20^3 cn": dict(
         argv=["ustokes", *USTOKES20, "-nsteps", "10"], outer=(18, 20), error=1.596369e-06,
-        rtol=1e-2, perturbed_errors=(
+        rtol=1e-2, warm=0, perturbed_errors=(
             1.489344e-06, 1.559899e-06, 1.473492e-06, 1.503197e-06, 1.447232e-06,
             1.495369e-06, 1.513686e-06, 1.506643e-06, 1.484984e-06, 1.561074e-06,
             1.498722e-06, 1.493145e-06, 1.534897e-06, 1.469913e-06, 1.481198e-06,
             1.486751e-06)),
     "11b ustokes 20^3 bdf2": dict(
         argv=["ustokes", *USTOKES20, "-nsteps", "10", "-scheme", "bdf2"], outer=(17, 18),
-        error=5.300682e-06, rtol=1e-2, perturbed_errors=(
+        error=5.300682e-06, rtol=1e-2, warm=0, perturbed_errors=(
             5.376331e-06, 5.370763e-06, 5.295032e-06, 5.328956e-06, 5.333727e-06,
             5.28572e-06, 5.309365e-06, 5.275203e-06, 5.295776e-06, 5.312573e-06,
             5.295936e-06, 5.283946e-06, 5.257911e-06, 5.318776e-06, 5.397492e-06,
@@ -685,7 +703,7 @@ CONVECTION_ORACLE = {
     "12a blankenbach": dict(
         argv=["convection", *BLANKENBACH, "-steady_tol", "1e-3", "-stokes_pc", "dense"],
         steps=600, nu_top=4.891431405541178, nu_bottom=4.891431405541168, nu_volume=4.884664,
-        vrms=42.8665163561841, rtol=1e-6, published=True, warm=1),
+        vrms=42.8665163561841, rtol=1e-6, published=True),
     "12a nested": dict(
         argv=["convection", *BLANKENBACH, "-nsteps", "10"], nu_top=1.1123120618510973,
         nu_bottom=1.1123120521316372, nu_volume=2.368198, vrms=24.914237533123497, rtol=1e-8),
@@ -697,18 +715,17 @@ CONVECTION_ORACLE = {
     "12a adapt": dict(
         argv=["convection", "-ts_adapt", "-dim", "12,12", "-ra", "5e3", "-dt", "1e-3",
               "-ts_dt0", "2e-5", "-steady_tol", "1e-4", "-stokes_pc", "dense"],
-        accepted=377, rejected=1, dt=(2e-05, 0.00219), nu_top=3.8051115171546765, warm=1),
+        accepted=377, rejected=1, dt=(2e-05, 0.00219), nu_top=3.8051115171546765),
     "12b newton": dict(
         argv=["convection", *BLANKENBACH, "-steady_tol", "1e-3", "-stokes_pc", "dense",
               "-newton"],
         newton=5, krylov=[4, 12, 12, 20, 28], nu_top=4.891494051655885,
-        nu_bottom=4.891494051656955, vrms=42.86685725327048, rtol=1e-8, published=True,
-        warm=1),
+        nu_bottom=4.891494051656955, vrms=42.86685725327048, rtol=1e-8, published=True),
     "12c stability": dict(
         argv=["convection", "-stability", "2", "-dim", "12,12", "-ra", "2000", "-stokes_pc",
               "dense"],
         ra_c_matvecs=22, growth=[-9.869604401559814, -16.925454704631253, 30.921383023053693],
-        growth_matvecs=23, verdict="UNSTABLE", warm=1),
+        growth_matvecs=23, verdict="UNSTABLE"),
 }
 # 12d: the Busse et al. (1994) square cell at bench.py::bench_convection3d's
 # width through the model API: (14, 14, 12), Ra 3e4, rigid top and bottom,
@@ -723,9 +740,9 @@ CONVECTION_ORACLE = {
 # convection``'s var_eta): Nu within 1e-8 of the oracle's on both, the
 # outer count of a fresh solve at the rolled state within max(3, 10%).
 BUSSE_SEED = {"nu": 3.2733793704775707, "vrms": 39.01461680873072}
-VAR_ETA_STEPS = 12
-VAR_ETA_ORACLE = {"dense": dict(nu=1.0069876361283416, fresh_outer=1),
-                  "nested": dict(nu=1.006987637955556, fresh_outer=32)}
+VAR_ETA_STEPS = 6   # 12 before phase 13 came; 6 keeps the script within its time limit
+VAR_ETA_ORACLE = {"dense": dict(nu=1.0031108168580676, fresh_outer=1),
+                  "nested": dict(nu=1.0031108185866369, fresh_outer=32)}
 
 
 def _max10(k: int, ref: int) -> bool:
@@ -779,6 +796,26 @@ def phase12_ok(name: str, got: dict) -> str | None:
         if got["verdict"] != spec["verdict"]:
             return f"verdict {got['verdict']}, oracle {spec['verdict']}"
     return None
+
+
+@contextlib.contextmanager
+def captured_continuation():
+    """The problem and results of the last ``StokesProblem.
+    solve_continuation`` a run makes (the stokes CLI's), in ``got``."""
+    from spectral_tpu_torch.models.stokes import StokesProblem
+
+    got = {}
+    orig = StokesProblem.solve_continuation
+
+    def cont(self, *a, **kw):
+        got["problem"], got["results"] = self, orig(self, *a, **kw)
+        return got["results"]
+
+    StokesProblem.solve_continuation = cont
+    try:
+        yield got
+    finally:
+        StokesProblem.solve_continuation = orig
 
 
 @contextlib.contextmanager
@@ -879,8 +916,8 @@ def var_eta_model(dev, stokes_pc: str):
 
 def phase12(cli_main, path, k1_shapes) -> dict:
     """Phase 12: every CONVECTION_ORACLE run through the CLI (first call;
-    a warm call too where ``warm`` is 1), then the Busse cell (12d, a
-    first and a warm call after the set-up) and the variable-viscosity
+    a warm call too where ``warm`` is 1), then the Busse cell (12d, one
+    call after the set-up) and the variable-viscosity
     rollouts (12e, one call each with the model's set-up inside it)
     through the model API; K1 launches by shape for each path."""
     import numpy as np
@@ -905,7 +942,7 @@ def phase12(cli_main, path, k1_shapes) -> dict:
         record(name, counts, first_s, warm_s, cli=" ".join(spec["argv"]), **got)
     # 12d: the Busse square cell through the model API: the model's set-up
     # (the saddle inverse's assembly and factorization on the card), then
-    # steady_newton twice, a first and a warm call; the counts cover both
+    # steady_newton once (the script's time limit: no warm call)
     name = "12d busse"
     solves = {"solve_stokes": 0, "_stability_dv": 0}
 
@@ -921,10 +958,9 @@ def phase12(cli_main, path, k1_shapes) -> dict:
                 return _fn(*a, **kw)
             setattr(m, key, counted)
         return setup_s, timed_twice(lambda: m.steady_newton(T0, warmup=300,
-                                                            newton=busse_newton()), warm_reps=1)
+                                                            newton=busse_newton()), warm_reps=0)
 
     (setup_s, ((T, x, info), first_s, warm_s)), counts = path(name, busse, [K1])
-    solves = {k: v // 2 for k, v in solves.items()}   # a run's, of the two
     Tn = T.cpu().numpy()
     sym = float(np.abs(Tn - np.swapaxes(Tn, 0, 1)).max())
     nu, nu_b, vrms = info["nu_top"], info["nu_bottom"], info["vrms"]
@@ -965,6 +1001,565 @@ def phase12(cli_main, path, k1_shapes) -> dict:
         record(name, counts, first_s, None, steps=VAR_ETA_STEPS, nu_top=nu,
                fresh_outer=int(fresh))
     return out
+
+
+# Phase 13: the differentiable tier in float64 at full width.  13a: K1 in
+# reverse mode (the autograd pair _K1 / _K1T) against a plain pair of
+# torch.matmul products (PlainK1 below), at every K1_PATH_SHAPES shape in
+# float64, at (20, 20, 20) float32 and under torch.func.vmap at
+# K1_BATCHED_SHAPES: torch.func.vjp, torch.autograd.grad of a
+# requires_grad tensor, jvp-of-vjp and vmap-of-vjp, bit for bit where the
+# forward is (float64), else within BOUND; K1^T timed as phase 1 times
+# K1; K2 refuses a graph.  13b: StokesProblem.adjoint_gradient at
+# README:52's converged 20^3 state (phase 8's CLI run, captured; the
+# continuation through the API when phase 8 did not run), under the
+# nested make_pc(adjoint=True):
+# the adjoint FGMRES converges, its count within max(3, 10%) of the range
+# of ADJOINT52_ORACLE (the JAX package's count from the zero start and
+# from nine perturbed ones, 120-151, ``stokes_oracle.py adjoint52`` and
+# ``perturb_adjoint52``; the port's CPU runs took 129 and 135), and the hardness
+# component within 1e-4 relative of central differences (h 1e-4) of two
+# Newton solves started at x* with rtol 1e-12 (tests/test_adjoint.py:94).
+# 13c: rollout_diff at Blankenbach 1a (16^2, Ra 1e4, dt 5e-4, free slip,
+# insulated, the dense PC; the Stokes and heat solves at rtol 1e-10 and
+# 1e-12, as tests/test_convection.py:237 runs them, so the primal's
+# finite differences are smooth): 100 steps from conductive_state(0.05),
+# loss Nu(top) + 1e-2 Vrms, the gradient in Ra and a seeded T0 direction
+# within 1e-3 of central differences; then at 33 and 97 steps
+# checkpoint=True equal to False to 1e-8 and, from 33 to 97 steps, the
+# growth of max_memory_allocated over the backward at least 3x smaller
+# checkpointed; then 12e's
+# variable-viscosity configuration (contrast 10, the dense PC refactored
+# each solve, rtol as above) for 12 steps, the contrast gradient through
+# _stokes_solve_diff's operator term within 1e-3 (h 1e-3).  13d: the
+# transient adjoint at 11b's power law (20^3, dt 0.05, 5 CN steps,
+# exponent 3, the ustokes driver's defaults; the finite differences' two
+# rollouts take Newton to rtol 1e-12, tests/test_stokes_unsteady.py:151's),
+# qoi sum(v_N^2):
+# adjoint_gradient equal to adjoint_gradient_checkpointed to 1e-7,
+# forward_steps == 2N, the hardness component within 1e-5 of central
+# differences (h 1e-6).  13e: the ported adjoint_fit_demo -opt lbfgs -n 32
+# (exit 0: hardness 1.6 within 0.02), and implicit_hvp on its problem
+# (32^2, hardness 1.3, qoi sum(v^2)/2, the hardness direction) within
+# 1e-6 (max(1, |fd|)) of central differences (h 1e-5) of implicit_gradient
+# (tests/test_adjoint.py:199).  ADJOINT52_ORACLE: the JAX count from the
+# zero start, then from starts perturbed by 1e-13 (seeds 0-7) and 1e-11
+# (seed 0), on the CPU in float64.
+ADJOINT52_ORACLE = {"iters": 120, "perturbed": (143, 126, 122, 143, 123, 134, 151, 131, 127)}
+
+
+def plain_k1_pair():
+    """(K1, K1^T) as plain torch.matmul products with the kernel pair's
+    structure (each one's backward the other, jvp itself, a generated vmap
+    rule): the oracle phase 13a holds the kernel pair to."""
+    import torch
+
+    from spectral_tpu_torch.ops import cuda_cheb
+
+    class PlainK1(torch.autograd.Function):
+        generate_vmap_rule = True
+
+        @staticmethod
+        def forward(u):
+            return cuda_cheb.chebdiff_last_ref(u)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            pass
+
+        @staticmethod
+        def backward(ctx, g):
+            return PlainK1T.apply(g)
+
+        @staticmethod
+        def jvp(ctx, t):
+            return PlainK1.apply(t)
+
+    class PlainK1T(torch.autograd.Function):
+        generate_vmap_rule = True
+
+        @staticmethod
+        def forward(g):
+            return cuda_cheb.chebdiff_last_t_ref(g)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            pass
+
+        @staticmethod
+        def backward(ctx, u_bar):
+            return PlainK1.apply(u_bar)
+
+        @staticmethod
+        def jvp(ctx, t):
+            return PlainK1T.apply(t)
+
+    return PlainK1.apply, PlainK1T.apply
+
+
+def phase13a(dev) -> tuple[list, list]:
+    """13a: (the cases' records, K1^T's timed comparisons)."""
+    import torch
+
+    from spectral_tpu_torch.ops import cuda_cheb
+    from spectral_tpu_torch.ops.chebyshev import chebdiff
+
+    k1p, _ = plain_k1_pair()
+
+    def seeded(shape, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    def through(k1):   # nonlinear, so jvp-of-vjp has a non-zero answer
+        return lambda x: k1(x) * k1(x) * k1(torch.sin(x))
+
+    kernel = through(lambda x: chebdiff(x, -1))
+    plain = through(k1p)
+    rows = []
+    cases = ([(s, torch.float64, False) for s in K1_PATH_SHAPES]
+             + [((20, 20, 20), torch.float32, False)]
+             + [(s, torch.float64, True) for s in K1_BATCHED_SHAPES])
+    for seed, (shape, dtype, batched) in enumerate(cases):
+        u, ct, tan = (seeded(shape, dtype, 200 + 3 * seed + i) for i in range(3))
+        dname = str(dtype)[6:]
+        fwd_bitwise = bool(torch.equal(cuda_cheb.chebdiff_last(u), cuda_cheb.chebdiff_last_ref(u)))
+        cuda_cheb.reset_launch_counts()
+        got = {}
+        if batched:
+            got["vmap_of_vjp"] = [torch.func.vmap(
+                lambda z, f=f: torch.func.vjp(f, z)[1](z)[0])(u) for f in (kernel, plain)]
+            got["vjp"] = [torch.func.vjp(lambda x: chebdiff(x, -1), u)[1](ct)[0],
+                          cuda_cheb.chebdiff_last_t_ref(ct)]
+        else:
+            got["vjp"] = [torch.func.vjp(lambda x: chebdiff(x, -1), u)[1](ct)[0],
+                          cuda_cheb.chebdiff_last_t_ref(ct)]
+            x = u.clone().requires_grad_()
+            got["autograd_grad"] = [torch.autograd.grad(chebdiff(x, -1), x, ct)[0],
+                                    got["vjp"][1]]
+            got["jvp_of_vjp"] = [torch.func.jvp(
+                lambda z, f=f: torch.func.vjp(f, z)[1](ct)[0], (u,), (tan,))[1]
+                for f in (kernel, plain)]
+        torch.cuda.synchronize()
+        launches = dict(cuda_cheb.LAUNCHES)
+        k1t = {f"{tuple(s)} {str(d)[6:]}": c
+               for (s, d), c in cuda_cheb.K1T_LAUNCHES_BY_SHAPE.items()}
+        require(sum(k1t.values()) > 0, f"13a {shape} {dname}: no K1^T launch")
+        rec = {"case": f"{shape} {dname}" + (" under vmap" if batched else ""),
+               "forward_bitwise": fwd_bitwise, "k1_launches": launches["chebdiff_last_kernel"],
+               "k1t_launches_by_shape": k1t}
+        for name, (a, b) in got.items():
+            require(bool(torch.isfinite(a).all()), f"13a {shape} {name}: non-finite")
+            bitwise = bool(torch.equal(a, b))
+            rel = float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+            if fwd_bitwise and dtype == torch.float64:
+                require(bitwise, f"13a {shape} {name}: not bit for bit the matmul path "
+                                 f"(rel {rel:.3e}) where the forward is")
+            require(rel <= BOUND[dname], f"13a {shape} {name}: error {rel:.3e}")
+            rec[name] = {"bitwise": bitwise, "rel_err": rel}
+        rows.append(rec)
+        del u, ct, tan, got
+    # K2 refuses a graph
+    u3 = seeded((12, 10, 8), torch.float64, 299).requires_grad_()
+    try:
+        cuda_cheb.laplacian3d(u3)
+    except RuntimeError as e:
+        require("reverse mode" in str(e), f"13a K2 refused with {e!r}")
+    else:
+        raise RuntimeError("13a: K2 took a tensor that needs a graph")
+    # K1^T timed beside torch.matmul(g, s D) and its bound (the bytes of K1)
+    timed = []
+    for shape, dtype in (((256, 64, 64, 64), torch.float32), ((20, 20, 20), torch.float64)):
+        g = seeded(shape, dtype, 390)
+        n, dname = shape[-1], str(dtype)[6:]
+        c = compare("K1T", lambda: cuda_cheb.chebdiff_last_t(g),
+                    lambda: cuda_cheb.chebdiff_last_t_ref(g), g, f"{shape} K1^T")
+        D = cuda_cheb._diffmat(n, None, dtype, dev)
+        c["library_ms"], c["library_call_ms"] = both_ms(lambda: torch.matmul(g, D))
+        c["bound_ms"], c["bound_by"] = bound(2 * g.numel() * g.element_size()
+                                             + n * n * g.element_size(), 2 * n * g.numel(),
+                                             dname)
+        c["kernel_ms"] = kernel_ms(lambda: cuda_cheb.chebdiff_last_t(g))
+        timed.append(c)
+        del g
+    return rows, timed
+
+
+def stokes52(dev):
+    """README:52's StokesProblem at 20^3 in float64 through the API (the
+    stokes driver's configuration for STOKES_README52): 13b's problem when
+    phase 8 did not run."""
+    import torch
+
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+
+    cfg = StokesConfig(exact=2, rheology=1, regularization=1e-4, exponent=3.0, cont=4,
+                       outer_ksp=KSPConfig(type="fgmres", rtol=1e-5, max_it=500, restart=50),
+                       vel_ksp=KSPConfig(type="gmres", rtol=1e-5, max_it=4, restart=30),
+                       svel_ksp=KSPConfig(type="preonly", rtol=1e-5, max_it=10000, restart=30),
+                       schur_ksp=KSPConfig(type="gmres", rtol=1e-5, max_it=3, restart=30),
+                       newton=NewtonConfig(rtol=1e-8, max_it=50))
+    return StokesProblem(Grid((20, 20, 20), device=dev, dtype=torch.float64), cfg)
+
+
+def blankenbach_diff(dev, **extra):
+    """13c's model: Blankenbach 1a (16^2, Ra 1e4, dt 5e-4, free slip,
+    insulated sides, the dense PC), the solves at rtol 1e-10 / 1e-12."""
+    from spectral_tpu_torch.models.convection import ConvectionConfig, ConvectionModel
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+    cfg = ConvectionConfig(**{**dict(Ra=1e4, dt=5e-4, velocity_bc="freeslip",
+                                     side_bc="insulated", stokes_pc="dense"), **extra},
+                           stokes_ksp=KSPConfig(type="fgmres", rtol=1e-10, max_it=200,
+                                                restart=80),
+                           temp_ksp=KSPConfig(type="cg", rtol=1e-12, max_it=120))
+    return ConvectionModel.unit_box((16, 16), cfg, device=dev)
+
+
+def unsteady_powerlaw(dev, hardness: float = 1.0, newton_rtol: float = 1e-8):
+    """13d's model: phase 11b's power law (20^3, dt 0.05, CN, exponent 3,
+    the ustokes driver's defaults: outer FGMRES rtol 1e-9, Newton rtol
+    1e-8; the finite differences take Newton to 1e-12)."""
+    import torch
+
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.stokes import StokesConfig
+    from spectral_tpu_torch.models.stokes_unsteady import UnsteadyStokes
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+
+    cfg = StokesConfig(exact=1, boundary=0, rheology=1, hardness=hardness, exponent=3.0,
+                       regularization=1.0, pcvel="fastdiag",
+                       outer_ksp=KSPConfig(type="fgmres", rtol=1e-9, max_it=400, restart=100),
+                       newton=NewtonConfig(rtol=newton_rtol, max_it=25))
+    return UnsteadyStokes(Grid((20, 20, 20), device=dev, dtype=torch.float64), cfg, dt=0.05,
+                          theta=0.5)
+
+
+def timed_once(fn):
+    """(result, seconds) of one call of fn, synchronized: the first or a
+    warm call, as the caller records it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+K1_NAME = "chebdiff_last_kernel"
+
+
+class Phase13:
+    """Phase 13's runs (see above), each a path with its own counts: K1's
+    forward and transposed launches by shape in every record."""
+
+    def __init__(self, path, k1_shapes, k1t_shapes, readme52=None):
+        import torch
+
+        self.path, self.k1_shapes, self.k1t_shapes = path, k1_shapes, k1t_shapes
+        self.readme52 = readme52   # phase 8's (problem, continuation results), if it ran
+        self.dev = torch.device("cuda")
+        self.out = {}
+
+    def timed_path(self, name, fn):
+        """fn as a counted path that must launch K1, timed by one call:
+        ((result, seconds), launch counts)."""
+        return self.path(name, lambda: timed_once(fn), [K1_NAME])
+
+    def record(self, name, counts, **rec):
+        self.out[name] = {**rec, "k1_launches": counts["chebdiff_last_kernel"],
+                          "k1_launches_by_shape": self.k1_shapes[name],
+                          "k1t_launches_by_shape": self.k1t_shapes[name]}
+        require(sum(self.k1t_shapes[name].values()) > 0, f"{name}: no K1^T launch")
+
+    def run(self) -> tuple[dict, list]:
+        t0 = time.perf_counter()
+        rows, k1t_timed = phase13a(self.dev)
+        self.out["13a k1 reverse mode"] = {"cases": rows, "k1t_timed": k1t_timed,
+                                           "seconds": time.perf_counter() - t0}
+        for run in (self.stokes_adjoint, self.rollout_diff, self.transient_adjoint,
+                    self.fit_and_hvp):
+            t0 = time.perf_counter()
+            run()
+            self.out[run.__name__ + " seconds"] = time.perf_counter() - t0
+        return self.out, k1t_timed
+
+    def stokes_adjoint(self):
+        """13b: the steady Stokes adjoint at README:52."""
+        import dataclasses
+
+        import torch
+
+        from spectral_tpu_torch.models.stokes import StokesProblem
+        from spectral_tpu_torch.utils.interop import power_law_params_from_numpy, pytree_to_numpy
+
+        if self.readme52 is not None:   # phase 8's converged state
+            (p, res), cont_s = self.readme52, None
+        else:
+            p = stokes52(self.dev)
+            (res, cont_s), _ = self.timed_path("13b continuation", p.solve_continuation)
+        require(all(r.reason > 0 for r in res), "13b: the continuation did not converge")
+        xs, th = res[-1].x, p.params_at(p.config.cont)
+        theta = power_law_params_from_numpy(th, device=self.dev)
+
+        def qoi(x, _):
+            return torch.sum(x["v"] ** 2)
+
+        name = "13b stokes adjoint README:52"
+        ((grad, ares), adj_s), counts = self.timed_path(
+            name, lambda: p.adjoint_gradient(qoi, xs, theta))
+        lo = min(ADJOINT52_ORACLE["iters"], *ADJOINT52_ORACLE["perturbed"])
+        hi = max(ADJOINT52_ORACLE["iters"], *ADJOINT52_ORACLE["perturbed"])
+        require(ares.reason > 0,
+                f"{name}: the adjoint FGMRES did not converge ({ares.reason_str()})")
+        require(lo - max(3, 0.1 * lo) <= ares.iters <= hi + max(3, 0.1 * hi),
+                f"{name}: {ares.iters} adjoint iterations, JAX range {lo}-{hi} (max(3, 10%))")
+        pf = StokesProblem(p.grid, dataclasses.replace(
+            p.config, newton=dataclasses.replace(p.config.newton, rtol=1e-12)))
+        h = 1e-4
+
+        def fd_solves():
+            qs, its = [], []
+            for s in (1.0, -1.0):
+                r = pf.solve(xs, params=dataclasses.replace(th, hardness=th.hardness + s * h))
+                # rtol 1e-12 of a start this close is at the round-off floor: a
+                # line search that stalls there (1e-10 of the start) has converged
+                require(r.reason > 0 or r.fnorm <= 1e-10 * r.fnorm_history[0],
+                        f"{name}: the FD solve did not converge ({r.reason_str()}, "
+                        f"{r.fnorm_history})")
+                qs.append(float(qoi(r.x, None)))
+                its.append((r.iters, r.ksp_iters, r.reason_str()))
+            return (qs[0] - qs[1]) / (2 * h), its
+
+        ((fd, fd_its), fd_s), _ = self.timed_path(name + " fd", fd_solves)
+        g_h = float(grad.hardness)
+        require(abs(g_h - fd) <= 1e-4 * abs(fd), f"{name}: hardness {g_h!r}, FD {fd!r} (1e-4)")
+        self.record(name, counts, continuation_s=cont_s, adjoint_first_s=adj_s, fd_s=fd_s,
+                    newton=[r.iters for r in res], adjoint_iters=ares.iters,
+                    adjoint_reason=ares.reason_str(), jax_iters=ADJOINT52_ORACLE,
+                    grad=pytree_to_numpy(grad), fd_hardness=fd,
+                    fd_rel=abs(g_h - fd) / abs(fd), fd_newton=fd_its)
+        self.out[name]["fd_k1_launches_by_shape"] = self.k1_shapes[name + " fd"]
+        del p, pf, res, xs
+        torch.cuda.empty_cache()
+
+    def rollout_diff(self):
+        """13c: rollout_diff at Blankenbach 1a, then 12e's variable viscosity."""
+        import numpy as np
+        import torch
+
+        m = blankenbach_diff(self.dev)
+        T0 = m.conductive_state(amp=0.05)
+        dT = torch.as_tensor(np.random.default_rng(3).standard_normal(m.grid.dims) * 0.01,
+                             device=self.dev)
+
+        def loss_of(Ra, t, n=100, ck=False):
+            T, x = m.rollout_diff(T0 + t * dT, n, Ra=Ra, checkpoint=ck)
+            return m.nusselt_top(T) + 1e-2 * m.vrms(x)
+
+        def f64(v, grad=False):
+            return torch.tensor(v, dtype=torch.float64, device=self.dev, requires_grad=grad)
+
+        def gradients(ck):
+            args = [f64(1e4, True), f64(0.0, True)]
+            loss = loss_of(*args, ck=ck)
+            return float(loss.detach()), [float(g) for g in torch.autograd.grad(loss, args)]
+
+        name = "13c rollout_diff blankenbach"
+        ((loss, g), first_s), counts = self.timed_path(name, lambda: gradients(False))
+
+        def fd_primal():
+            with torch.no_grad():
+                return [(float(loss_of(f64(1e4 + 1.0), f64(0.0)))
+                         - float(loss_of(f64(1e4 - 1.0), f64(0.0)))) / 2.0,
+                        (float(loss_of(f64(1e4), f64(1e-4)))
+                         - float(loss_of(f64(1e4), f64(-1e-4)))) / 2e-4]
+
+        (fd, fd_s), _ = self.timed_path(name + " fd", fd_primal)
+        for a, b, what in zip(g, fd, ("Ra", "T0")):
+            require(abs(a - b) <= 1e-3 * abs(b), f"{name}: {what} gradient {a!r}, FD {b!r} (1e-3)")
+
+        def mem_growth(n, ck):
+            """(peak bytes over the run and its backward, d loss / d Ra)."""
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            Ra = f64(1e4, True)
+            g_ra = float(torch.autograd.grad(loss_of(Ra, f64(0.0), n, ck), Ra)[0])
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated() - base, g_ra
+
+        def memory():
+            return {ck: [mem_growth(n, ck) for n in (33, 97)] for ck in (False, True)}
+
+        # the checkpointed runs: their memory, and their gradient against the plain
+        # loop's at 33 and 97 steps
+        (mem, mem_s), _ = self.timed_path(name + " checkpointed", memory)
+        for (_, a), (_, b), n in zip(mem[True], mem[False], (33, 97)):
+            require(abs(a - b) <= 1e-8 * abs(b),
+                    f"{name}: {n} steps, checkpointed d/dRa {a!r}, plain {b!r} (1e-8)")
+        grow = {ck: v[1][0] - v[0][0] for ck, v in mem.items()}
+        require(grow[False] > 0 and grow[True] < grow[False] / 3.0,
+                f"{name}: memory growth 33 -> 97 steps {grow[True]} checkpointed, "
+                f"{grow[False]} plain (need 3x less)")
+        self.record(name, counts, steps=100, loss=loss, grad={"Ra": g[0], "T0": g[1]},
+                    fd={"Ra": fd[0], "T0": fd[1]},
+                    fd_rel=[abs(a - b) / abs(b) for a, b in zip(g, fd)],
+                    first_s=first_s, fd_s=fd_s,
+                    checkpointed={str(k): [{"steps": n, "peak_bytes": m_, "d_dRa": g_}
+                    for n, (m_, g_) in zip((33, 97), v)]
+                    for k, v in mem.items()},
+                    memory_growth={"plain": grow[False], "checkpointed": grow[True]},
+                    checkpointed_s=mem_s)
+        self.out[name]["checkpointed_k1t_launches_by_shape"] = \
+            self.k1t_shapes[name + " checkpointed"]
+        del m
+        mv = blankenbach_diff(self.dev, Ra=2e3, dt=2e-4, eta_contrast=10.0)
+        Tv = mv.conductive_state(amp=0.05)
+
+        def loss_c(c):
+            T, x = mv.rollout_diff(Tv, 12, contrast=c)
+            return mv.nusselt_top(T) + 1e-2 * mv.vrms(x)
+
+        name = "13c rollout_diff var eta"
+
+        def grad_c():
+            c = f64(10.0, True)
+            return float(torch.autograd.grad(loss_c(c), c)[0])
+
+        (gc, first_s), counts = self.timed_path(name, grad_c)
+        with torch.no_grad():
+            fdc = (float(loss_c(f64(10.0 + 1e-3))) - float(loss_c(f64(10.0 - 1e-3)))) / 2e-3
+        require(abs(gc - fdc) <= 1e-3 * abs(fdc), f"{name}: contrast {gc!r}, FD {fdc!r} (1e-3)")
+        self.record(name, counts, steps=12, grad_contrast=gc, fd_contrast=fdc,
+                    fd_rel=abs(gc - fdc) / abs(fdc), first_s=first_s)
+        del mv
+        torch.cuda.empty_cache()
+
+    def transient_adjoint(self):
+        """13d: the transient adjoint at 11b's power law."""
+        import numpy as np
+        import torch
+
+        from spectral_tpu_torch.utils.interop import pytree_to_numpy
+
+        um = unsteady_powerlaw(self.dev)
+        u0, s_of_t, f_of_t, _, _ = um.manufactured(omega=1.0)
+        N = 5
+        times = np.arange(N + 1) * 0.05
+
+        def qoi_v(v):
+            return torch.sum(v * v)
+
+        def full():
+            traj, _, its = um.rollout(u0, times, s_of_t, f_of_t, keep_trajectory=True)
+            grad, adj = um.adjoint_gradient(qoi_v, traj, times, s_of_t, f_of_t)
+            return grad, adj, its
+
+        name = "13d transient adjoint"
+        ((grad, adj, fwd_its), first_s), counts = self.timed_path(name, full)
+        ((grad_ck, info), ck_s), _ = self.timed_path(
+            name + " checkpointed",
+            lambda: um.adjoint_gradient_checkpointed(qoi_v, u0, times, s_of_t, f_of_t))
+        gf, gc = pytree_to_numpy(grad), pytree_to_numpy(grad_ck)
+        for k in gf:
+            require(abs(gf[k] - gc[k]) <= 1e-7 * max(abs(gf[k]), 1.0),
+                    f"{name}: {k} {gf[k]!r} full, {gc[k]!r} checkpointed (1e-7)")
+        require(info["forward_steps"] == 2 * N, f"{name}: forward_steps {info['forward_steps']}")
+
+        def J(hard):
+            m = unsteady_powerlaw(self.dev, hard, newton_rtol=1e-12)
+            v, _, _ = m.rollout(u0, times, s_of_t, f_of_t)
+            return float(qoi_v(v))
+
+        (fd, fd_s), _ = self.timed_path(name + " fd",
+                                        lambda: (J(1.0 + 1e-6) - J(1.0 - 1e-6)) / 2e-6)
+        require(abs(fd - gf["hardness"]) <= 1e-5 * abs(fd),
+                f"{name}: hardness {gf['hardness']!r}, FD {fd!r} (1e-5)")
+        self.record(name, counts, steps=N, forward_iters=fwd_its, adjoint_iters=adj,
+                    checkpointed=info, grad=gf, grad_checkpointed=gc, fd_hardness=fd,
+                    fd_rel=abs(fd - gf["hardness"]) / abs(fd), first_s=first_s,
+                    checkpointed_first_s=ck_s, fd_s=fd_s)
+        self.out[name]["checkpointed_k1t_launches_by_shape"] = \
+            self.k1t_shapes[name + " checkpointed"]
+        del um
+        torch.cuda.empty_cache()
+
+    def fit_and_hvp(self):
+        """13e: the L-BFGS fit and one Hessian-vector product."""
+        import torch
+
+        from spectral_tpu_torch.examples import adjoint_fit_demo
+        from spectral_tpu_torch.models.rheology import PowerLawParams
+        from spectral_tpu_torch.solvers.adjoint import implicit_hvp
+        from spectral_tpu_torch.solvers.krylov import KSPConfig
+        from spectral_tpu_torch.utils.interop import power_law_params_from_numpy, pytree_to_numpy
+
+        name = "13e adjoint_fit_demo lbfgs"
+        ((rc, text), first_s), counts = self.timed_path(name, lambda: run_cli(
+            adjoint_fit_demo.main, ["-opt", "lbfgs", "-n", "32", "-device", "cuda"]))
+        mm = re.search(r"recovered hardness = (\S+) .*\[(\d+) solves, (\S+)\]", text)
+        require(rc == 0 and mm is not None, f"{name}: exit {rc}: {text[-2000:]!r}")
+        self.record(name, counts, recovered=float(mm.group(1)), solves=int(mm.group(2)),
+                    reason=mm.group(3), first_s=first_s, lines=text.splitlines()[-3:])
+        p = adjoint_fit_demo.fit_problem(32, self.dev, torch.float64, newton_rtol=1e-13)
+
+        def qoi_fit(x, _):   # no observation: one cold solve fewer
+            return 0.5 * torch.sum(x["v"] ** 2)
+
+        def residual(xG, th_):
+            F, _ = p.make_residual(th_)(xG)
+            return {"v": F["v"], "p": p.project_p(F["p"])}
+
+        ksp = KSPConfig(type="fgmres", rtol=1e-12, max_it=400, restart=100)
+
+        def params(hard):
+            return power_law_params_from_numpy(PowerLawParams(hard, 2.0, 1e-2, 1.0),
+                                               device=self.dev)
+
+        def grad_at(hard, x0=None):
+            r = p.solve(x0, params=PowerLawParams(hard, 2.0, 1e-2, 1.0))
+            # rtol 1e-13 reaches the round-off floor: a line search that
+            # stalls there (1e-10 of the start) has converged
+            require(r.reason > 0 or r.fnorm <= 1e-10 * r.fnorm_history[0],
+                    f"13e: the solve at hardness {hard} did not converge ({r.reason_str()})")
+            g_, a_ = p.adjoint_gradient(qoi_fit, r.x, params(hard), ksp=ksp)
+            require(a_.reason > 0, f"13e: the adjoint at hardness {hard} did not converge")
+            return r.x, g_, a_
+
+        def hvp():
+            xs_, _, a_ = grad_at(1.3)
+            pc_setup, pc_apply = p.make_pc()
+            apc_setup, apc_apply = p.make_pc(adjoint=True)
+            with torch.no_grad():
+                _, lin = p.make_residual(PowerLawParams(1.3, 2.0, 1e-2, 1.0))(xs_)
+            fs, as_ = pc_setup(xs_, lin), apc_setup(xs_, lin)
+            v = power_law_params_from_numpy(PowerLawParams(1.0, 0.0, 0.0, 0.0), device=self.dev)
+            Hv, rt, ra = implicit_hvp(residual, qoi_fit, xs_, params(1.3), a_.x, v, ksp=ksp,
+                                      M=lambda r: pc_apply(fs, r), Mt=lambda r: apc_apply(as_, r),
+                                      null_project=p.null_project)
+            require(rt.reason > 0 and ra.reason > 0, "13e: an HVP solve did not converge")
+            return xs_, Hv, rt.iters, ra.iters
+
+        name = "13e implicit_hvp"
+        ((xs, Hv, t_its, a_its), first_s), counts = self.timed_path(name, hvp)
+        h = 1e-5
+
+        def fd_grad():
+            gp, gm = (pytree_to_numpy(grad_at(1.3 + s * h, xs)[1]) for s in (1.0, -1.0))
+            return {k: (gp[k] - gm[k]) / (2 * h) for k in gp}
+
+        (fd, fd_s), _ = self.timed_path(name + " fd", fd_grad)
+        hv = pytree_to_numpy(Hv)
+        for k in hv:
+            require(abs(hv[k] - fd[k]) <= 1e-6 * max(1.0, abs(fd[k])),
+                    f"{name}: H v {k} {hv[k]!r}, FD {fd[k]!r} (1e-6)")
+        self.record(name, counts, hvp=hv, fd=fd, tangent_iters=t_its, second_adjoint_iters=a_its,
+                    first_s=first_s, fd_s=fd_s)
 
 
 def stokes_krylov_range(spec: dict):
@@ -1284,7 +1879,31 @@ def run_cli(cli_main, argv) -> tuple[int, str]:
     return rc, buf.getvalue()
 
 
-def main() -> int:
+ALL_PHASES = frozenset(range(14))
+
+
+def parse_phases(argv: list[str]) -> frozenset:
+    """``--phases 3,8-13``: the phases to run (phase 0, the build, always;
+    9 brings 8, whose solutions 9d reuses).  Every phase by default, the
+    only run that prints the kernels line and the result line."""
+    if not argv:
+        return ALL_PHASES
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases 1,3,8-13]")
+    want = {0}
+    for part in argv[1].split(","):
+        lo, _, hi = part.partition("-")
+        want.update(range(int(lo), int(hi or lo) + 1))
+    if 9 in want:
+        want.add(8)
+    unknown = want - ALL_PHASES
+    if unknown:
+        raise SystemExit(f"chip_smoke.py: no phase {sorted(unknown)}")
+    return frozenset(want)
+
+
+def main(argv: list[str] | None = None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1333,144 +1952,151 @@ def main() -> int:
         "build_s": build_s, "nvcc_s": compile_s, "ptxas": ptxas}))
 
     # -- phase 1: K1 against its plain version --------------------------------
-    t_phase = time.perf_counter()
-    k1 = []
-    # small and ragged cases, then the shapes the paths give K1
-    k1_cases = [((3, 10, 16), None), ((7, 12), None), ((5, 12), 0.25),
-                ((11, 10), None), ((4, 9, 128), None)] + [(s, None) for s in K1_PATH_SHAPES]
-    for dtype in (torch.float32, torch.float64):
-        for seed, (shape, scale) in enumerate(k1_cases):
-            u = randn(shape, dtype, seed)
-            k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u, scale),
-                              lambda: cuda_cheb.chebdiff_last_ref(u, scale), u,
-                              f"{shape} scale={scale}"))
-            if shape in K1_GSEQ_SHAPES + K1_CONV_SHAPES and dtype == torch.float64:
-                require(k1[-1]["bitwise"], f"K1 {shape} float64: not bit for bit its plain version")
-            if shape in K1_PATH_SHAPES:   # a path's shape: its bound and library call
-                n = shape[-1]
-                dt = cuda_cheb._diffmat_t(n, None, dtype, dev)
-                k1[-1]["library_ms"], k1[-1]["library_call_ms"] = both_ms(
-                    lambda: torch.matmul(u, dt))
-                k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(
-                    2 * u.numel() * u.element_size() + dt.numel() * dt.element_size(),
-                    2 * n * u.numel(), k1[-1]["dtype"])
-                k1[-1]["kernel_ms"] = kernel_ms(lambda: cuda_cheb.chebdiff_last(u, scale))
-                k1[-1]["library_kernel_ms"] = kernel_ms(lambda: torch.matmul(u, dt))
-                grid = cuda_cheb.chebdiff_last_grid(u)
-                regs = ptxas[f"chebdiff_last_kernel<{DTYPE_C[str(dtype)]}, true>"]["registers"]
-                k1[-1].update(grid=grid, registers=regs, blocks_per_sm=blocks_per_sm(regs, grid))
-    u = randn((256, 64, 64, 64), torch.float32, 99)   # the cheb_matvec shape
-    k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u),
-                      lambda: cuda_cheb.chebdiff_last_ref(u), u, "(256, 64, 64, 64)"))
-    k1[-1]["grid"] = cuda_cheb.chebdiff_last_grid(u)
-    dt = cuda_cheb._diffmat_t(64, None, torch.float32, dev)
-    k1[-1]["library_ms"], k1[-1]["library_call_ms"] = both_ms(lambda: torch.matmul(u, dt))
-    k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 4 + 64 * 64 * 4,
-                                                   2 * 64 * u.numel(), "float32")
-    del u
-    # the dense assemblies' batched shapes (phases 11c, 12d, 12e): K1 bit for
-    # bit its plain version, on the tensor and under torch.func.vmap (one launch)
-    from spectral_tpu_torch.ops.chebyshev import chebdiff
-
-    for seed, shape in enumerate(K1_BATCHED_SHAPES):
-        u = randn(shape, torch.float64, 100 + seed)
+    if 1 in phases:
+        t_phase = time.perf_counter()
+        k1 = []
+        # small and ragged cases, then the shapes the paths give K1
+        k1_cases = [((3, 10, 16), None), ((7, 12), None), ((5, 12), 0.25),
+                    ((11, 10), None), ((4, 9, 128), None)] + [(s, None) for s in K1_PATH_SHAPES]
+        for dtype in (torch.float32, torch.float64):
+            for seed, (shape, scale) in enumerate(k1_cases):
+                u = randn(shape, dtype, seed)
+                k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u, scale),
+                                  lambda: cuda_cheb.chebdiff_last_ref(u, scale), u,
+                                  f"{shape} scale={scale}"))
+                if shape in K1_GSEQ_SHAPES + K1_CONV_SHAPES and dtype == torch.float64:
+                    require(k1[-1]["bitwise"], f"K1 {shape} float64: not bit for bit its plain version")
+                if shape in K1_PATH_SHAPES:   # a path's shape: its bound and library call
+                    n = shape[-1]
+                    dt = cuda_cheb._diffmat_t(n, None, dtype, dev)
+                    k1[-1]["library_ms"], k1[-1]["library_call_ms"] = both_ms(
+                        lambda: torch.matmul(u, dt))
+                    k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(
+                        2 * u.numel() * u.element_size() + dt.numel() * dt.element_size(),
+                        2 * n * u.numel(), k1[-1]["dtype"])
+                    k1[-1]["kernel_ms"] = kernel_ms(lambda: cuda_cheb.chebdiff_last(u, scale))
+                    k1[-1]["library_kernel_ms"] = kernel_ms(lambda: torch.matmul(u, dt))
+                    grid = cuda_cheb.chebdiff_last_grid(u)
+                    regs = ptxas[f"chebdiff_last_kernel<{DTYPE_C[str(dtype)]}, true>"]["registers"]
+                    k1[-1].update(grid=grid, registers=regs, blocks_per_sm=blocks_per_sm(regs, grid))
+        u = randn((256, 64, 64, 64), torch.float32, 99)   # the cheb_matvec shape
         k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u),
-                          lambda: cuda_cheb.chebdiff_last_ref(u), u, f"{shape} batched"))
-        cuda_cheb.reset_launch_counts()
-        got = torch.func.vmap(lambda x: chebdiff(x, -1))(u)
-        require(cuda_cheb.LAUNCHES["chebdiff_last_kernel"] == 1, "K1 under vmap: not one launch")
-        require(k1[-1]["bitwise"] and torch.equal(got, cuda_cheb.chebdiff_last_ref(u)),
-                f"K1 {shape} float64: not bit for bit its plain version")
-        n = shape[-1]
-        dt = cuda_cheb._diffmat_t(n, None, torch.float64, dev)
-        k1[-1]["vmap_bitwise"] = True
+                          lambda: cuda_cheb.chebdiff_last_ref(u), u, "(256, 64, 64, 64)"))
+        k1[-1]["grid"] = cuda_cheb.chebdiff_last_grid(u)
+        dt = cuda_cheb._diffmat_t(64, None, torch.float32, dev)
         k1[-1]["library_ms"], k1[-1]["library_call_ms"] = both_ms(lambda: torch.matmul(u, dt))
-        k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 8 + n * n * 8,
-                                                       2 * n * u.numel(), "float64")
-        del u, got
-    print("phase1 K1 " + json.dumps(k1))
-    print(f"phase1 seconds {time.perf_counter() - t_phase:.3f}")
+        k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 4 + 64 * 64 * 4,
+                                                       2 * 64 * u.numel(), "float32")
+        del u
+        # the dense assemblies' batched shapes (phases 11c, 12d, 12e): K1 bit for
+        # bit its plain version, on the tensor and under torch.func.vmap (one launch)
+        from spectral_tpu_torch.ops.chebyshev import chebdiff
+
+        for seed, shape in enumerate(K1_BATCHED_SHAPES):
+            u = randn(shape, torch.float64, 100 + seed)
+            k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u),
+                              lambda: cuda_cheb.chebdiff_last_ref(u), u, f"{shape} batched"))
+            cuda_cheb.reset_launch_counts()
+            got = torch.func.vmap(lambda x: chebdiff(x, -1))(u)
+            require(cuda_cheb.LAUNCHES["chebdiff_last_kernel"] == 1, "K1 under vmap: not one launch")
+            require(k1[-1]["bitwise"] and torch.equal(got, cuda_cheb.chebdiff_last_ref(u)),
+                    f"K1 {shape} float64: not bit for bit its plain version")
+            n = shape[-1]
+            dt = cuda_cheb._diffmat_t(n, None, torch.float64, dev)
+            k1[-1]["vmap_bitwise"] = True
+            k1[-1]["library_ms"], k1[-1]["library_call_ms"] = both_ms(lambda: torch.matmul(u, dt))
+            k1[-1]["bound_ms"], k1[-1]["bound_by"] = bound(2 * u.numel() * 8 + n * n * 8,
+                                                           2 * n * u.numel(), "float64")
+            del u, got
+        print("phase1 K1 " + json.dumps(k1))
+        print(f"phase1 seconds {time.perf_counter() - t_phase:.3f}")
 
     # -- phase 2: K2 against its plain version --------------------------------
-    t_phase = time.perf_counter()
-    k2 = []
-    for dtype in (torch.float32, torch.float64):
-        dname = str(dtype)[6:]
-        u = randn((12, 10, 8), dtype, 1)
-        k2.append(compare("K2", lambda: cuda_cheb.laplacian3d(u),
-                          lambda: cuda_cheb.laplacian3d_ref(u), u, "(12, 10, 8)"))
-        # non-cubic fields with sizes not all multiples of 4 (ny * nz = 99: the
-        # x pass's scalar copies and stores) and a field the plane pass takes
-        # unpadded, untimed
-        for dims, scales, timed in (((20, 12, 10), (0.25, 1.0, 4.0), False),
-                                    ((13, 11, 9), None, False),
-                                    ((64, 48, 40), (2.0, 0.5, 1.0), False),
-                                    (K2_UNPADDED[dname], (0.5, 2.0, 1.0), False),
-                                    ((8, 8, 8), None, True),
-                                    ((64, 64, 64), (0.25, 1.0, 4.0), True),
-                                    ((64, 64, 64), None, True)):
-            u = randn(dims, dtype, 2)
-            mask = Grid(dims, device=dev).boundary_mask
-            k2.append(compare("K2", lambda: cuda_cheb.laplacian3d(u, mask, scales),
-                              lambda: cuda_cheb.laplacian3d_ref(u, mask, scales), u,
-                              f"{dims} bmask scales={scales}", timed=timed))
-            got = cuda_cheb.laplacian3d(u, mask, scales)
-            require(torch.equal(got[mask], u[mask]), f"K2 {dims}: boundary rows are not u")
-            grid = cuda_cheb.laplacian3d_grid(u)
-            tiled = cuda_cheb.laplacian3d_plane_tiled(dims, u.element_size())
-            require(grid["plane"]["tiled"] == tiled == (dims != K2_UNPADDED[dname]),
-                    f"K2 {dims} {dname}: plane pass tiled {grid['plane']['tiled']}")
-            k2[-1]["plane_tiled"] = tiled
-            if not timed:
-                continue
-            for name, g in grid.items():
-                inst = DTYPE_C[str(dtype)] + (", true" if name == "plane" else "")
-                regs = ptxas[f"laplacian3d_{name}_kernel<{inst}>"]["registers"]
-                g.update(registers=regs, blocks_per_sm=blocks_per_sm(regs, g))
-            own = kernel_ms(lambda: cuda_cheb.laplacian3d(u, mask, scales))
-            # each pass against its own plain version, on the same inputs
-            d2x, d2y, d2zt = cuda_cheb._d2_ops(dims, cuda_cheb._scales3(scales), dtype, dev)
-            t, y = cuda_cheb._laplacian3d(u, mask, scales)
-            nx, ny, nz = dims
-            pts, isz = u.numel(), u.element_size()
-            passes = {  # output, plain version, bytes moved, FLOPs
-                "plane": (t, lambda: torch.matmul(u, d2zt) + torch.matmul(d2y, u),
-                          2 * pts * isz + (ny * ny + nz * nz) * isz, 2 * (ny + nz) * pts),
-                "x": (y, lambda: torch.where(mask, u, -(t + torch.tensordot(d2x, u,
-                                                                            dims=([1], [0])))),
-                      pts * (3 * isz + 1) + nx * nx * isz, 2 * nx * pts)}
-            for name, (out, plain, nbytes, flops) in passes.items():
-                ref = plain()
-                abs_err = float(torch.max(torch.abs(out - ref)))
-                rel = abs_err / float(torch.max(torch.abs(ref)))
-                require(rel <= BOUND[dname], f"K2 {dims} {name} pass: error {rel:.3e}")
-                kname = f"laplacian3d_{name}_kernel"
-                passes[name] = dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, dname)),
-                                    case=f"{k2[-1]['case']}, {name} pass", dtype=dname,
-                                    rel_err=rel, max_abs_err=abs_err, library_ms=None,
-                                    ms=sum(v for k, v in own.items() if k.startswith(kname + "<")),
-                                    plain_ms=device_ms(plain))
-            del t, y, ref
-            k2[-1].update(grid=grid, kernel_ms=own, passes=passes)
-            # u read, y written, the mask read, three operators; 2 (nx + ny + nz) FLOP a point
-            k2[-1]["bound_ms"], k2[-1]["bound_by"] = bound(
-                pts * (2 * isz + 1) + (nx * nx + ny * ny + nz * nz) * isz,
-                2 * (nx + ny + nz) * pts, dname)
-    print("phase2 K2 " + json.dumps(k2))
-    print(f"phase2 seconds {time.perf_counter() - t_phase:.3f}")
+    if 2 in phases:
+        t_phase = time.perf_counter()
+        k2 = []
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            u = randn((12, 10, 8), dtype, 1)
+            k2.append(compare("K2", lambda: cuda_cheb.laplacian3d(u),
+                              lambda: cuda_cheb.laplacian3d_ref(u), u, "(12, 10, 8)"))
+            # non-cubic fields with sizes not all multiples of 4 (ny * nz = 99: the
+            # x pass's scalar copies and stores) and a field the plane pass takes
+            # unpadded, untimed
+            for dims, scales, timed in (((20, 12, 10), (0.25, 1.0, 4.0), False),
+                                        ((13, 11, 9), None, False),
+                                        ((64, 48, 40), (2.0, 0.5, 1.0), False),
+                                        (K2_UNPADDED[dname], (0.5, 2.0, 1.0), False),
+                                        ((8, 8, 8), None, True),
+                                        ((64, 64, 64), (0.25, 1.0, 4.0), True),
+                                        ((64, 64, 64), None, True)):
+                u = randn(dims, dtype, 2)
+                mask = Grid(dims, device=dev).boundary_mask
+                k2.append(compare("K2", lambda: cuda_cheb.laplacian3d(u, mask, scales),
+                                  lambda: cuda_cheb.laplacian3d_ref(u, mask, scales), u,
+                                  f"{dims} bmask scales={scales}", timed=timed))
+                got = cuda_cheb.laplacian3d(u, mask, scales)
+                require(torch.equal(got[mask], u[mask]), f"K2 {dims}: boundary rows are not u")
+                grid = cuda_cheb.laplacian3d_grid(u)
+                tiled = cuda_cheb.laplacian3d_plane_tiled(dims, u.element_size())
+                require(grid["plane"]["tiled"] == tiled == (dims != K2_UNPADDED[dname]),
+                        f"K2 {dims} {dname}: plane pass tiled {grid['plane']['tiled']}")
+                k2[-1]["plane_tiled"] = tiled
+                if not timed:
+                    continue
+                for name, g in grid.items():
+                    inst = DTYPE_C[str(dtype)] + (", true" if name == "plane" else "")
+                    regs = ptxas[f"laplacian3d_{name}_kernel<{inst}>"]["registers"]
+                    g.update(registers=regs, blocks_per_sm=blocks_per_sm(regs, g))
+                own = kernel_ms(lambda: cuda_cheb.laplacian3d(u, mask, scales))
+                # each pass against its own plain version, on the same inputs
+                d2x, d2y, d2zt = cuda_cheb._d2_ops(dims, cuda_cheb._scales3(scales), dtype, dev)
+                t, y = cuda_cheb._laplacian3d(u, mask, scales)
+                nx, ny, nz = dims
+                pts, isz = u.numel(), u.element_size()
+                passes = {  # output, plain version, bytes moved, FLOPs
+                    "plane": (t, lambda: torch.matmul(u, d2zt) + torch.matmul(d2y, u),
+                              2 * pts * isz + (ny * ny + nz * nz) * isz, 2 * (ny + nz) * pts),
+                    "x": (y, lambda: torch.where(mask, u, -(t + torch.tensordot(d2x, u,
+                                                                                dims=([1], [0])))),
+                          pts * (3 * isz + 1) + nx * nx * isz, 2 * nx * pts)}
+                for name, (out, plain, nbytes, flops) in passes.items():
+                    ref = plain()
+                    abs_err = float(torch.max(torch.abs(out - ref)))
+                    rel = abs_err / float(torch.max(torch.abs(ref)))
+                    require(rel <= BOUND[dname], f"K2 {dims} {name} pass: error {rel:.3e}")
+                    kname = f"laplacian3d_{name}_kernel"
+                    passes[name] = dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, dname)),
+                                        case=f"{k2[-1]['case']}, {name} pass", dtype=dname,
+                                        rel_err=rel, max_abs_err=abs_err, library_ms=None,
+                                        ms=sum(v for k, v in own.items() if k.startswith(kname + "<")),
+                                        plain_ms=device_ms(plain))
+                del t, y, ref
+                k2[-1].update(grid=grid, kernel_ms=own, passes=passes)
+                # u read, y written, the mask read, three operators; 2 (nx + ny + nz) FLOP a point
+                k2[-1]["bound_ms"], k2[-1]["bound_by"] = bound(
+                    pts * (2 * isz + 1) + (nx * nx + ny * ny + nz * nz) * isz,
+                    2 * (nx + ny + nz) * pts, dname)
+        print("phase2 K2 " + json.dumps(k2))
+        print(f"phase2 seconds {time.perf_counter() - t_phase:.3f}")
 
     # Each path runs with the counts set to 0 just before it and is read
     # just after; the kernels line sums the paths.  K1's launches by shape
     # and dtype, per path: k1_shapes[path name].
+    # K1's transposed launches (its reverse mode, K1^T) count under K1's
+    # name and, by shape, in k1t_shapes[path name].
     launches = {name: 0 for name in cuda_cheb.LAUNCHES}
-    k1_shapes = {}
+    readme52 = None   # phase 8's README:52 (problem, continuation), phase 13b's state
+    k1_shapes, k1t_shapes = {}, {}
 
     def path(name, fn, kernels):
         cuda_cheb.reset_launch_counts()
         out = fn()
         counts = dict(cuda_cheb.LAUNCHES)
-        k1_shapes[name] = {f"{tuple(shape)} {str(dtype)[6:]}": c for (shape, dtype), c
-                           in cuda_cheb.K1_LAUNCHES_BY_SHAPE.items()}
+        for shapes, seen in ((k1_shapes, cuda_cheb.K1_LAUNCHES_BY_SHAPE),
+                             (k1t_shapes, cuda_cheb.K1T_LAUNCHES_BY_SHAPE)):
+            shapes[name] = {f"{tuple(shape)} {str(dtype)[6:]}": c
+                            for (shape, dtype), c in seen.items()}
         for k in kernels:
             require(counts[k] > 0, f"{name}: the path did not launch {k}")
         for k, v in counts.items():
@@ -1481,378 +2107,404 @@ def main() -> int:
     K2P, K2X = "laplacian3d_plane_kernel", "laplacian3d_x_kernel"
 
     # -- phase 3: Poisson path A, the CLI in float64 --------------------------
-    t_phase = time.perf_counter()
-    argv = ["poisson", "-m", "64", "-n", "64", "-p", "64", "-ksp_rtol", "1e-10"]
-    ((rc, out), first_s, warm_s), counts = path(
-        "phase3", lambda: timed_twice(lambda: run_cli(cli_main, argv)), [K1])
-    m = re.search(r"Norm of error (\S+) iterations (\d+)", out)
-    require(rc == 0 and m is not None, f"CLI failed (rc {rc}): {out!r}")
-    err, iters = float(m.group(1)), int(m.group(2))
-    require(err <= 1e-10, f"CLI error {err:.3e} > 1e-10")
-    print("phase3 " + json.dumps({"cli": " ".join(argv), "iterations": iters, "error": err,
-                                  "first_s": first_s, "solve_s": warm_s,
-                                  "k1_launches": counts[K1],
-                                  "k1_launches_by_shape": k1_shapes["phase3"],
-                                  "seconds": time.perf_counter() - t_phase}))
+    if 3 in phases:
+        t_phase = time.perf_counter()
+        argv = ["poisson", "-m", "64", "-n", "64", "-p", "64", "-ksp_rtol", "1e-10"]
+        ((rc, out), first_s, warm_s), counts = path(
+            "phase3", lambda: timed_twice(lambda: run_cli(cli_main, argv)), [K1])
+        m = re.search(r"Norm of error (\S+) iterations (\d+)", out)
+        require(rc == 0 and m is not None, f"CLI failed (rc {rc}): {out!r}")
+        err, iters = float(m.group(1)), int(m.group(2))
+        require(err <= 1e-10, f"CLI error {err:.3e} > 1e-10")
+        print("phase3 " + json.dumps({"cli": " ".join(argv), "iterations": iters, "error": err,
+                                      "first_s": first_s, "solve_s": warm_s,
+                                      "k1_launches": counts[K1],
+                                      "k1_launches_by_shape": k1_shapes["phase3"],
+                                      "seconds": time.perf_counter() - t_phase}))
 
     # -- phase 4: Poisson path B, mixed precision at 64^3 ---------------------
-    t_phase = time.perf_counter()
-    n = 64
-    g = Grid((n, n, n), device=dev, dtype=torch.float64)
-    model = PoissonModel(g, method="kernel")
-    M = model.build_pc("fastdiag", dtype=torch.float32)
-    ksp = KSPConfig(type="gmres", rtol=1e-6, max_it=60, restart=30)
+    if 4 in phases:
+        t_phase = time.perf_counter()
+        n = 64
+        g = Grid((n, n, n), device=dev, dtype=torch.float64)
+        model = PoissonModel(g, method="kernel")
+        M = model.build_pc("fastdiag", dtype=torch.float32)
+        ksp = KSPConfig(type="gmres", rtol=1e-6, max_it=60, restart=30)
 
-    def inner(r32):
-        res = ksp.solve(model.operator, r32, M=M)
-        return res.x, res.iters
+        def inner(r32):
+            res = ksp.solve(model.operator, r32, M=M)
+            return res.x, res.iters
 
-    u64 = np.prod(np.cos(0.5 * np.pi * g.coords_np), axis=-1)
-    b = np.where(g.boundary_mask_np, u64, 3.0 * (0.5 * np.pi) ** 2 * u64)
-    bnorm = float(np.linalg.norm(b))
-    bm = g.boundary_mask_np
-    D2T = (diffmat_np(n) @ diffmat_np(n)).T.copy()
+        u64 = np.prod(np.cos(0.5 * np.pi * g.coords_np), axis=-1)
+        b = np.where(g.boundary_mask_np, u64, 3.0 * (0.5 * np.pi) ** 2 * u64)
+        bnorm = float(np.linalg.norm(b))
+        bm = g.boundary_mask_np
+        D2T = (diffmat_np(n) @ diffmat_np(n)).T.copy()
 
-    def A_hi(x):  # float64 on the host, as the JAX package's bench does
-        y = np.zeros_like(x)
-        for ax in range(3):
-            z = np.moveaxis(x, ax, -1)
-            y -= np.moveaxis((z.reshape(-1, n) @ D2T).reshape(z.shape), -1, ax)
-        return np.where(bm, x, y)
+        def A_hi(x):  # float64 on the host, as the JAX package's bench does
+            y = np.zeros_like(x)
+            for ax in range(3):
+                z = np.moveaxis(x, ax, -1)
+                y -= np.moveaxis((z.reshape(-1, n) @ D2T).reshape(z.shape), -1, ax)
+            return np.where(bm, x, y)
 
-    b_dev = torch.from_numpy(b).to(dev)
-    runs = {
-        "refine_solve": lambda: refine_solve(A_hi, inner, b, device=dev, rtol=1e-10,
-                                             max_refine=8),
-        "refine_solve_fused": lambda: refine_solve_fused(model.operator, inner, b_dev,
-                                                         rtol=1e-10, max_refine=8),
-    }
+        b_dev = torch.from_numpy(b).to(dev)
+        runs = {
+            "refine_solve": lambda: refine_solve(A_hi, inner, b, device=dev, rtol=1e-10,
+                                                 max_refine=8),
+            "refine_solve_fused": lambda: refine_solve_fused(model.operator, inner, b_dev,
+                                                             rtol=1e-10, max_refine=8),
+        }
 
-    def poisson_b():
-        phase = {}
-        for name, run in runs.items():
-            out, first_s, warm_s = timed_twice(run)
-            x = out.x.cpu().numpy() if isinstance(out.x, torch.Tensor) else out.x
-            err = float(np.max(np.abs(x - u64)))
-            rel = out.rnorm / bnorm
-            require(out.reason > 0 and rel <= 1e-10, f"{name}: rel residual {rel:.3e}")
-            require(15 <= out.inner_iters <= 30, f"{name}: {out.inner_iters} inner iterations")
-            # the JAX package's own bench_poisson64 reaches 1.067e-13 here (CPU,
-            # float64): the 64^3 spectral solution's distance from the exact one
-            require(err <= 2e-13, f"{name}: error {err:.3e} > 2e-13")
-            phase[name] = {"refine_steps": out.refine_steps, "inner_iters": out.inner_iters,
-                           "rel_residual": rel, "error": err, "first_s": first_s,
-                           "solve_s": warm_s}
-        return phase
+        def poisson_b():
+            phase = {}
+            for name, run in runs.items():
+                out, first_s, warm_s = timed_twice(run)
+                x = out.x.cpu().numpy() if isinstance(out.x, torch.Tensor) else out.x
+                err = float(np.max(np.abs(x - u64)))
+                rel = out.rnorm / bnorm
+                require(out.reason > 0 and rel <= 1e-10, f"{name}: rel residual {rel:.3e}")
+                require(15 <= out.inner_iters <= 30, f"{name}: {out.inner_iters} inner iterations")
+                # the JAX package's own bench_poisson64 reaches 1.067e-13 here (CPU,
+                # float64): the 64^3 spectral solution's distance from the exact one
+                require(err <= 2e-13, f"{name}: error {err:.3e} > 2e-13")
+                phase[name] = {"refine_steps": out.refine_steps, "inner_iters": out.inner_iters,
+                               "rel_residual": rel, "error": err, "first_s": first_s,
+                               "solve_s": warm_s}
+            return phase
 
-    phase4, counts = path("phase4", poisson_b, [K2P, K2X])
-    phase4["k2_launches"] = {K2P: counts[K2P], K2X: counts[K2X]}
-    phase4["seconds"] = time.perf_counter() - t_phase
-    print("phase4 " + json.dumps(phase4))
-    del g, model, M, b_dev
+        phase4, counts = path("phase4", poisson_b, [K2P, K2X])
+        phase4["k2_launches"] = {K2P: counts[K2P], K2X: counts[K2X]}
+        phase4["seconds"] = time.perf_counter() - t_phase
+        print("phase4 " + json.dumps(phase4))
+        del g, model, M, b_dev
 
     # -- phase 5: the K3 sweep (exp_pallas.py::main) --------------------------
-    t_phase = time.perf_counter()
-    k3 = []
-    for dtype in (torch.float32, torch.float64):
-        branches = set()
-        for seed, (rows, n, pack, blk, off) in enumerate(K3_CASES):
-            u = randn((off + rows * n * pack,), dtype, 10 + seed)[off:].view(rows, n * pack)
-            branch = "bulk" if cuda_cheb.chebdiff_packed_bulk(u, pack) else "sync"
-            branches.add(branch)
-            k3.append(compare("K3", lambda: cuda_cheb.chebdiff_packed(u, pack, K3_SCALE, blk),
-                              lambda: cuda_cheb.chebdiff_packed_ref(u, pack, K3_SCALE), u,
-                              f"({rows}, {n * pack}) pack={pack} blk={blk} offset={off}",
-                              timed=False))
-            k3[-1]["branch"] = branch
-        require(branches == {"bulk", "sync"}, f"K3 {dtype}: branches taken {branches}")
-    print("phase5 K3 " + json.dumps(k3))
-    u = randn((1 << 20, 64), torch.float32, 98)   # 256 x 64^3 dofs, exp_pallas.py main
-    dofs = u.numel()
-    dt = cuda_cheb._diffmat_t(64, K3_SCALE, torch.float32, dev)
-    library_ms, library_call_ms = both_ms(lambda: torch.matmul(u, dt))
-    k3_bound = bound(2 * dofs * 4 + 64 * 64 * 4, 2 * 64 * dofs, "float32")
-    # the same values one element into a buffer: K3's synchronous branch
-    u_sync = torch.empty(dofs + 1, device=dev, dtype=torch.float32)[1:].view_as(u)
-    u_sync.copy_(u)
-    sweep, stages = {}, {}
+    if 5 in phases:
+        t_phase = time.perf_counter()
+        k3 = []
+        for dtype in (torch.float32, torch.float64):
+            branches = set()
+            for seed, (rows, n, pack, blk, off) in enumerate(K3_CASES):
+                u = randn((off + rows * n * pack,), dtype, 10 + seed)[off:].view(rows, n * pack)
+                branch = "bulk" if cuda_cheb.chebdiff_packed_bulk(u, pack) else "sync"
+                branches.add(branch)
+                k3.append(compare("K3", lambda: cuda_cheb.chebdiff_packed(u, pack, K3_SCALE, blk),
+                                  lambda: cuda_cheb.chebdiff_packed_ref(u, pack, K3_SCALE), u,
+                                  f"({rows}, {n * pack}) pack={pack} blk={blk} offset={off}",
+                                  timed=False))
+                k3[-1]["branch"] = branch
+            require(branches == {"bulk", "sync"}, f"K3 {dtype}: branches taken {branches}")
+        print("phase5 K3 " + json.dumps(k3))
+        u = randn((1 << 20, 64), torch.float32, 98)   # 256 x 64^3 dofs, exp_pallas.py main
+        dofs = u.numel()
+        dt = cuda_cheb._diffmat_t(64, K3_SCALE, torch.float32, dev)
+        library_ms, library_call_ms = both_ms(lambda: torch.matmul(u, dt))
+        k3_bound = bound(2 * dofs * 4 + 64 * 64 * 4, 2 * 64 * dofs, "float32")
+        # the same values one element into a buffer: K3's synchronous branch
+        u_sync = torch.empty(dofs + 1, device=dev, dtype=torch.float32)[1:].view_as(u)
+        u_sync.copy_(u)
+        sweep, stages = {}, {}
 
-    def k3_sweep():   # the path: every case once in each branch, checked
-        for pack in (1, 2):
+        def k3_sweep():   # the path: every case once in each branch, checked
+            for pack in (1, 2):
+                u2d, s2d = u.view(-1, 64 * pack), u_sync.view(-1, 64 * pack)
+                ref = cuda_cheb.chebdiff_packed_ref(u2d, pack, K3_SCALE)
+                for blk in cuda_cheb.K3_BLOCK_ROWS:
+                    c = {"case": f"(1048576, 64) as ({dofs // (64 * pack)}, {64 * pack}) "
+                                 f"pack={pack} blk={blk}", "dtype": "float32"}
+                    for branch, x in (("bulk", u2d), ("sync", s2d)):
+                        require(cuda_cheb.chebdiff_packed_bulk(x, pack) == (branch == "bulk"),
+                                f"K3 sweep pack={pack} blk={blk}: not the {branch} branch")
+                        got = cuda_cheb.chebdiff_packed(x, pack, K3_SCALE, blk)
+                        abs_err = float(torch.max(torch.abs(got - ref)))
+                        rel = abs_err / float(torch.max(torch.abs(ref)))
+                        require(rel <= BOUND["float32"],
+                                f"K3 sweep pack={pack} blk={blk} {branch}: error {rel:.3e}")
+                        key = "" if branch == "bulk" else "sync_"
+                        c.update({f"{key}rel_err": rel, f"{key}max_abs_err": abs_err})
+                    sweep[(pack, blk)] = c
+
+        _, counts = path("phase5", k3_sweep, [K3])
+        # timed after the path
+        for (pack, blk), c in sweep.items():
             u2d, s2d = u.view(-1, 64 * pack), u_sync.view(-1, 64 * pack)
-            ref = cuda_cheb.chebdiff_packed_ref(u2d, pack, K3_SCALE)
-            for blk in cuda_cheb.K3_BLOCK_ROWS:
-                c = {"case": f"(1048576, 64) as ({dofs // (64 * pack)}, {64 * pack}) "
-                             f"pack={pack} blk={blk}", "dtype": "float32"}
-                for branch, x in (("bulk", u2d), ("sync", s2d)):
-                    require(cuda_cheb.chebdiff_packed_bulk(x, pack) == (branch == "bulk"),
-                            f"K3 sweep pack={pack} blk={blk}: not the {branch} branch")
-                    got = cuda_cheb.chebdiff_packed(x, pack, K3_SCALE, blk)
-                    abs_err = float(torch.max(torch.abs(got - ref)))
-                    rel = abs_err / float(torch.max(torch.abs(ref)))
-                    require(rel <= BOUND["float32"],
-                            f"K3 sweep pack={pack} blk={blk} {branch}: error {rel:.3e}")
-                    key = "" if branch == "bulk" else "sync_"
-                    c.update({f"{key}rel_err": rel, f"{key}max_abs_err": abs_err})
-                sweep[(pack, blk)] = c
-
-    _, counts = path("phase5", k3_sweep, [K3])
-    # timed after the path
-    for (pack, blk), c in sweep.items():
-        u2d, s2d = u.view(-1, 64 * pack), u_sync.view(-1, 64 * pack)
-        c["plain_ms"] = device_ms(lambda: cuda_cheb.chebdiff_packed_ref(u2d, pack, K3_SCALE))
-        c["sync_ms"] = device_ms(lambda: cuda_cheb.chebdiff_packed(s2d, pack, K3_SCALE, blk))
-        # the ring depth: every cap up to what fits (the wrapper takes K3_MAX_STAGES)
-        fit = cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4, max_stages=1 << 20)
-        stages[f"pack={pack} blk={blk}"] = {
-            "fit": fit, "default": cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4),
-            "ms": {str(k): device_ms(lambda: cuda_cheb._chebdiff_packed(
-                u2d, pack, K3_SCALE, blk, k))
-                   for k in sorted({1, 2, 3, 4, 6, 8, 12, 16, 24, fit}) if k <= fit}}
-    del u_sync
-    for key, (ms, call) in k3_sweep_ms(cuda_cheb, u).items():
-        sweep[key].update(ms=ms, call_ms=call, gdofs=dofs / ms / 1e6)
-    # occupancy computed from ptxas's registers and the shared memory taken:
-    # blocks an SM by the 64K registers (9 warps a block, each taking
-    # registers in units of 256) and by the 228 KB of shared memory (1 KB
-    # reserved a block)
-    for (pack, blk), c in sweep.items():
-        regs = ptxas[f"chebdiff_packed_kernel<float, {blk}, true>"]["registers"]
-        smem = cuda_cheb.chebdiff_packed_smem_bytes(64, pack, blk, 4)
-        c.update(library_ms=library_ms, bound_ms=k3_bound[0], bound_by=k3_bound[1],
-                 registers=regs, smem=smem,
-                 stages=cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4),
-                 blocks_per_sm=blocks_per_sm(regs, {"threads": 288, "smem": smem}))
-    print("phase5 sweep " + json.dumps({"library_gdofs": dofs / library_ms / 1e6,
-                                        "library_ms": library_ms,
-                                        "library_call_ms": library_call_ms,
-                                        "k3_launches": counts[K3],
-                                        "cases": list(sweep.values()), "stages": stages,
-                                        "seconds": time.perf_counter() - t_phase}))
-    del u, u2d, s2d
-    torch.cuda.empty_cache()
+            c["plain_ms"] = device_ms(lambda: cuda_cheb.chebdiff_packed_ref(u2d, pack, K3_SCALE))
+            c["sync_ms"] = device_ms(lambda: cuda_cheb.chebdiff_packed(s2d, pack, K3_SCALE, blk))
+            # the ring depth: every cap up to what fits (the wrapper takes K3_MAX_STAGES)
+            fit = cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4, max_stages=1 << 20)
+            stages[f"pack={pack} blk={blk}"] = {
+                "fit": fit, "default": cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4),
+                "ms": {str(k): device_ms(lambda: cuda_cheb._chebdiff_packed(
+                    u2d, pack, K3_SCALE, blk, k))
+                       for k in sorted({1, 2, 3, 4, 6, 8, 12, 16, 24, fit}) if k <= fit}}
+        del u_sync
+        for key, (ms, call) in k3_sweep_ms(cuda_cheb, u).items():
+            sweep[key].update(ms=ms, call_ms=call, gdofs=dofs / ms / 1e6)
+        # occupancy computed from ptxas's registers and the shared memory taken:
+        # blocks an SM by the 64K registers (9 warps a block, each taking
+        # registers in units of 256) and by the 228 KB of shared memory (1 KB
+        # reserved a block)
+        for (pack, blk), c in sweep.items():
+            regs = ptxas[f"chebdiff_packed_kernel<float, {blk}, true>"]["registers"]
+            smem = cuda_cheb.chebdiff_packed_smem_bytes(64, pack, blk, 4)
+            c.update(library_ms=library_ms, bound_ms=k3_bound[0], bound_by=k3_bound[1],
+                     registers=regs, smem=smem,
+                     stages=cuda_cheb.chebdiff_packed_stages(64, pack, blk, 4),
+                     blocks_per_sm=blocks_per_sm(regs, {"threads": 288, "smem": smem}))
+        print("phase5 sweep " + json.dumps({"library_gdofs": dofs / library_ms / 1e6,
+                                            "library_ms": library_ms,
+                                            "library_call_ms": library_call_ms,
+                                            "k3_launches": counts[K3],
+                                            "cases": list(sweep.values()), "stages": stages,
+                                            "seconds": time.perf_counter() - t_phase}))
+        del u, u2d, s2d
+        torch.cuda.empty_cache()
 
     # -- phase 6: the elliptic CLI in float64, gated on the CPU oracle --------
-    t_phase = time.perf_counter()
-    phase6 = {}
-    for name, (opts, newton_its, krylov, error) in ELLIPTIC_ORACLE.items():
-        argv = ["elliptic", *opts]
-        ((rc, out), first_s, warm_s), counts = path(
-            f"phase6 {name}", lambda: timed_twice(lambda: run_cli(cli_main, argv),
-                                                  warm_reps=1), [K1])
-        mn = re.search(r"Number of nonlinear iterations = (\d+)", out)
-        mk = re.search(r"KSP iterations per Newton step: \[([\d, ]*)\]", out)
-        me = re.search(r"Norm of error\s*: abs = (\S+)", out)
-        require(rc == 0 and mn and mk and me, f"elliptic {name} failed (rc {rc}): {out!r}")
-        its = int(mn.group(1))
-        kits = [int(k) for k in mk.group(1).split(",")]
-        err = float(me.group(1))
-        require(its == newton_its, f"elliptic {name}: {its} Newton steps, oracle {newton_its}")
-        require(len(kits) == len(krylov) and all(abs(a - b) <= 1 for a, b in zip(kits, krylov)),
-                f"elliptic {name}: Krylov {kits}, oracle {krylov} (within 1 each)")
-        require(err <= 2 * error, f"elliptic {name}: error {err:.3e} > 2 x {error:.3e}")
-        phase6[name] = {"cli": " ".join(argv), "newton": its, "krylov": kits, "error": err,
-                        "first_s": first_s, "solve_s": warm_s, "k1_launches": counts[K1],
-                        "k1_launches_by_shape": k1_shapes[f"phase6 {name}"]}
-    phase6["seconds"] = time.perf_counter() - t_phase
-    print("phase6 " + json.dumps(phase6))
+    if 6 in phases:
+        t_phase = time.perf_counter()
+        phase6 = {}
+        for name, (opts, newton_its, krylov, error) in ELLIPTIC_ORACLE.items():
+            argv = ["elliptic", *opts]
+            ((rc, out), first_s, warm_s), counts = path(
+                f"phase6 {name}", lambda: timed_twice(lambda: run_cli(cli_main, argv),
+                                                      warm_reps=1), [K1])
+            mn = re.search(r"Number of nonlinear iterations = (\d+)", out)
+            mk = re.search(r"KSP iterations per Newton step: \[([\d, ]*)\]", out)
+            me = re.search(r"Norm of error\s*: abs = (\S+)", out)
+            require(rc == 0 and mn and mk and me, f"elliptic {name} failed (rc {rc}): {out!r}")
+            its = int(mn.group(1))
+            kits = [int(k) for k in mk.group(1).split(",")]
+            err = float(me.group(1))
+            require(its == newton_its, f"elliptic {name}: {its} Newton steps, oracle {newton_its}")
+            require(len(kits) == len(krylov) and all(abs(a - b) <= 1 for a, b in zip(kits, krylov)),
+                    f"elliptic {name}: Krylov {kits}, oracle {krylov} (within 1 each)")
+            require(err <= 2 * error, f"elliptic {name}: error {err:.3e} > 2 x {error:.3e}")
+            phase6[name] = {"cli": " ".join(argv), "newton": its, "krylov": kits, "error": err,
+                            "first_s": first_s, "solve_s": warm_s, "k1_launches": counts[K1],
+                            "k1_launches_by_shape": k1_shapes[f"phase6 {name}"]}
+        phase6["seconds"] = time.perf_counter() - t_phase
+        print("phase6 " + json.dumps(phase6))
 
     # -- phase 7: mixed-precision Newton (float32 Newton, float64 refinement) --
-    # gates and bands: ELLIPTIC_REFINED
-    t_phase = time.perf_counter()
-    phase7 = {}
-    for name, (run, u_np) in refined_runs(dev).items():
-        spec = ELLIPTIC_REFINED[name]
-        ((x, info), first_s, warm_s), counts = path(
-            f"phase7 {name}", lambda: timed_twice(run), [K1])
-        res32 = info["newton32"]
-        total = sum(res32.ksp_iters) + info["refine_inner_iters"]
-        err = float(np.max(np.abs(x - u_np)))
-        rel = info["rel_residual"]
-        max_err = spec["max_error"](rel)
-        require(res32.reason > 0, f"{name}: float32 Newton did not converge ({res32.reason_str()})")
-        require(rel <= 1e-10, f"{name}: rel residual {rel:.3e} > 1e-10")
-        require(err <= max_err, f"{name}: error {err:.3e} > {max_err:.3e}")
-        require(spec["newton"][0] <= res32.iters <= spec["newton"][1],
-                f"{name}: {res32.iters} Newton steps outside {spec['newton']}")
-        require(spec["krylov"][0] <= total <= spec["krylov"][1],
-                f"{name}: {total} Krylov iterations outside {spec['krylov']}")
-        phase7[name] = {"newton": res32.iters, "krylov": res32.ksp_iters,
-                        "refine_inner": info["refine_inner_iters"], "total_krylov": total,
-                        "refine_history": info["refine_history"], "rel_residual": rel,
-                        "error": err, "max_error": max_err, "first_s": first_s,
-                        "solve_s": warm_s, "k1_launches": counts[K1],
-                        "k1_launches_by_shape": k1_shapes[f"phase7 {name}"]}
-    phase7["seconds"] = time.perf_counter() - t_phase
-    print("phase7 " + json.dumps(phase7))
+    if 7 in phases:
+        # gates and bands: ELLIPTIC_REFINED
+        t_phase = time.perf_counter()
+        phase7 = {}
+        for name, (run, u_np) in refined_runs(dev).items():
+            spec = ELLIPTIC_REFINED[name]
+            ((x, info), first_s, warm_s), counts = path(
+                f"phase7 {name}", lambda: timed_twice(run, warm_reps=1), [K1])
+            res32 = info["newton32"]
+            total = sum(res32.ksp_iters) + info["refine_inner_iters"]
+            err = float(np.max(np.abs(x - u_np)))
+            rel = info["rel_residual"]
+            max_err = spec["max_error"](rel)
+            require(res32.reason > 0, f"{name}: float32 Newton did not converge ({res32.reason_str()})")
+            require(rel <= 1e-10, f"{name}: rel residual {rel:.3e} > 1e-10")
+            require(err <= max_err, f"{name}: error {err:.3e} > {max_err:.3e}")
+            require(spec["newton"][0] <= res32.iters <= spec["newton"][1],
+                    f"{name}: {res32.iters} Newton steps outside {spec['newton']}")
+            require(spec["krylov"][0] <= total <= spec["krylov"][1],
+                    f"{name}: {total} Krylov iterations outside {spec['krylov']}")
+            phase7[name] = {"newton": res32.iters, "krylov": res32.ksp_iters,
+                            "refine_inner": info["refine_inner_iters"], "total_krylov": total,
+                            "refine_history": info["refine_history"], "rel_residual": rel,
+                            "error": err, "max_error": max_err, "first_s": first_s,
+                            "solve_s": warm_s, "k1_launches": counts[K1],
+                            "k1_launches_by_shape": k1_shapes[f"phase7 {name}"]}
+        phase7["seconds"] = time.perf_counter() - t_phase
+        print("phase7 " + json.dumps(phase7))
 
     # -- phase 8: Stokes on the card (STOKES_ORACLE) --------------------------
-    t_phase = time.perf_counter()
-    phase8 = {}
-    for name in ("README:43", "README:52"):   # 8a, 8b: the CLI in float64
-        argv = ["stokes", *STOKES_ORACLE[name]["argv"]]
-        ((rc, out), first_s, warm_s), counts = path(
-            f"phase8 {name}", lambda: timed_twice(lambda: run_cli(cli_main, argv),
-                                                  warm_reps=1), [K1])
-        mc = re.search(r"Continuation steps: Newton (\[.*\])  Krylov (\[.*\])", out)
-        mr = re.search(r"Reason for solver termination: (\S+)", out)
-        me = re.search(r"Norm of error\s*: abs = (\S+)", out)
-        require(rc == 0 and mc and mr and me, f"stokes {name} failed (rc {rc}): {out!r}")
-        newton, krylov = json.loads(mc.group(1)), json.loads(mc.group(2))
-        err = float(me.group(1))
-        require(mr.group(1) == "CONVERGED_RTOL", f"stokes {name}: {mr.group(1)}")
-        why = stokes_cli_ok(name, newton, krylov, err)
-        require(why is None, f"stokes {name}: {why}")
-        phase8[name] = {"cli": " ".join(argv), "newton": newton, "krylov": krylov,
-                        "total_krylov": sum(map(sum, krylov)), "reason": mr.group(1),
-                        "error": err, "first_s": first_s, "solve_s": warm_s,
-                        "k1_launches": counts[K1],
-                        "k1_launches_by_shape": k1_shapes[f"phase8 {name}"]}
-    # 8c: entry()'s forward step at 32^3, float64 then float32
-    for dtype, gate in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        name = f"entry {str(dtype)[6:]}"
-        forward = stokes_forward(dev, dtype)
-        (F, JF), counts = path(f"phase8 {name}", forward, [K1])
-        norms = {k: float(torch.sqrt(sum(torch.sum(t.double() ** 2) for t in y.values())))
-                 for k, y in (("F", F), ("JF", JF))}
-        rel = {k: abs(v / STOKES_ORACLE["entry"][k] - 1.0) for k, v in norms.items()}
-        require(all(torch.isfinite(t).all() for y in (F, JF) for t in y.values()),
-                f"{name}: non-finite output")
-        require(F["v"].shape == (32, 32, 32, 3) and JF["p"].shape == (32, 32, 32),
-                f"{name}: shapes {F['v'].shape}, {JF['p'].shape}")
-        require(max(rel.values()) <= gate, f"{name}: norms {norms}, rel {rel} > {gate}")
-        phase8[name] = {"norms": norms, "rel_err": rel, "k1_launches": counts[K1],
-                        "k1_launches_by_shape": k1_shapes[f"phase8 {name}"]}
-        # timed after the path
-        phase8[name]["device_ms"], phase8[name]["call_ms"] = both_ms(forward)
-        del F, JF
-    # 8d: mixed precision, float32 continuation and Newton, float64 host residuals
-    refined_x = {}   # 9d holds the fused power law to this solution
-    for name, prob in stokes_refined_runs(dev).items():
-        ((x, info), first_s, warm_s), counts = path(
-            f"phase8 {name}", lambda: timed_twice(lambda: prob.solve_refined(rtol=1e-10),
-                                                  warm_reps=1), [K1])
-        rel, err = info["rel_residual"], prob.error_vs_exact(x)
-        ref = STOKES_ORACLE[name]["error"]
-        require(rel <= 1e-10, f"{name}: rel residual {rel:.3e} > 1e-10")
-        if name == "refined linear":
-            # the float64 floor of the discrete problem (STOKES_ORACLE): 7x the
-            # port's CPU value, far under the 2.8e-7 an unrefined rtol 1e-10 solve leaves
-            require(err <= 1e-12, f"{name}: error {err:.3e} > 1e-12")
-        else:
-            require(abs(err - ref) <= 1e-6 * ref, f"{name}: error {err!r}, oracle {ref!r}")
-        refined_x[name] = x
-        res = info["continuation"]
-        phase8[name] = {"newton": [r.iters for r in res], "krylov": [r.ksp_iters for r in res],
-                        "reasons": [r.reason_str() for r in res],
-                        "refine_history": info["refine_history"],
-                        "refine_inner": info["refine_inner_iters"], "rel_residual": rel,
-                        "error": err, "first_s": first_s, "solve_s": warm_s,
-                        "k1_launches": counts[K1],
-                        "k1_launches_by_shape": k1_shapes[f"phase8 {name}"]}
-    phase8["seconds"] = time.perf_counter() - t_phase
-    print("phase8 " + json.dumps(phase8))
+    if 8 in phases:
+        t_phase = time.perf_counter()
+        phase8 = {}
+        for name in ("README:43", "README:52"):   # 8a, 8b: the CLI in float64
+            argv = ["stokes", *STOKES_ORACLE[name]["argv"]]
+            with captured_continuation() as got:   # 13b differentiates at README:52's
+                ((rc, out), first_s, warm_s), counts = path(
+                    f"phase8 {name}", lambda: timed_twice(lambda: run_cli(cli_main, argv),
+                                                          warm_reps=int(name == "README:43")),
+                    [K1])
+            if name == "README:52":
+                readme52 = (got["problem"], got["results"])
+            mc = re.search(r"Continuation steps: Newton (\[.*\])  Krylov (\[.*\])", out)
+            mr = re.search(r"Reason for solver termination: (\S+)", out)
+            me = re.search(r"Norm of error\s*: abs = (\S+)", out)
+            require(rc == 0 and mc and mr and me, f"stokes {name} failed (rc {rc}): {out!r}")
+            newton, krylov = json.loads(mc.group(1)), json.loads(mc.group(2))
+            err = float(me.group(1))
+            require(mr.group(1) == "CONVERGED_RTOL", f"stokes {name}: {mr.group(1)}")
+            why = stokes_cli_ok(name, newton, krylov, err)
+            require(why is None, f"stokes {name}: {why}")
+            phase8[name] = {"cli": " ".join(argv), "newton": newton, "krylov": krylov,
+                            "total_krylov": sum(map(sum, krylov)), "reason": mr.group(1),
+                            "error": err, "first_s": first_s, "solve_s": warm_s,
+                            "k1_launches": counts[K1],
+                            "k1_launches_by_shape": k1_shapes[f"phase8 {name}"]}
+        # 8c: entry()'s forward step at 32^3, float64 then float32
+        for dtype, gate in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            name = f"entry {str(dtype)[6:]}"
+            forward = stokes_forward(dev, dtype)
+            (F, JF), counts = path(f"phase8 {name}", forward, [K1])
+            norms = {k: float(torch.sqrt(sum(torch.sum(t.double() ** 2) for t in y.values())))
+                     for k, y in (("F", F), ("JF", JF))}
+            rel = {k: abs(v / STOKES_ORACLE["entry"][k] - 1.0) for k, v in norms.items()}
+            require(all(torch.isfinite(t).all() for y in (F, JF) for t in y.values()),
+                    f"{name}: non-finite output")
+            require(F["v"].shape == (32, 32, 32, 3) and JF["p"].shape == (32, 32, 32),
+                    f"{name}: shapes {F['v'].shape}, {JF['p'].shape}")
+            require(max(rel.values()) <= gate, f"{name}: norms {norms}, rel {rel} > {gate}")
+            phase8[name] = {"norms": norms, "rel_err": rel, "k1_launches": counts[K1],
+                            "k1_launches_by_shape": k1_shapes[f"phase8 {name}"]}
+            # timed after the path
+            phase8[name]["device_ms"], phase8[name]["call_ms"] = both_ms(forward)
+            del F, JF
+        # 8d: mixed precision, float32 continuation and Newton, float64 host residuals
+        refined_x = {}   # 9d holds the fused power law to this solution
+        for name, prob in stokes_refined_runs(dev).items():
+            ((x, info), first_s, warm_s), counts = path(
+                f"phase8 {name}", lambda: timed_twice(lambda: prob.solve_refined(rtol=1e-10),
+                                                      warm_reps=0),
+                [K1])
+            rel, err = info["rel_residual"], prob.error_vs_exact(x)
+            ref = STOKES_ORACLE[name]["error"]
+            require(rel <= 1e-10, f"{name}: rel residual {rel:.3e} > 1e-10")
+            if name == "refined linear":
+                # the float64 floor of the discrete problem (STOKES_ORACLE): 7x the
+                # port's CPU value, far under the 2.8e-7 an unrefined rtol 1e-10 solve leaves
+                require(err <= 1e-12, f"{name}: error {err:.3e} > 1e-12")
+            else:
+                require(abs(err - ref) <= 1e-6 * ref, f"{name}: error {err!r}, oracle {ref!r}")
+            refined_x[name] = x
+            res = info["continuation"]
+            phase8[name] = {"newton": [r.iters for r in res], "krylov": [r.ksp_iters for r in res],
+                            "reasons": [r.reason_str() for r in res],
+                            "refine_history": info["refine_history"],
+                            "refine_inner": info["refine_inner_iters"], "rel_residual": rel,
+                            "error": err, "first_s": first_s, "solve_s": warm_s,
+                            "k1_launches": counts[K1],
+                            "k1_launches_by_shape": k1_shapes[f"phase8 {name}"]}
+        phase8["seconds"] = time.perf_counter() - t_phase
+        print("phase8 " + json.dumps(phase8))
 
     # -- phase 9: the rest of the Stokes flagship (STOKES_ORACLE) -------------
-    t_phase = time.perf_counter()
-    phase9 = {}
+    if 9 in phases:
+        t_phase = time.perf_counter()
+        phase9 = {}
 
-    def record(name, counts, first_s, warm_s, **out):
-        phase9[name] = {**out, "first_s": first_s, "solve_s": warm_s,
-                        "k1_launches": counts[K1],
-                        "k1_launches_by_shape": k1_shapes[f"phase9 {name}"]}
+        def record(name, counts, first_s, warm_s, **out):
+            phase9[name] = {**out, "first_s": first_s, "solve_s": warm_s,
+                            "k1_launches": counts[K1],
+                            "k1_launches_by_shape": k1_shapes[f"phase9 {name}"]}
 
-    for name in ("neumann tbc 20^3", "neumann free 12^3"):   # 9a: the CLI in float64
-        argv = ["stokes", *STOKES_ORACLE[name]["argv"]]
-        ((rc, out), first_s, warm_s), counts = path(
-            f"phase9 {name}", lambda: timed_twice(lambda: run_cli(cli_main, argv),
-                                                  warm_reps=1), [K1])
-        mc = re.search(r"Continuation steps: Newton (\[.*\])  Krylov (\[.*\])", out)
-        mr = re.search(r"Reason for solver termination: (\S+)", out)
-        me = re.search(r"Norm of error\s*: abs = (\S+)", out)
-        require(rc == 0 and mc and mr and me, f"stokes {name} failed (rc {rc}): {out!r}")
-        newton, krylov = json.loads(mc.group(1)), json.loads(mc.group(2))
-        err = float(me.group(1))
-        why = stokes_phase9_ok(name, newton, krylov, [mr.group(1)], err)
-        require(why is None, f"stokes {name}: {why}")
-        record(name, counts, first_s, warm_s, cli=" ".join(argv), newton=newton, krylov=krylov,
-               reason=mr.group(1), error=err, oracle_krylov=STOKES_ORACLE[name]["krylov"])
-    # 9b: the API in float64 at 16^2, one call each (the script's time limit)
-    for name, prob in stokes_mixed_runs(dev).items():
+        for name in ("neumann tbc 20^3", "neumann free 12^3"):   # 9a: the CLI in float64
+            argv = ["stokes", *STOKES_ORACLE[name]["argv"]]
+            ((rc, out), first_s, warm_s), counts = path(
+                f"phase9 {name}", lambda: timed_twice(lambda: run_cli(cli_main, argv),
+                                                      warm_reps=0), [K1])
+            mc = re.search(r"Continuation steps: Newton (\[.*\])  Krylov (\[.*\])", out)
+            mr = re.search(r"Reason for solver termination: (\S+)", out)
+            me = re.search(r"Norm of error\s*: abs = (\S+)", out)
+            require(rc == 0 and mc and mr and me, f"stokes {name} failed (rc {rc}): {out!r}")
+            newton, krylov = json.loads(mc.group(1)), json.loads(mc.group(2))
+            err = float(me.group(1))
+            why = stokes_phase9_ok(name, newton, krylov, [mr.group(1)], err)
+            require(why is None, f"stokes {name}: {why}")
+            record(name, counts, first_s, warm_s, cli=" ".join(argv), newton=newton, krylov=krylov,
+                   reason=mr.group(1), error=err, oracle_krylov=STOKES_ORACLE[name]["krylov"])
+        # 9b: the API in float64 at 16^2, one call each (the script's time limit)
+        for name, prob in stokes_mixed_runs(dev).items():
+            (res, first_s, warm_s), counts = path(
+                f"phase9 {name}", lambda: timed_twice(prob.solve, warm_reps=0), [K1])
+            err = prob.error_vs_exact(res.x)
+            why = stokes_phase9_ok(name, [res.iters], [res.ksp_iters], [res.reason_str()], err)
+            require(why is None, f"stokes {name}: {why}")
+            record(name, counts, first_s, warm_s, newton=res.iters, krylov=res.ksp_iters,
+                   reason=res.reason_str(), error=err, oracle_krylov=STOKES_ORACLE[name]["krylov"])
+        # 9c: README:52 with the line-smoothed multigrid, the API in float64, one
+        # call (~100 s; the script stays under 600 s with phase 10)
+        name, spec, prob = "line52", STOKES_ORACLE["line52"], stokes_line52(dev)
         (res, first_s, warm_s), counts = path(
-            f"phase9 {name}", lambda: timed_twice(prob.solve, warm_reps=0), [K1])
-        err = prob.error_vs_exact(res.x)
-        why = stokes_phase9_ok(name, [res.iters], [res.ksp_iters], [res.reason_str()], err)
-        require(why is None, f"stokes {name}: {why}")
-        record(name, counts, first_s, warm_s, newton=res.iters, krylov=res.ksp_iters,
-               reason=res.reason_str(), error=err, oracle_krylov=STOKES_ORACLE[name]["krylov"])
-    # 9c: README:52 with the line-smoothed multigrid, the API in float64, one
-    # call (~100 s; the script stays under 600 s with phase 10)
-    name, spec, prob = "line52", STOKES_ORACLE["line52"], stokes_line52(dev)
-    (res, first_s, warm_s), counts = path(
-        f"phase9 {name}", lambda: timed_twice(prob.solve_continuation, warm_reps=0), [K1])
-    newton, krylov = [r.iters for r in res], [r.ksp_iters for r in res]
-    total, err = sum(map(sum, krylov)), prob.error_vs_exact(res[-1].x)
-    require(all(r.reason > 0 for r in res), f"{name}: {[r.reason_str() for r in res]}")
-    require(newton == spec["newton"], f"{name}: Newton {newton}, oracle {spec['newton']}")
-    require(max(map(max, krylov)) <= spec["max_krylov"],
-            f"{name}: Krylov {krylov}, a step over the JAX test's {spec['max_krylov']}")
-    require(abs(total - spec["total"]) <= 0.2 * spec["total"],
-            f"{name}: total Krylov {total}, oracle {spec['total']} (20%)")
-    require(abs(err - spec["error"]) <= 1e-6 * spec["error"],
-            f"{name}: error {err!r}, oracle {spec['error']!r} (1e-6 relative)")
-    record(name, counts, first_s, warm_s, newton=newton, krylov=krylov, total_krylov=total,
-           reasons=[r.reason_str() for r in res], error=err, oracle_krylov=spec["krylov"])
-    del prob, res
-    # 9d: the fused tier in bench.py's stokes20 configurations (phase 8d's gates)
-    for name, prob in stokes_refined_runs(dev).items():
-        fname = name.replace("refined", "fused")
-        ((x, info), first_s, warm_s), counts = path(
-            f"phase9 {fname}", lambda: timed_twice(lambda: prob.solve_refined_fused(
-                rtol=1e-10, fused_continuation=fname == "fused powerlaw"), warm_reps=1), [K1])
-        rel, err = info["rel_residual"], prob.error_vs_exact(x)
-        require(rel <= 1e-10, f"{fname}: rel residual {rel:.3e} > 1e-10")
-        dv = None
-        if fname == "fused linear":
-            # from zero, the last refine step leaves rel ~3e-13 and error ~5e-12
-            # (the JAX package's own 5.2e-12, STOKES_ORACLE): within 2x of it
-            ref = STOKES_ORACLE[fname]["error"]
-            require(err <= 2 * ref, f"{fname}: error {err:.3e} > 2 x {ref:.3e}")
-        else:
-            ref = STOKES_ORACLE[name]["error"]
-            require(abs(err - ref) <= 1e-6 * ref, f"{fname}: error {err!r}, oracle {ref!r}")
-            # the JAX test's rule (tests/test_refined_fused.py:137-139)
-            dv = float(np.max(np.abs(x["v"] - refined_x[name]["v"])))
-            require(dv <= 1e-7, f"{fname}: velocity {dv:.3e} off phase 8d's solve_refined")
-        res = info["continuation"]
-        record(fname, counts, first_s, warm_s, newton=[r.iters for r in res],
-               krylov=[r.ksp_iters for r in res], reasons=[r.reason_str() for r in res],
-               refine_steps=info["refine_steps"], refine_history=info["refine_history"],
-               refine_inner=info["refine_inner_iters"], rel_residual=rel, error=err,
-               velocity_vs_refined=dv, oracle=STOKES_ORACLE[fname])
-    phase9["seconds"] = time.perf_counter() - t_phase
-    print("phase9 " + json.dumps(phase9))
+            f"phase9 {name}", lambda: timed_twice(prob.solve_continuation, warm_reps=0), [K1])
+        newton, krylov = [r.iters for r in res], [r.ksp_iters for r in res]
+        total, err = sum(map(sum, krylov)), prob.error_vs_exact(res[-1].x)
+        require(all(r.reason > 0 for r in res), f"{name}: {[r.reason_str() for r in res]}")
+        require(newton == spec["newton"], f"{name}: Newton {newton}, oracle {spec['newton']}")
+        require(max(map(max, krylov)) <= spec["max_krylov"],
+                f"{name}: Krylov {krylov}, a step over the JAX test's {spec['max_krylov']}")
+        require(abs(total - spec["total"]) <= 0.2 * spec["total"],
+                f"{name}: total Krylov {total}, oracle {spec['total']} (20%)")
+        require(abs(err - spec["error"]) <= 1e-6 * spec["error"],
+                f"{name}: error {err!r}, oracle {spec['error']!r} (1e-6 relative)")
+        record(name, counts, first_s, warm_s, newton=newton, krylov=krylov, total_krylov=total,
+               reasons=[r.reason_str() for r in res], error=err, oracle_krylov=spec["krylov"])
+        del prob, res
+        # 9d: the fused tier in bench.py's stokes20 configurations (phase 8d's gates)
+        for name, prob in stokes_refined_runs(dev).items():
+            fname = name.replace("refined", "fused")
+            ((x, info), first_s, warm_s), counts = path(
+                f"phase9 {fname}", lambda: timed_twice(lambda: prob.solve_refined_fused(
+                    rtol=1e-10, fused_continuation=fname == "fused powerlaw"),
+                    warm_reps=int(fname == "fused linear")), [K1])
+            rel, err = info["rel_residual"], prob.error_vs_exact(x)
+            require(rel <= 1e-10, f"{fname}: rel residual {rel:.3e} > 1e-10")
+            dv = None
+            if fname == "fused linear":
+                # from zero, the last refine step leaves rel ~3e-13 and error ~5e-12
+                # (the JAX package's own 5.2e-12, STOKES_ORACLE): within 2x of it
+                ref = STOKES_ORACLE[fname]["error"]
+                require(err <= 2 * ref, f"{fname}: error {err:.3e} > 2 x {ref:.3e}")
+            else:
+                ref = STOKES_ORACLE[name]["error"]
+                require(abs(err - ref) <= 1e-6 * ref, f"{fname}: error {err!r}, oracle {ref!r}")
+                # the JAX test's rule (tests/test_refined_fused.py:137-139)
+                dv = float(np.max(np.abs(x["v"] - refined_x[name]["v"])))
+                require(dv <= 1e-7, f"{fname}: velocity {dv:.3e} off phase 8d's solve_refined")
+            res = info["continuation"]
+            record(fname, counts, first_s, warm_s, newton=[r.iters for r in res],
+                   krylov=[r.ksp_iters for r in res], reasons=[r.reason_str() for r in res],
+                   refine_steps=info["refine_steps"], refine_history=info["refine_history"],
+                   refine_inner=info["refine_inner_iters"], rel_residual=rel, error=err,
+                   velocity_vs_refined=dv, oracle=STOKES_ORACLE[fname])
+        phase9["seconds"] = time.perf_counter() - t_phase
+        print("phase9 " + json.dumps(phase9))
 
     # -- phase 10: Q1 and probed PCs, grid sequencing, singular values ---------
-    t_phase = time.perf_counter()
-    phase10_out = phase10(cli_main, path)
-    for name, rec in phase10_out.items():
-        rec["k1_launches_by_shape"] = k1_shapes[name]
-    phase10_out["seconds"] = time.perf_counter() - t_phase
-    print("phase10 " + json.dumps(phase10_out))
+    if 10 in phases:
+        t_phase = time.perf_counter()
+        phase10_out = phase10(cli_main, path)
+        for name, rec in phase10_out.items():
+            rec["k1_launches_by_shape"] = k1_shapes[name]
+        phase10_out["seconds"] = time.perf_counter() - t_phase
+        print("phase10 " + json.dumps(phase10_out))
 
     # -- phase 11: the dense tier, time stepping, heat and unsteady Stokes -----
-    t_phase = time.perf_counter()
-    phase11_out = phase11(cli_main, path, k1_shapes)
-    phase11_out["seconds"] = time.perf_counter() - t_phase
-    print("phase11 " + json.dumps(phase11_out))
+    if 11 in phases:
+        t_phase = time.perf_counter()
+        phase11_out = phase11(cli_main, path, k1_shapes)
+        phase11_out["seconds"] = time.perf_counter() - t_phase
+        print("phase11 " + json.dumps(phase11_out))
 
     # -- phase 12: thermal convection and the Krylov-Schur eigensolver ----------
-    t_phase = time.perf_counter()
-    phase12_out = phase12(cli_main, path, k1_shapes)
-    phase12_out["seconds"] = time.perf_counter() - t_phase
-    print("phase12 " + json.dumps(phase12_out))
+    if 12 in phases:
+        t_phase = time.perf_counter()
+        phase12_out = phase12(cli_main, path, k1_shapes)
+        phase12_out["seconds"] = time.perf_counter() - t_phase
+        print("phase12 " + json.dumps(phase12_out))
 
+    # -- phase 13: the differentiable tier --------------------------------------
+    if 13 in phases:
+        t_phase = time.perf_counter()
+        phase13_out, k1t_timed = Phase13(path, k1_shapes, k1t_shapes, readme52).run()
+        phase13_out["seconds"] = time.perf_counter() - t_phase
+        print("phase13 " + json.dumps(phase13_out))
+
+    if phases != ALL_PHASES:   # a check run: no kernels line, no result
+        print(f"chip_smoke: phases {sorted(phases)} only; no result", file=sys.stderr)
+        return 0
     # -- the kernels line ------------------------------------------------------
     k1_main = next(c for c in k1 if c["case"] == "(64, 64, 64) scale=None"
                    and c["dtype"] == "float64")
@@ -1868,6 +2520,17 @@ def main() -> int:
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                         "case": f"{c['case']} {c['dtype']}"})
+    # K1^T: the same kernel with s D as its right factor, its launches those
+    # of the reverse-mode passes (phase 13), timed at (256,64,64,64) f32
+    k1t_main = k1t_timed[0]
+    k1t_launches = sum(sum(v.values()) for v in k1t_shapes.values())
+    require(k1t_launches > 0, "K1^T was not launched by its paths")
+    kernels.append({"name": K1 + " (K1^T, reverse mode)", "route": "cuda", "source": SOURCE,
+                    "replaces": REPLACES[K1], "launches": k1t_launches,
+                    "max_abs_err": k1t_main["max_abs_err"], "ms": k1t_main["ms"],
+                    "plain_ms": k1t_main["plain_ms"], "bound_ms": k1t_main["bound_ms"],
+                    "bound_by": k1t_main["bound_by"], "library_ms": k1t_main["library_ms"],
+                    "case": f"{k1t_main['case']} {k1t_main['dtype']}"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,7 @@
 """Boussinesq thermal convection at infinite Prandtl number: the coupled
 flagship application (Rayleigh-Benard / mantle-convection class).
 
-Counterpart of ``spectral_tpu/models/convection.py``, forward only, on
-flat domains:
+Counterpart of ``spectral_tpu/models/convection.py`` on flat domains:
 
     -div(eta eps(v)) + grad p = Ra T ghat,   div v = 0        (momentum)
     T_t + v . grad T = Laplace T + q                          (energy)
@@ -27,9 +26,10 @@ Also here: the adaptive march (``march_adaptive``), the direct
 Newton-Krylov steady state (``steady_newton``), the linear stability of
 the conduction or a convecting state (``critical_rayleigh``,
 ``stability_eigenvalues``, on ``solvers/eig.py``) and the Nusselt / rms
-velocity diagnostics on Clenshaw-Curtis quadrature.  The differentiable
-rollout and its adjoint solves raise naming ROADMAP item 5b, the
-Anderson-accelerated steady state item 2.
+velocity diagnostics on Clenshaw-Curtis quadrature, and the rollout
+differentiable by autograd (``rollout_diff``: implicit adjoint solves for
+both Krylov solves, optional checkpointed segments).  The
+Anderson-accelerated steady state raises naming ROADMAP item 2.
 """
 
 from __future__ import annotations
@@ -90,6 +90,38 @@ class ConvectionConfig:
 _BOUNDARY = {"noslip": 0, "freeslip": 7, "rigid": 8}
 
 
+class _SaddleSolve(torch.autograd.Function):
+    """x = A(lin)^-1 b, differentiable in lin = (eta, eta', S) and b =
+    (b_v, b_p): the tensors are the inputs, since a Function tracks tensor
+    arguments only.  ``ConvectionModel._stokes_solve_diff``."""
+
+    @staticmethod
+    def forward(model, eta, deta, S, bv, bp):
+        x = model._saddle_solve((eta, deta, S), {"v": bv, "p": bp})
+        return x["v"], x["p"]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.model = inputs[0]
+        ctx.save_for_backward(*inputs[1:4], *output)
+
+    @staticmethod
+    def backward(ctx, gv, gp):
+        from spectral_tpu_torch.solvers.adjoint import _like
+
+        model = ctx.model
+        eta, deta, S, xv, xp = ctx.saved_tensors
+        lin, x = (eta, deta, S), {"v": xv, "p": xp}
+        lam = model._saddle_tsolve(lin, {"v": gv, "p": gp})
+        dlin = (None, None, None)
+        need = ctx.needs_input_grad[1:4]
+        if any(need):
+            y, vjp_lin = torch.func.vjp(
+                lambda e, de, s: model.stokes.jacobian_action(None, (e, de, s), x), *lin)
+            dlin = tuple(-t if want else None for t, want in zip(vjp_lin(_like(y, lam)), need))
+        return (None, *dlin, lam["v"], lam["p"])
+
+
 class ConvectionModel:
     """Coupled Stokes + energy stepping on the unit (or aspect-ratio) box."""
 
@@ -130,13 +162,17 @@ class ConvectionModel:
                 # called on the stokes_pc_lag cadence by the rollouts and
                 # once a Newton step by steady_newton
                 self._dense_var = True
-                self._pc_setup, self._pc_apply, _ = self.stokes.make_dense_pc_var()
+                self._pc_setup, self._pc_apply, apply_adj = self.stokes.make_dense_pc_var()
+                self._adjoint_pc = (self._pc_setup, apply_adj)
             else:
-                _, apply_d, _ = self.stokes.make_dense_pc(
+                _, apply_d, apply_adj = self.stokes.make_dense_pc(
                     params=self._params,
                     factor="device" if config.stokes_pc == "dense-device" else "host")
                 self._pc_setup = lambda x, lin: None
                 self._pc_apply = apply_d
+                # the adjoint PC: the same factorization transposed (Ainv^T),
+                # in place of the nested tree's (the _adjoint_pc property)
+                self._adjoint_pc = (self._pc_setup, apply_adj)
             self._pc_state = None
         elif config.stokes_pc == "nested":
             self._pc_setup, self._pc_apply = self.stokes.make_pc()
@@ -215,7 +251,8 @@ class ConvectionModel:
         """Relative viscosity exp(-ln(contrast) T): 1 at the cold top,
         1/contrast at the hot bottom (the Blankenbach case-2 law)."""
         c = self.config.eta_contrast if contrast is None else contrast
-        return torch.exp(-math.log(c) * T)
+        log_c = torch.log(c) if isinstance(c, torch.Tensor) else math.log(c)
+        return torch.exp(-log_c * T)
 
     def _lin_of(self, T: torch.Tensor, contrast=None):
         """Linearization state of the variable-viscosity operator: eta =
@@ -244,22 +281,133 @@ class ConvectionModel:
         return self.stokes.local_velocity(x["v"], with_dirichlet=True)
 
     # ------------------------------------------------------------------
-    # The differentiable rollout: ROADMAP item 5b
+    # The differentiable rollout (autograd through the coupled integration)
     # ------------------------------------------------------------------
-    @property
+    @cached_property
     def _adjoint_pc(self):
-        raise _todo("ConvectionModel._adjoint_pc", "item 5b: solvers/adjoint.py")
+        """(setup, apply) of the transposed saddle system's PC: the nested
+        tree transposed (the dense tiers set Ainv^T in __init__)."""
+        return self.stokes.make_pc(adjoint=True)
 
-    @property
+    def _saddle_solve(self, lin, b: dict, pc_state=None) -> dict:
+        """x = A(lin)^-1 b from the zero state (no warm start: the
+        differentiable solves are functions of b alone)."""
+        state = self._pc_setup(None, lin) if pc_state is None else pc_state
+        return self.config.stokes_ksp.solve(
+            lambda w: self.stokes.jacobian_action(None, lin, w), b, self.stokes.zero_state(),
+            M=lambda r: self._pc_apply(state, r), null_project=self.stokes.null_project).x
+
+    def _saddle_tsolve(self, lin, g: dict, At=None, astate=None) -> dict:
+        """lambda = A(lin)^-T g under the adjoint PC; A^T is one vjp of the
+        linear action, built here once (or given) and applied at every
+        iteration."""
+        from spectral_tpu_torch.solvers.adjoint import transpose_op
+
+        asetup, aapply = self._adjoint_pc
+        if At is None:
+            At = transpose_op(lambda y: self.stokes.jacobian_action(None, lin, y),
+                              self.stokes.zero_state(lin[0].dtype))
+        if astate is None:
+            astate = asetup(None, lin)
+        return self.config.stokes_ksp.solve(At, g, self.stokes.zero_state(),
+                                            M=lambda r: aapply(astate, r),
+                                            null_project=self.stokes.null_project).x
+
+    @cached_property
     def _stokes_solve_diff_const(self):
-        raise _todo("ConvectionModel._stokes_solve_diff_const", "item 5b: solvers/adjoint.py")
+        """b -> x: ``_stokes_solve_diff`` for the frozen isoviscous
+        operator, its forward and adjoint PC states and A^T built once here;
+        the operator carries no gradient, so the backward pass is the lone
+        transposed solve (``solvers.adjoint.linear_solve``)."""
+        from spectral_tpu_torch.solvers.adjoint import linear_solve, transpose_op
+
+        lin = self._lin0
+        fstate = self._pc_state if self._pc_state is not None else self._pc_setup(None, lin)
+        astate = self._adjoint_pc[0](None, lin)
+        At = transpose_op(lambda y: self.stokes.jacobian_action(None, lin, y),
+                          self.stokes.zero_state())
+
+        def solve(b):
+            return linear_solve(b, lambda bb: self._saddle_solve(lin, bb, fstate),
+                                lambda g: self._saddle_tsolve(lin, g, At, astate))
+
+        return solve
 
     @property
     def _stokes_solve_diff(self):
-        raise _todo("ConvectionModel._stokes_solve_diff", "item 5b: solvers/adjoint.py")
+        """(lin, b) -> x, the saddle solve differentiable in both (the
+        implicit function theorem, solvers/adjoint.py on the linear case):
+        the backward pass solves the transposed system under the adjoint PC
+        for lambda = A^-T x_bar, the right-hand side's cotangent, and
+        contracts -lambda through the vjp of lin -> A(lin) x for the
+        operator's, so with variable viscosity the gradient also flows
+        through eta(T) in the operator."""
+        def solve(lin, b: dict) -> dict:
+            xv, xp = _SaddleSolve.apply(self, *lin, b["v"], b["p"])
+            return {"v": xv, "p": xp}
 
-    def rollout_diff(self, *args, **kwargs):
-        raise _todo("ConvectionModel.rollout_diff", "item 5b: solvers/adjoint.py")
+        return solve
+
+    def rollout_diff(self, T0: torch.Tensor, nsteps: int, Ra=None, contrast=None,
+                     checkpoint: bool | int = False):
+        """``nsteps`` coupled steps, differentiable by autograd: returns (T,
+        x) with gradients flowing to T0, Ra and the viscosity contrast
+        (pass them as tensors; None freezes the config's value).
+
+        Both Krylov solves are implicit (``_stokes_solve_diff`` and
+        ``HeatModel.step_diff``: an adjoint solve each in the backward
+        pass, not autograd through the loops); the buoyancy, eta(T), the
+        AB2 advection and the theta-scheme right-hand side are plain
+        tensor code, so ``torch.autograd.grad`` of a loss of the result is
+        the discrete transient adjoint of the coupled system.  No warm
+        starts: prefer ``rollout`` when no gradient is needed.
+
+        ``checkpoint``: True (or a segment length k) runs the host loop in
+        segments of k = ceil(sqrt(n)) steps under
+        ``torch.utils.checkpoint``: the backward pass keeps the O(sqrt n)
+        segment-boundary states and integrates one segment again at a time
+        (one extra forward pass in all), the rest of n - 1 steps after the
+        peeled first one unsegmented.  The same gradient."""
+        from torch.utils.checkpoint import checkpoint as ckpt
+
+        Ra = self.config.Ra if Ra is None else Ra
+        if contrast is None and self._var_eta:
+            contrast = self.config.eta_contrast
+        const_op = contrast is None and not self._var_eta
+
+        def stokes_of(T):
+            if const_op:   # the frozen operator: PC states built once
+                return self._stokes_solve_diff_const(self.buoyancy_rhs(T, Ra))
+            return self._stokes_solve_diff(self._lin_of(T, contrast), self.buoyancy_rhs(T, Ra))
+
+        def body(T, N_prev):
+            x = stokes_of(T)
+            N = self.advection(self.velocity_full(x), T)
+            N_mid = 1.5 * N - 0.5 * N_prev
+            return self.heat.step_diff(T, self._forcing(N_mid, None), self.bc_T), N
+
+        def segment(T, N, length: int):
+            for _ in range(length):
+                T, N = body(T, N)
+            return T, N
+
+        if nsteps <= 0:
+            return T0, stokes_of(T0)
+        # the first step is peeled: its AB2 extrapolation degenerates to N0
+        x0 = stokes_of(T0)
+        N0 = self.advection(self.velocity_full(x0), T0)
+        T, N = self.heat.step_diff(T0, self._forcing(N0, None), self.bc_T), N0
+        n = nsteps - 1
+        if checkpoint and n > 1:
+            k = int(checkpoint) if checkpoint is not True else int(np.ceil(np.sqrt(n)))
+            k = max(1, min(k, n))
+            nseg, rem = divmod(n, k)
+            for _ in range(nseg):
+                T, N = ckpt(segment, T, N, k, use_reentrant=False)
+            T, N = segment(T, N, rem)
+        else:
+            T, N = segment(T, N, n)
+        return T, stokes_of(T)
 
     # ------------------------------------------------------------------
     # Advection and the step

@@ -17,8 +17,9 @@ over the same step.  The steps that take dt as an argument
 (``step_theta_dt``, ``step_bdf2_dt``) are the substrate of
 ``solvers/ts.py``: the preconditioner is the shift-free fast
 diagonalization applied with the run-time shift.  Curved domains
-(``phi=``) raise naming ROADMAP item 6, the differentiable ``step_diff``
-item 5b.
+(``phi=``) raise naming ROADMAP item 6.  ``step_diff`` is the step
+differentiable in its inputs (an implicit adjoint solve, not autograd
+through the Krylov loop).
 """
 
 from __future__ import annotations
@@ -149,9 +150,51 @@ class HeatModel:
         uL, rhs = self._step_rhs(u, f, dirichlet)
         return self.ksp.solve(self.implicit_operator, rhs, x0=uL, M=self._pc_apply).x
 
-    def step_diff(self, *args, **kwargs):
-        raise NotImplementedError("HeatModel.step_diff (a differentiable step) is not "
-                                  "ported yet (ROADMAP.md queue 1, item 5b: solvers/adjoint.py)")
+    def step_diff(self, u: torch.Tensor, f: torch.Tensor, dirichlet: torch.Tensor) -> torch.Tensor:
+        """``step``, differentiable in u, f and the Dirichlet data: the
+        Krylov solve is ``solvers.adjoint.linear_solve`` of the right-hand
+        side (``lax.custom_linear_solve`` in the JAX package).  Its
+        forward solves without a graph, warm-started at the masked state;
+        its backward solves the transposed implicit system A^T lambda = g
+        by GMRES (CG where the forward takes CG) from zero.  A^T and the
+        preconditioner's transpose M^T are vjps of the linear
+        ``implicit_operator`` and fastdiag apply, built once.  The JAX
+        package preconditions A^T with M itself; on insulated faces the
+        fold makes M nonsymmetric, and M^T keeps the transposed solve at
+        the forward's count (16^2, dt 5e-4, one insulated axis: 14
+        iterations against 144)."""
+        from spectral_tpu_torch.solvers.adjoint import linear_solve
+
+        uL, rhs = self._step_rhs(u, f, dirichlet)
+        uL = uL.detach()
+        tksp = (dataclasses.replace(self.ksp, type="gmres") if self.ksp.type == "cg"
+                else self.ksp)
+
+        def solve(b):
+            return self.ksp.solve(self.implicit_operator, b, x0=uL, M=self._pc_apply).x
+
+        def tsolve(g):
+            At, Mt = self._transposes_for(g.dtype, g.device)
+            return tksp.solve(At, g, M=Mt).x
+
+        return linear_solve(rhs, solve, tsolve)
+
+    @cached_property
+    def _transposes(self) -> dict:
+        return {}
+
+    def _transposes_for(self, dtype: torch.dtype, device: torch.device):
+        """(w -> A^T w, r -> M^T r): vjps of the linear implicit operator
+        and fastdiag apply, built once per dtype and device and applied at
+        every Krylov iteration."""
+        from spectral_tpu_torch.solvers.adjoint import transpose_op
+
+        key = (dtype, device)
+        if key not in self._transposes:
+            zero = torch.zeros(self.grid.dims, dtype=dtype, device=device)
+            self._transposes[key] = (transpose_op(self.implicit_operator, zero),
+                                     transpose_op(self._pc_apply, zero))
+        return self._transposes[key]
 
     def rollout(self, u0: torch.Tensor, f: torch.Tensor, dirichlet: torch.Tensor,
                 nsteps: int) -> torch.Tensor:

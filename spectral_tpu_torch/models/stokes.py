@@ -44,7 +44,12 @@ Newton with parameter continuation (stokes.C:217-235).
   ``make_dense_pc_var`` invert the assembled saddle Jacobian exactly
   (``ops/dense.py``).
 
-Parameter families, the adjoint, curved domains and the pencil mesh raise
+- ``adjoint_gradient`` differentiates a quantity of interest of the
+  converged state with respect to the rheology parameters
+  (``solvers/adjoint.py``), preconditioned by ``make_pc(adjoint=True)``,
+  the nested tree with every block transposed by ``torch.func.vjp``.
+
+Parameter families, curved domains and the pencil mesh raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -133,6 +138,7 @@ class StokesProblem:
         self.d = grid.ndim
         self._consts: dict = {}
         self._fastdiag: dict = {}
+        self._adjoint_ops: dict = {}   # dtype -> (PV^T, VP^T)
         self._setup_domain()
         self._setup_exact_and_force()
 
@@ -780,25 +786,31 @@ class StokesProblem:
         """(pc_setup, pc_apply) of the saddle-point preconditioner: saddle
         type 0 full block LU, 1 upper, 2 block diagonal, 3 lower
         triangular (stokes.C:1710-1817), each with the nested ``-vel_``
-        solves and the ``-schur_`` solve of S = -PV VV^-1 VP."""
-        if adjoint:
-            raise _todo("make_pc(adjoint=True)", "item 5b: solvers/adjoint.py")
+        solves and the ``-schur_`` solve of S = -PV VV^-1 VP.
+
+        ``adjoint=True`` preconditions the transposed saddle system J^T
+        (adjoint_gradient): every linear block becomes its exact transpose,
+        a ``torch.func.vjp`` of the block's action (``jax.linear_transpose``
+        in the JAX package): VV^T in the nested velocity solves, PV^T as
+        the gradient block and VP^T as the divergence block (J^T's
+        off-diagonal roles swap).  VV^T is built once a linearization, in
+        ``pc_setup``, and reused by every nested solve; the velocity sub-PC
+        and the 1/eta Schur diagonal are reused as they are ((near-)
+        symmetric)."""
+        from spectral_tpu_torch.solvers.adjoint import transpose_op
+
         cfg = self.config
         if cfg.saddle not in (0, 1, 2, 3):
             raise ValueError(f"pc_saddle_type {cfg.saddle} not implemented")
         vel_setup, vel_apply = self.make_vel_pc()
-        grad_op = self.pressure_gradient
-
-        def div_op(v):
-            return self.divergence(v, with_dirichlet=False)
 
         def vel_solve(state, rv, ksp):
-            lin_state, vstate = state
-            return ksp.solve(lambda w: self.vv_action(lin_state, w), rv,
-                             M=lambda r: vel_apply(vstate, r)).x
+            lin_state, vstate, (vv, _, _) = state
+            return ksp.solve(vv, rv, M=lambda r: vel_apply(vstate, r)).x
 
         def schur_solve(state, rp):
             eta = state[0][0]
+            _, _, (_, grad_op, div_op) = state
 
             def schur_action(wp):   # S = -PV VV^{-1} VP with the -svel_ solve
                 return -div_op(vel_solve(state, grad_op(wp), cfg.svel_ksp))
@@ -809,10 +821,18 @@ class StokesProblem:
                                        null_project=self.project_p).x
 
         def pc_setup(x, lin_state):
-            return (lin_state, vel_setup(lin_state))
+            if adjoint:
+                ops = (transpose_op(lambda w: self.vv_action(lin_state, w),
+                                    self.zero_state(lin_state[0].dtype)["v"]),
+                       *self._adjoint_blocks(lin_state[0].dtype))
+            else:
+                ops = (lambda w: self.vv_action(lin_state, w), self.pressure_gradient,
+                       lambda v: self.divergence(v, with_dirichlet=False))
+            return (lin_state, vel_setup(lin_state), ops)
 
         def pc_apply(state, r):
             rv, rp = r["v"], r["p"]
+            _, _, (_, grad_op, div_op) = state
             if cfg.saddle == 0:    # full block LU (stokes.C:1710-1741)
                 v1 = vel_solve(state, rv, cfg.vel_ksp)
                 p1 = schur_solve(state, rp - div_op(v1))
@@ -827,6 +847,21 @@ class StokesProblem:
             return {"v": v1, "p": schur_solve(state, rp - div_op(v1))}
 
         return pc_setup, pc_apply
+
+    def _adjoint_blocks(self, dtype: torch.dtype):
+        """(PV^T, VP^T) for the adjoint PC in ``dtype``: the transposed
+        divergence (a velocity from a pressure) and the transposed
+        pressure gradient (a pressure from a velocity).  They do not depend
+        on the linearization, so they are built once a dtype."""
+        from spectral_tpu_torch.solvers.adjoint import transpose_op
+
+        ops = self._adjoint_ops.get(dtype)
+        if ops is None:
+            zero = self.zero_state(dtype)
+            ops = self._adjoint_ops[dtype] = (
+                transpose_op(lambda v: self.divergence(v, with_dirichlet=False), zero["v"]),
+                transpose_op(self.pressure_gradient, zero["p"]))
+        return ops
 
     def _dense_free_and_nulls(self):
         """(free, null vectors) of the flat saddle state in ``_ravel``'s
@@ -1221,8 +1256,37 @@ class StokesProblem:
         x, info = self._refine(x, residual64, rtol=rtol, max_refine=max_refine)
         return {k: v.cpu().numpy() for k, v in x.items()}, {"continuation": results, **info}
 
-    def adjoint_gradient(self, *args, **kwargs):
-        raise _todo("adjoint_gradient", "item 5b: solvers/adjoint.py")
+    # ------------------------------------------------------------------
+    # Adjoint sensitivities (solvers/adjoint.py; no reference analog)
+    # ------------------------------------------------------------------
+    def adjoint_gradient(self, qoi, x_star: dict, theta, *, residual_fn=None,
+                         ksp: KSPConfig | None = None):
+        """d/dtheta qoi(x*(theta), theta) at the converged state x*, with
+        the adjoint saddle system preconditioned by the nested Schur PC of
+        the forward solve transposed (``make_pc(adjoint=True)``, built at
+        x*; FGMRES takes it on the transposed operator).
+
+        ``theta`` defaults to ``PowerLawParams`` (floats or 0-d tensors)
+        consumed by ``residual_fn(x, theta)`` = the null-projected
+        make_residual(theta); pass a custom residual_fn for other
+        parameterizations.  Returns (grad_theta, adjoint SolveResult)."""
+        from spectral_tpu_torch.solvers.adjoint import implicit_gradient
+
+        if residual_fn is None:
+            def residual_fn(xG, th):
+                F, _ = self.make_residual(th)(xG)
+                return {"v": F["v"], "p": self.project_p(F["p"])}
+
+        with torch.no_grad():   # the linearization is the PC's, not differentiated
+            _, lin_state = self.make_residual(
+                theta if isinstance(theta, PowerLawParams)
+                else self.params_at(self.config.cont))(x_star)
+        pc_setup, pc_apply = self.make_pc(adjoint=True)
+        pc_state = pc_setup(x_star, lin_state)
+        ksp = ksp or dataclasses.replace(self.config.outer_ksp, max_it=400)
+        return implicit_gradient(residual_fn, qoi, x_star, theta, ksp=ksp,
+                                 M=lambda r: pc_apply(pc_state, r),
+                                 null_project=self.null_project)
 
     def error_vs_exact(self, x: dict) -> float:
         """Max-norm error with the constant-pressure mode removed

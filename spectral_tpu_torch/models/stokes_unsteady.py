@@ -1,6 +1,6 @@
 """Time-dependent (unsteady) Stokes flow (a capability extension).
 
-Counterpart of ``spectral_tpu/models/stokes_unsteady.py``, forward only,
+Counterpart of ``spectral_tpu/models/stokes_unsteady.py``
 on flat domains: implicit time stepping of
 
     v_t - div(eta eps(v)) + grad p = f,    div v = 0,
@@ -27,8 +27,11 @@ whose exact Jacobian is the mass-shifted steady Jacobian.
 
 The JAX package compiles a step (and ``rollout_scan`` the whole rollout)
 into one program; here every rollout is a host loop over one cached step
-(its preconditioner built once).  The discrete adjoints raise naming
-ROADMAP item 5b, ``family_rollout`` item 7, curved domains (``phi=``) item 6.
+(its preconditioner built once).  The discrete transient adjoint
+(``adjoint_gradient``, ``adjoint_gradient_checkpointed``) sweeps back
+through the theta steps with one transposed saddle solve a step.
+``family_rollout`` raises naming ROADMAP item 7, curved domains
+(``phi=``) item 6.
 """
 
 from __future__ import annotations
@@ -104,14 +107,13 @@ class UnsteadyStokes:
         step, so 'dense'/'dense-device' invert it once (make_dense_pc at
         the frozen linear state) and each apply is one matmul.  The
         power-law Newton loops keep the nested tree: their linearization
-        moves every iteration."""
-        if adjoint:
-            raise _todo("UnsteadyStokes._saddle_pc(adjoint=True)", "item 5b: solvers/adjoint.py")
+        moves every iteration.  ``adjoint``: the PC of the transposed step
+        operator (Ainv^T; the nested tree transposed)."""
         p = self.problem
         if p.config.saddle_pc in ("dense", "dense-device") and self._linear:
-            _, fwd, _ = self._dense_pc
-            return (lambda x, lin: None), fwd
-        return p.make_pc()
+            _, fwd, adj = self._dense_pc
+            return (lambda x, lin: None), (adj if adjoint else fwd)
+        return p.make_pc(adjoint=adjoint)
 
     @cached_property
     def sigma(self) -> float:
@@ -341,15 +343,130 @@ class UnsteadyStokes:
             return traj, pres, its
         return v, pres, its
 
-    def adjoint_gradient(self, *args, **kwargs):
-        raise _todo("UnsteadyStokes.adjoint_gradient", "item 5b: solvers/adjoint.py")
+    def adjoint_gradient(self, qoi, traj, times, s_of_t, f_of_t, *, params=None, ksp=None):
+        """Discrete transient adjoint: d/dparams qoi(v_N) through every
+        implicit theta step, one transposed mass-shifted saddle solve a
+        step in a reverse sweep, preconditioned by ``_saddle_pc(adjoint=
+        True)``, with the parameter and prior-state contractions as vjps of
+        the same step residual the forward Newton loop solves.  The cost
+        does not grow with the number of parameters (reverse mode).
 
-    def adjoint_gradient_checkpointed(self, *args, **kwargs):
-        raise _todo("UnsteadyStokes.adjoint_gradient_checkpointed",
-                    "item 5b: solvers/adjoint.py")
+        ``traj``: [v_0..v_N] from ``rollout(..., keep_trajectory=True)``.
+        Boundary and forcing data are taken as independent of the
+        parameters; ``qoi`` maps the final full velocity field to a scalar.
+        Returns (grad_params, adjoint iterations a step, in reverse
+        order)."""
+        p = self.problem
+        params = params if params is not None else p.params_at(p.config.cont)
+        ksp = ksp or p.config.outer_ksp
+        w = torch.func.grad(qoi)(traj[-1])
+        _, gtheta, its = self._adjoint_sweep(w, self._zero_grad(params, traj[-1]), traj, times,
+                                             s_of_t, f_of_t, params, ksp)
+        return gtheta, its
 
-    def _adjoint_sweep(self, *args, **kwargs):
-        raise _todo("UnsteadyStokes._adjoint_sweep", "item 5b: solvers/adjoint.py")
+    @staticmethod
+    def _zero_grad(params, like: torch.Tensor):
+        """Zeros in params' structure: float64 0-d tensors on like's device."""
+        import torch.utils._pytree as pytree
+
+        return pytree.tree_map(lambda a: torch.zeros((), dtype=torch.float64,
+                                                     device=like.device), params)
+
+    def _adjoint_sweep(self, w, gtheta, traj, times, s_of_t, f_of_t, params, ksp):
+        """Reverse sweep over one contiguous span of steps: carry the state
+        cotangent ``w`` back through traj[-1] .. traj[0] (``times``
+        aligned with traj), accumulating the parameter gradient.  Returns
+        (w at traj[0], gtheta, iterations in reverse order)."""
+        import torch.utils._pytree as pytree
+
+        from spectral_tpu_torch.solvers.adjoint import _like, as_tensors
+
+        p, th = self.problem, self.theta
+        params = as_tensors(params, traj[-1].device)
+        pc_setup, pc_apply = self._saddle_pc(adjoint=True)
+        zero_p = torch.zeros(p.grid.dims, dtype=traj[-1].dtype, device=traj[-1].device)
+        its = []
+        for k in range(len(traj) - 1, 0, -1):
+            v1_full, v0_full = traj[k], traj[k - 1]
+            s1 = float(s_of_t(times[k]))
+            fbar = th * f_of_t(times[k]) + (1.0 - th) * f_of_t(times[k - 1])
+            # q is a placeholder: the residual is linear in q, so its
+            # derivatives in z, v0 and the parameters at the true v1 do not
+            # depend on the value
+            z_star = {"v": p.mask_v(v1_full), "p": zero_p}
+            # two separate vjps by design: the z-only vjp keeps every Krylov
+            # iteration's backward pass free of the v0 and parameter
+            # branches; the (v0, params) vjp runs once a step below
+            F, vjp_z, lin_state = torch.func.vjp(
+                lambda z: self._step_residual(z, v0_full, params, s1, fbar),
+                z_star, has_aux=True)
+            pc_state = pc_setup(None, lin_state)
+            res = ksp.solve(lambda lam: vjp_z(_like(F, lam))[0],
+                            {"v": p.mask_v(w), "p": zero_p},
+                            M=lambda r: pc_apply(pc_state, r), null_project=p.null_project)
+            its.append(int(res.iters))
+            F, vjp_v0p = torch.func.vjp(
+                lambda v0, prm: self._step_residual(z_star, v0, prm, s1, fbar)[0],
+                v0_full, params)
+            dv0, dparams = vjp_v0p(_like(F, res.x))
+            gtheta = pytree.tree_map(torch.sub, gtheta, dparams)
+            w = -dv0
+        return w, gtheta, its
+
+    def adjoint_gradient_checkpointed(self, qoi, v0_full, times, s_of_t, f_of_t, *,
+                                      params=None, ksp=None, segments: int | None = None):
+        """``adjoint_gradient`` in bounded memory: uniform sqrt-T
+        checkpointing (Griewank's revolve at one level).  The forward sweep
+        keeps only the ``segments + 1`` segment-boundary states (default
+        segments = ceil(sqrt(N)), so O(sqrt N) states where
+        ``adjoint_gradient`` keeps the O(N) trajectory); the reverse sweep
+        integrates each segment forward again (keeping its trajectory
+        only) and runs ``_adjoint_sweep`` over it: twice the forward
+        solves, the same adjoint solves.
+
+        Runs the forward integration itself.  Returns (grad_params, info),
+        info = {iters (the adjoint counts a step, reversed), peak_states
+        (most states held at once), forward_steps (forward solves,
+        recomputation included), qoi (the objective), segments}."""
+        if self.scheme != "theta":
+            raise ValueError("checkpointed adjoint covers the theta scheme "
+                             "(the step residual the sweeps transpose)")
+        p = self.problem
+        params = params if params is not None else p.params_at(p.config.cont)
+        ksp = ksp or p.config.outer_ksp
+        N = len(times) - 1
+        if N < 1:
+            raise ValueError("need at least one step")
+        segments = int(segments) if segments else max(1, int(np.ceil(np.sqrt(N))))
+        bounds = np.unique(np.round(np.linspace(0, N, segments + 1)).astype(int))
+
+        # forward sweep: keep only the boundary states
+        boundary_states = {0: v0_full}
+        v = v0_full
+        forward_steps = 0
+        for b0, b1 in zip(bounds[:-1], bounds[1:]):
+            v, _, its_f = self.rollout(v, times[b0:b1 + 1], s_of_t, f_of_t)
+            forward_steps += len(its_f)
+            boundary_states[int(b1)] = v
+
+        qoi_val = float(qoi(v))
+        w = torch.func.grad(qoi)(v)
+        gtheta = self._zero_grad(params, v)
+        its = []
+        peak = len(boundary_states)
+        for i in range(len(bounds) - 1, 0, -1):
+            b0, b1 = int(bounds[i - 1]), int(bounds[i])
+            seg_traj, _, its_f = self.rollout(boundary_states[b0], times[b0:b1 + 1], s_of_t,
+                                              f_of_t, keep_trajectory=True)
+            forward_steps += len(its_f)
+            peak = max(peak, len(boundary_states) + len(seg_traj))
+            w, gtheta, its_seg = self._adjoint_sweep(w, gtheta, seg_traj, times[b0:b1 + 1],
+                                                     s_of_t, f_of_t, params, ksp)
+            its.extend(its_seg)
+            del boundary_states[b1]
+        info = {"iters": its, "peak_states": peak, "forward_steps": forward_steps,
+                "qoi": qoi_val, "segments": len(bounds) - 1}
+        return gtheta, info
 
     def family_rollout(self, *args, **kwargs):
         raise _todo("UnsteadyStokes.family_rollout", "item 7: batched solves")

@@ -14,10 +14,11 @@ Execution paths of ``chebdiff``:
   extension, the algorithm of the reference's ChebD1Mult.
 - ``"kernel"``: the hand-written CUDA kernel K1
   (``ops.cuda_cheb.chebdiff_last``) for the last axis; other axes take the
-  matmul path.  A tensor wrapped by ``torch.func`` goes through K1's
-  rules (``chebdiff_last_batched``): under ``vmap`` one launch for the
-  batch, under ``jvp`` one for the primal and one for the tangent.  It is
-  the port's name for the JAX package's ``"pallas"``.
+  matmul path.  A tensor that needs a graph or is wrapped by
+  ``torch.func`` goes through K1's autograd pair: under ``vmap`` one
+  launch for the batch, under ``jvp`` one for the primal and one for the
+  tangent, and in every backward the transposed product K1^T.  It is the
+  port's name for the JAX package's ``"pallas"``.
 - ``"auto"``: the production switch.  On a CUDA tensor a last-axis
   derivative with ``n <= K1_MAX_N`` goes to K1; otherwise ``n <=
   MATMUL_MAX_N`` takes the matmul path and larger ``n`` the fft path.
@@ -211,11 +212,8 @@ def chebdiff(u: torch.Tensor, axis: int = 0, method: str = "auto") -> torch.Tens
         else:
             method = "matmul"
     if method == "kernel":
-        if last:
-            u = u.contiguous()
-            if torch._C._functorch.is_functorch_wrapped_tensor(u):   # vmap, jvp
-                return cuda_cheb.chebdiff_last_batched(u)
-            return cuda_cheb.chebdiff_last(u)
+        if last:   # K1, or its autograd pair where u needs a graph
+            return cuda_cheb.chebdiff_last(u.contiguous())
         method = "matmul"  # K1 streams the minor axis only
     if method == "matmul":
         return _chebdiff_matmul(u, axis)

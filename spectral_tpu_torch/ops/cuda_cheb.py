@@ -21,12 +21,20 @@ Each wrapper takes its plain version (``*_ref``, the same function in
 tensor it launches the kernel or raises: there is no fallback.  Each
 launch adds one to ``LAUNCHES[<kernel name>]`` (K2's call launches two
 kernels, its plane pass and its x pass, and adds one to each), and each
-K1 launch to ``K1_LAUNCHES_BY_SHAPE[(u.shape, u.dtype)]``.  Under
-``torch.func.vmap`` K1 goes through an autograd function whose vmap rule
-launches it once on the whole batch (``chebdiff_last_batched``).  A
-launch goes on the caller's current stream, so it can be captured in a
-CUDA graph; a captured call counts once, when it is captured, and its
-replays do not.
+K1 launch to ``K1_LAUNCHES_BY_SHAPE[(u.shape, u.dtype)]``.
+
+K1 is linear, u -> u (s D)^T, so its reverse mode is the same kernel with
+the row-major s D as its right factor: g -> g (s D), "K1^T", counted under
+K1's name and, by shape, in ``K1T_LAUNCHES_BY_SHAPE``.  A tensor that needs
+a graph (``requires_grad`` under grad mode) or is wrapped by ``torch.func``
+(vmap, jvp, grad, vjp) goes through the autograd pair ``_K1`` / ``_K1T``:
+each one's backward applies the other, its forward-mode rule applies
+itself to the tangent, and its vmap rule launches it once on the whole
+batch, so every derivative of any order stays on the kernel.  Only a
+tensor that needs no graph reaches the raw launch.  K2 has no reverse
+mode and refuses a tensor that needs one.  A launch goes on the caller's
+current stream, so it can be captured in a CUDA graph; a captured call
+counts once, when it is captured, and its replays do not.
 """
 
 from __future__ import annotations
@@ -48,8 +56,10 @@ SMEM_LIMIT = 232448
 # Kernel launches since the last reset, by kernel name.
 LAUNCHES = {"chebdiff_last_kernel": 0, "laplacian3d_plane_kernel": 0,
             "laplacian3d_x_kernel": 0, "chebdiff_packed_kernel": 0}
-# K1 launches since the last reset, by (u.shape, u.dtype).
+# K1 launches since the last reset, by (u.shape, u.dtype): the forward
+# product u (s D)^T, and the transposed one g (s D) of the reverse mode.
 K1_LAUNCHES_BY_SHAPE: dict[tuple[torch.Size, torch.dtype], int] = {}
+K1T_LAUNCHES_BY_SHAPE: dict[tuple[torch.Size, torch.dtype], int] = {}
 # Row-tile heights K3 is built for (template instances of the kernel).
 K3_BLOCK_ROWS = (32, 64, 128)
 # Most tile stages in K3's ring (fewer where fewer fit); chip_smoke.py
@@ -63,6 +73,7 @@ def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     K1_LAUNCHES_BY_SHAPE.clear()
+    K1T_LAUNCHES_BY_SHAPE.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +89,17 @@ def _diffmat_t(n: int, scale: float | None, dtype: torch.dtype,
     if scale is not None:
         DTnp = DTnp * scale
     return torch.as_tensor(np.ascontiguousarray(DTnp), dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _diffmat(n: int, scale: float | None, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """s D row-major: K1^T's right factor (g (s D) is the transpose of
+    u (s D)^T)."""
+    Dnp = diffmat_np(n)
+    if scale is not None:
+        Dnp = Dnp * scale
+    return torch.as_tensor(np.ascontiguousarray(Dnp), dtype=dtype, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,6 +125,12 @@ def _scales3(scales) -> tuple[float, float, float]:
 def chebdiff_last_ref(u: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     """y = u @ (scale * D)^T along the last axis, in u's dtype."""
     return torch.matmul(u, _diffmat_t(u.shape[-1], scale, u.dtype, u.device))
+
+
+def chebdiff_last_t_ref(g: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """y = g @ (scale * D) along the last axis, in g's dtype: the transpose
+    of chebdiff_last_ref, its reverse mode."""
+    return torch.matmul(g, _diffmat(g.shape[-1], scale, g.dtype, g.device))
 
 
 def laplacian3d_ref(u: torch.Tensor, bmask: torch.Tensor | None = None,
@@ -183,64 +211,113 @@ def _launch(name: str, fn: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def chebdiff_last(u: torch.Tensor, scale: float | None = None) -> torch.Tensor:
-    """Derivative along the last axis through K1 (plain version on the CPU).
+def _needs_graph(u: torch.Tensor) -> bool:
+    """Whether u needs autograd's graph or is wrapped by torch.func (a
+    batched, dual or grad-tracking tensor has no data_ptr)."""
+    return (torch.is_grad_enabled() and u.requires_grad) or \
+        torch._C._functorch.is_functorch_wrapped_tensor(u)
 
-    ``scale`` is folded into the resident matrix, so a scaled derivative
-    costs no extra pass over u."""
+
+def _k1(u: torch.Tensor, scale: float | None, transpose: bool) -> torch.Tensor:
+    """One K1 launch on a tensor that needs no graph: y = u (s D)^T, or
+    with ``transpose`` y = u (s D) (K1^T); the plain version on the CPU."""
     dev = u.device
     if dev.type == "cpu":
-        return chebdiff_last_ref(u, scale)
+        return (chebdiff_last_t_ref if transpose else chebdiff_last_ref)(u, scale)
     suffix = _check_cuda("chebdiff_last", u)
     if u.ndim < 1:
         raise ValueError("chebdiff_last: need at least one axis")
     n = u.shape[-1]
     if not 2 <= n <= K1_MAX_N:
         raise ValueError(f"chebdiff_last: the kernel takes 2 <= n <= {K1_MAX_N}, got {n}")
-    DT = _diffmat_t(n, None if scale is None else float(scale), u.dtype, dev)
+    factor = _diffmat if transpose else _diffmat_t
+    F = factor(n, None if scale is None else float(scale), u.dtype, dev)
     y = torch.empty_like(u)
     M = u.numel() // n
     if M == 0:
         return y
     _launch("chebdiff_last_kernel", "chebdiff_last_" + suffix, dev,
-            u.data_ptr(), DT.data_ptr(), y.data_ptr(), M, n)
+            u.data_ptr(), F.data_ptr(), y.data_ptr(), M, n)
+    counts = K1T_LAUNCHES_BY_SHAPE if transpose else K1_LAUNCHES_BY_SHAPE
     key = (u.shape, u.dtype)
-    K1_LAUNCHES_BY_SHAPE[key] = K1_LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    counts[key] = counts.get(key, 0) + 1
     return y
 
 
-class _BatchedK1(torch.autograd.Function):
-    """K1 for tensors wrapped by ``torch.func`` (a batched or dual tensor
-    has no ``data_ptr``): its vmap rule moves the batch axis first and
-    launches K1 once on the physical (B, ...) tensor (K1 takes any rank,
-    so the batch joins its rows); K1 is linear, so its forward-mode rule
-    (``torch.func.jvp``) applies K1 to the tangent.  No backward."""
+def chebdiff_last(u: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """Derivative along the last axis through K1 (plain version on the CPU).
+
+    ``scale`` is folded into the resident matrix, so a scaled derivative
+    costs no extra pass over u.  A tensor that needs a graph or is wrapped
+    by torch.func goes through the autograd pair (its reverse mode K1^T)."""
+    if _needs_graph(u):
+        return _K1.apply(u, scale)
+    return _k1(u, scale, False)
+
+
+def chebdiff_last_t(g: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """g (s D) along the last axis through K1^T (plain version on the CPU):
+    the transpose of chebdiff_last, its vector-Jacobian product."""
+    if _needs_graph(g):
+        return _K1T.apply(g, scale)
+    return _k1(g, scale, True)
+
+
+class _K1(torch.autograd.Function):
+    """u -> u (s D)^T through K1, for tensors that need a graph or are
+    wrapped by torch.func.  backward: K1^T on the cotangent (through
+    ``_K1T.apply``, so a backward is differentiable again); jvp: K1 on the
+    tangent; vmap: one launch on the physical batch, batch axis first (K1
+    takes any rank, so the batch joins its rows)."""
 
     @staticmethod
-    def forward(u):
-        return chebdiff_last(u.contiguous())
+    def forward(u, scale):   # a batch moved first, or a cotangent, may be strided
+        return _k1(u.contiguous(), scale, False)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.scale = inputs[1]
 
     @staticmethod
-    def jvp(ctx, u_dot):
-        return _BatchedK1.apply(u_dot)
+    def backward(ctx, g):
+        return _K1T.apply(g, ctx.scale), None
 
     @staticmethod
-    def vmap(info, in_dims, u):
+    def jvp(ctx, u_dot, _):
+        return _K1.apply(u_dot, ctx.scale)
+
+    @staticmethod
+    def vmap(info, in_dims, u, scale):
         if in_dims[0] is None:
-            return _BatchedK1.apply(u), None
-        return _BatchedK1.apply(u.movedim(in_dims[0], 0)), 0
+            return _K1.apply(u, scale), None
+        return _K1.apply(u.movedim(in_dims[0], 0), scale), 0
 
 
-def chebdiff_last_batched(u: torch.Tensor) -> torch.Tensor:
-    """``chebdiff_last`` of a tensor wrapped by ``torch.func``: under
-    ``vmap`` one K1 launch on the batch, counted in K1_LAUNCHES_BY_SHAPE
-    under the batched shape (batch axis first); under ``jvp`` one launch
-    each for the primal and the tangent."""
-    return _BatchedK1.apply(u)
+class _K1T(torch.autograd.Function):
+    """g -> g (s D) through K1^T: ``_K1``'s transpose, with the roles of
+    the pair swapped (its backward is K1)."""
+
+    @staticmethod
+    def forward(g, scale):
+        return _k1(g.contiguous(), scale, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.scale = inputs[1]
+
+    @staticmethod
+    def backward(ctx, u_bar):
+        return _K1.apply(u_bar, ctx.scale), None
+
+    @staticmethod
+    def jvp(ctx, g_dot, _):
+        return _K1T.apply(g_dot, ctx.scale)
+
+    @staticmethod
+    def vmap(info, in_dims, g, scale):
+        if in_dims[0] is None:
+            return _K1T.apply(g, scale), None
+        return _K1T.apply(g.movedim(in_dims[0], 0), scale), 0
 
 
 _GRID_KEYS = ("rows", "blocks", "threads", "smem")
@@ -298,6 +375,10 @@ def laplacian3d(u: torch.Tensor, bmask: torch.Tensor | None = None,
 
     With ``bmask`` (bool, u's shape) boundary rows are the identity,
     y_b = u_b, applied in the kernel's epilogue."""
+    if _needs_graph(u):
+        raise RuntimeError("laplacian3d: K2 has no reverse mode; a tensor that needs a "
+                           "graph or is wrapped by torch.func takes the composed "
+                           "operator (PoissonModel method 'matmul' or 'auto')")
     if u.device.type == "cpu":
         return laplacian3d_ref(u, bmask, scales)
     return _laplacian3d(u, bmask, scales)[1]

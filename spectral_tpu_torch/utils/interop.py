@@ -9,6 +9,8 @@ and coefficients.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -170,3 +172,42 @@ def eps_result_to_numpy(res) -> dict:
     Python scalars (None where the polish was off)."""
     return {k: (None if v is None else v if np.isscalar(v) else np.asarray(v))
             for k, v in res._asdict().items()}
+
+
+def _leaf_np(a):
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    a = np.asarray(a, np.float64)
+    return float(a) if a.ndim == 0 else a
+
+
+def pytree_to_numpy(tree):
+    """A pytree of either package (a dict, a PowerLawParams, a tensor or
+    an array) as a dict of float64 numpy leaves (0-d leaves as floats)
+    keyed by field or key; a bare leaf as itself."""
+    if isinstance(tree, dict):
+        return {k: pytree_to_numpy(v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return {f.name: pytree_to_numpy(getattr(tree, f.name)) for f in dataclasses.fields(tree)}
+    return _leaf_np(tree)
+
+
+def power_law_params_from_numpy(fields, *, device: torch.device | str,
+                                dtype: torch.dtype = torch.float64):
+    """PowerLawParams with 0-d tensor fields (the form the adjoint tier
+    differentiates) from a dict of numbers or from either package's
+    PowerLawParams."""
+    from spectral_tpu_torch.models.rheology import PowerLawParams
+
+    if not isinstance(fields, dict):
+        fields = pytree_to_numpy(fields)
+    return PowerLawParams(**{k: torch.tensor(float(v), dtype=dtype, device=device)
+                             for k, v in fields.items()})
+
+
+def optimize_result_to_numpy(res) -> dict:
+    """x (as pytree_to_numpy), f, gnorm, iters, nfev, reason and history of
+    an OptimizeResult of either package."""
+    return {"x": pytree_to_numpy(res.x), "f": float(res.f), "gnorm": float(res.gnorm),
+            "iters": int(res.iters), "nfev": int(res.nfev), "reason": int(res.reason),
+            "history": [float(h) for h in res.history]}

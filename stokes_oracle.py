@@ -66,6 +66,23 @@ Sections (all by default), each one JSON line:
   full-precision numbers that ``tests/test_torch_convection.py`` holds
   the port's CLI to, then ``-newton`` from initial temperatures perturbed
   by 1e-13 (seeds 0-7).
+- ``adjoint``: the differentiable tier at the sizes of the JAX package's
+  own tests, the gradients and adjoint counts that
+  ``tests/test_torch_adjoint.py`` holds the port to:
+  ``test_stokes_adjoint_gradient_preconditioned`` (10x10, the gradient
+  in every PowerLawParams field and the adjoint FGMRES count),
+  ``test_transient_adjoint_matches_finite_differences`` (8x8, 3 CN
+  steps), ``test_checkpointed_adjoint_bounded_memory`` (8x8, 12 steps,
+  both adjoints and the checkpointed one's info) and
+  ``test_rollout_diff_adjoint_gradients`` (8x8, 3 steps, contrast 3, the
+  nested PC: the gradient in Ra, the contrast and a T0 direction);
+- ``adjoint52``: README:52 through the ``stokes`` driver at 20^3 in
+  float64, then ``adjoint_gradient`` of sum(v^2) at its converged state in
+  the final PowerLawParams (the nested ``make_pc(adjoint=True)``): the
+  gradient and the adjoint FGMRES count that ``chip_smoke.py`` phase 13b
+  holds the port's count to; ``perturb_adjoint52`` the same from the
+  perturbed starts of ``perturb`` (the forward counts move with them, and
+  so does the adjoint count).
 """
 
 from __future__ import annotations
@@ -442,7 +459,7 @@ CONVECTION_CPU8 = {
     "8x8 adapt": ["-ts_adapt", "-dim", "8,8", "-ra", "5e3", "-dt", "1e-3", "-ts_dt0", "2e-5",
                   "-max_steps", "15", "-stokes_pc", "dense"],
 }
-VAR_ETA_STEPS = 12   # phase 12e's rollout length
+VAR_ETA_STEPS = 6   # phase 12e's rollout length
 
 
 def run_convection(name, argv, perturb: float = 0.0, seed: int = 0) -> dict:
@@ -573,6 +590,135 @@ def convcpu8():
         jax.clear_caches()
 
 
+
+def _params_row(th) -> dict:
+    return {k: float(getattr(th, k)) for k in ("hardness", "exponent", "regularization",
+                                                "gamma0")}
+
+
+def adjoint() -> list:
+    """The gradients and adjoint counts of four of the JAX package's
+    adjoint tests, at their sizes and options (see the module docstring)."""
+    import dataclasses
+
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.convection import ConvectionConfig, ConvectionModel
+    from spectral_tpu.models.rheology import PowerLawParams
+    from spectral_tpu.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu.models.stokes_unsteady import UnsteadyStokes
+    from spectral_tpu.solvers.krylov import KSPConfig
+    from spectral_tpu.solvers.newton import NewtonConfig
+
+    rows = []
+    t0 = time.perf_counter()
+    cfg = StokesConfig(exact=1, boundary=0, rheology=1, exponent=2.0, regularization=1e-2,
+                       pcvel="fastdiag")
+    p = StokesProblem(Grid((10, 10)), cfg)
+    th0 = PowerLawParams(1.0, cfg.exponent, cfg.regularization, cfg.gamma0)
+    out = p.solve(params=th0)
+    grad, res = p.adjoint_gradient(lambda x, th: jnp.sum(x["v"] ** 2), out.x, th0)
+    rows.append({"name": "stokes 10x10", "grad": _params_row(grad), "iters": int(res.iters),
+                 "reason": int(res.reason), "newton": int(out.iters),
+                 "seconds": time.perf_counter() - t0})
+    jax.clear_caches()
+
+    cfg0 = StokesConfig(exact=1, boundary=0, rheology=1, exponent=3.0, regularization=1e-1,
+                        hardness=1.2, pcvel="mg",
+                        outer_ksp=KSPConfig(type="fgmres", rtol=1e-12, max_it=600, restart=150),
+                        newton=NewtonConfig(rtol=1e-12, max_it=20))
+    qoi = lambda v: jnp.sum(v * v)   # noqa: E731
+    for name, dt, n in (("transient 8x8", 0.1, 2), ("checkpointed 8x8", 0.05, 12)):
+        t0 = time.perf_counter()
+        m0 = UnsteadyStokes(Grid((8, 8)), cfg0, dt=dt, theta=0.5)
+        u0, s, f, _, _ = m0.manufactured(omega=1.0)
+        times = np.arange(n + 1) * dt
+        traj, _, its_f = m0.rollout(u0, times, s, f, keep_trajectory=True)
+        grad, its = m0.adjoint_gradient(qoi, traj, times, s, f)
+        row = {"name": name, "steps": n, "grad": _params_row(grad), "iters": its,
+               "forward_iters": its_f, "qoi": float(qoi(traj[-1]))}
+        if name.startswith("checkpointed"):
+            grad_ck, info = m0.adjoint_gradient_checkpointed(qoi, u0, times, s, f)
+            row.update(grad_ck=_params_row(grad_ck), info=info)
+        row["seconds"] = time.perf_counter() - t0
+        rows.append(row)
+        jax.clear_caches()
+
+    t0 = time.perf_counter()
+    ccfg = ConvectionConfig(Ra=3e3, dt=1e-3, eta_contrast=3.0, velocity_bc="freeslip",
+                            side_bc="insulated",
+                            stokes_ksp=KSPConfig(type="fgmres", rtol=1e-10, max_it=200,
+                                                 restart=80),
+                            temp_ksp=KSPConfig(type="cg", rtol=1e-12, max_it=120))
+    m = ConvectionModel.unit_box((8, 8), ccfg)
+    T0 = m.conductive_state(amp=0.05)
+    dT = jnp.asarray(np.random.default_rng(3).standard_normal(m.grid.dims) * 0.01)
+
+    def loss(Ra, c, t):
+        T, x = m.rollout_diff(T0 + t * dT, 3, Ra=Ra, contrast=c)
+        return m.nusselt_top(T) + 1e-2 * m.vrms(x)
+
+    g = jax.grad(loss, argnums=(0, 1, 2))(3e3, 3.0, 0.0)
+    rows.append({"name": "rollout_diff 8x8", "steps": 3, "seed": 3,
+                 "loss": float(loss(3e3, 3.0, 0.0)),
+                 "grad": {"Ra": float(g[0]), "contrast": float(g[1]), "T0": float(g[2])},
+                 "seconds": time.perf_counter() - t0})
+    jax.clear_caches()
+    return rows
+
+
+def adjoint52(perturb: float = 0.0, seed: int = 0) -> dict:
+    """README:52 at 20^3 through the JAX stokes driver, then the adjoint
+    gradient of sum(v^2) at its converged state (nested adjoint PC).
+    ``perturb`` adds masked normal noise of that size (from ``seed``) to
+    the zero state the continuation starts from."""
+    from spectral_tpu.cli.drivers import stokes_main
+    from spectral_tpu.models.stokes import StokesProblem
+    from spectral_tpu.utils.options import Options
+
+    seen = {}
+    orig, orig_zero = StokesProblem.solve_continuation, StokesProblem.zero_state
+
+    def cont(self, *a, **kw):
+        seen["p"], seen["res"] = self, orig(self, *a, **kw)
+        return seen["res"]
+
+    def zero(self):
+        z = orig_zero(self)
+        if not perturb:
+            return z
+        rng = np.random.default_rng(seed)
+        return {"v": self.mask_v(z["v"] + perturb * jnp.asarray(
+            rng.standard_normal(z["v"].shape))), "p": z["p"]}
+
+    StokesProblem.solve_continuation = cont
+    StokesProblem.zero_state = zero
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = stokes_main(Options(README52))
+        forward_s = time.perf_counter() - t0
+    finally:
+        StokesProblem.solve_continuation, StokesProblem.zero_state = orig, orig_zero
+    p, res = seen["p"], seen["res"]
+    th = p.params_at(p.config.cont)
+    t0 = time.perf_counter()
+    grad, ares = p.adjoint_gradient(lambda x, t: jnp.sum(x["v"] ** 2), res[-1].x, th)
+    return {"name": "adjoint README:52 20^3", "rc": rc, "perturb": perturb, "seed": seed,
+            **_counts(res), "params": _params_row(th),
+            "qoi": float(jnp.sum(res[-1].x["v"] ** 2)), "grad": _params_row(grad),
+            "iters": int(ares.iters), "reason": int(ares.reason), "rnorm": float(ares.rnorm),
+            "forward_s": forward_s, "adjoint_s": time.perf_counter() - t0}
+
+
+def perturbed_adjoint52():
+    """adjoint52 from the perturbed starts of ``perturbed`` (SEEDS, or
+    1e-13 from seeds 0-7 and 1e-11 from seed 0)."""
+    starts = ([(1e-13, seed) for seed in range(8)] + [(1e-11, 0)] if SEEDS is None
+              else [(1e-13, seed) for seed in SEEDS])
+    for size, seed in starts:
+        yield adjoint52(size, seed)
+        jax.clear_caches()
+
 SECTIONS = {
     "cli43": lambda: run_cli(README43),
     "cli52": lambda: run_cli(README52),
@@ -596,6 +742,9 @@ SECTIONS = {
     "perturb_unsteady": perturbed_unsteady,
     "convection": convection,
     "convcpu8": convcpu8,
+    "adjoint": adjoint,
+    "adjoint52": adjoint52,
+    "perturb_adjoint52": perturbed_adjoint52,
 }
 
 

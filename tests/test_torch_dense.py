@@ -197,5 +197,5 @@ def test_k1_under_vmap():
         want = cuda_cheb.chebdiff_last_ref(u.movedim(in_dims, 0))
         assert torch.allclose(got, want, rtol=0, atol=1e-13)
     # nested vmaps reach the op once per level
-    got = torch.func.vmap(torch.func.vmap(cuda_cheb.chebdiff_last_batched))(u)
+    got = torch.func.vmap(torch.func.vmap(cuda_cheb.chebdiff_last))(u)
     assert torch.allclose(got, cuda_cheb.chebdiff_last_ref(u), rtol=0, atol=1e-13)

@@ -677,3 +677,97 @@ def test_eigs_on_card(cuda):
     assert card.converged and host.converged
     assert devices and set(devices) == {"cuda"}
     assert np.abs(card.eigenvalues - host.eigenvalues).max() <= 1e-10 * 5.0
+
+
+# -- the differentiable tier: K1 in reverse mode, the adjoints --------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(12, 12, 12), (6, 9, 12), (20, 20, 20), (16, 16)])
+def test_k1_reverse_mode_on_card(cuda, dtype, shape):
+    """chebdiff's reverse mode on the card (the autograd pair, K1^T = the
+    kernel with s D as its right factor): torch.func.vjp and .grad of a
+    requires_grad tensor equal the plain g @ (s D) (bit for bit in float64
+    where the forward is), jvp-of-vjp the matmul path's within BOUND; each
+    transposed launch counted by shape."""
+    u, ct, t = (_randn(shape, dtype, cuda, 20 + i) for i in range(3))
+    want = cuda_cheb.chebdiff_last_t_ref(ct)
+    fwd_bitwise = torch.equal(cuda_cheb.chebdiff_last(u), cuda_cheb.chebdiff_last_ref(u))
+    cuda_cheb.reset_launch_counts()
+    got = torch.func.vjp(lambda x: chebyshev.chebdiff(x, -1), u)[1](ct)[0]
+    x = u.clone().requires_grad_()
+    (chebyshev.chebdiff(x, -1) * ct).sum().backward()
+    for g in (got, x.grad):
+        assert _rel(g, want) <= BOUND[dtype]
+        if fwd_bitwise and dtype == torch.float64:
+            assert torch.equal(g, want)
+    assert cuda_cheb.K1T_LAUNCHES_BY_SHAPE[(torch.Size(shape), dtype)] == 2
+
+    def jvp_of_vjp(d):
+        def f(z):
+            y = d(z)
+            return y * y
+        return torch.func.jvp(lambda z: torch.func.vjp(f, z)[1](ct)[0], (u,), (t,))[1]
+
+    assert _rel(jvp_of_vjp(lambda z: chebyshev.chebdiff(z, -1)),
+                jvp_of_vjp(lambda z: chebyshev.chebdiff(z, -1, method="matmul"))) <= BOUND[dtype]
+
+
+def test_k2_refuses_a_graph_on_card(cuda):
+    u = _randn((12, 10, 8), torch.float64, cuda, 30)
+    with pytest.raises(RuntimeError, match="reverse mode"):
+        cuda_cheb.laplacian3d(u.clone().requires_grad_())
+    with pytest.raises(RuntimeError, match="reverse mode"):
+        torch.func.vmap(cuda_cheb.laplacian3d)(u[None])
+    assert cuda_cheb.LAUNCHES["laplacian3d_plane_kernel"] == 0
+
+
+def test_k1_repeated_launches_are_bitwise_stable(cuda):
+    """K1 and K1^T at the 12^3 Poisson test's shape and at (20,20,20) f64,
+    2,000 launches each on the same input, every output equal to the first
+    (a race in the tile pipeline would show as a changed bit)."""
+    for shape in ((12, 12, 12), (20, 20, 20)):
+        u = _randn(shape, torch.float64, cuda, 31)
+        first, first_t = cuda_cheb.chebdiff_last(u), cuda_cheb.chebdiff_last_t(u)
+        same = torch.ones((), dtype=torch.bool, device=cuda)
+        for _ in range(2000):
+            same &= torch.equal(cuda_cheb.chebdiff_last(u), first)
+            same &= torch.equal(cuda_cheb.chebdiff_last_t(u), first_t)
+        assert bool(same), shape
+
+
+def test_stokes_adjoint_on_card_matches_host(cuda):
+    """StokesProblem.adjoint_gradient at 10x10 (tests/test_adjoint.py's
+    power law, the nested adjoint PC) on the card and on the host from
+    the same converged state: the same adjoint count, every gradient field
+    to 1e-10 relative."""
+    from spectral_tpu_torch.models.rheology import PowerLawParams
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+
+    cfg = StokesConfig(exact=1, boundary=0, rheology=1, exponent=2.0, regularization=1e-2,
+                       pcvel="fastdiag")
+    host = StokesProblem(Grid((10, 10), device="cpu"), cfg)
+    th = PowerLawParams(1.0, 2.0, 1e-2, 1.0)
+    xs = host.solve(params=th).x
+    out = {}
+    for dev in ("cpu", cuda):
+        p = StokesProblem(Grid((10, 10), device=dev), cfg)
+        theta = PowerLawParams(*(torch.tensor(v, dtype=torch.float64, device=dev)
+                                 for v in (1.0, 2.0, 1e-2, 1.0)))
+        out[str(dev)] = p.adjoint_gradient(lambda x, _: torch.sum(x["v"] ** 2),
+                                           {k: v.to(dev) for k, v in xs.items()}, theta)
+    (gh, rh), (gc, rc) = out["cpu"], out["cuda"]
+    assert rh.reason > 0 and rc.reason > 0 and rc.iters == rh.iters, (rc.iters, rh.iters)
+    for f in ("hardness", "exponent", "regularization", "gamma0"):
+        a, b = float(getattr(gc, f)), float(getattr(gh, f))
+        assert abs(a - b) <= 1e-10 * abs(b), (f, a, b)
+    assert sum(cuda_cheb.K1T_LAUNCHES_BY_SHAPE.values()) > 0
+
+
+def test_transient_fit_demo_on_card(cuda, capsys):
+    """The ported transient_fit_demo at its defaults on the card (8x8, 2
+    CN steps a rollout): exit 0, hardness 1.6 recovered within 0.05."""
+    from spectral_tpu_torch.examples import transient_fit_demo
+
+    assert transient_fit_demo.main(["-device", "cuda"]) == 0
+    assert "recovered hardness = 1.6" in capsys.readouterr().out
+    assert sum(cuda_cheb.K1T_LAUNCHES_BY_SHAPE.values()) > 0

@@ -138,12 +138,41 @@ def test_operator_and_laplacian_match_jax(steps):
         assert _rel(t, j) <= 1e-12, name
 
 
+@pytest.mark.parametrize("nm", [(), (0,)], ids=["dirichlet", "neumann0"])
+def test_step_diff_vjp_matches_jax(nm):
+    """HeatModel.step_diff differentiated in u, f and the Dirichlet data:
+    the port's implicit adjoint (GMRES on A^T under the transposed fastdiag
+    PC) by torch.autograd.grad and by torch.func.vjp, against jax.vjp of
+    the JAX step_diff (lax.custom_linear_solve, A^T under the PC itself),
+    compiled once, to 1e-10 of the largest entry; the step itself equals
+    ``step``.  Both solve at rtol 1e-13: the two adjoint solves take other
+    preconditioners, so each must land well inside the comparison."""
+    u0, f, bc = _heat_inputs(13)
+    ct = np.random.default_rng(17).standard_normal(DIMS)
+    ksp = dict(type="cg", rtol=1e-13, max_it=200)
+    jm = JHeat(JGrid(DIMS), dt=0.01, neumann_axes=nm, ksp=jkrylov.KSPConfig(**ksp))
+
+    def jrun(u, f, bc, ct):
+        y, vjp = jax.vjp(jm.step_diff, u, f, bc)
+        return y, vjp(ct)
+
+    jy, jg = jax.jit(jrun)(*(jnp.asarray(a) for a in (u0, f, bc, ct)))
+    tm = HeatModel(Grid(DIMS, device="cpu"), dt=0.01, neumann_axes=nm, ksp=KSPConfig(**ksp))
+    args = [torch.tensor(a, requires_grad=True) for a in (u0, f, bc)]
+    y = tm.step_diff(*args)
+    assert _rel(y.detach(), jy) <= 1e-12
+    assert torch.equal(y.detach(), tm.step(*(a.detach() for a in args)))
+    grads = torch.autograd.grad(y, args, torch.from_numpy(ct))
+    _, vjp = torch.func.vjp(tm.step_diff, *(a.detach() for a in args))
+    for name, a, b, j in zip(("u", "f", "dirichlet"), grads, vjp(torch.from_numpy(ct)), jg):
+        assert _rel(a, j) <= 1e-10, name
+        assert torch.equal(a, b), name
+
+
 def test_heat_model_raises():
     g = Grid(DIMS, device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         HeatModel(g, dt=0.1, phi=lambda x: x)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        HeatModel(g, dt=0.1).step_diff(None, None, None)
     with pytest.raises(ValueError, match="Dirichlet"):
         HeatModel(g, dt=0.1, neumann_axes=(0, 1))
 

@@ -70,6 +70,7 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     assert cuda_cheb.LAUNCHES == {"chebdiff_last_kernel": 0, "laplacian3d_plane_kernel": 0,
                                   "laplacian3d_x_kernel": 0, "chebdiff_packed_kernel": 0}
     assert cuda_cheb.K1_LAUNCHES_BY_SHAPE == {}
+    assert cuda_cheb.K1T_LAUNCHES_BY_SHAPE == {}
 
 
 def test_non_cpu_tensors_never_take_the_plain_path():
@@ -231,3 +232,75 @@ def test_chebdiff_packed_branch_rule():
     assert not cuda_cheb.chebdiff_packed_bulk(u32[:, :30].contiguous(), 3)  # n = 10
     assert not cuda_cheb.chebdiff_packed_bulk(u64[:, :30].contiguous(), 3)  # n = 10
     assert not cuda_cheb.chebdiff_packed_bulk(u32.view(-1)[1:-127].view(5, 128), 2)
+
+
+# -- K1's reverse mode: the autograd pair (_K1 / _K1T) on its plain version --
+
+def _k1_pair_inputs():
+    rng = np.random.default_rng(11)
+    return [torch.from_numpy(rng.standard_normal((6, 7, 8))) for _ in range(3)]
+
+
+def _through_pair(x):
+    """A nonlinear function of x whose derivatives all pass K1 and K1^T."""
+    y = cuda_cheb.chebdiff_last(x)
+    return y * y * cuda_cheb.chebdiff_last(torch.sin(x), 0.5)
+
+
+def _through_matmul(x):
+    y = cuda_cheb.chebdiff_last_ref(x)
+    return y * y * cuda_cheb.chebdiff_last_ref(torch.sin(x), 0.5)
+
+
+def test_k1_pair_matches_the_matmul_path():
+    """On the CPU the pair runs its plain version, so every derivative of
+    it equals autograd's through torch.matmul: torch.func.vjp,
+    .backward() of a requires_grad tensor, jvp-of-vjp, vmap-of-vjp and
+    torch.func.hessian at (6, 7, 8), each to 1e-14 of the largest entry."""
+    u, ct, tan = _k1_pair_inputs()
+
+    def close(a, b):
+        assert float(torch.max(torch.abs(a - b))) <= 1e-14 * float(torch.max(torch.abs(b)))
+
+    for f_pair, f_ref in ((_through_pair, _through_matmul),
+                          (lambda x: cuda_cheb.chebdiff_last_t(x, 2.0),
+                           lambda x: cuda_cheb.chebdiff_last_t_ref(x, 2.0))):
+        got, want = (torch.func.vjp(f, u)[1](ct)[0] for f in (f_pair, f_ref))
+        close(got, want)
+        x = u.clone().requires_grad_()
+        (f_pair(x) * ct).sum().backward()
+        close(x.grad, want)
+
+        def jvp_of_vjp(f):
+            return torch.func.jvp(lambda z: torch.func.vjp(f, z)[1](ct)[0], (u,), (tan,))[1]
+
+        close(jvp_of_vjp(f_pair), jvp_of_vjp(f_ref))
+        vv = [torch.func.vmap(lambda z, f=f: torch.func.vjp(f, z)[1](z)[0])(u)
+              for f in (f_pair, f_ref)]
+        close(*vv)
+    h = [torch.func.hessian(lambda z, f=f: f(z).sum())(u) for f in (_through_pair, _through_matmul)]
+    close(*h)
+    # the transpose: <K1 u, g> == <u, K1^T g>
+    lhs = torch.sum(cuda_cheb.chebdiff_last(u, 0.5) * ct)
+    rhs = torch.sum(u * cuda_cheb.chebdiff_last_t(ct, 0.5))
+    assert abs(float(lhs - rhs)) <= 1e-12 * abs(float(lhs))
+
+
+def test_k1_routes_a_graph_to_the_pair_and_k2_refuses_one():
+    """A tensor that needs a graph, or one wrapped by torch.func, goes to
+    the pair (so its gradient is never dropped); the rest to the raw
+    launch.  K2 has no reverse mode and refuses both."""
+    u = _k1_pair_inputs()[0]
+    x = u.clone().requires_grad_()
+    assert cuda_cheb.chebdiff_last(x).grad_fn is not None
+    assert cuda_cheb._needs_graph(x) and not cuda_cheb._needs_graph(u)
+    with torch.no_grad():
+        assert not cuda_cheb._needs_graph(x)
+        assert cuda_cheb.chebdiff_last(x).grad_fn is None
+    u3 = torch.from_numpy(np.random.default_rng(5).standard_normal((6, 6, 6)))
+    with pytest.raises(RuntimeError, match="reverse mode"):
+        cuda_cheb.laplacian3d(u3.clone().requires_grad_())
+    with pytest.raises(RuntimeError, match="reverse mode"):
+        torch.func.vmap(cuda_cheb.laplacian3d)(u3[None])
+    with torch.no_grad():
+        cuda_cheb.laplacian3d(u3.clone().requires_grad_())

@@ -562,8 +562,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         StokesProblem(g, phi=lambda x: x)
     p = StokesProblem(g, StokesConfig(exact=2))
-    for fn, name in ((p.solve_family, "item 7"), (p.adjoint_gradient, "item 5"),
-                     (lambda: p.make_pc(adjoint=True), "item 5"),
+    for fn, name in ((p.solve_family, "item 7"),
                      (lambda: p.solve_continuation(checkpoint_dir="x"), "item 8"),
                      (lambda: p.solve(recycle_U0=object()), "item 1b")):
         with pytest.raises(NotImplementedError, match=name):
