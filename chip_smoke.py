@@ -83,13 +83,27 @@ paths at their real sizes through the entry points a user calls:
      memory growth) and at 12e's variable viscosity (the contrast); (d) the
      transient adjoint at 11b's power law, full and checkpointed, against
      central differences; (e) the ported ``adjoint_fit_demo -opt lbfgs -n
-     32`` and ``implicit_hvp`` against differences of ``implicit_gradient``.
+     32`` and ``implicit_hvp`` against differences of ``implicit_gradient``;
+ 14. the solver families in float64, gated on SOLVERS_ORACLE: (a) the
+     elliptic CLI at 32^3 mg3 with each ``-snes_type`` (newtontr, qn,
+     anderson, ngmres, ngmres with a loose Newton step, fas); (b) the
+     Poisson CLI at 64^3 with ``-ksp_type bcgs``, ``richardson`` and
+     ``chebyshev`` (its own bounds and ``-ksp_chebyshev_eigenvalues``),
+     and MINRES on a saddle system of a 64^3 field's size (K1 and K1^T);
+     (c) Newton with ``NewtonConfig(recycle=8)`` at 32^3 and README:52's
+     continuation with recycling; (d) Blankenbach 1a by Anderson
+     acceleration (``convection -accel``).
 
-``python3 chip_smoke.py --phases 3,8-13`` runs phase 0 and the phases
-listed (a check run: no kernels line, no result line); with no argument,
-every phase runs, as the smoke test is meant to run.
+``python3 chip_smoke.py --phases 3,8-14,13b-d`` runs phase 0 and the
+phases listed in this process (a check run: no kernels line, no result
+line).  With no argument every phase runs, as the smoke test is meant to
+run: phases 0-2, 5 and 13a first, alone on the card (they time the
+kernels), then the paths in four worker processes at once
+(``WORKER_GROUPS``), which report their launch counts back.  The workers'
+path times are taken while the others run; ``--serial`` runs every phase
+in this process, for path times taken alone.
 
-Each path (phases 3-13) is driven with the launch counts set to 0 just
+Each path (phases 3-14) is driven with the launch counts set to 0 just
 before it and read just after (K1's forward and transposed launches also
 by shape), and times nothing inside it (a call captured in a CUDA graph counts once and launches at
 every replay); every phase raises on failure.  A timed comparison gives
@@ -133,8 +147,11 @@ K1_CONV_SHAPES = ((12, 12), (14, 14, 12))
 # and at (14, 14, 12) (phase 12d), 512 at 16^2 (phase 12e's lagged refresh);
 # K1 bit for bit its plain version on each, directly and under vmap
 K1_BATCHED_SHAPES = ((1024, 16, 16, 16), (1024, 14, 14, 12), (512, 16, 16))
+# phase 14's new shapes: FAS's coarsest level at 32^3 and the MINRES
+# system's velocity block (K1 and K1^T)
+K1_SOLVER_SHAPES = ((5, 5, 5), (64, 64, 48))
 K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5, (20, 20, 20), (16, 16),
-                  (12, 12, 12)) + K1_GSEQ_SHAPES + K1_CONV_SHAPES
+                  (12, 12, 12)) + K1_GSEQ_SHAPES + K1_CONV_SHAPES + K1_SOLVER_SHAPES
 K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
 # K3's ragged cases, each in float32 and float64: (rows, n, pack, row tile,
 # offset of u2d in its storage).  n % 4 == 0 goes by bulk copies (n = 12:
@@ -1251,6 +1268,7 @@ def timed_once(fn):
 
 
 K1_NAME = "chebdiff_last_kernel"
+PARTS13 = frozenset("abcde")   # phase 13's runs, 13a-13e
 
 
 class Phase13:
@@ -1276,16 +1294,21 @@ class Phase13:
                           "k1t_launches_by_shape": self.k1t_shapes[name]}
         require(sum(self.k1t_shapes[name].values()) > 0, f"{name}: no K1^T launch")
 
-    def run(self) -> tuple[dict, list]:
-        t0 = time.perf_counter()
-        rows, k1t_timed = phase13a(self.dev)
-        self.out["13a k1 reverse mode"] = {"cases": rows, "k1t_timed": k1t_timed,
-                                           "seconds": time.perf_counter() - t0}
-        for run in (self.stokes_adjoint, self.rollout_diff, self.transient_adjoint,
-                    self.fit_and_hvp):
+    def run(self, parts=PARTS13) -> tuple[dict, list | None]:
+        """The runs named in ``parts`` (letters of 13a-13e): (records, K1^T's
+        timed cases from 13a, or None without it)."""
+        k1t_timed = None
+        if "a" in parts:
             t0 = time.perf_counter()
-            run()
-            self.out[run.__name__ + " seconds"] = time.perf_counter() - t0
+            rows, k1t_timed = phase13a(self.dev)
+            self.out["13a k1 reverse mode"] = {"cases": rows, "k1t_timed": k1t_timed,
+                                               "seconds": time.perf_counter() - t0}
+        for part, run in (("b", self.stokes_adjoint), ("c", self.rollout_diff),
+                          ("d", self.transient_adjoint), ("e", self.fit_and_hvp)):
+            if part in parts:
+                t0 = time.perf_counter()
+                run()
+                self.out[run.__name__ + " seconds"] = time.perf_counter() - t0
         return self.out, k1t_timed
 
     def stokes_adjoint(self):
@@ -1560,6 +1583,298 @@ class Phase13:
                     f"{name}: H v {k} {hv[k]!r}, FD {fd[k]!r} (1e-6)")
         self.record(name, counts, hvp=hv, fd=fd, tangent_iters=t_its, second_adjoint_iters=a_its,
                     first_s=first_s, fd_s=fd_s)
+
+
+# Phase 14: the solver families in float64 at full width, gated on
+# SOLVERS_ORACLE: the JAX package on the CPU in float64
+# (``stokes_oracle.py solvers``), with the runs from perturbed starts
+# (``stokes_oracle.py solvers_perturbed``: masked normal noise of 1e-13,
+# seeds 0-7, and 1e-11, seed 0, on the start) for the counts held by range.
+# 14a: the elliptic CLI in phase 6's 32^3 mg3 configuration with each
+# -snes_type: the reason equal, the iteration count (and newtontr's Krylov
+# count each step, and the total) within max(3, 10%) of the range the
+# oracle and its perturbed runs span (newtontr: the oracle's alone, since
+# its first radius is delta0 ||x0||, which a perturbed start changes), the
+# error within 2x.  QN stops at CONVERGED_SNORM_RELATIVE with error 3.6e-6
+# in the JAX package (its secant step stalls at this size with the default
+# memory of 10): the card must end the same way.  14b: the Poisson CLI at
+# 64^3 (phase 3's configuration) with -ksp_type bcgs, richardson (the
+# unscaled step diverges on the fastdiag-preconditioned spectrum, up to
+# 4.85: the JAX package reaches a non-finite norm at 278 iterations, exit
+# code 2 here), chebyshev with its own bounds and with
+# -ksp_chebyshev_eigenvalues 0.5,5: iterations within max(3, 10%), the
+# reason equal, the error within 2x; MINRES on MINRES_SHAPES' saddle
+# system, count and reason, error within 2x.  14c: the elliptic 32^3
+# Newton with NewtonConfig(recycle=8), its counts as 14a's; README:52 at
+# 20^3 through solve_continuation with recycle=8, the Newton count of each
+# continuation step and the total FGMRES count within max(3, 10%) of the
+# range of the oracle and its perturbed runs (1005-2362 against the plain
+# run's 656: the deflation is neutral to negative under the nested PC), the
+# error within 1e-6 of STOKES_ORACLE's.  14d: Blankenbach 1a by Anderson
+# acceleration through the CLI (-accel): the steps within max(3, 10%), Nu
+# and Vrms within 1e-8.
+SOLVERS_ELLIPTIC32 = ["-dim", "32,32,32", "-exact", "0", "-gamma", "1", "-pc_type", "mg3",
+                      "-snes_rtol", "1e-10", "-debug", "1"]
+SOLVERS_POISSON64 = ["-m", "64", "-n", "64", "-p", "64", "-ksp_rtol", "1e-10"]
+MINRES_SHAPES = ((64, 64, 48), (64, 64, 16))
+SOLVERS_ORACLE = {
+    "14a newtontr": dict(opts=["-snes_type", "newtontr"], newton=(11, 11),
+                         krylov=[6, 6, 6, 6, 6, 6, 7, 7, 7, 7, 7], reason="CONVERGED_RTOL",
+                         error=1.327827e-13),
+    "14a qn": dict(opts=["-snes_type", "qn"], newton=(21, 21),
+                   reason="CONVERGED_SNORM_RELATIVE", error=3.620405e-06),
+    "14a anderson": dict(opts=["-snes_type", "anderson"], newton=(26, 27),
+                         reason="CONVERGED_RTOL", error=8.473222e-13),
+    "14a ngmres": dict(opts=["-snes_type", "ngmres"], newton=(17, 17), reason="CONVERGED_RTOL",
+                       error=2.781209e-11),
+    "14a ngmres npc": dict(opts=["-snes_type", "ngmres", "-npc_snes_type", "newtonls"],
+                           newton=(11, 11), reason="CONVERGED_RTOL", error=2.049916e-12),
+    "14a fas": dict(opts=["-snes_type", "fas"], newton=(10, 10), reason="CONVERGED_RTOL",
+                    error=1.451061e-13),
+    "14b bcgs": dict(opts=["-ksp_type", "bcgs"], iters=2, reason=2, error=3.058664e-14),
+    "14b richardson": dict(opts=["-ksp_type", "richardson"], iters=278, reason=-5, error=None),
+    "14b chebyshev": dict(opts=["-ksp_type", "chebyshev"], iters=63, reason=2,
+                          error=9.129919e-13),
+    "14b chebyshev bounds": dict(opts=["-ksp_type", "chebyshev", "-ksp_chebyshev_eigenvalues",
+                                       "0.5,5"], iters=37, reason=2, error=2.510214e-13),
+    "14b minres": dict(iters=47, reason=2, error=2.5733578601361273e-09),
+    "14c recycle elliptic": dict(newton=(5, 5), krylov=[6, 7, 7, 7, 9], total=(36, 36),
+                                 reason="CONVERGED_RTOL", error=2.020605904817785e-13),
+    "14c recycle README:52": dict(newton=([2, 3, 3, 4, 5], [2, 3, 3, 4, 6]), total=(1005, 2362),
+                                  oracle_total=1116, plain_total=656, error=6.057082e-01),
+    "14d accel": dict(argv=["convection", *BLANKENBACH, "-steady_tol", "1e-3", "-stokes_pc",
+                            "dense", "-accel"], steps=(220, 220), anderson=12,
+                      nu_top=4.891502993347097, nu_bottom=4.891502993347054,
+                      vrms=42.86692654112723),
+}
+
+
+@contextlib.contextmanager
+def captured_returns(owner, name: str):
+    """The return values of every call of ``owner.name`` made inside the
+    block, in a list."""
+    got, orig = [], getattr(owner, name)
+
+    def wrapped(*a, **kw):
+        got.append(orig(*a, **kw))
+        return got[-1]
+
+    setattr(owner, name, wrapped)
+    try:
+        yield got
+    finally:
+        setattr(owner, name, orig)
+
+
+def minres_factors(shapes=MINRES_SHAPES, seed: int = 14):
+    """14b's MINRES system as numpy factors, the one definition that this
+    script, tests/test_torch_gpu.py and stokes_oracle.py build it from: the
+    saddle family of tests/test_krylov.py::test_minres_spd_preconditioner_
+    indefinite_operator on the state {"v": shapes[0], "p": shapes[1]}
+    (at MINRES_SHAPES the size of a 64^3 field).  The velocity block is
+    S = s^2 D^T D + 0.1 I on v's last axis (D the Chebyshev matrix of its
+    length, s = 1 / ||D||_2), SPD; B v = v G^T with G normal / sqrt(nv);
+    K = [[S, B^T], [B, 0]] is symmetric and indefinite; the PC is
+    diag(S)^-1 on v and I on p, SPD.  Returns (D, s, G, diag(S), x*)."""
+    import numpy as np
+
+    from spectral_tpu_torch.ops.chebyshev import diffmat_np
+
+    rng = np.random.default_rng(seed)
+    nv, npp = shapes[0][-1], shapes[1][-1]
+    D = diffmat_np(nv)
+    s = 1.0 / np.linalg.norm(D, 2)
+    G = rng.standard_normal((npp, nv)) / np.sqrt(float(nv))
+    diag = s * s * np.sum(D * D, axis=0) + 0.1
+    xstar = {"v": rng.standard_normal(shapes[0]), "p": rng.standard_normal(shapes[1])}
+    return D, s, G, diag, xstar
+
+
+def minres_system(dev, shapes=MINRES_SHAPES, seed: int = 14):
+    """minres_factors' system on ``dev``, S applied through K1 and K1^T.
+    Returns (K, M, x*)."""
+    import torch
+
+    from spectral_tpu_torch.ops import cuda_cheb
+
+    _, s, G, diag, xstar = minres_factors(shapes, seed)
+    G, dinv = torch.as_tensor(G, device=dev), torch.as_tensor(1.0 / diag, device=dev)
+    xs = {k: torch.as_tensor(v, device=dev) for k, v in xstar.items()}
+
+    def K(x):
+        Sv = cuda_cheb.chebdiff_last_t(cuda_cheb.chebdiff_last(x["v"], s), s) + 0.1 * x["v"]
+        return {"v": Sv + x["p"] @ G, "p": x["v"] @ G.T}
+
+    return K, (lambda r: {"v": r["v"] * dinv, "p": r["p"]}), xs
+
+
+def parse_elliptic(out: str) -> dict:
+    """The elliptic CLI's counts, reason and error."""
+    mn = re.search(r"Number of nonlinear iterations = (\d+)", out)
+    mr = re.search(r"Reason for solver termination: (\S+)", out)
+    mk = re.search(r"KSP iterations per Newton step: \[([\d, ]*)\]", out)
+    me = re.search(r"Norm of error\s*: abs = (\S+)", out)
+    require(mn and mr and mk and me, f"elliptic output not parsed: {out[-2000:]!r}")
+    return {"newton": int(mn.group(1)), "reason": mr.group(1),
+            "krylov": [int(k) for k in mk.group(1).split(",") if k.strip()],
+            "error": float(me.group(1))}
+
+
+def phase14_newton_ok(name: str, got: dict) -> str | None:
+    """Why a 14a or 14c elliptic solve misses SOLVERS_ORACLE[name]'s gates
+    (listed above the table), or None."""
+    spec = SOLVERS_ORACLE[name]
+    if got["reason"] != spec["reason"]:
+        return f"reason {got['reason']}, oracle {spec['reason']}"
+    if not _within(got["newton"], *spec["newton"]):
+        return f"{got['newton']} iterations, the JAX runs span {spec['newton']} (max(3, 10%))"
+    if "krylov" in spec:
+        kr = spec["krylov"]
+        if len(got["krylov"]) != got["newton"] or any(
+                not _within(k, r, r) for k, r in zip(got["krylov"], kr)):
+            return f"Krylov {got['krylov']}, oracle {kr} (max(3, 10%) each)"
+        lo, hi = spec.get("total", (sum(kr), sum(kr)))
+        if not _within(sum(got["krylov"]), lo, hi):
+            return f"total Krylov {sum(got['krylov'])}, the JAX runs span {lo}..{hi}"
+    if got["error"] > 2 * spec["error"]:
+        return f"error {got['error']:.6e} > 2 x {spec['error']:.6e}"
+    return None
+
+
+def phase14(cli_main, path, k1_shapes) -> dict:
+    """Phase 14 (see above): every path counted, K1 required on each, timed
+    by one call (14b's short solves also warm), K1 launches by shape."""
+    import dataclasses
+
+    import torch
+
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.convection import ConvectionModel
+    from spectral_tpu_torch.models.elliptic import EllipticModel
+    from spectral_tpu_torch.models.poisson import PoissonModel
+    from spectral_tpu_torch.models.stokes import StokesProblem
+    from spectral_tpu_torch.solvers.krylov import KSPConfig, minres
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+
+    K1 = "chebdiff_last_kernel"
+    dev = torch.device("cuda")
+    out = {}
+
+    def record(name, counts, first_s, warm_s=None, **rec):
+        out[name] = {**rec, "first_s": first_s, "warm_s": warm_s,
+                     "k1_launches": counts[K1], "k1_launches_by_shape": k1_shapes[name]}
+
+    # 14a: the elliptic CLI with each -snes_type
+    for name, spec in SOLVERS_ORACLE.items():
+        if not name.startswith("14a"):
+            continue
+        argv = ["elliptic", *SOLVERS_ELLIPTIC32, *spec["opts"]]
+        ((rc, text), first_s, _), counts = path(
+            name, lambda: timed_twice(lambda: run_cli(cli_main, argv), warm_reps=0), [K1])
+        got = parse_elliptic(text)
+        require(rc == (0 if spec["reason"].startswith("CONVERGED") else 2),
+                f"{name}: exit code {rc}")
+        why = phase14_newton_ok(name, got)
+        require(why is None, f"{name}: {why}")
+        record(name, counts, first_s, cli=" ".join(argv), **got)
+    # 14b: the Poisson CLI with each Krylov type, then MINRES directly
+    for name, spec in SOLVERS_ORACLE.items():
+        if not name.startswith("14b") or "opts" not in spec:
+            continue
+        argv = ["poisson", *SOLVERS_POISSON64, *spec["opts"]]
+        with captured_returns(PoissonModel, "solve") as solves:
+            ((rc, text), first_s, warm_s), counts = path(
+                name, lambda: timed_twice(lambda: run_cli(cli_main, argv), warm_reps=1), [K1])
+        m = re.search(r"Norm of error (\S+) iterations (\d+)", text)
+        require(m is not None, f"{name}: output not parsed: {text[-2000:]!r}")
+        err, iters, reason = float(m.group(1)), int(m.group(2)), int(solves[-1].reason)
+        require(rc == (0 if spec["reason"] > 0 else 2), f"{name}: exit code {rc}")
+        require(reason == spec["reason"], f"{name}: reason {reason}, oracle {spec['reason']}")
+        require(_within(iters, spec["iters"], spec["iters"]),
+                f"{name}: {iters} iterations, oracle {spec['iters']} (max(3, 10%))")
+        if spec["error"] is not None:
+            require(err <= 2 * spec["error"], f"{name}: error {err:.6e} > 2 x {spec['error']:.6e}")
+        record(name, counts, first_s, warm_s, cli=" ".join(argv), iterations=iters,
+               reason=reason, error=err)
+        del solves[:]
+    name = "14b minres"
+    spec = SOLVERS_ORACLE[name]
+    K, M, xs = minres_system(dev)
+    b = K(xs)
+    (res, first_s, warm_s), counts = path(
+        name, lambda: timed_twice(lambda: minres(K, b, M=M, rtol=1e-10, max_it=2000),
+                                  warm_reps=1), [K1])
+    err = max(float(torch.max(torch.abs(res.x[k] - xs[k]))) for k in xs)
+    require(res.reason == spec["reason"], f"{name}: reason {res.reason}, oracle {spec['reason']}")
+    require(_within(res.iters, spec["iters"], spec["iters"]),
+            f"{name}: {res.iters} iterations, oracle {spec['iters']} (max(3, 10%))")
+    require(err <= 2 * spec["error"], f"{name}: error {err:.6e} > 2 x {spec['error']:.6e}")
+    shape = f"{MINRES_SHAPES[0]} float64"
+    require(k1_shapes[name].get(shape, 0) > 0, f"{name}: K1 was not launched on {shape}")
+    record(name, counts, first_s, warm_s, iterations=res.iters, reason=res.reason,
+           error=err, rnorm=res.rnorm)
+    del K, M, xs, b, res
+    # 14c: recycling, the elliptic Newton and README:52's continuation
+    name = "14c recycle elliptic"
+    spec = SOLVERS_ORACLE[name]
+    em = EllipticModel(Grid((32, 32, 32), device=dev), gamma=1.0)
+    u, b, d = em.setup_problem(exact=0)
+    (r, first_s, _), counts = path(name, lambda: timed_twice(lambda: em.solve(
+        b, d, ksp=KSPConfig(type="fgmres", rtol=1e-5, max_it=500),
+        newton=NewtonConfig(rtol=1e-10, max_it=50, recycle=8), pc_type="mg3"),
+        warm_reps=0), [K1])
+    got = {"newton": r.iters, "reason": r.reason_str(), "krylov": [int(k) for k in r.ksp_iters],
+           "error": float(torch.max(torch.abs(r.x - u)))}
+    why = phase14_newton_ok(name, got)
+    require(why is None, f"{name}: {why}")
+    require(r.recycle_U.dtype == torch.float64 and tuple(r.recycle_U.shape) == (8, 32 ** 3),
+            f"{name}: the harvest is {r.recycle_U.dtype} {tuple(r.recycle_U.shape)}")
+    record(name, counts, first_s, **got)
+    del em, u, b, d, r
+    name = "14c recycle README:52"
+    spec = SOLVERS_ORACLE[name]
+    p52 = stokes52(dev)
+    p = StokesProblem(p52.grid, dataclasses.replace(
+        p52.config, newton=dataclasses.replace(p52.config.newton, recycle=8)))
+    (results, first_s, _), counts = path(
+        name, lambda: timed_twice(p.solve_continuation, warm_reps=0), [K1])
+    newton = [int(r.iters) for r in results]
+    krylov = [[int(k) for k in r.ksp_iters] for r in results]
+    total = sum(map(sum, krylov))
+    err = p.error_vs_exact(results[-1].x)
+    lo, hi = spec["newton"]
+    require(len(newton) == len(lo) and all(_within(k, a, c) for k, a, c in zip(newton, lo, hi)),
+            f"{name}: Newton {newton}, the JAX runs span {lo}..{hi} (max(3, 10%))")
+    require(all(r.reason > 0 for r in results), f"{name}: a continuation step did not converge")
+    require(_within(total, *spec["total"]),
+            f"{name}: total FGMRES {total}, the JAX runs span {spec['total']} (max(3, 10%))")
+    require(abs(err - spec["error"]) <= 1e-6 * spec["error"],
+            f"{name}: error {err:.6e}, oracle {spec['error']:.6e} (1e-6 relative)")
+    require(all(r.recycle_U is not None and r.recycle_U.dtype == torch.float64 for r in results),
+            f"{name}: a harvest is missing or not float64")
+    record(name, counts, first_s, newton=newton, krylov=krylov, total_krylov=total, error=err,
+           oracle_total=spec["oracle_total"], plain_total_jax=spec["plain_total"])
+    del p52, p, results
+    torch.cuda.empty_cache()
+    # 14d: Blankenbach 1a by Anderson acceleration over the time stepper
+    name = "14d accel"
+    spec = SOLVERS_ORACLE[name]
+    with captured_returns(ConvectionModel, "steady_accelerated") as runs:
+        ((rc, text), first_s, _), counts = path(
+            name, lambda: timed_twice(lambda: run_cli(cli_main, spec["argv"]), warm_reps=0),
+            [K1])
+    require(rc == 0 and runs, f"{name} failed (rc {rc}): {text[-3000:]!r}")
+    _, _, info = runs[-1]
+    require(info["converged"], f"{name}: not converged")
+    require(_within(info["steps"], *spec["steps"]),
+            f"{name}: {info['steps']} steps, oracle {spec['steps']} (max(3, 10%))")
+    for key in ("nu_top", "nu_bottom", "vrms"):
+        require(abs(info[key] - spec[key]) <= 1e-8 * abs(spec[key]),
+                f"{name}: {key} {info[key]!r}, oracle {spec[key]!r} (1e-8)")
+    record(name, counts, first_s, cli=" ".join(spec["argv"]), steps=info["steps"],
+           nu_top=info["nu_top"], nu_bottom=info["nu_bottom"], vrms=info["vrms"],
+           rate=info["rate"])
+    return out
 
 
 def stokes_krylov_range(spec: dict):
@@ -1879,31 +2194,118 @@ def run_cli(cli_main, argv) -> tuple[int, str]:
     return rc, buf.getvalue()
 
 
-ALL_PHASES = frozenset(range(14))
+ALL_PHASES = frozenset(range(15))
+# The full run: phases 0-2, 5 and 13a in this process, so that their kernel
+# timings have the card to themselves, then the paths in worker processes
+# run at once, one a group.  The paths are host-bound (the card idles 91-99%
+# in each, PERF.md section 3), so the groups share the card and the cores
+# with little loss; they are balanced by the seconds of a serial run.
+PARENT_PHASES = "1-2,5,13a"
+WORKER_GROUPS = ("8-9", "13e", "3-4,6-7,11,13b-d", "10,12,14")
+# The workers end within this many seconds of the script's start.
+WORKER_DEADLINE_S = 1100.0
+USAGE = "usage: chip_smoke.py [--serial | --phases 1,3,8-14,13b-d]"
 
 
-def parse_phases(argv: list[str]) -> frozenset:
-    """``--phases 3,8-13``: the phases to run (phase 0, the build, always;
-    9 brings 8, whose solutions 9d reuses).  Every phase by default, the
-    only run that prints the kernels line and the result line."""
-    if not argv:
-        return ALL_PHASES
-    if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases 1,3,8-13]")
-    want = {0}
-    for part in argv[1].split(","):
+def parse_phases(spec: str) -> tuple[frozenset, frozenset]:
+    """``3,8-14,13b-d`` -> (phases, letters of phase 13's runs): phase 0,
+    the build, always; 9 brings 8, whose solutions 9d reuses; 13 alone is
+    13a-13e."""
+    want, parts = {0}, set()
+    for part in spec.split(","):
+        m = re.fullmatch(r"13([a-e])(?:-([a-e]))?", part)
+        if m:
+            want.add(13)
+            parts.update(c for c in PARTS13 if m.group(1) <= c <= (m.group(2) or m.group(1)))
+            continue
         lo, _, hi = part.partition("-")
-        want.update(range(int(lo), int(hi or lo) + 1))
+        span = range(int(lo), int(hi or lo) + 1)
+        want.update(span)
+        if 13 in span:
+            parts.update(PARTS13)
     if 9 in want:
         want.add(8)
     unknown = want - ALL_PHASES
     if unknown:
         raise SystemExit(f"chip_smoke.py: no phase {sorted(unknown)}")
-    return frozenset(want)
+    return frozenset(want), frozenset(parts)
+
+
+def parse_args(argv: list[str]) -> tuple[frozenset, frozenset, str]:
+    """(phases, phase 13's runs, mode): no argument is the full run
+    ("full": the paths in concurrent workers), ``--serial`` the full run in
+    this process, ``--phases`` a check run, ``--worker --phases`` one
+    worker of the full run."""
+    if not argv:
+        return ALL_PHASES, PARTS13, "full"
+    if argv == ["--serial"]:
+        return ALL_PHASES, PARTS13, "serial"
+    mode = "check"
+    if argv[:1] == ["--worker"]:
+        mode, argv = "worker", argv[1:]
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit(USAGE)
+    return (*parse_phases(argv[1]), mode)
+
+
+def run_workers(groups, deadline_s: float) -> list[dict]:
+    """Run ``chip_smoke.py --worker --phases <group>`` for every group at
+    once, each with its share of the cores for host threads; stop them all
+    when one fails or the deadline passes.  Prints each worker's phase
+    lines and passes its standard error on, in the order of ``groups``;
+    returns each one's summary (its launch counts and K1's by shape)."""
+    import os
+    import tempfile
+
+    threads = str(max(1, len(os.sched_getaffinity(0)) // len(groups)))
+    env = {**os.environ, "OMP_NUM_THREADS": threads, "MKL_NUM_THREADS": threads,
+           "OPENBLAS_NUM_THREADS": threads}
+    script = os.path.abspath(__file__)
+    end = time.monotonic() + deadline_s
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        try:
+            for i, group in enumerate(groups):
+                out = open(os.path.join(tmp, f"{i}.out"), "w+")
+                err = open(os.path.join(tmp, f"{i}.err"), "w+")
+                proc = subprocess.Popen([sys.executable, script, "--worker", "--phases", group],
+                                        stdout=out, stderr=err, env=env,
+                                        cwd=os.path.dirname(script))
+                procs.append((group, proc, out, err))
+            while any(p.poll() is None for _, p, _, _ in procs):
+                if time.monotonic() > end or any(p.poll() for _, p, _, _ in procs):
+                    break
+                time.sleep(0.5)
+        finally:
+            for _, p, _, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        summaries, failed = [], []
+        for group, p, out, err in procs:
+            out.seek(0)
+            err.seek(0)
+            lines, err_text = out.read().splitlines(), err.read()
+            out.close()
+            err.close()
+            sys.stderr.write(err_text)
+            for line in lines:
+                if line.startswith("phase") and not line.startswith("phase0 "):
+                    print(line)
+            summary = [json.loads(line[7:]) for line in lines if line.startswith("worker ")]
+            if p.returncode != 0 or not summary:
+                failed.append(f"worker {group}: exit {p.returncode}: {err_text[-3000:]}")
+            else:
+                summaries.append(summary[0])
+        require(not failed, "\n".join(failed))
+        return summaries
 
 
 def main(argv: list[str] | None = None) -> int:
-    phases = parse_phases(sys.argv[1:] if argv is None else argv)
+    t_start = time.monotonic()
+    phases, parts13, mode = parse_args(sys.argv[1:] if argv is None else argv)
+    if mode == "full":   # this process's share; the rest go to the workers
+        phases, parts13 = parse_phases(PARENT_PHASES)
     import torch
 
     if not torch.cuda.is_available():
@@ -2498,13 +2900,29 @@ def main(argv: list[str] | None = None) -> int:
     # -- phase 13: the differentiable tier --------------------------------------
     if 13 in phases:
         t_phase = time.perf_counter()
-        phase13_out, k1t_timed = Phase13(path, k1_shapes, k1t_shapes, readme52).run()
+        phase13_out, k1t_timed = Phase13(path, k1_shapes, k1t_shapes, readme52).run(parts13)
         phase13_out["seconds"] = time.perf_counter() - t_phase
         print("phase13 " + json.dumps(phase13_out))
 
-    if phases != ALL_PHASES:   # a check run: no kernels line, no result
+    # -- phase 14: the solver families ----------------------------------------------
+    if 14 in phases:
+        t_phase = time.perf_counter()
+        phase14_out = phase14(cli_main, path, k1_shapes)
+        phase14_out["seconds"] = time.perf_counter() - t_phase
+        print("phase14 " + json.dumps(phase14_out))
+
+    if mode == "worker":   # the parent adds these to its own
+        print("worker " + json.dumps({"launches": launches, "k1t_shapes": k1t_shapes}))
+        return 0
+    if mode == "check":   # no kernels line, no result
         print(f"chip_smoke: phases {sorted(phases)} only; no result", file=sys.stderr)
         return 0
+    if mode == "full":
+        for summary in run_workers(WORKER_GROUPS,
+                                   WORKER_DEADLINE_S - (time.monotonic() - t_start)):
+            for name, count in summary["launches"].items():
+                launches[name] += count
+            k1t_shapes.update(summary["k1t_shapes"])
     # -- the kernels line ------------------------------------------------------
     k1_main = next(c for c in k1 if c["case"] == "(64, 64, 64) scale=None"
                    and c["dtype"] == "float64")

@@ -82,6 +82,63 @@ def poisson_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> 
     return 0 if int(res.reason) > 0 else 2
 
 
+def _snes_solve(opts: Options, model, make_model, b, dirichlet, x0, *, ksp, newton, pc):
+    """-snes_type dispatch (PETSc SNESSetType): ``newtonls`` (default),
+    ``newtontr``, ``qn``, ``anderson``, ``ngmres``, ``fas``, with the
+    family knobs under their PETSc names (-snes_tr_delta0/_eta1-3,
+    -snes_qn_m, -snes_anderson_m/_beta, -snes_ngmres_m/_beta) and
+    -npc_snes_type newtonls composing NGMRES with one loose Newton step
+    (-npc_ksp_rtol, -npc_ksp_max_it).  A non-Newton result is adapted to
+    NewtonResult, so the driver's lines and exit code stay uniform."""
+    import dataclasses
+
+    from spectral_tpu_torch.solvers import newton as snes
+    from spectral_tpu_torch.solvers.newton import NewtonConfig, NewtonResult
+
+    snes_type = opts.get_string("snes_type", "newtonls")
+    if snes_type in ("newtonls", "newton"):
+        return model.solve(b, dirichlet, x0=x0, ksp=ksp, newton=newton, pc_type=pc)
+    residual = model.make_residual(b, dirichlet)
+    x0 = torch.zeros_like(b) if x0 is None else x0
+    pcs, pca = model.make_pc(pc, dtype=b.dtype)
+    if snes_type in ("newtontr", "tr"):
+        return snes.newton_tr_solve(
+            residual, x0, jacobian_action=model.jacobian_action, pc_setup=pcs, pc_apply=pca,
+            ksp=ksp, config=newton, delta0=opts.get_real("snes_tr_delta0", 0.2),
+            eta1=opts.get_real("snes_tr_eta1", 1e-3), eta2=opts.get_real("snes_tr_eta2", 0.25),
+            eta3=opts.get_real("snes_tr_eta3", 0.75))
+    if snes_type == "qn":
+        return snes.quasi_newton_solve(residual, x0, m=opts.get_int("snes_qn_m", 10),
+                                       pc_setup=pcs, pc_apply=pca, config=newton)
+    if snes_type == "anderson":
+        return snes.anderson_solve(residual, x0, m=opts.get_int("snes_anderson_m", 5),
+                                   beta=opts.get_real("snes_anderson_beta", 0.2),
+                                   pc_setup=pcs, pc_apply=pca, config=newton)
+    if snes_type == "ngmres":
+        npc = None
+        if opts.get_string("npc_snes_type", "") in ("newtonls", "newton"):
+            inner_ksp = dataclasses.replace(ksp, rtol=opts.get_real("npc_ksp_rtol", 0.3),
+                                            max_it=opts.get_int("npc_ksp_max_it", 5))
+            inner_cfg = NewtonConfig(max_it=1, rtol=0.0, atol=0.0, line_search="basic")
+
+            def npc(x):   # one loose inexact-Newton step an outer iteration
+                return snes.newton_solve(residual, x, jacobian_action=model.jacobian_action,
+                                         pc_setup=pcs, pc_apply=pca, ksp=inner_ksp,
+                                         config=inner_cfg).x
+        return snes.ngmres_solve(residual, x0, m=opts.get_int("snes_ngmres_m", 5), npc=npc,
+                                 beta=opts.get_real("snes_ngmres_beta", 0.2),
+                                 pc_setup=pcs, pc_apply=pca, config=newton)
+    if snes_type == "fas":
+        from spectral_tpu_torch.solvers.fas import FASSolver
+
+        r = FASSolver(make_model, model.grid.dims, b, dirichlet).solve(
+            x0=x0, rtol=newton.rtol, atol=newton.atol, max_cycles=newton.max_it)
+        return NewtonResult(x=r.x, iters=r.iters, reason=r.reason, fnorm=r.rnorm,
+                            fnorm_history=r.history, ksp_iters=[0] * r.iters)
+    raise SystemExit(f"unknown -snes_type {snes_type!r} "
+                     "(newtonls|newtontr|qn|anderson|ngmres|fas)")
+
+
 def _max_rel(a: np.ndarray, ref: np.ndarray) -> float:
     """max |a / ref| over the entries where ref != 0 (nan-safe)."""
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -91,7 +148,8 @@ def _max_rel(a: np.ndarray, ref: np.ndarray) -> float:
 
 def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
     """Nonlinear elliptic driver (elliptic.C:117-246), flat domain, Newton
-    with a line search.  Exit code 0 when Newton converged, 2 when not."""
+    with a line search or another -snes_type (_snes_solve).  Exit code 0
+    when the solve converged, 2 when not."""
     from spectral_tpu_torch.grid import Grid
     from spectral_tpu_torch.models.elliptic import EllipticModel
     from spectral_tpu_torch.ops.chebyshev import cheb_regrid
@@ -111,10 +169,6 @@ def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) ->
     if opts.get_string("map", ""):
         raise NotImplementedError("elliptic -map (curved domains) is not ported yet "
                                   "(ROADMAP.md queue 1, item 6: curvilinear)")
-    snes_type = opts.get_string("snes_type", "newtonls")
-    if snes_type not in ("newtonls", "newton"):
-        raise NotImplementedError(f"-snes_type {snes_type} is not ported yet "
-                                  "(ROADMAP.md queue 1, item 2)")
     intervals = _domain_intervals(opts, len(dims))
 
     def make_model(dims_l):
@@ -154,7 +208,7 @@ def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) ->
             nxt = levels[i + 1] if i + 1 < len(levels) else tuple(dims)
             x0 = Grid(nxt, intervals=intervals, device=device, dtype=dtype).zero_boundary(
                 cheb_regrid(ml.grid.set_boundary(rl.x, drl), nxt))
-    res = model.solve(b, dirichlet, x0=x0, ksp=ksp, newton=newton, pc_type=pc)
+    res = _snes_solve(opts, model, make_model, b, dirichlet, x0, ksp=ksp, newton=newton, pc=pc)
 
     x = res.x.cpu().numpy()
     if debug >= 2:
@@ -530,19 +584,20 @@ def convection_main(opts: Options, *, device: torch.device, dtype: torch.dtype) 
     with the Nusselt / Vrms diagnostics:
 
     convection -dim 16,16 -ra 1e4 -dt 5e-4 -bc freeslip -sides insulated -steady_tol 1e-3
-        [-stokes_pc nested|dense|dense-device] [-nsteps N | -newton | -ts_adapt]
+        [-stokes_pc nested|dense|dense-device] [-nsteps N | -newton | -accel | -ts_adapt]
         [-stability 1|2|3] [-eta_contrast c] [-heating H] [-dealias 1] [-aspect L]
 
     (the Blankenbach case 1a configuration; published Nu = 4.884409, Vrms
-    = 42.864947).  Prints the JAX driver's lines.  ``-accel`` raises
-    naming ROADMAP item 2, ``-output_vtk`` item 8, ``-map`` item 6.  Exit
-    code 0 when the run converged, 2 when it did not."""
+    = 42.864947).  Prints the JAX driver's lines.  ``-accel`` is the
+    Anderson-accelerated steady state (-accel_m, -chunk, -steady_tol,
+    -max_steps, -warmup).  ``-output_vtk`` raises naming ROADMAP item 8,
+    ``-map`` item 6.  Exit code 0 when the run converged, 2 when it did
+    not."""
     from spectral_tpu_torch.models.convection import ConvectionConfig, ConvectionModel
     from spectral_tpu_torch.solvers.krylov import KSPConfig
     from spectral_tpu_torch.solvers.newton import NewtonConfig
 
-    for key, item in (("accel", "item 2: anderson_solve"), ("output_vtk", "item 8: utils/vtk.py"),
-                      ("map", "item 6: curvilinear")):
+    for key, item in (("output_vtk", "item 8: utils/vtk.py"), ("map", "item 6: curvilinear")):
         if opts.has(key):
             raise NotImplementedError(
                 f"convection -{key} is not ported yet (ROADMAP.md queue 1, {item})")
@@ -630,6 +685,15 @@ def convection_main(opts: Options, *, device: torch.device, dtype: torch.dtype) 
         print(f"Newton: {int(info['newton'].iters)} steps, Krylov "
               f"{[int(i) for i in info['newton'].ksp_iters]}, "
               f"|R| = {info['rate']:.3e}")
+    elif opts.has("accel"):
+        # Anderson acceleration over the chunked time stepper (AA(m) with
+        # the stepper as the nonlinear preconditioner)
+        chunk = opts.get_int("chunk", 10)
+        T, x, info = m.steady_accelerated(
+            T0, m=opts.get_int("accel_m", 5), chunk=chunk,
+            tol=opts.get_real("steady_tol", 1e-3),
+            max_iters=opts.get_int("max_steps", 3000) // max(chunk, 1),
+            warmup=opts.get_int("warmup", 100), monitor=opts.has("monitor"))
     elif opts.has("ts_adapt"):
         # variable-step marching (error controller, ringing and stall caps)
         T, x, info = m.march_adaptive(

@@ -29,7 +29,8 @@ the conduction or a convecting state (``critical_rayleigh``,
 velocity diagnostics on Clenshaw-Curtis quadrature, and the rollout
 differentiable by autograd (``rollout_diff``: implicit adjoint solves for
 both Krylov solves, optional checkpointed segments).  The
-Anderson-accelerated steady state raises naming ROADMAP item 2.
+Anderson-accelerated steady state (``steady_accelerated``) runs the
+time stepper as the fixed-point map of ``anderson_solve``.
 """
 
 from __future__ import annotations
@@ -600,9 +601,44 @@ class ConvectionModel:
         """``nsteps`` coupled steps; returns (T, N, x)."""
         return self._scan_steps(self.init_carry(T0), nsteps)
 
-    def steady_accelerated(self, *args, **kwargs):
-        raise _todo("ConvectionModel.steady_accelerated (anderson_solve)",
-                    "item 2: nonlinear solvers")
+    def _steady_map(self, T: torch.Tensor, nsteps: int) -> torch.Tensor:
+        """T -> T after ``nsteps`` coupled steps from a cold start: N and x
+        are rebuilt from T inside the map, so it is a pure function of T
+        (the fixed-point map Anderson acceleration extrapolates over)."""
+        return self._scan_steps(self.init_carry(T), nsteps)[0]
+
+    def steady_accelerated(self, T0, m: int = 5, chunk: int = 10, tol: float = 1e-6,
+                           max_iters: int = 200, warmup: int = 0, monitor: bool = False):
+        """Anderson-accelerated steady state: AA(m) over the fixed-point map
+        G(T) = ``chunk`` coupled steps from T, a host loop of steps.  The
+        time stepper plays the nonlinear preconditioner; the least-squares
+        extrapolation over the last ``m`` residual differences replaces the
+        slow physical transient.  Only T is extrapolated: velocity and the
+        advection history are rebuilt from T inside the map.  ``warmup``
+        plain steps first let the convective instability grow clear of the
+        conductive state, which is also a fixed point of G.
+
+        Returns (T, x, info) with march_to_steady's keys; info['steps'] =
+        warmup + iterations * chunk, the physical steps taken."""
+        from spectral_tpu_torch.solvers.newton import NewtonConfig, anderson_solve
+
+        if warmup:
+            T0 = self.rollout(T0, warmup)[0]
+        dt_eff = chunk * self.config.dt
+
+        def residual(T):
+            return T - self._steady_map(T, chunk), None
+
+        # ||.||_inf <= ||.||_2, so atol = tol chunk dt implies the marching
+        # criterion ||T - G(T)||_inf / (chunk dt) < tol
+        res = anderson_solve(residual, T0, m=m, config=NewtonConfig(
+            rtol=0.0, atol=tol * dt_eff, max_it=max_iters, monitor=monitor))
+        T = res.x
+        rate = float(torch.max(torch.abs(residual(T)[0]))) / dt_eff
+        x = self.solve_stokes(T, self.stokes.zero_state()).x
+        info = {"steps": warmup + res.iters * chunk, "rate": rate, **self._diagnostics(T, x),
+                "converged": bool(res.reason > 0) and np.isfinite(rate)}
+        return T, x, info
 
     def _diagnostics(self, T: torch.Tensor, x: dict) -> dict:
         nu_top, nu_bottom, vrms = torch.stack(

@@ -982,12 +982,15 @@ class StokesProblem:
         (default: the grid's).  ``clamp_f32`` clamps the outer rtol to the
         dtype's floor, right only when a refinement stage follows.
         ``fused`` takes make_fused_newton's rules: the stopping test and
-        the forcing in the state's dtype, no monitor."""
-        if recycle_U0 is not None:
-            raise _todo("Krylov recycling (recycle_U0)", "item 1b: solve_recycled")
+        the forcing in the state's dtype, no monitor.  With
+        ``config.newton.recycle``, ``recycle_U0`` seeds the first linear
+        solve's deflation space and the result's ``recycle_U`` carries the
+        last harvest on (solve_continuation threads it)."""
         cfg = self.config
         if cfg.mass_shift:
             raise ValueError(_MASS_SHIFT_STEADY)
+        if fused and cfg.newton.recycle > 0:
+            raise ValueError("Krylov recycling is host-loop-only (newton_solve)")
         params = params or self.params_at(cfg.cont)
         residual_raw = self.make_residual(params, monitor_eta=monitor)
 
@@ -1004,7 +1007,8 @@ class StokesProblem:
                             pc_setup=pc_setup, pc_apply=pc_apply, ksp=ksp,
                             config=dataclasses.replace(cfg.newton, monitor=monitor and not fused),
                             null_project=self.null_project,
-                            control_dtype=x0["p"].dtype if fused else None)
+                            control_dtype=x0["p"].dtype if fused else None,
+                            recycle_U0=recycle_U0)
 
     def solve_family(self, *args, **kwargs):
         if self.config.mass_shift:
@@ -1018,7 +1022,8 @@ class StokesProblem:
         regularization, each solution the next initial guess, in ``dtype``
         (default: the grid's).  ``fused`` is solve_continuation_fused's
         loop: each solve by make_fused_newton's rules, the outer rtol
-        clamped, no secant predictor."""
+        clamped, no secant predictor.  With ``config.newton.recycle``, each
+        step's harvested Krylov subspace seeds the next step's solve."""
         if checkpoint_dir is not None:
             raise _todo("solve_continuation(checkpoint_dir=...)",
                         "item 8: utils/checkpoint.py")
@@ -1027,6 +1032,7 @@ class StokesProblem:
         x = self.zero_state(dtype)
         x_prev = None      # previous step's solution (secant predictor)
         exp_prev = None    # its exponent (continuation parameter)
+        recycle_U = None   # the Krylov subspace threaded across the steps
         for i in range(cfg.cont0, cfg.cont + 1):
             p = self.params_at(i)
             if monitor:
@@ -1051,9 +1057,9 @@ class StokesProblem:
                           f"fnorm plain {fn_plain:.3e} secant {fn_pred:.3e} "
                           f"-> {'secant' if fn_pred < fn_plain else 'plain'}")
             res = self.solve(x_start, params=p, monitor=monitor,
-                             clamp_f32=clamp_f32 or fused, fused=fused)
+                             clamp_f32=clamp_f32 or fused, recycle_U0=recycle_U, fused=fused)
             x_prev, exp_prev = x, p.exponent
-            x = res.x
+            x, recycle_U = res.x, res.recycle_U
             results.append(res)
         return results
 

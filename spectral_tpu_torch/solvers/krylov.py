@@ -1,8 +1,10 @@
 """Restarted GMRES / FGMRES on torch tensors: the PETSc KSP replacement.
 
 Counterpart of ``spectral_tpu/solvers/krylov.py`` for ``gmres``,
-``fgmres``, ``cg``, ``preonly``, ``extreme_singular_values`` and
-``KSPConfig.solve``.  A state is a tensor or
+``fgmres`` (with deflation over a recycled subspace), ``cg``,
+``bicgstab``, ``richardson``, ``chebyshev``, ``minres``, ``preonly``,
+``extreme_singular_values``, ``KSPConfig.solve`` and
+``KSPConfig.solve_recycled``.  A state is a tensor or
 a dict of tensors (the Stokes state {"v": (dims..., d), "p": dims}),
 flattened by concatenation in sorted key order, as ``ravel_pytree``
 flattens it.  It keeps the JAX package's algorithm step for step:
@@ -19,7 +21,10 @@ every vector live on the solve's device.  The small Hessenberg state
 (rotated columns, Givens pairs, least-squares right-hand side) lives on
 the host in numpy, in the solve's dtype: each step pulls one (k+2)-vector
 from the device, which is also the one host synchronisation per step that
-the convergence test needs.
+the convergence test needs.  The short-recurrence solvers keep their
+vectors and inner products on the device and pull one residual norm a
+step (MINRES: its two Lanczos inner products, whose rotations run on the
+host).
 """
 
 from __future__ import annotations
@@ -103,18 +108,42 @@ def _flatten_system(A, b, x0, M, null_project):
     return Af, bf, x0f, Mf, Pf, unravel
 
 
+def _scalar_type(dtype: torch.dtype):
+    """The numpy scalar type of a torch dtype: host control scalars in the
+    solve's precision."""
+    return torch.empty(0, dtype=dtype).numpy().dtype.type
+
+
+def _reason(rnorm, it: int, rnorm0, *, rtol, atol, dtol=None, max_it) -> int:
+    """The converged reason after a step of a short-recurrence solve (the
+    JAX loops' nested ``where``); ``dtol=None`` skips the divergence test,
+    as Richardson's loop does."""
+    tol = max(rtol * rnorm0, atol)
+    if not np.isfinite(rnorm):
+        return int(ConvergedReason.DIVERGED_NANORINF)
+    if rnorm <= tol:
+        return int(ConvergedReason.CONVERGED_ATOL if rnorm <= atol
+                   else ConvergedReason.CONVERGED_RTOL)
+    if it >= max_it:
+        return int(ConvergedReason.DIVERGED_ITS)
+    if dtol is not None and rnorm >= dtol * rnorm0:
+        return int(ConvergedReason.DIVERGED_DTOL)
+    return int(ConvergedReason.ITERATING)
+
+
 def _gmres_flat(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
                 flexible, history_len):
     m = restart
     n = b.shape[0]
     dtype, dev = b.dtype, b.device
-    sc = torch.empty(0, dtype=dtype).numpy().dtype.type  # numpy scalar type
+    sc = _scalar_type(dtype)
     tiny, rtol, atol, dtol = sc(_TINY), sc(rtol), sc(atol), sc(dtol)
     zero, one = sc(0.0), sc(1.0)
 
     V = torch.zeros((m + 1, n), dtype=dtype, device=dev)   # Krylov basis
     Z = torch.zeros((m, n), dtype=dtype, device=dev) if flexible else None
     R = np.zeros((m, m), sc)       # rotated Hessenberg (upper triangular)
+    Hraw = np.zeros((m + 1, m), sc)   # unrotated Hessenberg of the cycle
     g = np.zeros(m + 1, sc)        # least-squares right-hand side
     cs = np.zeros(m, sc)
     sn = np.zeros(m, sc)
@@ -125,6 +154,7 @@ def _gmres_flat(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
         g[:] = zero
         g[0] = beta
         R[:] = zero
+        Hraw[:] = zero
         cs[:] = zero
         sn[:] = zero
 
@@ -137,7 +167,7 @@ def _gmres_flat(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
     reason = int(ConvergedReason.CONVERGED_ATOL if beta0 <= atol
                  else ConvergedReason.ITERATING)
     rnorm0 = max(beta0, tiny)
-    x, k, it, rnorm, pending = x0, 0, 0, beta0, False
+    x, k, it, rnorm, pending, k_last = x0, 0, 0, beta0, False, 0
     new_cycle(rp0, beta0)
 
     while reason == ConvergedReason.ITERATING:
@@ -174,7 +204,7 @@ def _gmres_flat(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
             else:
                 reason = ConvergedReason.ITERATING
             reason = int(reason)
-            pending, rnorm = False, beta
+            pending, rnorm, k_last = False, beta, k
             if reason == ConvergedReason.ITERATING:
                 rp = V[:k + 1].T @ torch.from_numpy(q[:k + 1]).to(dev)
                 new_cycle(rp, beta)
@@ -198,6 +228,7 @@ def _gmres_flat(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
         hk1 = _norm(w)
         V[k + 1] = w * torch.where(hk1 > _TINY, 1.0 / hk1, 0.0)
         host = torch.cat([h1 + h2, hk1.reshape(1)]).cpu().numpy()
+        Hraw[:k + 2, k] = host
         col = np.zeros(m + 1, sc)
         col[:k + 2] = host
         for i in range(k):
@@ -219,18 +250,49 @@ def _gmres_flat(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
         cs[k], sn[k] = ck, sk
         k += 1
 
-    return x, it, reason, float(rnorm), torch.from_numpy(hist)
+    # the loop ends on a closed cycle, whose basis is still in place (a new
+    # cycle starts only while iterating): the recycling harvest's inputs
+    basis = Z if flexible else V[:m]
+    return x, it, reason, float(rnorm), torch.from_numpy(hist), basis, Hraw, k_last
+
+
+def _deflated(Af, Mf, Pf, bf, recycle_U):
+    """Mf augmented by an additive coarse correction over span(U), the
+    JAX package's recycling deflation (GCRO-DR's U-space as a two-level
+    PC): W = P A U by one batched apply, T = W W^T Cholesky-factored with
+    an eps ridge, and each apply adds two (k, n) contractions.  U is cast
+    to the solve's dtype."""
+    Uf = recycle_U.to(device=bf.device, dtype=bf.dtype)
+    W = torch.func.vmap(lambda u: Pf(Af(u)))(Uf)          # (k, n) = P A U rows
+    T = W @ W.T
+    ridge = torch.finfo(bf.dtype).eps * (torch.trace(T) + 1.0)
+    # cholesky_ex: no host synchronisation for the error check (the ridge
+    # keeps T positive definite)
+    L = torch.linalg.cholesky_ex(T + ridge * torch.eye(T.shape[0], dtype=bf.dtype,
+                                                        device=bf.device))[0]
+
+    def apply(r):
+        y = torch.cholesky_solve((W @ r)[:, None], L)[:, 0]
+        return Mf(r - y @ W) + y @ Uf
+
+    return apply
 
 
 def _gmres_like(A, b, x0, *, M, rtol, atol, dtol, max_it, restart,
-                null_project, history_len, flexible) -> SolveResult:
+                null_project, history_len, flexible, recycle_U=None,
+                return_basis=False):
     Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
     restart = min(restart, max_it) or 1
     history_len = _hist_len(history_len, max_it)
-    xf, it, reason, rnorm, hist = _gmres_flat(
+    if recycle_U is not None:
+        Mf = _deflated(Af, Mf, Pf, bf, recycle_U)
+    xf, it, reason, rnorm, hist, basis, H, k_last = _gmres_flat(
         Af, Mf, Pf, bf, x0f, restart=restart, rtol=rtol, atol=atol, dtol=dtol,
         max_it=max_it, flexible=flexible, history_len=history_len)
-    return SolveResult(unravel(xf), it, reason, rnorm, hist)
+    res = SolveResult(unravel(xf), it, reason, rnorm, hist)
+    if return_basis:
+        return res, basis, H, k_last
+    return res
 
 
 def gmres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
@@ -253,8 +315,7 @@ def fgmres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
 
 
 def _cg_flat(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len):
-    dtype = b.dtype
-    sc = torch.empty(0, dtype=dtype).numpy().dtype.type  # numpy scalar type
+    sc = _scalar_type(b.dtype)
     tiny, rtol, atol, dtol = sc(_TINY), sc(rtol), sc(atol), sc(dtol)
 
     r = P(b - A(x0))
@@ -283,17 +344,7 @@ def _cg_flat(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len):
         rnorm = sc(rn.item())
         it += 1
         hist[min(it, history_len - 1)] = rnorm
-        tol = max(rtol * rnorm0, atol)
-        if not np.isfinite(rnorm):
-            reason = ConvergedReason.DIVERGED_NANORINF
-        elif rnorm <= tol:
-            reason = (ConvergedReason.CONVERGED_ATOL if rnorm <= atol
-                      else ConvergedReason.CONVERGED_RTOL)
-        elif it >= max_it:
-            reason = ConvergedReason.DIVERGED_ITS
-        elif rnorm >= dtol * rnorm0:
-            reason = ConvergedReason.DIVERGED_DTOL
-        reason = int(reason)
+        reason = _reason(rnorm, it, rnorm0, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it)
     return x, it, reason, float(rnorm), torch.from_numpy(hist)
 
 
@@ -307,6 +358,214 @@ def cg(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
         Af, Mf, Pf, bf, x0f, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it,
         history_len=_hist_len(history_len, max_it))
     return SolveResult(unravel(xf), it, reason, rnorm, hist)
+
+
+def _start(r0: torch.Tensor, atol, history_len: int):
+    """(beta0, rnorm0, hist, reason) of a short-recurrence solve from its
+    initial residual r0: one host transfer."""
+    sc = _scalar_type(r0.dtype)
+    beta0 = sc(_norm(r0).item())
+    hist = np.full(history_len, -1.0, sc)
+    hist[0] = beta0
+    reason = int(ConvergedReason.CONVERGED_ATOL if beta0 <= sc(atol)
+                 else ConvergedReason.ITERATING)
+    return beta0, max(beta0, sc(_TINY)), hist, reason
+
+
+def _safe(d: torch.Tensor) -> torch.Tensor:
+    """d where |d| > 1e-300, else 1 (the JAX loops' guarded divisor)."""
+    return torch.where(torch.abs(d) > _TINY, d, torch.ones_like(d))
+
+
+def bicgstab(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
+             rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
+             null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+    """BiCGStab with left preconditioning (PETSc KSPBCGS semantics): short
+    recurrences for nonsymmetric systems, two operator applications a step,
+    its inner products on the device, one host transfer (the residual
+    norm) a step."""
+    Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
+    history_len = _hist_len(history_len, max_it)
+    sc = _scalar_type(bf.dtype)
+    rtol, atol, dtol = sc(rtol), sc(atol), sc(dtol)
+
+    def op(v):
+        return Mf(Pf(Af(v)))
+
+    r = Mf(Pf(bf - Af(x0f)))
+    beta0, rnorm0, hist, reason = _start(r, atol, history_len)
+    x, rhat = x0f, r
+    p = v = torch.zeros_like(r)
+    rho_old = alpha = omega = torch.ones((), dtype=bf.dtype, device=bf.device)
+    it, rnorm = 0, beta0
+    while reason == ConvergedReason.ITERATING:
+        rho = torch.dot(rhat, r)
+        beta = (rho / _safe(rho_old)) * (alpha / _safe(omega))
+        p = r + beta * (p - omega * v)
+        v = op(p)
+        alpha = rho / _safe(torch.dot(rhat, v))
+        sres = r - alpha * v
+        t = op(sres)
+        omega = torch.dot(t, sres) / _safe(torch.dot(t, t))
+        x = x + alpha * p + omega * sres
+        r = sres - omega * t
+        rho_old = rho
+        rnorm = sc(_norm(r).item())
+        it += 1
+        hist[min(it, history_len - 1)] = rnorm
+        reason = _reason(rnorm, it, rnorm0, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it)
+    return SolveResult(unravel(x), it, reason, float(rnorm), torch.from_numpy(hist))
+
+
+def richardson(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
+               scale=1.0, rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
+               null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+    """Richardson iteration x += scale * M(b - A x) (PETSc KSPRICHARDSON):
+    one operator application and one host transfer a step; no divergence
+    test, as in the JAX package (a growing iterate runs to max_it or to a
+    non-finite norm)."""
+    Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
+    history_len = _hist_len(history_len, max_it)
+    sc = _scalar_type(bf.dtype)
+    rtol, atol = sc(rtol), sc(atol)
+    r = Pf(bf - Af(x0f))
+    beta0, rnorm0, hist, reason = _start(r, atol, history_len)
+    x, it, rnorm = x0f, 0, beta0
+    while reason == ConvergedReason.ITERATING:
+        x = x + scale * Mf(r)
+        r = Pf(bf - Af(x))
+        rnorm = sc(_norm(r).item())
+        it += 1
+        hist[min(it, history_len - 1)] = rnorm
+        reason = _reason(rnorm, it, rnorm0, rtol=rtol, atol=atol, max_it=max_it)
+    return SolveResult(unravel(x), it, reason, float(rnorm), torch.from_numpy(hist))
+
+
+def chebyshev(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
+              emin: float | None = None, emax: float | None = None,
+              est_steps: int = 12, eig_ratio: float = 1.0 / 30.0,
+              eig_safety: float = 1.1,
+              rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
+              null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+    """Chebyshev semi-iteration (PETSc KSPCHEBYSHEV) for a preconditioned
+    spectrum in [emin, emax]: no inner product in the recurrence, one
+    operator and one PC application a step, one host transfer (the
+    convergence-test norm).  Without bounds, ``est_steps`` power
+    iterations on M P A from a vector of ones estimate lambda_max:
+    emax = eig_safety * lambda, emin = eig_ratio * emax (the JAX
+    package's in-solve estimate, the -ksp_chebyshev_esteig analog)."""
+    Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
+    history_len = _hist_len(history_len, max_it)
+    sc = _scalar_type(bf.dtype)
+    rtol, atol, dtol = sc(rtol), sc(atol), sc(dtol)
+
+    if emax is None:
+        v = torch.ones_like(bf)
+        v = v / _norm(v)
+        lam = torch.ones((), dtype=bf.dtype, device=bf.device)
+        for _ in range(est_steps):
+            w = Mf(Pf(Af(v)))
+            lam = _norm(w)
+            v = w / torch.clamp(lam, min=_TINY)
+        e_hi = sc(eig_safety) * max(sc(lam.item()), sc(_TINY))
+        e_lo = e_hi * sc(eig_ratio)
+    else:
+        e_hi = sc(emax)
+        e_lo = sc(emax * eig_ratio if emin is None else emin)
+    theta = sc(0.5) * (e_hi + e_lo)
+    delta = max(sc(0.5) * (e_hi - e_lo), sc(_TINY))
+    sigma1 = theta / delta
+
+    r = Pf(bf - Af(x0f))
+    beta0, rnorm0, hist, reason = _start(r, atol, history_len)
+    d = Mf(r) / float(theta)
+    rho = sc(1.0) / sigma1
+    x, it, rnorm = x0f, 0, beta0
+    while reason == ConvergedReason.ITERATING:
+        x = x + d
+        r = r - Pf(Af(d))
+        rn = _norm(r)
+        # the next direction is queued before the norm reaches the host
+        z = Mf(r)
+        rho_new = sc(1.0) / (sc(2.0) * sigma1 - rho)
+        d = float(rho_new * rho) * d + float(sc(2.0) * rho_new / delta) * z
+        rho = rho_new
+        rnorm = sc(rn.item())
+        it += 1
+        hist[min(it, history_len - 1)] = rnorm
+        reason = _reason(rnorm, it, rnorm0, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it)
+    return SolveResult(unravel(x), it, reason, float(rnorm), torch.from_numpy(hist))
+
+
+def minres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
+           rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
+           null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+    """Preconditioned MINRES (Paige-Saunders; PETSc KSPMINRES) for
+    symmetric, possibly indefinite operators with an SPD preconditioner.
+    It monitors sqrt(r^T M r); a PC with <r, M r> < 0 ends the solve as
+    DIVERGED_INDEFINITE_PC.  The returned ``rnorm`` is the recomputed true
+    residual norm.  The Lanczos vectors live on the device; each step
+    brings its two inner products to the host in one transfer, where the
+    Givens rotations run in the solve's dtype."""
+    Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
+    history_len = _hist_len(history_len, max_it)
+    sc = _scalar_type(bf.dtype)
+    rtol, atol, dtol = sc(rtol), sc(atol), sc(dtol)
+    tiny, zero, one = sc(_TINY), sc(0.0), sc(1.0)
+
+    def safe(d):
+        return d if abs(d) > tiny else one
+
+    r1 = Pf(bf - Af(x0f))
+    y = Mf(r1)
+    beta1sq = sc(torch.dot(r1, y).item())
+    beta1 = np.sqrt(max(beta1sq, zero))
+    phibar0 = max(beta1, tiny)
+    hist = np.full(history_len, -1.0, sc)
+    hist[0] = beta1
+    if beta1sq < zero:
+        reason = int(ConvergedReason.DIVERGED_INDEFINITE_PC)
+    elif beta1 <= atol:
+        reason = int(ConvergedReason.CONVERGED_ATOL)
+    else:
+        reason = int(ConvergedReason.ITERATING)
+    x, r2 = x0f, r1
+    w = w2 = torch.zeros_like(bf)
+    oldb, beta, dbar, epsln, phibar, cs, sn = zero, beta1, zero, zero, beta1, -one, zero
+    it = 0
+    while reason == ConvergedReason.ITERATING:
+        v = y / float(safe(beta))
+        y = Pf(Af(v))
+        if it >= 1:
+            y = y - float(beta / safe(oldb)) * r1
+        alfa_d = torch.dot(v, y)
+        y = y - (alfa_d / float(safe(beta))) * r2
+        r1, r2 = r2, y
+        y = Mf(r2)
+        alfa, betasq = (sc(t) for t in torch.stack([alfa_d, torch.dot(r2, y)]).cpu().tolist())
+        oldb = beta
+        beta = np.sqrt(max(betasq, zero))
+        # the previous rotation, then the next one
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        gamma = max(np.sqrt(gbar * gbar + beta * beta), tiny)
+        cs, sn = gbar / gamma, beta / gamma
+        phi, phibar = cs * phibar, sn * phibar
+        w1, w2 = w2, w
+        w = (v - float(oldeps) * w1 - float(delta) * w2) / float(gamma)
+        x = x + float(phi) * w
+        it += 1
+        hist[min(it, history_len - 1)] = phibar
+        if betasq < zero:
+            reason = int(ConvergedReason.DIVERGED_INDEFINITE_PC)
+        else:
+            reason = _reason(phibar, it, phibar0, rtol=rtol, atol=atol, dtol=dtol,
+                             max_it=max_it)
+    rnorm_true = float(_norm(Pf(bf - Af(x))))
+    return SolveResult(unravel(x), it, reason, rnorm_true, torch.from_numpy(hist))
 
 
 def preonly(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
@@ -364,9 +623,17 @@ def extreme_singular_values(A: Operator, b, *, m: int = 30,
     return float(s[0]), float(s[-1])
 
 
-_KSP_TYPES = {"gmres": gmres, "fgmres": fgmres, "cg": cg, "preonly": preonly}
-# KSP types of the JAX package that this package does not carry yet.
-_NOT_PORTED = ("bcgs", "bicgstab", "richardson", "chebyshev", "minres")
+_KSP_TYPES = {
+    "gmres": gmres,
+    "fgmres": fgmres,
+    "cg": cg,
+    "bcgs": bicgstab,
+    "bicgstab": bicgstab,
+    "richardson": richardson,
+    "chebyshev": chebyshev,
+    "minres": minres,
+    "preonly": preonly,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -380,14 +647,14 @@ class KSPConfig:
     max_it: int = 10000
     restart: int = 30
     history_len: int = HISTORY_LEN
+    # chebyshev spectrum bounds (None: the in-solve power-iteration
+    # estimate, the -ksp_chebyshev_esteig analog)
+    emin: Optional[float] = None
+    emax: Optional[float] = None
 
     def solve(self, A: Operator, b, x0=None, *, M=None,
               null_project=None) -> SolveResult:
         """Solve A x = b; b (and x0) a tensor or a dict of tensors."""
-        if self.type in _NOT_PORTED:
-            raise NotImplementedError(
-                f"KSP type {self.type!r} is not ported yet "
-                "(ROADMAP.md queue 1, item 1b)")
         if self.type not in _KSP_TYPES:
             raise ValueError(f"unknown KSP type {self.type!r}")
         kwargs = dict(M=M, null_project=null_project, history_len=self.history_len)
@@ -396,4 +663,45 @@ class KSPConfig:
                           max_it=self.max_it)
         if self.type in ("gmres", "fgmres"):
             kwargs["restart"] = self.restart
+        if self.type == "chebyshev":
+            kwargs.update(emin=self.emin, emax=self.emax)
         return _KSP_TYPES[self.type](A, b, x0, **kwargs)
+
+    def solve_recycled(self, A: Operator, b, x0=None, *, M=None,
+                       null_project=None, U=None, nkeep: int = 8):
+        """Deflated, recycling GMRES/FGMRES: deflate the preconditioner over
+        the recycled subspace ``U`` ((k, n) flat rows from a previous
+        related solve, None to start cold), solve, and harvest the final
+        cycle's ``nkeep`` slowest directions as the next U.
+
+        Returns (SolveResult, U_new), U_new a (nkeep, n) tensor on b's
+        device in its dtype.  With A Z_k = V_{k+1} Hbar_k, the right
+        singular vectors of Hbar with the smallest singular values give the
+        directions Z g whose image under the operator is smallest; inactive
+        columns are pinned to a large unit diagonal so the SVD excludes
+        them, and rows without support on the active columns are dropped.
+        Hbar lives on the host (the Hessenberg state of ``_gmres_flat``),
+        so its SVD runs there, in the solve's dtype.  Other types fall
+        through to ``solve`` and pass U on."""
+        if self.type not in ("gmres", "fgmres"):
+            return self.solve(A, b, x0, M=M, null_project=null_project), U
+        m = min(self.restart, self.max_it) or 1
+        nkeep = min(nkeep, m)
+        res, basis, H, k_last = _gmres_like(
+            A, b, x0, M=M, rtol=self.rtol, atol=self.atol, dtol=self.dtol,
+            max_it=self.max_it, restart=self.restart, null_project=null_project,
+            history_len=self.history_len, flexible=self.type == "fgmres",
+            recycle_U=U, return_basis=True)
+        cols = np.arange(m) < k_last
+        Hm = np.where(cols[None, :], H, 0.0).astype(H.dtype)
+        big = H.dtype.type(2.0) * np.linalg.norm(Hm) + H.dtype.type(1.0)
+        Hm = Hm + big * np.eye(m + 1, m, dtype=H.dtype) * (~cols)[None, :]
+        G = np.linalg.svd(Hm, full_matrices=False)[2][m - nkeep:]   # nkeep smallest
+        support = np.sum((G * cols[None, :]) ** 2, axis=1)
+        G = G * (support > 0.5)[:, None]
+        return res, torch.from_numpy(G).to(basis.device) @ basis
+
+
+def ksp_solve(config: KSPConfig, A: Operator, b, x0=None, *, M=None,
+              null_project=None) -> SolveResult:
+    return config.solve(A, b, x0, M=M, null_project=null_project)

@@ -99,8 +99,11 @@ class Options:
     # -- prefixed solver configs ---------------------------------------------
     def ksp_config(self, prefix: str = "", default: KSPConfig = KSPConfig()) -> KSPConfig:
         """Read -{prefix}ksp_type/_rtol/_atol/_divtol/_max_it/_gmres_restart
-        (the KSPSetFromOptions analog)."""
+        (the KSPSetFromOptions analog), and -{prefix}ksp_chebyshev_eigenvalues
+        emin,emax (absent: the in-solve power-iteration estimate)."""
         p = prefix
+        eig = self.get_real_array(f"{p}ksp_chebyshev_eigenvalues", ())
+        emin, emax = (eig[0], eig[1]) if len(eig) == 2 else (default.emin, default.emax)
         return dataclasses.replace(
             default,
             type=self.get_string(f"{p}ksp_type", default.type),
@@ -109,6 +112,7 @@ class Options:
             dtol=self.get_real(f"{p}ksp_divtol", default.dtol),
             max_it=self.get_int(f"{p}ksp_max_it", default.max_it),
             restart=self.get_int(f"{p}ksp_gmres_restart", default.restart),
+            emin=emin, emax=emax,
         )
 
     def pc_type(self, prefix: str = "", default: str = "fastdiag") -> str:

@@ -83,6 +83,17 @@ Sections (all by default), each one JSON line:
   holds the port's count to; ``perturb_adjoint52`` the same from the
   perturbed starts of ``perturb`` (the forward counts move with them, and
   so does the adjoint count).
+- ``solvers``: the paths of ``chip_smoke.py``'s phase 14 (``SOLVERS_ORACLE``):
+  the elliptic driver in phase 6's 32^3 mg3 configuration with each
+  ``-snes_type``, the Poisson driver at 64^3 with each short-recurrence
+  Krylov type, MINRES on ``chip_smoke.py``'s ``minres_factors`` saddle system, Newton
+  with ``NewtonConfig(recycle=8)`` at 32^3, README:52's continuation with
+  recycling, and Blankenbach 1a by Anderson acceleration (``-accel``),
+  ~5 min; ``solvers_perturbed`` the counts phase 14 gates by range, from
+  perturbed starts (1e-13, seeds 0-7; 1e-11, seed 0), ~35 min;
+- ``recycle12``: the recycled Stokes pair at 12^3 that
+  ``tests/test_torch_gpu.py`` holds the card to, from the zero state and
+  from perturbed starts; a few minutes.
 """
 
 from __future__ import annotations
@@ -473,11 +484,11 @@ def run_convection(name, argv, perturb: float = 0.0, seed: int = 0) -> dict:
     from spectral_tpu.solvers import eig, newton
     from spectral_tpu.utils.options import Options
 
-    eps, newtons, infos = [], [], []
-    orig_eigs, orig_newton = eig.eigs, newton.newton_solve
+    eps, newtons, infos, andersons = [], [], [], []
+    orig_eigs, orig_newton, orig_anderson = eig.eigs, newton.newton_solve, newton.anderson_solve
     M = ConvectionModel
-    orig = {k: getattr(M, k) for k in ("march_to_steady", "march_adaptive", "steady_newton",
-                                       "rollout", "conductive_state")}
+    marchers = ("march_to_steady", "march_adaptive", "steady_newton", "steady_accelerated")
+    orig = {k: getattr(M, k) for k in (*marchers, "rollout", "conductive_state")}
 
     def eigs(*a, **kw):
         eps.append(orig_eigs(*a, **kw))
@@ -486,6 +497,10 @@ def run_convection(name, argv, perturb: float = 0.0, seed: int = 0) -> dict:
     def newton_solve(*a, **kw):
         newtons.append(orig_newton(*a, **kw))
         return newtons[-1]
+
+    def anderson_solve(*a, **kw):
+        andersons.append(orig_anderson(*a, **kw))
+        return andersons[-1]
 
     def marcher(key):
         def run(self, *a, **kw):
@@ -507,8 +522,8 @@ def run_convection(name, argv, perturb: float = 0.0, seed: int = 0) -> dict:
             T = T + perturb * self.grid.zero_boundary(jnp.asarray(noise))
         return T
 
-    eig.eigs, newton.newton_solve = eigs, newton_solve
-    for key in ("march_to_steady", "march_adaptive", "steady_newton"):
+    eig.eigs, newton.newton_solve, newton.anderson_solve = eigs, newton_solve, anderson_solve
+    for key in marchers:
         setattr(M, key, marcher(key))
     M.rollout, M.conductive_state = rollout, conductive_state
     try:
@@ -519,6 +534,7 @@ def run_convection(name, argv, perturb: float = 0.0, seed: int = 0) -> dict:
         seconds = time.perf_counter() - t0
     finally:
         eig.eigs, newton.newton_solve = orig_eigs, orig_newton
+        newton.anderson_solve = orig_anderson
         for key, fn in orig.items():
             setattr(M, key, fn)
     out = buf.getvalue()
@@ -539,6 +555,10 @@ def run_convection(name, argv, perturb: float = 0.0, seed: int = 0) -> dict:
         r = newtons[-1]
         row.update(newton=int(r.iters), krylov=[int(k) for k in np.asarray(r.ksp_iters)],
                    fnorm=float(r.fnorm), reason=int(r.reason))
+    if andersons:
+        r = andersons[-1]
+        row.update(anderson_iters=int(r.iters), anderson_reason=int(r.reason),
+                   anderson_fnorm=[float(f) for f in r.fnorm_history])
     row["eps"] = [{"eigenvalues": [[float(z.real), float(z.imag)] for z in r.eigenvalues],
                    "polished": None if r.eigenvalues_polished is None else
                    [[float(z.real), float(z.imag)] for z in r.eigenvalues_polished],
@@ -589,6 +609,264 @@ def convcpu8():
         yield run_convection("8x8 newton", CONVECTION_CPU8["8x8 newton"], 1e-13, seed)
         jax.clear_caches()
 
+
+# The paths of chip_smoke.py phase 14 (SOLVERS_ORACLE): the elliptic CLI in
+# phase 6's 32^3 configuration with each -snes_type, the Poisson CLI at 64^3
+# with each Krylov type, MINRES on chip_smoke.py's saddle system, recycling,
+# and Blankenbach case 1a by Anderson acceleration.
+ELLIPTIC32 = ["-dim", "32,32,32", "-exact", "0", "-gamma", "1", "-pc_type", "mg3",
+              "-snes_rtol", "1e-10", "-debug", "1"]
+SNES14 = {
+    "newtontr": ["-snes_type", "newtontr"],
+    "qn": ["-snes_type", "qn"],
+    "anderson": ["-snes_type", "anderson"],
+    "ngmres": ["-snes_type", "ngmres"],
+    "ngmres npc": ["-snes_type", "ngmres", "-npc_snes_type", "newtonls"],
+    "fas": ["-snes_type", "fas"],
+}
+POISSON64 = ["-m", "64", "-n", "64", "-p", "64", "-ksp_rtol", "1e-10"]
+KSP14 = {
+    "bcgs": ["-ksp_type", "bcgs"],
+    "richardson": ["-ksp_type", "richardson"],
+    "chebyshev": ["-ksp_type", "chebyshev"],
+    "chebyshev bounds": ["-ksp_type", "chebyshev", "-ksp_chebyshev_eigenvalues", "0.5,5"],
+}
+ACCEL = [*BLANKENBACH, "-steady_tol", "1e-3", "-stokes_pc", "dense", "-accel"]
+
+
+def run_elliptic(name, argv, perturb: float = 0.0, seed: int = 0) -> dict:
+    """The JAX elliptic driver on ``argv``: the counts, reason, error and
+    fnorm history of the solve it ran.  ``perturb`` starts the solve from
+    masked normal noise of that size (from ``seed``) instead of zero."""
+    from spectral_tpu.cli import drivers
+    from spectral_tpu.utils.options import Options
+
+    got, orig = [], drivers._snes_solve
+
+    def snes(opts, model, make_model, b, dirichlet, x0, **kw):
+        if perturb:
+            noise = np.random.default_rng(seed).standard_normal(model.grid.dims)
+            x0 = model.grid.zero_boundary(perturb * jnp.asarray(noise))
+        got.append(orig(opts, model, make_model, b, dirichlet, x0, **kw))
+        return got[-1]
+
+    drivers._snes_solve = snes
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = drivers.elliptic_main(Options(argv))
+        seconds = time.perf_counter() - t0
+    finally:
+        drivers._snes_solve = orig
+    out, r = buf.getvalue(), got[-1]
+    return {"name": name, "argv": " ".join(argv), "rc": rc, "perturb": perturb, "seed": seed,
+            "newton": int(r.iters), "krylov": [int(k) for k in np.asarray(r.ksp_iters)],
+            "reason": r.reason_str(),
+            "error": float(re.search(r"Norm of error\s*: abs = (\S+)", out).group(1)),
+            "fnorm_history": [float(f) for f in r.fnorm_history], "seconds": seconds,
+            "lines": out.splitlines()}
+
+
+def run_poisson(name, argv) -> dict:
+    """The JAX poisson driver on ``argv``: iterations, reason and error."""
+    from spectral_tpu.cli.drivers import poisson_main
+    from spectral_tpu.models.poisson import PoissonModel
+    from spectral_tpu.utils.options import Options
+
+    got, orig = [], PoissonModel.solve
+
+    def solve(self, *a, **kw):
+        got.append(orig(self, *a, **kw))
+        return got[-1]
+
+    PoissonModel.solve = solve
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = poisson_main(Options(argv))
+        seconds = time.perf_counter() - t0
+    finally:
+        PoissonModel.solve = orig
+    out, r = buf.getvalue(), got[-1]
+    return {"name": name, "argv": " ".join(argv), "rc": rc, "iters": int(r.iters),
+            "reason": int(r.reason), "rnorm": float(r.rnorm),
+            "error": float(re.search(r"Norm of error (\S+)", out).group(1)), "seconds": seconds}
+
+
+def minres64() -> dict:
+    """MINRES on chip_smoke.py's minres_factors system (phase 14b), rtol
+    1e-10, max_it 2000."""
+    from chip_smoke import minres_factors
+    from spectral_tpu.solvers.krylov import minres
+
+    D, s, G, diag, xstar = minres_factors()
+    sD, Gj, dinv = jnp.asarray(s * D), jnp.asarray(G), jnp.asarray(1.0 / diag)
+
+    def K(x):
+        v, p = x["v"], x["p"]
+        Sv = (v @ sD.T) @ sD + 0.1 * v
+        return {"v": Sv + p @ Gj, "p": v @ Gj.T}
+
+    def M(r):
+        return {"v": r["v"] * dinv, "p": r["p"]}
+
+    xs = {k: jnp.asarray(a) for k, a in xstar.items()}
+    b = K(xs)
+    t0 = time.perf_counter()
+    res = jax.jit(lambda bb: minres(K, bb, M=M, rtol=1e-10, max_it=2000))(b)
+    err = max(float(jnp.max(jnp.abs(res.x[k] - xs[k]))) for k in xs)
+    return {"name": "minres 64^3", "iters": int(res.iters), "reason": int(res.reason),
+            "rnorm": float(res.rnorm), "error": err, "seconds": time.perf_counter() - t0}
+
+
+def recycle_elliptic(perturb: float = 0.0, seed: int = 0) -> dict:
+    """ELLIPTIC32's Newton solve through EllipticModel.solve with
+    NewtonConfig(recycle=8): counts, reason and error."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.elliptic import EllipticModel
+    from spectral_tpu.solvers.krylov import KSPConfig
+    from spectral_tpu.solvers.newton import NewtonConfig
+
+    m = EllipticModel(Grid((32, 32, 32)), gamma=1.0)
+    u, b, d = m.setup_problem(exact=0)
+    x0 = None
+    if perturb:
+        x0 = m.grid.zero_boundary(perturb * jnp.asarray(
+            np.random.default_rng(seed).standard_normal(m.grid.dims)))
+    t0 = time.perf_counter()
+    r = m.solve(b, d, x0=x0, ksp=KSPConfig(type="fgmres", rtol=1e-5, max_it=500),
+                newton=NewtonConfig(rtol=1e-10, max_it=50, recycle=8), pc_type="mg3")
+    return {"name": "recycle elliptic 32^3", "perturb": perturb, "seed": seed,
+            "newton": int(r.iters), "krylov": [int(k) for k in np.asarray(r.ksp_iters)],
+            "reason": r.reason_str(), "error": float(jnp.max(jnp.abs(r.x - u))),
+            "seconds": time.perf_counter() - t0}
+
+
+def recycle52(perturb: float = 0.0, seed: int = 0) -> dict:
+    """README:52 at 20^3 through StokesProblem.solve_continuation with
+    NewtonConfig(recycle=8), the stokes driver's README52 configuration
+    otherwise; ``perturb`` as run_cli's."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu.solvers.krylov import KSPConfig
+    from spectral_tpu.solvers.newton import NewtonConfig
+
+    cfg = StokesConfig(exact=2, rheology=1, regularization=1e-4, exponent=3.0, cont=4,
+                       outer_ksp=KSPConfig(type="fgmres", rtol=1e-5, max_it=500, restart=50),
+                       vel_ksp=KSPConfig(type="gmres", rtol=1e-5, max_it=4, restart=30),
+                       svel_ksp=KSPConfig(type="preonly", rtol=1e-5, max_it=10000,
+                                          restart=30),
+                       schur_ksp=KSPConfig(type="gmres", rtol=1e-5, max_it=3, restart=30),
+                       newton=NewtonConfig(rtol=1e-8, max_it=50, recycle=8))
+    p = StokesProblem(Grid((20, 20, 20)), cfg)
+    orig_zero = StokesProblem.zero_state
+
+    def zero(self):
+        z = orig_zero(self)
+        rng = np.random.default_rng(seed)
+        return {"v": self.mask_v(z["v"] + perturb * jnp.asarray(
+            rng.standard_normal(z["v"].shape))), "p": z["p"]}
+
+    if perturb:
+        StokesProblem.zero_state = zero
+    try:
+        t0 = time.perf_counter()
+        results = p.solve_continuation()
+        seconds = time.perf_counter() - t0
+    finally:
+        StokesProblem.zero_state = orig_zero
+    row = _counts(results)
+    return {"name": "recycle README:52 20^3", "perturb": perturb, "seed": seed, **row,
+            "total_krylov": sum(sum(k) for k in row["krylov"]),
+            "U_dtype": str(results[-1].recycle_U.dtype), "seconds": seconds}
+
+
+def recycled_stokes12(perturb: float = 0.0, seed: int = 0) -> dict:
+    """KSPConfig.solve_recycled on README:43's Stokes Jacobian at 12^3 (a
+    dict state, the constant-pressure null space projected), the nested PC,
+    FGMRES rtol 1e-8 restart 30: the first solve from F at the zero state
+    with no U, the second from F at a seeded masked state with the first's
+    harvest (nkeep 8), and the second plainly; tests/test_torch_gpu.py
+    holds the card's second count to these.  ``perturb`` adds masked
+    normal noise of that size (from ``seed``) to both states."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu.solvers.krylov import KSPConfig
+
+    p = StokesProblem(Grid((12, 12, 12)), StokesConfig(
+        exact=2, cont0=1, vel_ksp=KSPConfig(type="gmres", rtol=1e-5, max_it=4),
+        svel_ksp=KSPConfig(type="preonly"), schur_ksp=KSPConfig(type="gmres", rtol=1e-5,
+                                                                max_it=3)))
+    residual = p.make_residual(p.params_at(p.config.cont))
+    z = p.zero_state()
+    rng = np.random.default_rng(5)
+    x1 = {"v": p.mask_v(jnp.asarray(rng.standard_normal(z["v"].shape))),
+          "p": p.project_p(jnp.asarray(rng.standard_normal(z["p"].shape)))}
+    x0 = z
+    if perturb:
+        noise = np.random.default_rng(seed).standard_normal(z["v"].shape)
+        x0 = {"v": p.mask_v(perturb * jnp.asarray(noise)), "p": z["p"]}
+        x1 = {"v": x1["v"] + x0["v"], "p": x1["p"]}
+    F0, ls = residual(x0)
+    F1, _ = residual(x1)
+    pcs, pca = p.make_pc()
+    st = pcs(x0, ls)
+    ksp = KSPConfig(type="fgmres", rtol=1e-8, max_it=200, restart=30)
+    A = lambda w: p.jacobian_action(x0, ls, w)  # noqa: E731
+    M = lambda r: pca(st, r)  # noqa: E731
+    r1, U = ksp.solve_recycled(A, F0, M=M, null_project=p.null_project, U=None, nkeep=8)
+    r2, _ = ksp.solve_recycled(A, F1, M=M, null_project=p.null_project, U=U, nkeep=8)
+    plain = ksp.solve(A, F1, M=M, null_project=p.null_project)
+    return {"name": "recycle stokes 12^3", "perturb": perturb, "seed": seed,
+            "iters": [int(r1.iters), int(r2.iters)], "plain_second": int(plain.iters),
+            "reasons": [int(r1.reason), int(r2.reason)], "U_dtype": str(U.dtype),
+            "U_shape": list(U.shape)}
+
+
+def solvers():
+    for name, opts in SNES14.items():
+        yield run_elliptic(name, [*ELLIPTIC32, *opts])
+        jax.clear_caches()
+    for name, opts in KSP14.items():
+        yield run_poisson(name, [*POISSON64, *opts])
+    yield minres64()
+    yield recycle_elliptic()
+    jax.clear_caches()
+    yield recycle52()
+    jax.clear_caches()
+    yield run_convection("14d accel", ACCEL)
+
+
+def solvers_perturbed():
+    """The counts phase 14 gates by range, from starts perturbed by 1e-13
+    (seeds 0-7; SEEDS with --seeds) and 1e-11 (seed 0): the elliptic solves
+    of SNES14 and the recycled Newton from masked noise of that size, the
+    recycled README:52 from run_cli's perturbed zero state, Blankenbach by
+    Anderson from a perturbed initial temperature."""
+    starts = ([(1e-13, seed) for seed in range(8)] + [(1e-11, 0)] if SEEDS is None
+              else [(1e-13, seed) for seed in SEEDS])
+    for size, seed in starts:
+        for name, opts in SNES14.items():
+            yield run_elliptic(name, [*ELLIPTIC32, *opts], size, seed)
+        yield recycle_elliptic(size, seed)
+        jax.clear_caches()
+        yield run_convection("14d accel", ACCEL, size, seed)
+        jax.clear_caches()
+    for size, seed in starts:
+        yield recycle52(size, seed)
+        jax.clear_caches()
+
+
+
+def recycle12():
+    """recycled_stokes12 from the zero state and from starts perturbed by
+    1e-13 (seeds 0-7) and 1e-11 (seed 0): the range tests/test_torch_gpu.py
+    holds the card's deflated count to."""
+    for size, seed in [(0.0, 0)] + [(1e-13, seed) for seed in range(8)] + [(1e-11, 0)]:
+        yield recycled_stokes12(size, seed)
+        jax.clear_caches()
 
 
 def _params_row(th) -> dict:
@@ -745,6 +1023,9 @@ SECTIONS = {
     "adjoint": adjoint,
     "adjoint52": adjoint52,
     "perturb_adjoint52": perturbed_adjoint52,
+    "solvers": solvers,
+    "solvers_perturbed": solvers_perturbed,
+    "recycle12": recycle12,
 }
 
 

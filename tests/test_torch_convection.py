@@ -70,7 +70,6 @@ CONVECTION_CPU8 = {
                "Vrms = 10.652779"]),
 }
 
-
 def _rel(got, ref) -> float:
     got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     ref = np.asarray(ref)
@@ -330,16 +329,52 @@ def test_rollout_diff_checkpointed_gradient_and_saved_bytes():
     assert b17 - b9 > 0 and c17 - c9 < (b17 - b9) / 3.0, (c17 - c9, b17 - b9)
 
 
+def test_steady_accelerated_matches_jax(monkeypatch):
+    """Anderson acceleration over chunks of 2 coupled steps (AA(3) after 10
+    warm-up steps, 6 iterations) on the dense PC at 8x8, Ra 1e4, through
+    each package's CLI with -accel: the physical steps taken and the
+    convergence flag equal, the temperature to 1e-8 relative, Nu and Vrms
+    to 1e-8, the rate (a max over the map's residual) to 1e-6, the printed
+    lines equal."""
+    from spectral_tpu.cli.drivers import convection_main
+    from spectral_tpu.utils.options import Options
+
+    got = {}
+    for owner, key in ((ConvectionModel, "torch"), (JModel, "jax")):
+        orig = owner.steady_accelerated
+
+        def wrapped(self, *a, _orig=orig, _key=key, **kw):
+            got[_key] = _orig(self, *a, **kw)
+            return got[_key]
+
+        monkeypatch.setattr(owner, "steady_accelerated", wrapped)
+    argv = ["-dim", "8,8", "-accel", "-accel_m", "3", "-chunk", "2", "-warmup", "10",
+            "-max_steps", "12", "-stokes_pc", "dense", "-ksp_rtol", "1e-12", "-ksp_max_it", "100",
+            "-ksp_gmres_restart", "50"]
+    rc, lines = _cli(argv)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jrc = convection_main(Options(argv))
+    (tT, _, tinfo), (jT, _, jinfo) = got["torch"], got["jax"]
+    assert rc == jrc == 2 and lines[2] == f"Steps: {jinfo['steps']}   converged: False"
+    assert lines == buf.getvalue().splitlines()
+    assert tinfo["steps"] == jinfo["steps"] == 10 + 6 * 2
+    assert tinfo["converged"] == jinfo["converged"] is False
+    assert _rel(tT, jT) <= 1e-8
+    for key in ("nu_top", "nu_bottom", "vrms"):
+        assert tinfo[key] == pytest.approx(float(jinfo[key]), rel=1e-8), key
+    assert tinfo["rate"] == pytest.approx(float(jinfo["rate"]), rel=1e-6)
+
+
 def test_unported_paths_raise():
-    """The Anderson steady state waits for ROADMAP item 2, checkpointing for
-    item 8; the CLI's -accel, -output_vtk and -map name their items."""
+    """Checkpointing waits for ROADMAP item 8; the CLI's -output_vtk and
+    -map name their items (the Anderson steady state and -accel run:
+    test_steady_accelerated_matches_jax)."""
     tm = ConvectionModel.unit_box(DIMS, ConvectionConfig(stokes_pc="dense"), device="cpu")
     T0 = tm.conductive_state()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tm.steady_accelerated(T0)
     with pytest.raises(NotImplementedError, match="item 8"):
         tm.march_adaptive(T0, checkpoint="ckpt")
-    for flag, item in (("-accel", "item 2"), ("-output_vtk", "item 8"), ("-map", "item 6")):
+    for flag, item in (("-output_vtk", "item 8"), ("-map", "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             _cli(["-dim", "8,8", flag])
     with pytest.raises(ValueError, match="vertical"):

@@ -771,3 +771,189 @@ def test_transient_fit_demo_on_card(cuda, capsys):
     assert transient_fit_demo.main(["-device", "cuda"]) == 0
     assert "recovered hardness = 1.6" in capsys.readouterr().out
     assert sum(cuda_cheb.K1T_LAUNCHES_BY_SHAPE.values()) > 0
+
+
+# -- the solver families (SNES, FAS, the short-recurrence Krylov types,
+# recycling): each on the card against the same solver on the host ---------
+
+def _cpu_close(card, host, tol=1e-10):
+    """Norm-wise relative distance of a card tensor (or dict) to the host's."""
+    if isinstance(host, dict):
+        num = sum(float(torch.sum((card[k].cpu() - host[k]) ** 2)) for k in host)
+        den = sum(float(torch.sum(host[k] ** 2)) for k in host)
+        return (num / den) ** 0.5 <= tol
+    return float(torch.linalg.vector_norm(card.cpu() - host)
+                 / torch.linalg.vector_norm(host)) <= tol
+
+
+@pytest.mark.parametrize("snes_type", ["newtontr", "qn", "anderson", "ngmres", "ngmres npc",
+                                       "fas"])
+def test_snes_family_on_card_matches_host(cuda, snes_type):
+    """Each -snes_type of the elliptic driver (the driver's dispatch,
+    _snes_solve) at 12^3, gamma 1, fastdiag PC, float64, on the card and on
+    the host: the same iteration count, reason and Krylov counts, the
+    solution to 1e-10 relative, K1 launched on the card."""
+    from spectral_tpu_torch.cli.drivers import _snes_solve
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+    from spectral_tpu_torch.utils.options import Options
+
+    argv = ["-snes_type", "ngmres", "-npc_snes_type", "newtonls"] if snes_type == "ngmres npc" \
+        else ["-snes_type", snes_type]
+    res = {}
+    for dev in ("cpu", cuda):
+        def make_model(dims, dev=dev):
+            return EllipticModel(Grid(dims, device=dev), gamma=1.0)
+
+        m = make_model((12, 12, 12))
+        _, b, d = m.setup_problem(exact=0)
+        cuda_cheb.reset_launch_counts()
+        res[str(dev)] = r = _snes_solve(
+            Options(argv), m, make_model, b, d, None,
+            ksp=KSPConfig(type="fgmres", rtol=1e-5, max_it=500),
+            newton=NewtonConfig(rtol=1e-10, max_it=50), pc="fastdiag")
+        k1 = cuda_cheb.LAUNCHES["chebdiff_last_kernel"]
+        assert (k1 > 0) == (dev == cuda)
+        print(json.dumps({"snes_type": snes_type, "device": str(dev), "iters": r.iters,
+                          "reason": r.reason_str(), "krylov": r.ksp_iters, "k1_launches": k1}))
+    host, card = res["cpu"], res[str(cuda)]
+    assert (card.iters, card.reason, card.ksp_iters) == (host.iters, host.reason, host.ksp_iters)
+    assert _cpu_close(card.x, host.x)
+
+
+def _poisson_pair(dev, dims=(12, 12, 12)):
+    m = PoissonModel(Grid(dims, device=dev))
+    u, f = m.exact_solution()
+    return m, m.rhs(u, f), m.build_pc("fastdiag")
+
+
+@pytest.mark.parametrize("ksp_type,extra", [("bcgs", {}), ("richardson", {}),
+                                            ("chebyshev", {}),
+                                            ("chebyshev", dict(emin=0.5, emax=5.0))])
+def test_krylov_types_on_card_match_host(cuda, ksp_type, extra):
+    """The Poisson solve at 12^3 with each short-recurrence type and the
+    fastdiag PC (K1 in the operator), on the card and on the host: the
+    same count and reason, the solution to 1e-10 relative where it
+    converges (Chebyshev with its own bounds stops at the divergence
+    tolerance on this spectrum, at the same step on both).  Richardson
+    with an unscaled step diverges on this spectrum, as in the JAX
+    package, until its residual norm (a sum of squares) overflows past
+    sqrt(DBL_MAX) ~ 1.3e154: the same reason, the same norms to 1e-8
+    relative over the first 40 steps, and each run's last finite norm
+    past 1e150.  Later on the norm is carried by modes that grow from
+    round-off, so the two runs part and the step at which each overflows
+    is not compared: a host run with the PC scaled by 1 + 2^-52 parts
+    from the host's own by more than 1% after step 100."""
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.types import ConvergedReason
+
+    cfg = KSPConfig(type=ksp_type, rtol=1e-10, max_it=500, **extra)
+    res = {}
+    for dev in ("cpu", cuda):
+        m, b, M = _poisson_pair(dev)
+        cuda_cheb.reset_launch_counts()
+        res[str(dev)] = cfg.solve(m.operator, b, M=M)
+        assert (cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0) == (dev == cuda)
+    host, card = res["cpu"], res[str(cuda)]
+    print(json.dumps({"ksp_type": ksp_type, **extra, "host": [host.iters, host.reason],
+                      "card": [card.iters, card.reason]}))
+    assert card.reason == host.reason
+    if host.reason != ConvergedReason.DIVERGED_NANORINF:
+        assert card.iters == host.iters
+        if host.reason > 0:
+            assert _cpu_close(card.x, host.x)
+    else:
+        m, b, M = _poisson_pair("cpu")
+        nudged = cfg.solve(m.operator, b, M=lambda r: M(r) * (1.0 + 2.0**-52))
+        hh, ch, nh = (np.asarray(r.history_list()) for r in (host, card, nudged))
+        np.testing.assert_allclose(ch[:40], hh[:40], rtol=1e-8)
+        np.testing.assert_allclose(nh[:40], hh[:40], rtol=1e-8)
+        assert nudged.reason == host.reason
+        assert np.max(np.abs(nh[100:300] / hh[100:300] - 1.0)) > 1e-2
+        hh, ch = hh[np.isfinite(hh)], ch[np.isfinite(ch)]
+        assert hh[-1] > 1e150 and ch[-1] > 1e150, (hh[-1], ch[-1])
+
+
+def test_minres_on_card_matches_host(cuda):
+    """MINRES on the symmetric indefinite saddle system with the SPD block
+    PC at 12^3: the card's count and reason equal to the host's, the
+    solution to 1e-10 relative, x* recovered."""
+    from chip_smoke import minres_system
+    from spectral_tpu_torch.solvers.krylov import minres
+
+    res = {}
+    for dev in ("cpu", cuda):
+        K, M, xs = minres_system(dev, ((12, 12, 9), (12, 12, 3)))
+        res[str(dev)] = (minres(K, K(xs), M=M, rtol=1e-10, max_it=1000), xs)
+    (host, xs), (card, _) = res["cpu"], res[str(cuda)]
+    assert host.reason > 0 and (card.iters, card.reason) == (host.iters, host.reason)
+    assert _cpu_close(card.x, host.x)
+    assert _cpu_close(host.x, xs, 1e-6)
+
+
+def test_solve_recycled_stokes_on_card(cuda):
+    """KSPConfig.solve_recycled on README:43's Stokes Jacobian at 12^3 on
+    the card (a dict state, the null space projected, W built by one
+    batched apply of the projected operator): the harvest is float64 of
+    (8, 6912); the first solve takes the JAX package's 9 FGMRES
+    iterations, the second, deflated by it, no more than the JAX package's
+    12-13 (its count from the zero state and from starts perturbed by 1e-13
+    and 1e-11, stokes_oracle.py recycle12)."""
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+    p = StokesProblem(Grid((12, 12, 12), device=cuda), StokesConfig(
+        exact=2, cont0=1, vel_ksp=KSPConfig(type="gmres", rtol=1e-5, max_it=4),
+        svel_ksp=KSPConfig(type="preonly"), schur_ksp=KSPConfig(type="gmres", rtol=1e-5,
+                                                                max_it=3)))
+    residual = p.make_residual(p.params_at(p.config.cont))
+    z = p.zero_state()
+    rng = np.random.default_rng(5)
+    x1 = {"v": p.mask_v(torch.as_tensor(rng.standard_normal(tuple(z["v"].shape)), device=cuda)),
+          "p": p.project_p(torch.as_tensor(rng.standard_normal(tuple(z["p"].shape)),
+                                           device=cuda))}
+    F0, ls = residual(z)
+    F1, _ = residual(x1)
+    pcs, pca = p.make_pc()
+    st = pcs(z, ls)
+    ksp = KSPConfig(type="fgmres", rtol=1e-8, max_it=200, restart=30)
+    A = lambda w: p.jacobian_action(z, ls, w)  # noqa: E731
+    M = lambda r: pca(st, r)  # noqa: E731
+    r1, U = ksp.solve_recycled(A, F0, M=M, null_project=p.null_project, U=None, nkeep=8)
+    r2, _ = ksp.solve_recycled(A, F1, M=M, null_project=p.null_project, U=U, nkeep=8)
+    print(json.dumps({"iters": [r1.iters, r2.iters]}))
+    assert U.dtype == torch.float64 and tuple(U.shape) == (8, 6912) and U.device.type == "cuda"
+    assert r1.reason > 0 and r2.reason > 0
+    assert r1.iters == 9 and r2.iters <= 13, (r1.iters, r2.iters)
+
+
+def test_steady_accelerated_on_card_matches_host(cuda):
+    """Anderson acceleration over chunks of 2 coupled steps at 8x8 (the
+    CPU test's run) on the card and on the host: the same steps, T to
+    1e-10 relative, K1 launched on the card."""
+    from spectral_tpu_torch.models.convection import ConvectionConfig, ConvectionModel
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+    out = {}
+    for dev in ("cpu", cuda):
+        cfg = ConvectionConfig(Ra=1e4, dt=5e-4, velocity_bc="freeslip", side_bc="insulated",
+                               stokes_pc="dense",
+                               stokes_ksp=KSPConfig(type="fgmres", rtol=1e-12, max_it=100,
+                                                    restart=50))
+        m = ConvectionModel.unit_box((8, 8), cfg, device=dev)
+        cuda_cheb.reset_launch_counts()
+        out[str(dev)] = m.steady_accelerated(m.conductive_state(amp=0.05), m=3, chunk=2,
+                                             tol=1e-3, max_iters=6, warmup=10)
+        assert (cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0) == (dev == cuda)
+    (Th, _, ih), (Tc, _, ic) = out["cpu"], out[str(cuda)]
+    assert ic["steps"] == ih["steps"] == 22
+    assert _cpu_close(Tc, Th)
+
+
+@pytest.mark.parametrize("shape", [(5, 5, 5), (64, 64, 48), (12, 12, 9)])
+def test_k1_solver_shapes(cuda, shape):
+    """K1 at the shapes phase 14 gives it beyond the earlier paths' (FAS's
+    coarsest level, the MINRES system's velocity block), float64, against
+    its plain version."""
+    u = _randn(shape, torch.float64, cuda, 3)
+    assert _rel(cuda_cheb.chebdiff_last(u), cuda_cheb.chebdiff_last_ref(u)) <= BOUND[torch.float64]

@@ -81,12 +81,14 @@ def test_cg_matches_jax():
     assert T["iters"] == J["iters"] and T["reason"] == J["reason"] == ConvergedReason.CONVERGED_RTOL
     _hist_close(T["history"], J["history"], 1e-10)
     assert _rel(T["x"], J["x"]) <= 1e-10
-    # through KSPConfig: cg is registered, the others still raise
+    # through KSPConfig: cg is registered, and so are the short-recurrence
+    # types (tests/test_torch_krylov.py holds them to the JAX package)
     res = KSPConfig(type="cg", **kw).solve(lambda x: (At @ x.reshape(-1)).reshape(DIMS),
                                            torch.from_numpy(b), M=tfd.apply)
     assert res.iters == T["iters"]
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        KSPConfig(type="bicgstab").solve(lambda x: x, torch.from_numpy(b))
+    res = KSPConfig(type="bicgstab", **kw).solve(lambda x: (At @ x.reshape(-1)).reshape(DIMS),
+                                                 torch.from_numpy(b), M=tfd.apply)
+    assert res.reason == ConvergedReason.CONVERGED_RTOL
 
 
 def test_get_bool_matches_jax():

@@ -563,10 +563,13 @@ def test_unported_options_raise():
         StokesProblem(g, phi=lambda x: x)
     p = StokesProblem(g, StokesConfig(exact=2))
     for fn, name in ((p.solve_family, "item 7"),
-                     (lambda: p.solve_continuation(checkpoint_dir="x"), "item 8"),
-                     (lambda: p.solve(recycle_U0=object()), "item 1b")):
+                     (lambda: p.solve_continuation(checkpoint_dir="x"), "item 8")):
         with pytest.raises(NotImplementedError, match=name):
             fn()
+    # recycling runs in the host loop only, as in the JAX package
+    pr = StokesProblem(g, StokesConfig(exact=2, newton=NewtonConfig(recycle=4)))
+    with pytest.raises(ValueError, match="host-loop-only"):
+        pr.solve(fused=True)
     for opt, name in (("-checkpoint_dir d", "item 8"), ("-output_vtk", "item 8"),
                       ("-map bump:0.1", "item 6"), ("-log_summary", "item 8")):
         with pytest.raises(NotImplementedError, match=name):
