@@ -56,8 +56,10 @@ def _domain_intervals(opts, ndim):
 
 
 def poisson_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
-    """Linear Poisson solve (poisson.c:33-175), flat domain.  Exit code 0
-    when the solve converged, 2 when it did not."""
+    """Linear Poisson solve (poisson.c:33-175); ``-map`` solves on a curved
+    domain (CurvilinearPoisson, the manufactured u = prod cos(pi x_j / 2)
+    at the physical nodes, multigrid PC by default).  Exit code 0 when the
+    solve converged, 2 when it did not."""
     from spectral_tpu_torch.grid import Grid
     from spectral_tpu_torch.models.poisson import PoissonModel
     from spectral_tpu_torch.solvers.krylov import KSPConfig
@@ -66,11 +68,27 @@ def poisson_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> 
     n = opts.get_int("n", 7)
     p = opts.get_int("p", 1)
     dims = (m, n) if p == 1 else (m, n, p)
-    if opts.get_string("map", ""):
-        raise NotImplementedError(
-            "poisson -map (curved domains) is not ported yet "
-            "(ROADMAP.md queue 1, item 6: curvilinear)")
+    map_spec = opts.get_string("map", "")
     ksp = opts.ksp_config("", KSPConfig(type="gmres", rtol=1e-7, max_it=500))
+    if map_spec:
+        from spectral_tpu_torch.models.curvilinear import CurvilinearPoisson
+        from spectral_tpu_torch.ops.curvilinear import named_map
+
+        if _domain_intervals(opts, len(dims)) is not None:
+            raise SystemExit("-map and -domain are mutually exclusive")
+        cp = CurvilinearPoisson(Grid(dims, device=device, dtype=dtype), named_map(map_spec))
+        print(f"  curvilinear domain: -map {map_spec}")
+        d = len(dims)
+
+        def u_fn(x):
+            return np.prod(np.cos(0.5 * np.pi * x), axis=-1)
+
+        u, b = cp.manufactured(u_fn, lambda x: -d * (0.5 * np.pi) ** 2 * u_fn(x))
+        res = cp.solve(b, ksp=ksp, pc_type=opts.pc_type("", "mg"))
+        err = float(torch.max(torch.abs(res.x - u)))
+        print(f"Norm of error {err:e} iterations {int(res.iters)}")
+        _print_unused(opts)
+        return 0 if int(res.reason) > 0 else 2
     model = PoissonModel(Grid(dims, intervals=_domain_intervals(opts, len(dims)),
                               device=device, dtype=dtype))
     u, f = model.exact_solution()
@@ -147,8 +165,9 @@ def _max_rel(a: np.ndarray, ref: np.ndarray) -> float:
 
 
 def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
-    """Nonlinear elliptic driver (elliptic.C:117-246), flat domain, Newton
-    with a line search or another -snes_type (_snes_solve).  Exit code 0
+    """Nonlinear elliptic driver (elliptic.C:117-246), Newton with a line
+    search or another -snes_type (_snes_solve); ``-map`` solves on a
+    curved domain (the metric form, multigrid PC by default).  Exit code 0
     when the solve converged, 2 when not."""
     from spectral_tpu_torch.grid import Grid
     from spectral_tpu_torch.models.elliptic import EllipticModel
@@ -166,16 +185,22 @@ def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) ->
 
     print(f"Elliptic problem  dims = [{','.join(map(str, dims))}]"
           f"    gamma = {gamma:f}    exponent = {exponent:8f}")
-    if opts.get_string("map", ""):
-        raise NotImplementedError("elliptic -map (curved domains) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 6: curvilinear)")
+    map_spec = opts.get_string("map", "")
     intervals = _domain_intervals(opts, len(dims))
+    if map_spec and intervals is not None:
+        raise SystemExit("-map and -domain are mutually exclusive")
+    phi = None
+    if map_spec:
+        from spectral_tpu_torch.ops.curvilinear import named_map
+        phi = named_map(map_spec)
 
     def make_model(dims_l):
         return EllipticModel(Grid(dims_l, intervals=intervals, device=device, dtype=dtype),
-                             gamma=gamma, exponent=exponent)
+                             gamma=gamma, exponent=exponent, phi=phi)
 
     model = make_model(tuple(dims))
+    if map_spec:
+        print(f"  curvilinear domain: -map {map_spec}")
     g = model.grid
     print(g.census())
     u, b, dirichlet = model.setup_problem(exact=exact, cos_scale=cos_scale)
@@ -190,7 +215,7 @@ def elliptic_main(opts: Options, *, device: torch.device, dtype: torch.dtype) ->
     # float32 cannot reach the float64 default tolerance: follow the dtype
     newton = opts.newton_config(NewtonConfig(
         rtol=1e-8 if dtype == torch.float64 else 1e-5, max_it=50))
-    pc = opts.pc_type("", "fastdiag")
+    pc = opts.pc_type("", "mg" if map_spec else "fastdiag")
     x0 = None
     gseq = opts.get_int("snes_grid_sequence", 0)
     if gseq > 0:
@@ -269,7 +294,6 @@ def _pcvel_option(opts: Options) -> str:
 
 # stokes driver options whose code is not ported yet, with their ROADMAP item
 _STOKES_NOT_PORTED = {
-    "map": "item 6: curvilinear",
     "checkpoint_dir": "item 8: utils/checkpoint.py",
     "output_vtk": "item 8: utils/vtk.py",
     "log_summary": "item 8: utils/profiling.py",
@@ -277,8 +301,9 @@ _STOKES_NOT_PORTED = {
 
 
 def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
-    """Stokes driver (stokes.C:119-253) with continuation, flat domain.
-    Prints the JAX driver's lines, then the Newton and Krylov counts of
+    """Stokes driver (stokes.C:119-253) with continuation; ``-map`` solves
+    on a curved domain (the metric-aware multigrid velocity PC unless
+    -pcvel is given).  Prints the JAX driver's lines, then the Newton and Krylov counts of
     every continuation step; with -snes_grid_sequence, also those of the
     coarse level's continuation (``Continuation steps on level ...``, a line
     the JAX driver does not print).  Exit code 0 when the last Newton solve
@@ -336,11 +361,26 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
     print(f"  hardness = {cfg.hardness:f}    exponent = {cfg.exponent:8f}"
           f"    regularization = {cfg.regularization:8f}    gamma0 = {cfg.gamma0:8f}")
     intervals = _domain_intervals(opts, len(dims))
+    map_spec = opts.get_string("map", "")
+    phi = None
+    if map_spec:
+        import dataclasses
+
+        from spectral_tpu_torch.ops.curvilinear import named_map
+        if intervals is not None:
+            raise SystemExit("-map and -domain are mutually exclusive")
+        if not opts.has("pcvel"):
+            # fastdiag is metric-blind: the metric multigrid by default
+            cfg = dataclasses.replace(cfg, pcvel="mg")
+        phi = named_map(map_spec)
 
     def make_p(dims_l):
-        return StokesProblem(Grid(dims_l, intervals=intervals, device=device, dtype=dtype), cfg)
+        return StokesProblem(Grid(dims_l, intervals=intervals, device=device, dtype=dtype), cfg,
+                             phi=phi)
 
     p = make_p(tuple(dims))
+    if map_spec:
+        print(f"  curvilinear domain: -map {map_spec}")
     print(p.census())
 
     # exact residual check (stokes.C:191-205)
@@ -370,7 +410,7 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
         _uvp_print2(xex, "exact global")
         _uvp_print2(F, "exact residual")
     if debug >= 2:
-        coords = p.grid.coords_np
+        coords = p.coords_phys_np
         if coords.ndim > 3:
             coords = coords[:, :, coords.shape[2] // 2]
         vec_print2(coords[..., :2], dims[0], dims[1], "coordinates", "xy")
@@ -447,13 +487,16 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
 
 
 def heat_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
-    """Time-dependent diffusion driver (models/heat.py), flat domain:
+    """Time-dependent diffusion driver (models/heat.py):
 
     heat -dim 16,16 -dt 0.01 -nsteps 20 [-theta 0.5] [-ts_type theta|bdf2]
         [-ts_adapt [-ts_rtol 1e-5 -ts_atol 1e-9 -ts_dt0 dt -ts_max_steps N -ts_monitor]]
+        [-map bump:0.08]
 
     Decays u0 = prod cos(pi x_j / 2) and prints the max error against the
-    analytic decay.  Exit code 0 when the error is under 1, 2 when not."""
+    analytic decay; with ``-map``, relaxes from zero toward the harmonic
+    x^2 - y^2 held on the curved domain's boundary and prints the error
+    against it.  Exit code 0 when the error is under 1, 2 when not."""
     from spectral_tpu_torch.grid import Grid
     from spectral_tpu_torch.models.heat import HeatModel
 
@@ -461,11 +504,27 @@ def heat_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int
     dt = opts.get_real("dt", 0.01)
     nsteps = opts.get_int("nsteps", 20)
     theta = opts.get_real("theta", 0.5)
-    if opts.get_string("map", ""):
-        raise NotImplementedError("heat -map (curved domains) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 6: curvilinear)")
+    map_spec = opts.get_string("map", "")
     print(f"Heat problem  dims = [{','.join(map(str, dims))}]  dt = {dt}"
           f"  theta = {theta}  steps = {nsteps}")
+    if map_spec:
+        from spectral_tpu_torch.ops.curvilinear import named_map
+        from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+        if _domain_intervals(opts, len(dims)) is not None:
+            raise SystemExit("-map and -domain are mutually exclusive")
+        g = Grid(dims, device=device, dtype=dtype)
+        m = HeatModel(g, dt=dt, theta=theta, phi=named_map(map_spec),
+                      ksp=KSPConfig(type="gmres", rtol=1e-11, max_it=200))
+        print(f"  curvilinear domain: -map {map_spec}")
+        xp = m.cmap.coords
+        harm = torch.as_tensor(xp[..., 0] ** 2 - xp[..., 1] ** 2, dtype=dtype, device=device)
+        z = torch.zeros(g.dims, dtype=dtype, device=device)
+        u = m.rollout(z, z, torch.where(g.boundary_mask, harm, z), nsteps)
+        err = float(torch.max(torch.abs(g.zero_boundary(u - harm))))
+        print(f"Norm of error vs analytic decay {err:e} (harmonic steady state)")
+        _print_unused(opts)
+        return 0 if err < 1.0 else 2
     ts_type = opts.get_string("ts_type", "theta")
     ts_adapt = opts.get_bool("ts_adapt", False)
     g = Grid(dims, intervals=_domain_intervals(opts, len(dims)), device=device, dtype=dtype)
@@ -501,11 +560,11 @@ def heat_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int
 
 
 def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
-    """Time-dependent Stokes driver (models/stokes_unsteady.py), flat domain:
+    """Time-dependent Stokes driver (models/stokes_unsteady.py):
 
     ustokes -dim 12,12 -dt 0.05 -nsteps 10 [-theta 0.5] [-scheme theta|bdf2]
         [-omega 1.0] [-exact 1] [-pcvel fastdiag|mg] [-saddle_pc schur|dense|dense-device]
-        [-rheology 1 -exponent 3] [-no_scan]
+        [-rheology 1 -exponent 3] [-no_scan] [-map bump:0.05]
 
     Integrates the manufactured solution u0(x) cos(omega t) (u0 the steady
     exact solution) and prints the JAX driver's lines (the outer
@@ -518,10 +577,9 @@ def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dt
     from spectral_tpu_torch.solvers.krylov import KSPConfig
     from spectral_tpu_torch.solvers.newton import NewtonConfig
 
-    for key, item in (("map", "item 6: curvilinear"), ("output_vtk", "item 8: utils/vtk.py")):
-        if opts.has(key):
-            raise NotImplementedError(
-                f"ustokes -{key} is not ported yet (ROADMAP.md queue 1, {item})")
+    if opts.has("output_vtk"):
+        raise NotImplementedError(
+            "ustokes -output_vtk is not ported yet (ROADMAP.md queue 1, item 8: utils/vtk.py)")
     dims = opts.get_int_array("dim", (12, 12))
     dt = opts.get_real("dt", 0.05)
     nsteps = opts.get_int("nsteps", 10)
@@ -529,6 +587,11 @@ def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dt
         raise SystemExit("-nsteps must be >= 1")
     theta = opts.get_real("theta", 0.5)
     omega = opts.get_real("omega", 1.0)
+    map_spec = opts.get_string("map", "")
+    phi = None
+    if map_spec:
+        from spectral_tpu_torch.ops.curvilinear import named_map
+        phi = named_map(map_spec)
     cfg = StokesConfig(
         exact=opts.get_int("exact", 1), boundary=0,
         rheology=opts.get_int("rheology", 0),
@@ -536,7 +599,7 @@ def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dt
         exponent=opts.get_real("exponent", 1.0),
         regularization=opts.get_real("eps", 1.0),
         gamma0=opts.get_real("gamma0", 1.0),
-        pcvel=opts.get_string("pcvel", "fastdiag"),
+        pcvel=opts.get_string("pcvel", "mg" if map_spec else "fastdiag"),
         # -saddle_pc dense|dense-device: the exact inverse of the fixed
         # mass-shifted step operator (one matmul an apply)
         saddle_pc=opts.get_string("saddle_pc", "schur"),
@@ -548,9 +611,10 @@ def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dt
     scheme = opts.get_string("scheme", "theta")
     print(f"Unsteady Stokes  dim = [{','.join(map(str, dims))}]  dt = {dt}"
           f"  scheme = {scheme}" + ("" if scheme == "bdf2" else f"  theta = {theta}")
-          + f"  omega = {omega}  steps = {nsteps}")
+          + f"  omega = {omega}  steps = {nsteps}"
+          + (f"  map = {map_spec}" if map_spec else ""))
     m = UnsteadyStokes(Grid(dims, device=device, dtype=dtype), cfg, dt=dt, theta=theta,
-                       scheme=scheme)
+                       phi=phi, scheme=scheme)
     print(m.problem.census())
     u0, s_of_t, f_of_t, u_of_t, _ = m.manufactured(omega=omega)
     times = np.arange(nsteps + 1) * dt
@@ -590,17 +654,17 @@ def convection_main(opts: Options, *, device: torch.device, dtype: torch.dtype) 
     (the Blankenbach case 1a configuration; published Nu = 4.884409, Vrms
     = 42.864947).  Prints the JAX driver's lines.  ``-accel`` is the
     Anderson-accelerated steady state (-accel_m, -chunk, -steady_tol,
-    -max_steps, -warmup).  ``-output_vtk`` raises naming ROADMAP item 8,
-    ``-map`` item 6.  Exit code 0 when the run converged, 2 when it did
-    not."""
+    -max_steps, -warmup).  ``-output_vtk`` raises naming ROADMAP item 8;
+    ``-map`` is not an option of this driver (the JAX driver's neither):
+    it is reported as unused.  Exit code 0 when the run converged, 2 when
+    it did not."""
     from spectral_tpu_torch.models.convection import ConvectionConfig, ConvectionModel
     from spectral_tpu_torch.solvers.krylov import KSPConfig
     from spectral_tpu_torch.solvers.newton import NewtonConfig
 
-    for key, item in (("output_vtk", "item 8: utils/vtk.py"), ("map", "item 6: curvilinear")):
-        if opts.has(key):
-            raise NotImplementedError(
-                f"convection -{key} is not ported yet (ROADMAP.md queue 1, {item})")
+    if opts.has("output_vtk"):
+        raise NotImplementedError("convection -output_vtk is not ported yet "
+                                  "(ROADMAP.md queue 1, item 8: utils/vtk.py)")
     dims = opts.get_int_array("dim", (16, 16))
     cfg = ConvectionConfig(
         Ra=opts.get_real("ra", 1e4),

@@ -28,8 +28,11 @@ class Grid:
     """A d-dimensional tensor-product CGL grid on ``device`` in ``dtype``.
 
     ``intervals`` maps each axis affinely from [-1, 1] onto [a, b] (node 0
-    sits at b); spectral derivatives pick up the chain-rule factor through
-    ``deriv_scale_np`` / ``apply_dif_weight``.
+    sits at b); ``maps`` gives each axis a general ``ops.mapping.AxisMap``
+    (physical nodes and per-node weights).  Spectral derivatives pick up
+    the chain-rule factor through ``apply_dif_weight``; the physical nodes
+    flow into every ``nodes_1d`` consumer (FD stencils, fast
+    diagonalization, Q1 FEM, multigrid).
 
     ``device`` defaults to ``cuda``: without CUDA the constructor raises
     rather than running on the host; pass ``device="cpu"`` for that.
@@ -49,10 +52,14 @@ class Grid:
                                "(pass device='cpu' to run on the host)")
         if any(n < 3 for n in self.dims):
             raise ValueError(f"every axis needs >= 3 nodes, got {self.dims}")
+        if self.intervals is not None and self.maps is not None:
+            raise ValueError("pass intervals OR maps, not both")
         if self.maps is not None:
-            raise NotImplementedError(
-                "Grid(maps=...) is not ported yet (ROADMAP.md queue 1, "
-                "item 6: curvilinear)")
+            object.__setattr__(self, "maps", tuple(self.maps))
+            if len(self.maps) != len(self.dims):
+                raise ValueError("need one AxisMap per axis")
+            if any(m.n != n for m, n in zip(self.maps, self.dims)):
+                raise ValueError("AxisMap lengths must match dims")
         if self.intervals is not None:
             if len(self.intervals) != len(self.dims):
                 raise ValueError("need one (a, b) interval per axis")
@@ -72,6 +79,8 @@ class Grid:
 
     @cached_property
     def nodes_1d(self) -> tuple[np.ndarray, ...]:
+        if self.maps is not None:
+            return tuple(np.asarray(m.x) for m in self.maps)
         ref = [cgl_nodes_np(n) for n in self.dims]
         if self.intervals is None:
             return tuple(ref)
@@ -83,22 +92,64 @@ class Grid:
 
     @cached_property
     def deriv_scale_np(self) -> np.ndarray:
-        """Per-axis constant chain-rule factor d(xi)/d(x) = 2/(b - a)."""
+        """Per-axis constant chain-rule factor d(xi)/d(x) = 2/(b - a) (1.0
+        unmapped, and on general maps, whose weights are per node:
+        ``dif_weight_np``)."""
         if self.intervals is None:
             return np.ones(len(self.dims))
         return np.asarray([2.0 / (b - a) for a, b in self.intervals])
 
+    def deriv_scale(self, axis: int) -> float:
+        if self.maps is not None:
+            raise ValueError("general maps have per-node weights; use apply_dif_weight")
+        return float(self.deriv_scale_np[axis])
+
+    def dif_weight_np(self, axis: int):
+        """Chain-rule weight of a spectral first derivative along ``axis``:
+        None (identity), a float (affine interval) or an (n,) float64 array
+        (general map)."""
+        if self.maps is not None:
+            return np.asarray(self.maps[axis].w)
+        if self.intervals is None:
+            return None
+        return float(self.deriv_scale_np[axis])
+
+    @cached_property
+    def _weights(self) -> dict:
+        return {}
+
+    def _dif_weight_t(self, axis: int, dtype: torch.dtype,
+                      device: torch.device) -> torch.Tensor:
+        """A general map's (n,) weight as a tensor, built once per axis,
+        dtype and device."""
+        key = (axis, dtype, device)
+        w = self._weights.get(key)
+        if w is None:
+            w = self._weights[key] = torch.as_tensor(self.maps[axis].w, dtype=dtype,
+                                                     device=device)
+        return w
+
     def apply_dif_weight(self, v: torch.Tensor, axis: int) -> torch.Tensor:
-        """v * d(xi)/d(x) along ``axis``; identity on unmapped grids."""
+        """v * d(xi)/d(x) along ``axis`` (broadcast over every other axis,
+        trailing component axes included); identity on unmapped grids."""
+        if self.maps is not None:
+            shape = [1] * v.ndim
+            shape[axis] = self.dims[axis]
+            return v * self._dif_weight_t(axis, v.dtype, v.device).reshape(shape)
         if self.intervals is None:
             return v
         return v * float(self.deriv_scale_np[axis])
 
     def apply_dif_weight_np(self, v: np.ndarray, axis: int) -> np.ndarray:
         """``apply_dif_weight`` on a host numpy array."""
-        if self.intervals is None:
+        w = self.dif_weight_np(axis)
+        if w is None:
             return v
-        return v * self.deriv_scale_np[axis]
+        if np.ndim(w) == 0:
+            return v * w
+        shape = [1] * v.ndim
+        shape[axis] = len(w)
+        return v * w.reshape(shape)
 
     @cached_property
     def quad_weights_1d_np(self) -> tuple[np.ndarray, ...]:
@@ -108,8 +159,9 @@ class Grid:
         out = []
         for ax, n in enumerate(self.dims):
             w = cc_weights_np(n)
-            if self.intervals is not None:
-                w = w / float(self.deriv_scale_np[ax])
+            wd = self.dif_weight_np(ax)
+            if wd is not None:
+                w = w / np.asarray(wd)
             out.append(w)
         return tuple(out)
 

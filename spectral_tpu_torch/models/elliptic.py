@@ -1,6 +1,6 @@
 """Nonlinear elliptic model in any number of dimensions.
 
-Counterpart of ``spectral_tpu/models/elliptic.py`` (flat domains).  Solves
+Counterpart of ``spectral_tpu/models/elliptic.py``.  Solves
 
     F(u) = -div(eta(u) grad u) - b = 0,   eta(u) = 1 + gamma * u^exponent
 
@@ -15,12 +15,18 @@ float32 and float64 alike.
 The surrogate is solved by fast diagonalization, dense LU (the reference's
 ``-pc_type lu``), Jacobi, or geometric multigrid (``mg``, ``mg<k>``); or
 the separable Q1 FEM Laplacian is solved exactly (``q1fem``).
+
+On a curved domain (``phi=``, ``ops/curvilinear.py``) the operator runs in
+metric form, -div(eta grad u) = -(1/detJ) d_l(eta A_lm d_m u) with
+A = detJ Jinv Jinv^T; the eta' Newton term contracts through the same A,
+so the model stays in reference-gradient space.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -45,15 +51,19 @@ def _pow(u, e: float):
 
 
 def exact_fields_np(nodes_1d, gamma: float, exponent: float, exact: int = 0,
-                    cos_scale: float = 1.0):
+                    cos_scale: float = 1.0, coords: np.ndarray | None = None):
     """Manufactured solution v and forcing w = A(v) v on the tensor grid of
     the per-axis ``nodes_1d``, float64 (CreateExactSolution,
     elliptic.C:593-677); w is nonlinearity-aware for exact=0.  Every
     closed form is a sum of products of 1-D factors: each factor is
-    evaluated on its axis' nodes and broadcast, never on the full grid."""
+    evaluated on its axis' nodes and broadcast, never on the full grid.
+    ``coords`` ((dims..., d) physical nodes of a curved domain) evaluates
+    the same pointwise identities on every node instead."""
     d = len(nodes_1d)
 
     def axis(f, j):   # a 1-D factor on axis j, shaped to broadcast
+        if coords is not None:
+            return f(np.asarray(coords[..., j], np.float64))
         shape = [1] * d
         shape[j] = -1
         return np.reshape(f(np.asarray(nodes_1d[j], np.float64)), shape)
@@ -111,11 +121,38 @@ class EllipticModel:
             raise NotImplementedError(
                 "EllipticModel(mesh=...) is not ported yet (ROADMAP.md queue 1, "
                 "item 7: parallel)")
-        if self.phi is not None:
-            raise NotImplementedError(
-                "EllipticModel(phi=...) is not ported yet (ROADMAP.md queue 1, "
-                "item 6: curvilinear)")
         object.__setattr__(self, "_pc_cache", {})
+
+    @cached_property
+    def cmap(self):
+        """The CurvilinearMap of ``phi`` (None without one)."""
+        if self.phi is None:
+            return None
+        if self.grid.intervals is not None or self.grid.maps is not None:
+            raise ValueError("curvilinear elliptic needs an unmapped Grid; "
+                             "fold affine/axis maps into phi")
+        from spectral_tpu_torch.ops.curvilinear import CurvilinearMap
+        return CurvilinearMap.build(self.grid, self.phi)
+
+    @property
+    def coords_phys_np(self) -> np.ndarray:
+        """(dims..., d) float64 physical node positions."""
+        return self.grid.coords_np if self.cmap is None else self.cmap.coords
+
+    def _metric_flux(self, flux_ref: list) -> list:
+        """A reference-gradient-space flux list contracted with A = Acoef."""
+        A = self.cmap.field("Acoef", flux_ref[0].dtype, flux_ref[0].device)
+        d = self.grid.ndim
+        return [sum(A[..., l, m] * flux_ref[m] for m in range(d)) for l in range(d)]
+
+    def _div_flux(self, flux: list) -> torch.Tensor:
+        """-sum_l D_l flux_l, over detJ on a curved domain."""
+        y = torch.zeros_like(flux[0])
+        for ax in range(self.grid.ndim):
+            y = y - self._dif(flux[ax], ax)
+        if self.cmap is not None:
+            y = y / self.cmap.field("detJ", y.dtype, y.device)
+        return y
 
     def _dif(self, v: torch.Tensor, axis: int) -> torch.Tensor:
         return self.grid.apply_dif_weight(chebdiff(v, axis, self.method), axis)
@@ -142,10 +179,10 @@ class EllipticModel:
             u = g.set_boundary(uG, dirichlet)
             gradu = [self._dif(u, ax) for ax in range(g.ndim)]
             eta, deta = self.eta(u)
-            F = torch.zeros_like(u)
-            for ax in range(g.ndim):
-                F = F - self._dif(eta * gradu[ax], ax)
-            return g.zero_boundary(F) - b, (eta, deta, gradu)
+            flux = [eta * gu for gu in gradu]
+            if self.cmap is not None:
+                flux = self._metric_flux(flux)
+            return g.zero_boundary(self._div_flux(flux)) - b, (eta, deta, gradu)
 
         return residual
 
@@ -154,14 +191,22 @@ class EllipticModel:
         of defect-correction Newton (``solve_refined``)."""
         g = self.grid
         bm = g.boundary_mask_np
+        A = None if self.cmap is None else self.cmap.Acoef
+        detJ = None if self.cmap is None else self.cmap.detJ
 
         def residual(u_np):
             u = np.where(bm, dirichlet_np, u_np)
             eta = 1.0 + self.gamma * _pow(u, self.exponent)
             grad = [g.apply_dif_weight_np(chebdiff_np(u, ax), ax) for ax in range(g.ndim)]
+            flux = [eta * gu for gu in grad]
+            if A is not None:
+                flux = [sum(A[..., l, m] * flux[m] for m in range(g.ndim))
+                        for l in range(g.ndim)]
             F = np.zeros_like(u)
             for ax in range(g.ndim):
-                F -= g.apply_dif_weight_np(chebdiff_np(eta * grad[ax], ax), ax)
+                F -= g.apply_dif_weight_np(chebdiff_np(flux[ax], ax), ax)
+            if detJ is not None:
+                F = F / detJ
             return np.where(bm, 0.0, F) - b_np
 
         return residual
@@ -173,10 +218,10 @@ class EllipticModel:
         g = self.grid
         eta, deta, gradu0 = lin_state
         w = g.zero_boundary(wG)
-        y = torch.zeros_like(w)
-        for ax in range(g.ndim):
-            y = y - self._dif(eta * self._dif(w, ax) + deta * w * gradu0[ax], ax)
-        return g.zero_boundary(y)
+        flux = [eta * self._dif(w, ax) + deta * w * gradu0[ax] for ax in range(g.ndim)]
+        if self.cmap is not None:
+            flux = self._metric_flux(flux)
+        return g.zero_boundary(self._div_flux(flux))
 
     # -- preconditioners ------------------------------------------------------
     def _fastdiag(self, dtype: torch.dtype) -> FastDiagSolver:
@@ -186,11 +231,19 @@ class EllipticModel:
         return self._pc_cache[key]
 
     def _multigrid(self, cycles: int):
+        """The hierarchy of "mg<cycles>": the variable-coefficient Jacobian
+        stencil, or the metric surrogate on a curved domain."""
         from spectral_tpu_torch.ops.multigrid import Multigrid
 
         key = ("mg", cycles)
         if key not in self._pc_cache:
-            self._pc_cache[key] = Multigrid.build(self.grid, cycles=cycles)
+            if self.cmap is None:
+                mg = Multigrid.build(self.grid, cycles=cycles)
+            else:
+                from spectral_tpu_torch.ops.curvilinear import metric_surrogate_builder
+                mg = Multigrid.build(self.grid, builder=metric_surrogate_builder(self.grid.ndim),
+                                     cycles=cycles)
+            self._pc_cache[key] = mg
         return self._pc_cache[key]
 
     def make_pc(self, pc_type: str = "fastdiag", dtype: torch.dtype | None = None):
@@ -206,6 +259,10 @@ class EllipticModel:
         - "mg" / "mg<k>": geometric multigrid, k residual-corrected
           V-cycles per apply (2 for "mg").
         The stencil-based types follow the dtype of the linearization state.
+        On a curved domain the surrogate of "mg", "jacobi" and "lu" is the
+        separable metric stencil -(1/detJ) d_l(eta A_ll d_l .), the cross
+        terms and the eta' term dropped; "fastdiag" and "q1fem" stay
+        metric-blind (usable on gentle maps).
         """
         g = self.grid
         if pc_type == "none":
@@ -213,7 +270,10 @@ class EllipticModel:
 
         def _stencil(lin_state):
             eta, deta, gradu = lin_state
-            return elliptic_jacobian_stencil(g, eta, deta, gradu)
+            if self.cmap is None:
+                return elliptic_jacobian_stencil(g, eta, deta, gradu)
+            from spectral_tpu_torch.ops.curvilinear import metric_surrogate_builder
+            return metric_surrogate_builder(g.ndim)(g, self.cmap.pc_coeffs(eta))
 
         if pc_type == "fastdiag":
             fd = self._fastdiag(dtype or g.dtype)
@@ -247,6 +307,8 @@ class EllipticModel:
 
             def setup(x, lin_state):
                 eta, deta, gradu = lin_state
+                if self.cmap is not None:
+                    return mg.setup(self.cmap.pc_coeffs(eta))
                 return mg.setup({"eta": eta, "deta": deta, "gradu": list(gradu)})
 
             return setup, mg.vcycle
@@ -255,18 +317,22 @@ class EllipticModel:
     # -- exact solutions ------------------------------------------------------
     def exact_solution(self, exact: int = 0, cos_scale: float = 1.0):
         """(u, f) on the full grid in the grid's dtype and device: the
-        manufactured solution and its forcing."""
-        v, w = exact_fields_np(self.grid.nodes_1d, self.gamma, self.exponent,
-                               exact, cos_scale)
+        manufactured solution and its forcing (at the physical nodes: the
+        closed forms are pointwise identities, so they hold on curved
+        domains too)."""
+        v, w = self._exact_np(exact, cos_scale)
         g = self.grid
         return (torch.as_tensor(v, dtype=g.dtype, device=g.device),
                 torch.as_tensor(w, dtype=g.dtype, device=g.device))
 
+    def _exact_np(self, exact: int, cos_scale: float):
+        return exact_fields_np(self.grid.nodes_1d, self.gamma, self.exponent, exact,
+                               cos_scale, coords=None if self.cmap is None else self.cmap.coords)
+
     def setup_problem_np(self, exact: int = 0, cos_scale: float = 1.0):
         """(u_global, b, dirichlet) as float64 numpy arrays."""
         bm = self.grid.boundary_mask_np
-        v, w = exact_fields_np(self.grid.nodes_1d, self.gamma, self.exponent,
-                               exact, cos_scale)
+        v, w = self._exact_np(exact, cos_scale)
         return np.where(bm, 0.0, v), np.where(bm, 0.0, w), np.where(bm, v, 0.0)
 
     def setup_problem(self, exact: int = 0, cos_scale: float = 1.0):

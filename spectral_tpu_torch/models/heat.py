@@ -1,7 +1,6 @@
 """Time-dependent diffusion on the CGL grid (a capability extension).
 
-Counterpart of ``spectral_tpu/models/heat.py`` on flat domains: implicit
-theta-scheme time stepping (backward Euler / Crank-Nicolson) for
+Counterpart of ``spectral_tpu/models/heat.py``: implicit theta-scheme time stepping (backward Euler / Crank-Nicolson) for
 
     u_t = Laplace(u) + f,   u|boundary = g (time-independent),
 
@@ -16,8 +15,12 @@ The JAX package's ``rollout`` is one ``lax.scan``; here it is a host loop
 over the same step.  The steps that take dt as an argument
 (``step_theta_dt``, ``step_bdf2_dt``) are the substrate of
 ``solvers/ts.py``: the preconditioner is the shift-free fast
-diagonalization applied with the run-time shift.  Curved domains
-(``phi=``) raise naming ROADMAP item 6.  ``step_diff`` is the step
+diagonalization applied with the run-time shift.  On a curved domain
+(``phi=``, ``ops/curvilinear.py``) the Laplacian is in conservative metric
+form, the step solve is GMRES (the metric operator is not symmetric) and
+its preconditioner one V-cycle on the shifted separable metric stencil
+(1/dt + theta * stencil), the hierarchy built once shift-free and shifted
+at run time (``Multigrid.shift_state``).  ``step_diff`` is the step
 differentiable in its inputs (an implicit adjoint solve, not autograd
 through the Krylov loop).
 """
@@ -54,22 +57,31 @@ class HeatModel:
     neumann_axes: tuple = ()
 
     def __post_init__(self):
-        if self.phi is not None:
-            raise NotImplementedError("HeatModel(phi=...) is not ported yet "
-                                      "(ROADMAP.md queue 1, item 6: curvilinear)")
-        if self.neumann_axes:
-            if len(self.neumann_axes) >= self.grid.ndim:
-                raise ValueError("at least one axis must stay Dirichlet "
-                                 "(all-Neumann diffusion is singular)")
-            if self.ksp.type == "cg":
-                # the one-sided Neumann rows are nonsymmetric: CG (the
-                # default) is invalid; GMRES with the same tolerances
-                object.__setattr__(self, "ksp", dataclasses.replace(self.ksp, type="gmres"))
+        if self.neumann_axes and len(self.neumann_axes) >= self.grid.ndim:
+            raise ValueError("at least one axis must stay Dirichlet "
+                             "(all-Neumann diffusion is singular)")
+        if (self.cmap is not None or self.neumann_axes) and self.ksp.type == "cg":
+            # the metric operator and the one-sided Neumann rows are
+            # nonsymmetric: CG (the default) is invalid; GMRES with the
+            # same tolerances
+            object.__setattr__(self, "ksp", dataclasses.replace(self.ksp, type="gmres"))
+
+    @cached_property
+    def cmap(self):
+        """The CurvilinearMap of ``phi`` (None without one)."""
+        if self.phi is None:
+            return None
+        if self.grid.intervals is not None or self.grid.maps is not None:
+            raise ValueError("curvilinear heat needs an unmapped Grid")
+        from spectral_tpu_torch.ops.curvilinear import CurvilinearMap
+        return CurvilinearMap.build(self.grid, self.phi)
 
     def laplacian(self, u: torch.Tensor) -> torch.Tensor:
         """Spectral Laplacian with homogeneous rows at the boundary (the
         solution's boundary values are held by the Dirichlet data)."""
         g = self.grid
+        if self.cmap is not None:
+            return g.zero_boundary(self.cmap.laplacian(u))
         y = torch.zeros_like(u)
         for ax in range(g.ndim):
             du = g.apply_dif_weight(chebdiff(u, ax), ax)
@@ -104,13 +116,21 @@ class HeatModel:
     def _bc_rows(self, y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """Overwrite the boundary rows of an interior result: identity
         Dirichlet rows; on insulated faces the outward spectral
-        derivative (index 0 = +1, outward +ax; the last, -ax)."""
+        derivative (index 0 = +1, outward +ax; the last, -ax), on a curved
+        domain the outward conormal flux sum_j A_{ax j} d_j u (the mapped
+        face's physical normal flux)."""
         g = self.grid
         y = torch.where(g.boundary_mask, u, y)
         if self.neumann_axes:
             masks, _ = self._nm_masks
+            if self.cmap is not None:
+                A = self.cmap.field("Acoef", u.dtype, u.device)
+                grads = [chebdiff(u, j) for j in range(g.ndim)]
             for ax in self.neumann_axes:
-                du = g.apply_dif_weight(chebdiff(u, ax), ax)
+                if self.cmap is None:
+                    du = g.apply_dif_weight(chebdiff(u, ax), ax)
+                else:
+                    du = sum(A[..., ax, j] * grads[j] for j in range(g.ndim))
                 y = torch.where(masks[(ax, "lo")], du, y)
                 y = torch.where(masks[(ax, "hi")], -du, y)
         return y
@@ -134,7 +154,74 @@ class HeatModel:
 
     @cached_property
     def _pc_apply(self):
-        return self._fastdiag(1.0 / self.dt, self.theta).apply
+        if self.cmap is None:
+            return self._fastdiag(1.0 / self.dt, self.theta).apply
+        # the shift-free theta-scaled metric hierarchy, shifted by 1/dt: the
+        # fixed-dt and the dt-argument steps solve the same surrogate
+        mg, state0, folds = self._mgc_theta
+        state = mg.shift_state(state0, 1.0 / self.dt)
+        return lambda r: self._metric_pc_apply(mg, state, folds, r)
+
+    # ------------------------------------------------------------------
+    # Curved domains: the metric multigrid surrogate (shift-free
+    # hierarchies; zero-flux faces eliminated as in ops/fastdiag.py)
+    # ------------------------------------------------------------------
+    def _curved_mg(self, c: float):
+        """(mg, shift-free state, folds) of c * (-(1/detJ) d_l(A_ll d_l .))
+        with the insulated faces' couplings eliminated into the adjacent
+        centers on every level.  ``folds[ax]``: the 1-D end spacings and
+        the c-scaled fold-coefficient fields of the finest level
+        (``_metric_pc_apply``)."""
+        from spectral_tpu_torch.ops.curvilinear import (metric_surrogate_builder,
+                                                        metric_surrogate_folds)
+        from spectral_tpu_torch.ops.multigrid import Multigrid
+
+        nm = tuple(self.neumann_axes)
+        base = metric_surrogate_builder(self.grid.ndim, nm)
+
+        def builder(grid, coeffs):
+            S = base(grid, coeffs)
+            return dataclasses.replace(
+                S, center=torch.where(grid.interior_mask, c * S.center, S.center),
+                lower=tuple(c * lo for lo in S.lower), upper=tuple(c * up for up in S.upper))
+
+        mg = Multigrid.build(self.grid, builder=builder)
+        coeffs = self.cmap.pc_coeffs()
+        folds = {ax: (h_lo, c * f_lo, h_hi, c * f_hi)
+                 for ax, (h_lo, f_lo, h_hi, f_hi)
+                 in metric_surrogate_folds(self.grid, coeffs, nm).items()}
+        return mg, mg.setup(coeffs), folds
+
+    @cached_property
+    def _mgc_theta(self):
+        return self._curved_mg(self.theta)
+
+    @cached_property
+    def _mgc_unit(self):
+        return self._curved_mg(1.0)
+
+    def _metric_pc_apply(self, mg, state, folds, r: torch.Tensor) -> torch.Tensor:
+        """A V-cycle with zero-flux face elimination: the face residuals,
+        scaled by h / A_ff, fold into the adjacent interior rows; after the
+        solve the face values are reconstructed (u_face = u_adj + (h/A_ff)
+        r_face), masks and rolls only, as FastDiagSolver.apply does."""
+        if not folds:
+            return mg.vcycle(state, r)
+        masks, _ = self._nm_masks
+        A = self.cmap.field("Acoef", r.dtype, r.device)
+        reff, srs = r, {}
+        for ax, (h_lo, f_lo, h_hi, f_hi) in folds.items():
+            a = A[..., ax, ax]
+            s_lo = torch.where(masks[(ax, "lo")], (h_lo / a) * r, 0.0)
+            s_hi = torch.where(masks[(ax, "hi")], (h_hi / a) * r, 0.0)
+            srs[ax] = (s_lo, s_hi)
+            reff = reff - f_lo * torch.roll(s_lo, 1, ax) - f_hi * torch.roll(s_hi, -1, ax)
+        z = mg.vcycle(state, reff)
+        for ax in folds:
+            s_lo, s_hi = srs[ax]
+            z = torch.where(masks[(ax, "lo")], torch.roll(z, -1, ax) + s_lo, z)
+            z = torch.where(masks[(ax, "hi")], torch.roll(z, 1, ax) + s_hi, z)
+        return z
 
     def _step_rhs(self, u: torch.Tensor, f: torch.Tensor, dirichlet: torch.Tensor):
         """(initial guess, rhs) of the theta-scheme step A u_next = rhs.
@@ -210,8 +297,18 @@ class HeatModel:
     # ------------------------------------------------------------------
     def _traced_pc(self, c: float, shift: float):
         """r -> z preconditioner of (shift - c * Laplace): the shift-free
-        fastdiag applied with the run-time ``shift``.  ``c``: theta for the
+        fastdiag applied with the run-time ``shift``, or on a curved domain
+        the shift-free metric hierarchy shifted by it.  ``c``: theta for the
         theta step, 1.0 for BE/BDF2."""
+        if self.cmap is not None:
+            if c == self.theta:
+                mg, state0, folds = self._mgc_theta
+            elif c == 1.0:
+                mg, state0, folds = self._mgc_unit
+            else:
+                mg, state0, folds = self._curved_mg(c)
+            state = mg.shift_state(state0, shift)
+            return lambda r: self._metric_pc_apply(mg, state, folds, r)
         if c == self.theta:
             fd = self._fd0_theta
         elif c == 1.0:

@@ -8,8 +8,11 @@ diagonalization, with the manufactured solution u = prod_j cos(pi x_j / 2).
 Operator paths:
 - composed (default): ``chebdiff`` per axis; on CUDA the last-axis
   derivatives run kernel K1 (``method="auto"`` or ``"kernel"``).
-- ``method="kernel"`` on a 3-D grid: the fused Laplacian, kernel K2,
-  one pass over the field with the boundary select in its epilogue.
+- ``method="kernel"`` on a 3-D grid without axis maps: the fused
+  Laplacian, kernel K2, one pass over the field with the boundary select
+  in its epilogue.  On a mapped grid (``Grid(maps=...)``) the chain-rule
+  weights apply per node between the two derivatives, so the operator
+  takes the composed path.
 """
 
 from __future__ import annotations
@@ -47,11 +50,14 @@ class PoissonModel:
     def operator(self, u: torch.Tensor) -> torch.Tensor:
         """y = -sum_j D_j(D_j u); boundary rows y_b = u_b."""
         g = self.grid
-        if self.method == "kernel" and g.ndim == 3:
+        # K2 takes a constant per-axis scale: a mapped grid's per-node
+        # weights sit between the two derivatives, so it takes K1's
+        # composition instead
+        if self.method == "kernel" and g.ndim == 3 and g.maps is None:
             from spectral_tpu_torch.ops.cuda_cheb import laplacian3d
             s2 = g.deriv_scale_np ** 2
             return laplacian3d(u, bmask=g.boundary_mask, scales=tuple(s2))
-        wgt = g.apply_dif_weight  # affine chain rule (identity if unmapped)
+        wgt = g.apply_dif_weight  # the chain rule (identity if unmapped)
         y = torch.zeros_like(u)
         for ax in range(g.ndim):
             y = y - wgt(chebdiff(wgt(chebdiff(u, ax, self.method), ax),

@@ -1,7 +1,6 @@
 """Stokes saddle-point model with non-Newtonian rheology.
 
-Counterpart of ``spectral_tpu/models/stokes.py`` (flat domains).  The
-system is
+Counterpart of ``spectral_tpu/models/stokes.py``.  The system is
 
     [ VV  VP ] [v]   [f_v]        VV: Newton-linearized viscous operator
     [ PV  0  ] [p] = [f_p]        PV: divergence, VP: pressure gradient
@@ -49,8 +48,17 @@ Newton with parameter continuation (stokes.C:217-235).
   (``solvers/adjoint.py``), preconditioned by ``make_pc(adjoint=True)``,
   the nested tree with every block transposed by ``torch.func.vjp``.
 
-Parameter families, curved domains and the pencil mesh raise
-``NotImplementedError`` naming their ROADMAP item.
+- ``phi`` solves on the curved domain Phi([-1,1]^d) (``ops/curvilinear.py``):
+  gradients and the strain take the inverse-Jacobian chain rule
+  d/dx_j = Jinv[l,j] d/dxi_l, divergences the conservative (Piola)
+  cofactor form (1/detJ) d_xi_l(cofactor[l,j] F_j), boundary normals and
+  tractions are physical, and the multigrid and nodal velocity PCs
+  rediscretize the separable metric surrogate (``pcvel="mg"`` is the
+  curved default of the CLI); the metric fields are float64 masters cast
+  once per dtype, as the boundary data are.
+
+Parameter families and the pencil mesh raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -131,8 +139,18 @@ class StokesProblem:
                  mesh=None, phi: Callable | None = None):
         if mesh is not None:
             raise _todo("StokesProblem(mesh=...)", "item 7: parallel")
+        self.cmap = None
         if phi is not None:
-            raise _todo("StokesProblem(phi=...)", "item 6: curvilinear")
+            if grid.intervals is not None or grid.maps is not None:
+                raise ValueError("curvilinear Stokes needs an unmapped Grid; "
+                                 "fold affine/axis maps into phi")
+            from spectral_tpu_torch.ops.curvilinear import CurvilinearMap
+            self.cmap = CurvilinearMap.build(grid, phi)
+            # float64 masters of the metric fields, cast once per dtype by _c
+            self.Jinv_np = self.cmap.Jinv
+            self.cofactor_np = self.cmap.cofactor
+            self.detJ_np = self.cmap.detJ
+            self.Acoef_np = self.cmap.Acoef
         self.grid = grid
         self.config = config
         self.d = grid.ndim
@@ -152,11 +170,19 @@ class StokesProblem:
         g, d = self.grid, self.d
         cfg = self.config
         bmask = g.boundary_mask_np
-        coords_b = g.coords_np[bmask]
-        normal_np = g.normal_np
-        out = SE.BOUNDARY_FUNCS[cfg.boundary](coords_b, normal_np[bmask],
-                                              SE.EXACT_SOLUTIONS[cfg.exact],
-                                              full_traction=cfg.traction_p)
+        coords_b = g.coords_np[bmask]   # reference coordinates
+        bf = SE.BOUNDARY_FUNCS[cfg.boundary]
+        exact_fn = SE.EXACT_SOLUTIONS[cfg.exact]
+        if self.cmap is None:
+            normal_np = g.normal_np
+            out = bf(coords_b, normal_np[bmask], exact_fn, full_traction=cfg.traction_p)
+        else:
+            # the node types from the reference coordinates; values and
+            # tractions at the physical nodes with the physical normals
+            normal_np = self.cmap.boundary_normal()
+            out = bf(coords_b, g.normal_np[bmask], exact_fn,
+                     phys_coords=self.cmap.coords[bmask], phys_normals=normal_np[bmask],
+                     full_traction=cfg.traction_p)
         # boundary funcs may return an inhomogeneous normal-flux field
         # (manufactured sliding, boundary 5): v.n = vnormal at MIXED nodes
         if len(out) == 4:
@@ -198,10 +224,14 @@ class StokesProblem:
         # the principal normal axis (or axes, tied at edges and corners) of
         # every mixed/Neumann node, for the one-sided rows of the velocity
         # PC (stokes.C:1183-1199): float64, as the JAX package takes it,
-        # so every dtype picks the same rows
-        oh = np.where(nm_mask[..., None], 1.0, 0.0) * np.abs(normal_np) \
-            / np.maximum(np.max(np.abs(normal_np), -1, keepdims=True), 1e-14)
+        # so every dtype picks the same rows.  On a curved domain the axis
+        # and the inward side come from the reference cube's normal (the
+        # one-sided row must step to a neighbour on the grid).
+        ref_normal = g.normal_np if self.cmap is not None else normal_np
+        oh = np.where(nm_mask[..., None], 1.0, 0.0) * np.abs(ref_normal) \
+            / np.maximum(np.max(np.abs(ref_normal), -1, keepdims=True), 1e-14)
         nm_onehot = (oh >= 1.0).astype(np.float64)
+        self.ref_normal_np = ref_normal
 
         # float64 host masters; tensors per dtype come from _c
         self.types_np = types
@@ -255,9 +285,15 @@ class StokesProblem:
                 f"    {gv}/{g.size * d} velocity    {dv} dirichlet"
                 f"    {self.num_mixed} mixed")
 
+    @property
+    def coords_phys_np(self) -> np.ndarray:
+        """(dims..., d) float64 physical node positions (the reference
+        coordinates on an unmapped domain)."""
+        return self.grid.coords_np if self.cmap is None else self.cmap.coords
+
     def _setup_exact_and_force(self):
         d = self.d
-        value, rhs = SE.EXACT_SOLUTIONS[self.config.exact](self.grid.coords_np)
+        value, rhs = SE.EXACT_SOLUTIONS[self.config.exact](self.coords_phys_np)
         rhs_v = np.where(self.nm_mask_np[..., None], self.bc_vel_np, rhs[..., :d])
         self.exact_v_np = np.where(self.vel_mask_np, value[..., :d], 0.0)
         self.exact_p_np = np.where(self.p_mask_np, value[..., d], 0.0)
@@ -348,8 +384,12 @@ class StokesProblem:
     # Differential pieces
     # ------------------------------------------------------------------
     def _grad_tensor(self, vL: torch.Tensor) -> torch.Tensor:
-        """G[..., j, k] = d v_k / d x_j."""
-        return torch.stack([self._dif(vL, j) for j in range(self.d)], dim=-2)
+        """G[..., j, k] = d v_k / d x_j (Jinv[l, j] d/dxi_l on a curved
+        domain)."""
+        G = torch.stack([self._dif(vL, j) for j in range(self.d)], dim=-2)
+        if self.cmap is not None:
+            G = torch.einsum("...lj,...lk->...jk", self._c("Jinv", G.dtype), G)
+        return G
 
     def _strain(self, vL: torch.Tensor) -> torch.Tensor:
         G = self._grad_tensor(vL)
@@ -357,19 +397,31 @@ class StokesProblem:
 
     def _tensor_divergence(self, flux: torch.Tensor) -> torch.Tensor:
         """y_k = sum_j d flux[..., j, k] / d x_j (summed from j = 0, as the
-        JAX package sums onto zeros)."""
+        JAX package sums onto zeros); the Piola form on a curved domain."""
+        if self.cmap is not None:
+            flux = torch.einsum("...lj,...jk->...lk", self._c("cofactor", flux.dtype), flux)
         y = self._dif(flux[..., 0, :], 0)
         for j in range(1, self.d):
             y = y + self._dif(flux[..., j, :], j)
+        if self.cmap is not None:
+            y = y / self._c("detJ", y.dtype)[..., None]
         return y
 
-    def divergence(self, vG: torch.Tensor, with_dirichlet: bool) -> torch.Tensor:
-        """StokesDivergence (stokes.C:569-595)."""
-        vL = self.local_velocity(vG, with_dirichlet)
+    def _piola_div(self, vL: torch.Tensor) -> torch.Tensor:
+        """Masked continuity rows of a full velocity field: sum_i d v_i/d x_i,
+        the conservative Piola form on a curved domain."""
+        if self.cmap is not None:
+            vL = torch.einsum("...li,...i->...l", self._c("cofactor", vL.dtype), vL)
         div = self._dif(vL[..., 0], 0)
         for i in range(1, self.d):
             div = div + self._dif(vL[..., i], i)
+        if self.cmap is not None:
+            div = div / self._c("detJ", div.dtype)
         return self.mask_p(div)
+
+    def divergence(self, vG: torch.Tensor, with_dirichlet: bool) -> torch.Tensor:
+        """StokesDivergence (stokes.C:569-595)."""
+        return self._piola_div(self.local_velocity(vG, with_dirichlet))
 
     def pressure_gradient(self, pG: torch.Tensor) -> torch.Tensor:
         """VP block (stokes.C:598-619): reduce the pressure order, take the
@@ -379,6 +431,8 @@ class StokesProblem:
         cfg = self.config
         pL = pressure_reduce_order(self.mask_p(pG), self.grid.nodes_1d)
         gp = torch.stack([self._dif(pL, i) for i in range(self.d)], dim=-1)
+        if self.cmap is not None:
+            gp = torch.einsum("...li,...l->...i", self._c("Jinv", gp.dtype), gp)
         if self.num_mixed:
             gp = torch.where(self._nm_v, 0.0, gp)
         if cfg.traction_p and self.num_neumann > 0:
@@ -431,8 +485,10 @@ class StokesProblem:
                 print(f"Minimum eta = {float(torch.min(eta)):.3e}   "
                       f"Maximum eta = {float(torch.max(eta)):.3e}")
             Fv = rows + self.pressure_gradient(xG["p"])
-            # div v is the trace of the strain already computed
-            Fp = self._div_from_strain(S)
+            # div v is the trace of the strain already computed; a curved
+            # domain keeps the conservative Piola divergence
+            Fp = (self._div_from_strain(S) if self.cmap is None
+                  else self.divergence(xG["v"], with_dirichlet=True))
             dt = Fv.dtype
             F = {"v": Fv - self._c("force_v", dt), "p": Fp - self._c("force_p", dt)}
             return F, (eta, deta, S)
@@ -470,9 +526,12 @@ class StokesProblem:
 
     def jacobian_action(self, x, lin_state, w) -> dict:
         """Full block matvec (StokesMatMult, stokes.C:497-519); the PV row
-        reuses the VV row's strain (its trace is the divergence)."""
+        reuses the VV row's strain (its trace is the divergence), except on
+        a curved domain, which keeps the Piola divergence."""
         yv, Sw = self._vv_core(lin_state, w["v"])
-        return {"v": yv + self.pressure_gradient(w["p"]), "p": self._div_from_strain(Sw)}
+        Fp = (self._div_from_strain(Sw) if self.cmap is None
+              else self.divergence(w["v"], with_dirichlet=False))
+        return {"v": yv + self.pressure_gradient(w["p"]), "p": Fp}
 
     # ------------------------------------------------------------------
     # Null space (StokesRemoveConstantPressure, stokes.C:1006-1025)
@@ -510,12 +569,23 @@ class StokesProblem:
 
         return builder
 
+    def _vel_mg_coeffs(self, eta: torch.Tensor) -> dict:
+        """The velocity multigrid's coefficient fields: eta, and on a curved
+        domain the metric surrogate's (``CurvilinearMap.pc_coeffs``)."""
+        if self.cmap is None:
+            return {"eta": eta}
+        return self.cmap.pc_coeffs(eta)
+
     @cached_property
     def _vel_mg(self):
         from spectral_tpu_torch.models.stokes_pc import velocity_fd_stencil
         from spectral_tpu_torch.ops.multigrid import Multigrid
 
-        base = self._mg_builder(velocity_fd_stencil)
+        if self.cmap is None:
+            base = self._mg_builder(velocity_fd_stencil)
+        else:   # -(1/detJ) d_l(eta A_ll d_l .), cross terms dropped
+            from spectral_tpu_torch.ops.curvilinear import metric_surrogate_builder
+            base = metric_surrogate_builder(self.d)
         sigma = self.config.mass_shift
         if not sigma:
             return Multigrid.build(self.grid, builder=base, smoother=self.config.pcvel_smoother)
@@ -531,31 +601,59 @@ class StokesProblem:
     @cached_property
     def _vel_mg_nodal(self):
         """-pcvel 3 (StokesPCSetUp3, stokes.C:1569-1641): one V-cycle on the
-        nodal Jacobian stencil, rediscretized per level."""
+        nodal Jacobian stencil, rediscretized per level; on a curved domain
+        the nodal residual of the metric form (eta A_ll flux coefficients,
+        1/detJ row scale)."""
         from spectral_tpu_torch.models.stokes_pc import nodal_jacfwd_stencil
         from spectral_tpu_torch.ops.multigrid import Multigrid
 
-        return Multigrid.build(self.grid, builder=self._mg_builder(nodal_jacfwd_stencil),
-                               smoother=self.config.pcvel_smoother)
+        if self.cmap is None:
+            builder = self._mg_builder(nodal_jacfwd_stencil)
+        else:
+            d = self.d
+
+            def builder(grid, coeffs):
+                eta = coeffs.get("eta")
+                if eta is None:
+                    eta = torch.ones(grid.dims, dtype=grid.dtype, device=grid.device)
+                return nodal_jacfwd_stencil(
+                    grid, eta, caxes=[eta * coeffs[f"metric_a{ax}"] for ax in range(d)],
+                    row_scale=1.0 / coeffs["metric_detJ"])
+        return Multigrid.build(self.grid, builder=builder, smoother=self.config.pcvel_smoother)
 
     def _mixed_fd_stencil(self, eta: torch.Tensor):
         """The FD velocity surrogate with the one-sided traction rows,
         scaled like the residual's mixed rows (scaleM*(scaleN*traction +
-        alpha*v), stokes.C:1183-1200), in eta's dtype."""
+        alpha*v), stokes.C:1183-1200), in eta's dtype.  On a curved domain
+        the interior rows take the metric coefficients eta A_ll with the
+        1/detJ row scale, and the traction rows are scaled by |(Jinv n)_ax|
+        (the physical normal derivative along the principal reference
+        axis, which and whose inward side the reference normal picks)."""
         from spectral_tpu_torch.models.stokes_pc import velocity_fd_stencil
 
         cfg = self.config
         dt = eta.dtype
         normal = self._c("normal", dt)
+        nm_oh = self._c("nm_onehot", dt)
+        kwargs = {}
+        if self.cmap is not None:
+            A = self._c("Acoef", dt)
+            nu = torch.einsum("...lk,...k->...l", self._c("Jinv", dt), normal)
+            kwargs = dict(caxes=[eta * A[..., ax, ax] for ax in range(self.d)],
+                          row_scale=1.0 / self._c("detJ", dt),
+                          nscale=torch.clamp_min(torch.sum(nm_oh * torch.abs(nu), dim=-1),
+                                                 1e-14))
         return velocity_fd_stencil(
             self.grid, eta, scaleN=cfg.scaleM * cfg.scaleN, nm_mask=self.nm_mask,
-            nm_onehot=self._c("nm_onehot", dt), normal=normal, ref_normal=normal,
-            alpha=cfg.scaleM * self._c("alpha", dt))
+            nm_onehot=nm_oh, normal=normal, ref_normal=self._c("ref_normal", dt),
+            alpha=cfg.scaleM * self._c("alpha", dt), **kwargs)
 
     @cached_property
     def _nm_axes(self) -> tuple:
-        """Axes that are a principal normal of some mixed/Neumann node."""
-        oh = np.where(self.nm_mask_np[..., None], np.abs(self.normal_np), 0.0)
+        """Axes that are a principal normal of some mixed/Neumann node (the
+        reference cube's normal on a curved domain, as the stencil's
+        one-sided rows take it)."""
+        oh = np.where(self.nm_mask_np[..., None], np.abs(self.ref_normal_np), 0.0)
         mx = oh.max(axis=-1, keepdims=True)
         return tuple(ax for ax in range(self.d)
                      if bool(((oh[..., ax] >= mx[..., 0]) & (oh[..., ax] > 0)).any()))
@@ -704,14 +802,15 @@ class StokesProblem:
         if pcvel == "mg":
             mg = self._vel_mg
             if mixed:
-                return (lambda ls: (mg.setup({"eta": ls[0]}), self._mixed_line_state(ls[0])),
+                return (lambda ls: (mg.setup(self._vel_mg_coeffs(ls[0])),
+                                    self._mixed_line_state(ls[0])),
                         lambda st, r: self._mixed_line_correct(
                             st[1], self.mask_v(mg.vcycle(st[0], r)), r))
-            return (lambda lin_state: mg.setup({"eta": lin_state[0]}),
+            return (lambda lin_state: mg.setup(self._vel_mg_coeffs(lin_state[0])),
                     lambda vstate, r: self.mask_v(mg.vcycle(vstate, r)))
         if pcvel == "nodal":
             mg = self._vel_mg_nodal
-            return (lambda lin_state: mg.setup({"eta": lin_state[0]}),
+            return (lambda lin_state: mg.setup(self._vel_mg_coeffs(lin_state[0])),
                     lambda vstate, r: self.mask_v(mg.vcycle(vstate, r)))
         if pcvel == "jacobi":
             from spectral_tpu_torch.models.stokes_pc import velocity_fd_stencil
@@ -724,8 +823,10 @@ class StokesProblem:
 
             def setup(lin_state):
                 eta, deta, S = lin_state
+                # isoparametric elements on the physical nodes of a curved domain
                 A = assemble_q1_strain(self.grid, eta, deta, S, self.vel_mask,
-                                       zeroN=cfg.zeroN, zeroV=cfg.zeroV)
+                                       zeroN=cfg.zeroN, zeroV=cfg.zeroV,
+                                       coords=None if self.cmap is None else self.cmap.coords)
                 return A, 1.0 / eta[..., None], self._q1_fastdiag(eta.dtype)
 
             def apply(state, r):
@@ -1106,6 +1207,9 @@ class StokesProblem:
         normal, onehot = self.normal_np, self.in_onehot_np
         alpha, bc_vel, bc_vnormal = self.alpha_np, self.bc_vel_np, self.bc_vnormal_np
         force_v, force_p = self.force_np["v"], self.force_np["p"]
+        Jinv = None if self.cmap is None else self.cmap.Jinv
+        CT = None if self.cmap is None else self.cmap.cofactor
+        detJ = None if self.cmap is None else self.cmap.detJ
         E_T = [_reduce_matrix_np(tuple(float(v) for v in g.nodes_1d[ax])).T
                for ax in range(d)]
 
@@ -1140,13 +1244,18 @@ class StokesProblem:
             vL = recover(np.where(vel_mask, x["v"], 0.0))
             vL = np.where(dmask[..., None], bc_vel, vL)
             G = np.stack([apply_w(chebdiff_np(vL, j), j) for j in range(d)], axis=-2)
+            if Jinv is not None:
+                G = np.einsum("...lj,...lk->...jk", Jinv, G)
             S = 0.5 * (G + np.swapaxes(G, -1, -2))
             gamma = 0.5 * np.sum(S * S, axis=(-1, -2))
             eta, deta = rheology_hi(gamma)
             flux = eta[..., None, None] * S
+            tflux = flux if CT is None else np.einsum("...lj,...jk->...lk", CT, flux)
             yv = np.zeros_like(vL)
             for j in range(d):
-                yv = yv - apply_w(chebdiff_np(flux[..., j, :], j), j)
+                yv = yv - apply_w(chebdiff_np(tflux[..., j, :], j), j)
+            if detJ is not None:
+                yv = yv / detJ[..., None]
             if self.num_mixed:
                 traction = np.einsum("...jk,...k->...j", flux, normal)
                 load = cfg.scaleN * traction + alpha[..., None] * vL
@@ -1157,14 +1266,19 @@ class StokesProblem:
                 yv = np.where(nm[..., None], rows, yv)
             pL = reduce_order(np.where(p_mask, x["p"], 0.0))
             gp = np.stack([apply_w(chebdiff_np(pL, i), i) for i in range(d)], axis=-1)
+            if Jinv is not None:
+                gp = np.einsum("...li,...l->...i", Jinv, gp)
             gp = np.where(nm[..., None], 0.0, gp)
             if cfg.traction_p and self.num_neumann > 0:
                 rows = cfg.scaleM * cfg.scaleN * (-pL[..., None] * normal)
                 gp = np.where(neumann[..., None], rows, gp)
             Fv = np.where(vel_mask, yv + gp, 0.0) - force_v
+            w = vL if CT is None else np.einsum("...li,...i->...l", CT, vL)
             div = np.zeros(g.dims, np.float64)
             for i in range(d):
-                div = div + apply_w(chebdiff_np(vL[..., i], i), i)
+                div = div + apply_w(chebdiff_np(w[..., i], i), i)
+            if detJ is not None:
+                div = div / detJ
             Fp = np.where(p_mask, div, 0.0) - force_p
             return {"v": Fv, "p": Fp}
 

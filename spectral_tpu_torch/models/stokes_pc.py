@@ -23,11 +23,6 @@ from spectral_tpu_torch.grid import Grid
 from spectral_tpu_torch.ops.stencil import StencilOp, _bcast_axis, anisotropic_fd_stencil, shift
 
 
-def _curvilinear(name: str):
-    return NotImplementedError(f"{name}: curved domains are not ported yet "
-                               "(ROADMAP.md queue 1, item 6: curvilinear)")
-
-
 def velocity_fd_stencil(grid: Grid, eta: torch.Tensor, *,
                         scaleN: float = 1.0,
                         nm_mask: torch.Tensor | None = None,
@@ -43,14 +38,22 @@ def velocity_fd_stencil(grid: Grid, eta: torch.Tensor, *,
     one-sided differences toward the inward neighbour along that axis,
     scaled by scaleN (plus ``alpha`` on the diagonal for sliding).
     ``ref_normal`` picks the inward side (defaults to ``normal``; the two
-    coincide on flat domains).  Runs in eta's dtype on eta's device; the
-    curved-domain arguments (``caxes``, ``row_scale``, ``nscale``) raise."""
-    if caxes is not None or row_scale is not None or nscale is not None:
-        raise _curvilinear("velocity_fd_stencil(caxes/row_scale/nscale)")
+    coincide on flat domains; on a curved domain it is the reference
+    cube's normal: the inward neighbour is a fact of the grid's topology).
+    Runs in eta's dtype on eta's device.
+
+    Curved domains: ``caxes`` / ``row_scale`` switch the interior rows to
+    the anisotropic metric coefficients eta * A_ll with the 1/detJ row
+    scale, and ``nscale`` (per node) scales the one-sided traction rows by
+    |(Jinv n)_ax|, the physical normal derivative pulled back to the
+    principal reference axis."""
     d = grid.ndim
-    S = anisotropic_fd_stencil(grid, [eta] * d)
+    S = anisotropic_fd_stencil(grid, caxes if caxes is not None else [eta] * d,
+                               row_scale=row_scale)
     if nm_mask is None or normal is None:
         return S
+    if nscale is not None:
+        eta = eta * nscale   # scales only the one-sided traction rows below
     dtype, device = eta.dtype, eta.device
     if ref_normal is None:
         ref_normal = normal
@@ -91,12 +94,14 @@ def nodal_jacfwd_stencil(grid: Grid, eta: torch.Tensor, *,
     neighbourhood [center, (minus, plus) per axis], by
     ``torch.func.jacfwd`` under ``torch.func.vmap`` over the nodes.  Its
     rows are the stencil coefficients, so it equals velocity_fd_stencil.
-    Runs in eta's dtype on eta's device; ``caxes``/``row_scale`` (curved
-    domains) raise."""
-    if caxes is not None or row_scale is not None:
-        raise _curvilinear("nodal_jacfwd_stencil(caxes/row_scale)")
+    Runs in eta's dtype on eta's device.  ``caxes`` (per-axis coefficient
+    fields, eta * A_ll on a curved domain) and ``row_scale`` (1/detJ) make
+    it the nodal residual of the anisotropic metric form (the curved
+    -pcvel 3)."""
     d = grid.ndim
     dtype, device = eta.dtype, eta.device
+    if caxes is None:
+        caxes = [eta] * d
     idxM, idxP, idx = [], [], []
     for ax in range(d):
         z = grid.nodes_1d[ax]
@@ -108,18 +113,20 @@ def nodal_jacfwd_stencil(grid: Grid, eta: torch.Tensor, *,
         for out, v in ((idxM, a), (idxP, b), (idx, c)):
             out.append(torch.as_tensor(np.broadcast_to(_bcast_axis(v, ax, d), grid.dims).copy(),
                                        dtype=dtype, device=device))
-    etaM = [0.5 * (shift(eta, ax, -1) + eta) for ax in range(d)]
-    etaP = [0.5 * (shift(eta, ax, +1) + eta) for ax in range(d)]
+    etaM = [0.5 * (shift(caxes[ax], ax, -1) + caxes[ax]) for ax in range(d)]
+    etaP = [0.5 * (shift(caxes[ax], ax, +1) + caxes[ax]) for ax in range(d)]
+    rs = (torch.ones(grid.dims, dtype=dtype, device=device) if row_scale is None
+          else row_scale.to(dtype))
 
-    def nodal_residual(vel, iM, iP, ix, eM, eP):
+    def nodal_residual(vel, iM, iP, ix, eM, eP, rs):
         """vel: the (2d+1,) neighbourhood [v0, vM_0, vP_0, vM_1, ...];
-        the rest: this node's per-axis coefficients."""
+        the rest: this node's per-axis coefficients and row scale."""
         r = 0.0
         for ax in range(d):
             vM_ = iM[ax] * (vel[0] - vel[1 + 2 * ax])
             vP_ = iP[ax] * (vel[2 + 2 * ax] - vel[0])
             r = r - ix[ax] * (eP[ax] * vP_ - eM[ax] * vM_)
-        return r   # residual[i] -= idx*(eP*vP - eM*vM), stokes.C:1681
+        return rs * r   # residual[i] -= idx*(eP*vP - eM*vM), stokes.C:1681
 
     jac = torch.func.jacfwd(nodal_residual)   # (2d+1,) coefficient row a node
     zero = torch.zeros(2 * d + 1, dtype=dtype, device=device)
@@ -127,8 +134,8 @@ def nodal_jacfwd_stencil(grid: Grid, eta: torch.Tensor, *,
     def flat(fs):
         return torch.stack([f.reshape(-1) for f in fs], dim=0)
 
-    rows = torch.func.vmap(lambda *g: jac(zero, *g), in_dims=1)(
-        flat(idxM), flat(idxP), flat(idx), flat(etaM), flat(etaP))
+    rows = torch.func.vmap(lambda *g: jac(zero, *g), in_dims=(1, 1, 1, 1, 1, 0))(
+        flat(idxM), flat(idxP), flat(idx), flat(etaM), flat(etaP), rs.reshape(-1))
     rows = rows.reshape(grid.dims + (2 * d + 1,))
     interior = grid.interior_mask.to(device)
     center = torch.where(interior, rows[..., 0], 1.0)

@@ -1,7 +1,7 @@
 """Time-dependent (unsteady) Stokes flow (a capability extension).
 
-Counterpart of ``spectral_tpu/models/stokes_unsteady.py``
-on flat domains: implicit time stepping of
+Counterpart of ``spectral_tpu/models/stokes_unsteady.py``: implicit time
+stepping of
 
     v_t - div(eta eps(v)) + grad p = f,    div v = 0,
     v|boundary = s(t) * bc_vel   (Dirichlet, scalar time modulation),
@@ -30,8 +30,9 @@ into one program; here every rollout is a host loop over one cached step
 (its preconditioner built once).  The discrete transient adjoint
 (``adjoint_gradient``, ``adjoint_gradient_checkpointed``) sweeps back
 through the theta steps with one transposed saddle solve a step.
-``family_rollout`` raises naming ROADMAP item 7, curved domains
-(``phi=``) item 6.
+``phi`` runs the integrator on a curved domain (the strain, the Piola
+divergence and the shifted metric-multigrid velocity PC come from the
+steady model).  ``family_rollout`` raises naming ROADMAP item 7.
 """
 
 from __future__ import annotations
@@ -66,8 +67,6 @@ class UnsteadyStokes:
     scheme: str = "theta"
 
     def __post_init__(self):
-        if self.phi is not None:
-            raise _todo("UnsteadyStokes(phi=...)", "item 6: curvilinear")
         if self.scheme not in ("theta", "bdf2"):
             raise ValueError(f"unknown scheme {self.scheme!r} (theta|bdf2)")
         if not (0.0 < self.theta <= 1.0):
@@ -123,7 +122,8 @@ class UnsteadyStokes:
 
     @cached_property
     def problem(self) -> StokesProblem:
-        return StokesProblem(self.grid, dataclasses.replace(self.config, mass_shift=self.sigma))
+        return StokesProblem(self.grid, dataclasses.replace(self.config, mass_shift=self.sigma),
+                             phi=self.phi)
 
     # -- spatial blocks on FULL velocity fields (boundary values baked) ----
     def _momentum_rows(self, vfull, params=None):
@@ -137,12 +137,18 @@ class UnsteadyStokes:
         return self._momentum_rows(vfull, params)[0]
 
     def _div_full(self, vfull: torch.Tensor) -> torch.Tensor:
-        """Masked continuity rows of a full field."""
+        """Masked continuity rows of a full field (the conservative Piola
+        form on a curved domain)."""
+        return self.problem._piola_div(vfull)
+
+    def _div_rows(self, lin_state, v1_full: torch.Tensor) -> torch.Tensor:
+        """The step residual's continuity rows: the trace of the strain
+        _viscous_rows computed (bitwise the divergence on Cartesian grids),
+        the Piola divergence on a curved domain."""
         p = self.problem
-        div = torch.zeros(p.grid.dims, dtype=vfull.dtype, device=vfull.device)
-        for i in range(p.d):
-            div = div + p._dif(vfull[..., i], i)
-        return p.mask_p(div)
+        if p.cmap is None:
+            return p.project_p(p._div_from_strain(lin_state[2]))
+        return p.project_p(self._div_full(v1_full))
 
     def _bc_ext(self, s) -> torch.Tensor:
         p = self.problem
@@ -197,9 +203,7 @@ class UnsteadyStokes:
             N0 = p._viscous_rows(v0_full, params)[0]
         Fv = (p.mask_v(sigma * (v1_full - v0_full)) + N1
               + ((1.0 - th) / th) * N0 - fbar / th + p.pressure_gradient(x["p"]))
-        # div == strain trace (bitwise on Cartesian grids)
-        Fp = p.project_p(p._div_from_strain(lin_state[2]))
-        return {"v": Fv, "p": Fp}, lin_state
+        return {"v": Fv, "p": self._div_rows(lin_state, v1_full)}, lin_state
 
     def _newton_loop(self, residual, x0, pc_setup, pc_apply):
         """The Newton-on-step loop shared by the theta and BDF2 power-law
@@ -294,8 +298,7 @@ class UnsteadyStokes:
         N1, lin_state = p._viscous_rows(v1_full, params)
         Fv = (p.mask_v(sigma * v1_full - (4.0 * v0_full - vm1_full) / (2.0 * dt))
               + N1 - f1 + p.pressure_gradient(x["p"]))
-        Fp = p.project_p(p._div_from_strain(lin_state[2]))
-        return {"v": Fv, "p": Fp}, lin_state
+        return {"v": Fv, "p": self._div_rows(lin_state, v1_full)}, lin_state
 
     def step_bdf2(self, v0_full, vm1_full, s1: float, f1, x0=None):
         """Advance one BDF2 step from (v_{n-1}, v_n) to v_{n+1}.  ``s1``

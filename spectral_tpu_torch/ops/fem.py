@@ -36,11 +36,6 @@ from spectral_tpu_torch.ops.stencil import shift
 from spectral_tpu_torch.ops.tensorops import apply_axis_matmul
 
 
-def _curvilinear(name: str):
-    return NotImplementedError(f"{name}(coords=...): isoparametric elements are not ported "
-                               "yet (ROADMAP.md queue 1, item 6: curvilinear)")
-
-
 def fem1d_matrices_np(z: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """1-D P1 stiffness and consistent-mass tridiagonals on interior nodes.
 
@@ -267,8 +262,8 @@ def assemble_q1_strain(grid: Grid, eta: torch.Tensor, deta: torch.Tensor,
                        S: torch.Tensor, vel_mask: torch.Tensor, *,
                        zeroN: int = 0, zeroV: float = 1.0,
                        order: int = 3, coords=None) -> Q1StrainStencil:
-    """StokesPCSetUp1 (stokes.C:1244-1456) on flat domains, any d, in eta's
-    dtype on its device.
+    """StokesPCSetUp1 (stokes.C:1244-1456), any d, in eta's dtype on its
+    device.
 
     The element loop becomes einsums over the element grid: for every
     element (the cell with origin node el) the 2^d x 2^d x d x d
@@ -283,9 +278,13 @@ def assemble_q1_strain(grid: Grid, eta: torch.Tensor, deta: torch.Tensor,
     coupled stencil.  Rows and columns at non-free velocity dofs are
     dropped; the element mass is lumped and the result row-scaled by
     1/lump (stokes.C:1412-1418, 1449-1450); -zeroN/-zeroV filters the
-    first zeroN free dofs symmetrically (stokes.C:1420-1432)."""
-    if coords is not None:
-        raise _curvilinear("assemble_q1_strain")
+    first zeroN free dofs symmetrically (stokes.C:1420-1432).
+
+    ``coords`` ((dims..., d) physical node positions) switches to
+    isoparametric Q1 elements for curved domains: the geometry Jacobian
+    J_g(q, el) = sum_t x[el+t] (x) grad_ref(hat_t)(q) at every quadrature
+    point, the test gradients transformed by its inverse and |det J_g(q)|
+    in every quadrature weight (the lumped mass included)."""
     d = grid.ndim
     dims = grid.dims
     edims = tuple(n - 1 for n in dims)
@@ -298,16 +297,31 @@ def assemble_q1_strain(grid: Grid, eta: torch.Tensor, deta: torch.Tensor,
 
     sl0 = tuple(slice(0, -1) for _ in range(d))
     eta_el, deta_el, S_el = eta[sl0], deta[sl0], S[sl0]
-    # tensor-product cells: diagonal geometry Jacobian J_ii = 0.5 (x_{el+1} -
-    # x_el) per axis (signed), constant per cell
-    Me = np.einsum("q,tq,rq->tr", W, B, B)  # element mass (x |J|)
-    Jd = [0.5 * (grid.nodes_1d[ax][1:] - grid.nodes_1d[ax][:-1]) for ax in range(d)]
-    inv2h = torch.stack([t(_bcast_np(1.0 / Jd[ax], ax, edims)).expand(edims)
-                         for ax in range(d)])
-    Jdet = t(np.abs(_outer_np(Jd, edims)))
-    # real-coordinate test gradients: dtest[i, t, q, el] = G[i,t,q] / J_ii
-    dtest = t(G).reshape((d, T, Q) + (1,) * d) * inv2h[:, None, None]
-    Wq = t(W).reshape((Q,) + (1,) * d)        # |J| applied at the end
+    Me = Me_el = None
+    if coords is None:
+        # tensor-product cells: diagonal geometry Jacobian J_ii = 0.5 (x_{el+1}
+        # - x_el) per axis (signed), constant per cell
+        Me = np.einsum("q,tq,rq->tr", W, B, B)  # element mass (x |J|)
+        Jd = [0.5 * (grid.nodes_1d[ax][1:] - grid.nodes_1d[ax][:-1]) for ax in range(d)]
+        inv2h = torch.stack([t(_bcast_np(1.0 / Jd[ax], ax, edims)).expand(edims)
+                             for ax in range(d)])
+        Jdet = t(np.abs(_outer_np(Jd, edims)))
+        # real-coordinate test gradients: dtest[i, t, q, el] = G[i,t,q] / J_ii
+        dtest = t(G).reshape((d, T, Q) + (1,) * d) * inv2h[:, None, None]
+        Wq = t(W).reshape((Q,) + (1,) * d)        # |J| applied at the end
+    else:
+        # isoparametric cells: J_g[q, el, i, j] = sum_t x[el+t, i] G[j, t, q]
+        xphys = t(coords)
+        xc = torch.stack([xphys[tuple(slice(tc[ax], tc[ax] + edims[ax]) for ax in range(d))]
+                          for tc in corners])     # (T, edims, d)
+        Gt = t(G)
+        Jg = torch.einsum("t...i,jtq->q...ij", xc, Gt)   # (Q, edims, d, d)
+        Jg_inv = torch.linalg.inv(Jg)
+        # dtest[i, t, q, el] = sum_j G[j,t,q] Jg_inv[q, el, j, i]
+        dtest = torch.einsum("jtq,q...ji->itq...", Gt, Jg_inv)
+        Wq = t(W).reshape((Q,) + (1,) * d) * torch.abs(torch.linalg.det(Jg))
+        Me_el = torch.einsum("q...,tq,rq->tr...", Wq, t(B), t(B))
+        Jdet = torch.ones(edims, dtype=dtype, device=dev)   # |J| is in Wq and Me_el
     # eta term: 0.5 (delta_ab sum_i dtest_i dtrial_i + dtest_b dtrial_a)
     Adot = torch.einsum("q...,itq...,irq...->tr...", Wq, dtest, dtest)
     P = torch.einsum("q...,btq...,arq...->tarb...", Wq, dtest, dtest)
@@ -332,7 +346,8 @@ def assemble_q1_strain(grid: Grid, eta: torch.Tensor, deta: torch.Tensor,
             blk = torch.movedim(Ae[ti, :, ri, :], (0, 1), (-2, -1))
             coef[off][row_sl] += blk * colm[..., None, :]   # masked columns dropped
             # lumped mass: the sum over this element's free trial dofs
-            acc = acc + float(Me[ti, ri]) * torch.sum(colm, dim=-1, keepdim=True)
+            me = float(Me[ti, ri]) if Me is not None else Me_el[ti, ri][..., None]
+            acc = acc + me * torch.sum(colm, dim=-1, keepdim=True)
         lump[row_sl] += acc * Jdet[..., None]
 
     # drop masked rows, then row-scale by 1/lump (stokes.C:1449-1450)
@@ -379,9 +394,9 @@ def q1_strain_dense_np(grid: Grid, eta: np.ndarray, deta: np.ndarray,
     quadrature point from the symmetrized strain basis tensors themselves
     (E[t, a] = sym(e_a (x) grad phi_t), Ae += w |J| (eta E:E' + deta
     (E:S)(E':S))), then scattered dof pair by dof pair; independent of the
-    factored einsums of the assembly."""
-    if coords is not None:
-        raise _curvilinear("q1_strain_dense_np")
+    factored einsums of the assembly.  ``coords`` switches to isoparametric
+    elements (the geometry Jacobian at every quadrature point from the
+    physical corner positions)."""
     d = grid.ndim
     dims = grid.dims
     size = int(np.prod(dims))
@@ -409,8 +424,14 @@ def q1_strain_dense_np(grid: Grid, eta: np.ndarray, deta: np.ndarray,
         Ael = np.zeros((len(corners), d, len(corners), d))
         Mel = np.zeros((len(corners), len(corners)))
         for qi in range(len(quads)):
-            qw = Jdet * wq[qi]
-            g = grad[:, qi] / J                                 # (T, d) real gradients
+            if coords is None:
+                qw = Jdet * wq[qi]
+                g = grad[:, qi] / J                             # (T, d) real gradients
+            else:
+                Jg = sum(np.outer(np.asarray(coords[tuple(el[ax] + t[ax] for ax in range(d))]),
+                                  grad[ti, qi]) for ti, t in enumerate(corners))
+                qw = abs(float(np.linalg.det(Jg))) * wq[qi]
+                g = grad[:, qi] @ np.linalg.inv(Jg)
             E = 0.5 * (eye[None, :, :, None] * g[:, None, None, :]
                        + g[:, None, :, None] * eye[None, :, None, :])   # E[t, a, i, j]
             ES = np.einsum("taij,ij->ta", E, S_e)

@@ -133,7 +133,10 @@ class Multigrid:
             new_dims = tuple(max(3, (n + 1) // 2) for n in dims)
             if new_dims == dims:
                 break
-            grids.append(Grid(new_dims, intervals=grid.intervals,
+            # a mapped grid's coarse levels carry the map itself, rediscretized
+            maps_c = (None if grid.maps is None
+                      else tuple(m.restrict(n) for m, n in zip(grid.maps, new_dims)))
+            grids.append(Grid(new_dims, intervals=grid.intervals, maps=maps_c,
                               device=grid.device, dtype=grid.dtype))
         Ps, Rcs = [], []
         for fine, coarse in zip(grids[:-1], grids[1:]):

@@ -79,7 +79,9 @@ def multigrid_from_numpy(grid: Grid, prolong, restrict_coeff, **cfg):
     grids = [grid]
     for lvl in prolong:
         dims = tuple(int(np.shape(P)[1]) for P in lvl)
-        grids.append(Grid(dims, intervals=grid.intervals, device=grid.device,
+        maps = (None if grid.maps is None
+                else tuple(m.restrict(n) for m, n in zip(grid.maps, dims)))
+        grids.append(Grid(dims, intervals=grid.intervals, maps=maps, device=grid.device,
                           dtype=grid.dtype))
     return Multigrid.from_transfers(tuple(grids), prolong, restrict_coeff, **cfg)
 
@@ -211,3 +213,23 @@ def optimize_result_to_numpy(res) -> dict:
     return {"x": pytree_to_numpy(res.x), "f": float(res.f), "gnorm": float(res.gnorm),
             "iters": int(res.iters), "nfev": int(res.nfev), "reason": int(res.reason),
             "history": [float(h) for h in res.history]}
+
+
+def axis_map_from_numpy(x, w):
+    """An AxisMap from a JAX AxisMap's node positions and weights (its
+    ``x`` and ``w`` tuples, or numpy arrays)."""
+    from spectral_tpu_torch.ops.mapping import AxisMap
+
+    return AxisMap(tuple(float(v) for v in np.asarray(x, np.float64)),
+                   tuple(float(v) for v in np.asarray(w, np.float64)))
+
+
+def curvilinear_map_from_numpy(grid: Grid, coords, detJ, Acoef, Jinv):
+    """A CurvilinearMap on ``grid`` from a JAX CurvilinearMap's float64
+    fields (its ``coords``, ``detJ``, ``Acoef`` and ``Jinv``); the
+    cofactor follows from the coordinates, as in the JAX package."""
+    from spectral_tpu_torch.ops.curvilinear import CurvilinearMap
+
+    return CurvilinearMap(grid=grid, coords=np.array(coords, np.float64),
+                          detJ=np.array(detJ, np.float64), Acoef=np.array(Acoef, np.float64),
+                          Jinv=np.array(Jinv, np.float64))

@@ -94,6 +94,17 @@ Sections (all by default), each one JSON line:
 - ``recycle12``: the recycled Stokes pair at 12^3 that
   ``tests/test_torch_gpu.py`` holds the card to, from the zero state and
   from perturbed starts; a few minutes.
+- ``curved``: the paths of ``chip_smoke.py``'s phase 15 (``CURVED_ORACLE``):
+  the mapped 64^3 Poisson solves, the ``poisson``, ``elliptic``,
+  ``stokes`` and ``heat`` command lines with ``-map``, the refined and
+  FAS elliptic solves, bench.py's curved Stokes trio, the 20^2 parity
+  pair, the nodal and q1fem velocity PCs, the curved-Neumann cell (the
+  command line and ``solve_refined_fused``) and the unsteady rollout;
+  ``CURVED_PARTS`` splits it into parts a process can take
+  (``python3 -c 'import stokes_oracle as s; ...'``); ``curvedcpu`` the
+  lines of ``CURVED_CPU``'s small command lines (stokes and ustokes with
+  ``-map``), which ``tests/test_torch_curvilinear.py`` holds the port's
+  CLI to.
 """
 
 from __future__ import annotations
@@ -997,6 +1008,302 @@ def perturbed_adjoint52():
         yield adjoint52(size, seed)
         jax.clear_caches()
 
+
+# -- phase 15: curved domains -------------------------------------------------
+# The JAX package's numbers on chip_smoke.py's phase 15 paths (CURVED_ORACLE
+# there), float64: 15a the tensor-product axis maps at 64^3, 15b-15d and
+# 15f the command lines, 15c the refined and FAS elliptic solves, 15d the
+# bench.py bench_stokes_curved trio (float64 here), the 20^2 parity pair
+# and the nodal / q1fem velocity PCs at 14^2, 15e the curved-Neumann cell
+# (the command line, then solve_refined_fused of its problem), 15g the
+# unsteady rollout.
+CURVED_CLI = {
+    "15b poisson bump 32^3": ("poisson", ["-m", "32", "-n", "32", "-p", "32", "-map", "bump:0.08",
+                                          "-ksp_rtol", "1e-10"]),
+    "15b poisson annulus 32^2": ("poisson", ["-m", "32", "-n", "32", "-map", "annulus:1:2",
+                                             "-ksp_rtol", "1e-10"]),
+    "15c elliptic README:69": ("elliptic", ["-dim", "16,16", "-exact", "0", "-gamma", "1",
+                                            "-map", "bump:0.08", "-debug", "1"]),
+    "15c elliptic 32^3 mg3": ("elliptic", ["-dim", "32,32,32", "-gamma", "1", "-pc_type", "mg3",
+                                           "-map", "bump:0.08", "-debug", "1"]),
+    "15d stokes README:68": ("stokes", ["-exact", "1", "-dim", "16,16", "-map", "annulus:1:2"]),
+    "15d stokes 3d": ("stokes", ["-exact", "1", "-dim", "14,14,14", "-map", "bump:0.06"]),
+    "15d stokes powerlaw 3d": ("stokes", ["-exact", "0", "-boundary", "3", "-rheology", "1",
+                                          "-exponent", "3", "-eps", "1e-3", "-cont", "2",
+                                          "-dim", "10,10,10", "-map", "bump:0.05"]),
+    "15e neumann": ("stokes", ["-exact", "1", "-boundary", "1", "-tbc", "1", "-traction_p", "1",
+                               "-dim", "20,20", "-map", "bump:0.06", "-ksp_type", "fgmres",
+                               "-ksp_rtol", "1e-10"]),
+    "15f heat README:70": ("heat", ["-dim", "18,18", "-dt", "0.5", "-theta", "1", "-nsteps", "30",
+                                    "-map", "bump:0.08"]),
+    "15f heat 24^3": ("heat", ["-dim", "24,24,24", "-theta", "0.5", "-nsteps", "10",
+                               "-map", "bump:0.08"]),
+}
+
+
+def run_curved_cli(name, driver, argv) -> dict:
+    """The JAX ``driver`` on ``argv``: the printed lines, the error, and
+    the counts of the solves it ran (captured as it runs); a stokes run
+    also the interior divergence of its solution."""
+    from spectral_tpu.cli import drivers
+    from spectral_tpu.models.curvilinear import CurvilinearPoisson
+    from spectral_tpu.models.stokes import StokesProblem
+    from spectral_tpu.utils.options import Options
+
+    got, problems = [], []
+    orig_cp, orig_cont = CurvilinearPoisson.solve, StokesProblem.solve_continuation
+
+    def cp_solve(self, *a, **kw):
+        got.append(orig_cp(self, *a, **kw))
+        return got[-1]
+
+    def cont(self, *a, **kw):
+        problems.append(self)
+        got.extend(orig_cont(self, *a, **kw))
+        return got
+
+    CurvilinearPoisson.solve, StokesProblem.solve_continuation = cp_solve, cont
+    main = {"poisson": drivers.poisson_main, "elliptic": drivers.elliptic_main,
+            "stokes": drivers.stokes_main, "heat": drivers.heat_main}[driver]
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(Options(argv))
+        seconds = time.perf_counter() - t0
+    finally:
+        CurvilinearPoisson.solve, StokesProblem.solve_continuation = orig_cp, orig_cont
+    out = buf.getvalue()
+    row = {"name": name, "argv": " ".join([driver, *argv]), "rc": rc, "seconds": seconds,
+           "lines": out.splitlines()}
+    if driver == "poisson":
+        m = re.search(r"Norm of error (\S+) iterations (\d+)", out)
+        row.update(error=float(m.group(1)), iters=int(m.group(2)), reason=int(got[-1].reason))
+    elif driver == "elliptic":
+        row.update(newton=int(re.search(r"nonlinear iterations = (\d+)", out).group(1)),
+                   reason=re.search(r"termination: (\S+)", out).group(1),
+                   krylov=[int(k) for k in re.search(r"per Newton step: \[([\d, ]*)\]",
+                                                     out).group(1).split(",")],
+                   error=float(re.search(r"Norm of error\s*: abs = (\S+)", out).group(1)))
+    elif driver == "stokes":
+        p, res = problems[-1], got[-1]
+        div = p.divergence(res.x["v"], with_dirichlet=True)
+        row.update(**_counts(got), total_krylov=sum(sum(k) for k in _counts(got)["krylov"]),
+                   error=float(re.search(r"Norm of error\s*: abs = (\S+)", out).group(1)),
+                   divergence=float(jnp.max(jnp.abs(div))))
+    else:
+        row["error"] = float(re.search(r"Norm of error vs analytic decay (\S+)", out).group(1))
+    return row
+
+
+def _axis_maps(n: int, beta: float = 1.5):
+    from spectral_tpu.ops.mapping import AxisMap
+
+    return (AxisMap.tanh_cluster(0.0, 2.0, n, beta), AxisMap.kte(0.0, 1.0, n, 0.9),
+            AxisMap.affine(0.0, 1.0, n))
+
+
+def curved_axis_maps() -> list:
+    """15a: PoissonModel on the mapped 64^3 grid (tanh_cluster beta 1.5,
+    kte 0.9, affine), fastdiag; mg there fails to build (the 4-node level's
+    restricted tanh map is not monotone, recorded as ``mg_error``), so mg
+    runs with beta 1.4, the largest tenth that restricts."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.poisson import PoissonModel
+
+    rows = []
+    for pc, beta in (("fastdiag", 1.5), ("mg", 1.5), ("mg", 1.4)):
+        m = PoissonModel(Grid((64, 64, 64), maps=_axis_maps(64, beta)))
+        u, f = m.exact_solution()
+        t0 = time.perf_counter()
+        try:
+            r = m.solve(m.rhs(u, f), pc_type=pc)
+        except ValueError as e:
+            rows.append({"name": f"15a {pc} beta {beta}", "mg_error": str(e)})
+            continue
+        rows.append({"name": f"15a {pc} beta {beta}", "iters": int(r.iters),
+                     "reason": int(r.reason), "error": float(jnp.max(jnp.abs(r.x - u))),
+                     "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def curved_elliptic() -> list:
+    """15c: EllipticModel.solve_refined at 16^2 bump:0.08 (pc mg), x64 off
+    for its float32 stage, as ``refined`` runs bench.py's; FAS at 25^2
+    bump:0.08 to rtol 1e-8."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.elliptic import EllipticModel
+    from spectral_tpu.ops.curvilinear import named_map
+    from spectral_tpu.solvers.fas import FASSolver
+
+    t0 = time.perf_counter()
+    with jax.enable_x64(False):
+        m = EllipticModel(Grid((16, 16)), gamma=1.0, exponent=2.0, phi=named_map("bump:0.08"))
+        u, b, dr = m.setup_problem_np(exact=0)
+        x, info = m.solve_refined(b, dr, rtol=1e-10, pc_type="mg")
+    rows = [{"name": "15c refined", "newton32": int(info["newton32"].iters),
+             "newton32_reason": info["newton32"].reason_str(),
+             "refine_history": info["refine_history"],
+             "refine_inner": info["refine_inner_iters"],
+             "rel_residual": info["rel_residual"], "error": float(np.max(np.abs(x - u))),
+             "seconds": time.perf_counter() - t0}]
+
+    def factory(dims):
+        return EllipticModel(Grid(dims), gamma=1.0, exponent=2.0, phi=named_map("bump:0.08"))
+
+    fm = factory((25, 25))
+    u, b, d = fm.setup_problem(exact=0, cos_scale=1.0)
+    t0 = time.perf_counter()
+    fas = FASSolver(factory, (25, 25), b, d)
+    r = fas.solve(rtol=1e-8, max_cycles=60)
+    rows.append({"name": "15c fas", "cycles": int(r.iters), "reason": int(r.reason),
+                 "error": float(jnp.max(jnp.abs(r.x - u))), "omega": float(fas.omega),
+                 "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def curved_stokes() -> list:
+    """15d: bench.py's bench_stokes_curved trio in float64 (annulus 8^2
+    and 14^2, flat 14^2: exact 1, pcvel mg, Newton rtol 1e-4), the 20^2
+    parity pair (the JAX test's configuration) and the nodal and q1fem
+    velocity PCs at 14^2 on bump:0.08."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu.ops.curvilinear import named_map
+    from spectral_tpu.solvers.newton import NewtonConfig
+
+    def one(name, n, spec, **kw):
+        t0 = time.perf_counter()
+        p = StokesProblem(Grid((n, n)), StokesConfig(exact=1, **kw),
+                          phi=named_map(spec) if spec else None)
+        r = p.solve()
+        return {"name": name, **_counts([r]), "total_krylov": int(np.sum(r.ksp_iters)),
+                "error": float(p.error_vs_exact(r.x)), "seconds": time.perf_counter() - t0}
+
+    bench = dict(pcvel="mg", newton=NewtonConfig(rtol=1e-4, max_it=25))
+    return [one("15d bench annulus 8", 8, "annulus:1:2", **bench),
+            one("15d bench annulus 14", 14, "annulus:1:2", **bench),
+            one("15d bench flat 14", 14, None, **bench),
+            one("15d parity annulus 20", 20, "annulus:1:2", pcvel="mg"),
+            one("15d parity flat 20", 20, None, pcvel="mg"),
+            one("15d nodal 14", 14, "bump:0.08", pcvel="nodal"),
+            one("15d q1fem 14", 14, "bump:0.08", pcvel="q1fem")]
+
+
+def curved_fused() -> dict:
+    """15e: StokesProblem.solve_refined_fused of the curved-Neumann
+    command line's problem (its configuration as the driver builds it),
+    the float32 stages with x64 off, as ``fused`` runs bench.py's."""
+    from spectral_tpu.cli import drivers
+    from spectral_tpu.models.stokes import StokesProblem
+    from spectral_tpu.utils.options import Options
+
+    made = []
+    orig = StokesProblem.solve_continuation
+
+    def grab(self, *a, **kw):   # the driver's problem; no solve here
+        made.append(self)
+        raise RuntimeError("captured")
+
+    StokesProblem.solve_continuation = grab
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            try:
+                drivers.stokes_main(Options(CURVED_CLI["15e neumann"][1]))
+            except RuntimeError:
+                pass
+    finally:
+        StokesProblem.solve_continuation = orig
+    cfg = made[-1].config
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.ops.curvilinear import named_map
+
+    t0 = time.perf_counter()
+    try:
+        with jax.enable_x64(False):
+            p = StokesProblem(Grid((20, 20)), cfg, phi=named_map("bump:0.06"))
+            x, info = p.solve_refined_fused(rtol=1e-10)
+    except Exception as e:   # recorded: the reference may not run it
+        return {"name": "15e fused", "failed": f"{type(e).__name__}: {e}"[:2000],
+                "seconds": time.perf_counter() - t0}
+    pm = np.asarray(p.p_mask)
+    dp = np.where(pm, x["p"] - p.exact_p_np, 0.0)
+    if p.has_p_null:
+        dp -= np.where(pm, dp.sum() / pm.sum(), 0.0)
+    err = max(float(np.max(np.abs(x["v"] - p.exact_v_np))), float(np.max(np.abs(dp))))
+    return {"name": "15e fused", "refine_history": info["refine_history"],
+            "refine_steps": info["refine_steps"], "refine_inner": info["refine_inner_iters"],
+            "rel_residual": info["rel_residual"], "error": err,
+            "seconds": time.perf_counter() - t0}
+
+
+def curved_unsteady() -> dict:
+    """15g: UnsteadyStokes on bump:0.05 at 20^2, CN, dt 0.05, 5 steps (the
+    JAX test's configuration at 12^2): error, per-step outer counts, the
+    discrete divergence of the end state."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.stokes import StokesConfig
+    from spectral_tpu.models.stokes_unsteady import UnsteadyStokes
+    from spectral_tpu.ops.curvilinear import named_map
+    from spectral_tpu.solvers.krylov import KSPConfig
+
+    cfg = StokesConfig(exact=1, boundary=0, pcvel="mg",
+                       outer_ksp=KSPConfig(type="fgmres", rtol=1e-9, max_it=400, restart=100))
+    t0 = time.perf_counter()
+    m = UnsteadyStokes(Grid((20, 20)), cfg, dt=0.05, theta=0.5, phi=named_map("bump:0.05"))
+    u0, s, f, u_t, _ = m.manufactured(omega=1.0)
+    times = np.arange(6) * 0.05
+    v, _, its = m.rollout(u0, times, s, f)
+    return {"name": "15g ustokes", "per_step": [int(i) for i in np.asarray(its)],
+            "error": float(jnp.max(jnp.abs(v - u_t(times[-1])))),
+            "divergence": float(jnp.max(jnp.abs(m._div_full(v)))),
+            "seconds": time.perf_counter() - t0}
+
+
+CURVED_PARTS = {
+    "cli": lambda names=None: [run_curved_cli(k, *CURVED_CLI[k]) for k in (names or CURVED_CLI)],
+    "axis_maps": curved_axis_maps, "elliptic": curved_elliptic, "stokes": curved_stokes,
+    "fused": curved_fused, "unsteady": curved_unsteady,
+}
+
+
+def curved(parts=None):
+    """Every CURVED_PARTS entry (or ``parts``), one row a run."""
+    for part in parts or CURVED_PARTS:
+        out = CURVED_PARTS[part]()
+        yield from [out] if isinstance(out, dict) else out
+        jax.clear_caches()
+
+
+# the curved command lines at 8^2 - 10^2 whose printed lines
+# tests/test_torch_curvilinear.py holds the port's CLI to
+CURVED_CPU = {
+    "stokes annulus 8^2": ["stokes", "-exact", "1", "-dim", "8,8", "-map", "annulus:1:2"],
+    "ustokes bump 8^2": ["ustokes", "-dim", "8,8", "-dt", "0.05", "-nsteps", "3",
+                         "-map", "bump:0.05"],
+    "elliptic bump 10^2": ["elliptic", "-dim", "10,10", "-exact", "0", "-gamma", "1",
+                           "-map", "bump:0.08", "-debug", "1"],
+    "heat bump 10^2": ["heat", "-dim", "10,10", "-dt", "0.5", "-theta", "1", "-nsteps", "5",
+                       "-map", "bump:0.08"],
+}
+
+
+def curvedcpu() -> list:
+    """CURVED_CPU's command lines through the JAX drivers: the lines they print."""
+    from spectral_tpu.cli import drivers
+    from spectral_tpu.utils.options import Options
+
+    rows = []
+    for name, (driver, *argv) in CURVED_CPU.items():
+        main = {"stokes": drivers.stokes_main, "ustokes": drivers.unsteady_stokes_main,
+                "elliptic": drivers.elliptic_main, "heat": drivers.heat_main}[driver]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(Options(argv))
+        rows.append({"name": name, "rc": rc, "printed": buf.getvalue().splitlines()})
+        jax.clear_caches()
+    return rows
+
 SECTIONS = {
     "cli43": lambda: run_cli(README43),
     "cli52": lambda: run_cli(README52),
@@ -1026,6 +1333,8 @@ SECTIONS = {
     "solvers": solvers,
     "solvers_perturbed": solvers_perturbed,
     "recycle12": recycle12,
+    "curved": curved,
+    "curvedcpu": curvedcpu,
 }
 
 

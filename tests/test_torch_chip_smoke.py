@@ -30,6 +30,7 @@ def test_worker_groups_cover_every_phase_once():
     (["--serial"], chip_smoke.ALL_PHASES, chip_smoke.PARTS13, "serial"),
     (["--phases", "1,14"], {0, 1, 14}, set(), "check"),
     (["--phases", "9"], {0, 8, 9}, set(), "check"),
+    (["--phases", "15"], {0, 15}, set(), "check"),
     (["--phases", "12-13"], {0, 12, 13}, chip_smoke.PARTS13, "check"),
     (["--worker", "--phases", "3,13b-d"], {0, 3, 13}, {"b", "c", "d"}, "worker"),
     (["--worker", "--phases", "13e,13a"], {0, 13}, {"a", "e"}, "worker"),
@@ -38,7 +39,7 @@ def test_parse_args(argv, phases, parts, mode):
     assert chip_smoke.parse_args(argv) == (frozenset(phases), frozenset(parts), mode)
 
 
-@pytest.mark.parametrize("argv", [["--phases"], ["--phases", "15"], ["--worker"],
+@pytest.mark.parametrize("argv", [["--phases"], ["--phases", "16"], ["--worker"],
                                   ["--serial", "--phases", "1"], ["-x"]])
 def test_parse_args_refuses(argv):
     with pytest.raises(SystemExit):

@@ -205,11 +205,14 @@ def test_unported_options_raise():
     g = Grid((8, 8), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EllipticModel(g, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EllipticModel(g, phi=object())
+    # curved domains run (tests/test_torch_curvilinear.py); phi needs an
+    # unmapped grid, and -map excludes -domain, as in the JAX package
+    with pytest.raises(ValueError, match="unmapped Grid"):
+        _ = EllipticModel(Grid((8, 8), intervals=((0, 1), (0, 1)), device="cpu"),
+                          phi=lambda x: x).cmap
     base = ["elliptic", "-device", "cpu", "-dim", "8,8"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(t_main, base + ["-map", "bump:0.1"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        _run(t_main, base + ["-map", "bump:0.1", "-domain", "0,1,0,1"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         newton.newton_solve_family(None, None)
     # the SNES family runs (tests/test_torch_snes.py); an unknown type exits

@@ -106,8 +106,12 @@ def test_assemble_q1_strain_matches_jax_and_oracle(dims):
         _close(fem.q1_strain_dense_np(tg, eta, deta, S, vm, zeroN=5, zeroV=2.5),
                jfem.q1_strain_dense_np(JGrid(dims), eta, deta, S, vm, zeroN=5, zeroV=2.5),
                1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        fem.assemble_q1_strain(tg, *lin, torch.as_tensor(vm), coords=np.zeros(dims + (d,)))
+    # isoparametric elements on the grid's own (box) nodes are the
+    # tensor-product elements
+    ts0 = fem.assemble_q1_strain(tg, *lin, torch.as_tensor(vm))
+    iso = fem.assemble_q1_strain(tg, *lin, torch.as_tensor(vm), coords=tg.coords_np)
+    for a, b in zip(coupled_stencil_to_numpy(iso)[1], coupled_stencil_to_numpy(ts0)[1]):
+        _close(a, b, 1e-12)
 
 
 @pytest.mark.parametrize("dims", [(9, 7), (8, 7)])

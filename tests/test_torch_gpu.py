@@ -957,3 +957,41 @@ def test_k1_solver_shapes(cuda, shape):
     its plain version."""
     u = _randn(shape, torch.float64, cuda, 3)
     assert _rel(cuda_cheb.chebdiff_last(u), cuda_cheb.chebdiff_last_ref(u)) <= BOUND[torch.float64]
+
+
+def test_curved_poisson_on_card_matches_host(cuda):
+    """Curved Poisson (bump:0.08, 14^2 and 10^3): the card's metric
+    Laplacian (K1 on its last-axis derivatives) equals the host's to 1e-12,
+    and the solve takes the host's iterations to the host's error; a
+    mapped 3-D PoissonModel(method="kernel") launches K1 and never K2."""
+    from spectral_tpu_torch.models.curvilinear import CurvilinearPoisson
+    from spectral_tpu_torch.ops.curvilinear import named_map
+    from spectral_tpu_torch.ops.mapping import AxisMap
+
+    def u_fn(x):
+        return np.prod(np.cos(0.5 * np.pi * x), axis=-1)
+
+    for dims in ((14, 14), (10, 10, 10)):
+        d = len(dims)
+        out = {}
+        for dev in ("cpu", cuda):
+            cp = CurvilinearPoisson(Grid(dims, device=dev), named_map("bump:0.08"))
+            u, b = cp.manufactured(u_fn, lambda x: -d * (0.5 * np.pi) ** 2 * u_fn(x))
+            x = _randn(dims, torch.float64, dev, 3)
+            cuda_cheb.reset_launch_counts()
+            lap = cp.map.laplacian(x)
+            if dev != "cpu":
+                assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0
+            r = cp.solve(b)
+            out[str(dev)] = (lap.cpu(), r.iters, float(torch.max(torch.abs(r.x - u))))
+        (lh, ih, eh), (lc, ic, ec) = out["cpu"], out[str(cuda)]
+        assert _rel(lc, lh) <= 1e-12
+        assert abs(ic - ih) <= 1 and abs(ec - eh) <= 1e-10, (ih, ic, eh, ec)
+    maps = (AxisMap.tanh_cluster(0.0, 2.0, 12, 1.4), AxisMap.kte(0.0, 1.0, 12, 0.9),
+            AxisMap.affine(0.0, 1.0, 12))
+    cuda_cheb.reset_launch_counts()
+    PoissonModel(Grid((12, 12, 12), maps=maps, device=cuda), method="kernel").operator(
+        _randn((12, 12, 12), torch.float64, cuda, 4))
+    assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0
+    assert cuda_cheb.LAUNCHES["laplacian3d_plane_kernel"] == 0
+    assert cuda_cheb.LAUNCHES["laplacian3d_x_kernel"] == 0

@@ -173,8 +173,12 @@ def test_step_diff_vjp_matches_jax(nm):
 
 def test_heat_model_raises():
     g = Grid(DIMS, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        HeatModel(g, dt=0.1, phi=lambda x: x)
+    # a curved domain runs (tests/test_torch_curvilinear.py), with GMRES:
+    # the metric operator is not symmetric
+    assert HeatModel(g, dt=0.1, phi=lambda x: x).ksp.type == "gmres"
+    with pytest.raises(ValueError, match="curvilinear heat needs an unmapped Grid"):
+        HeatModel(Grid(DIMS, intervals=((0.0, 1.0),) * 2, device="cpu"), dt=0.1,
+                  phi=lambda x: x)
     with pytest.raises(ValueError, match="Dirichlet"):
         HeatModel(g, dt=0.1, neumann_axes=(0, 1))
 
@@ -255,5 +259,33 @@ def test_heat_cli_matches_oracle():
     assert rc == 0, out
     assert "Heat problem  dims = [16,16]  dt = 0.01  theta = 0.5  steps = 20" in out
     assert "Norm of error vs analytic decay 7.267423e-05" in out
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_main(["heat", "-device", "cpu", "-map", "bump:0.1"])
+    # -map runs (tests/test_torch_curvilinear.py holds it to the JAX
+    # driver); with -domain it is refused as the JAX driver refuses it
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        t_main(["heat", "-device", "cpu", "-map", "bump:0.1", "-domain", "0,1,0,1"])
+
+
+def test_curved_heat_step_matches_jax():
+    """HeatModel(phi=bump:0.08) at 10x9 with an insulated axis: the
+    implicit operator (Dirichlet and conormal face rows), the metric
+    multigrid PC with its zero-flux folds, and one step (GMRES: the metric
+    operator is not symmetric) against the JAX model's."""
+    neumann_axes = (1,)
+    from spectral_tpu.ops.curvilinear import named_map as j_named_map
+    from spectral_tpu_torch.ops.curvilinear import named_map
+
+    dims = (10, 9)
+    jm = JHeat(JGrid(dims), dt=0.1, phi=j_named_map("bump:0.08"), neumann_axes=neumann_axes)
+    tm = HeatModel(Grid(dims, device="cpu"), dt=0.1, phi=named_map("bump:0.08"),
+                   neumann_axes=neumann_axes)
+    assert tm.ksp.type == jm.ksp.type == "gmres"
+    xp = tm.cmap.coords
+    harm = xp[..., 0] ** 2 - xp[..., 1] ** 2
+    d = np.where(Grid(dims, device="cpu").boundary_mask_np, harm, 0.0)
+    u = np.random.default_rng(7).standard_normal(dims)
+    z = np.zeros(dims)
+    T = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    assert _rel(tm.implicit_operator(T(u)), jm.implicit_operator(jnp.asarray(u))) <= 1e-12
+    assert _rel(tm._pc_apply(T(u)), jm._pc_apply(jnp.asarray(u))) <= 1e-12
+    assert _rel(tm.step(T(u), T(z), T(d)),
+                jm.step(jnp.asarray(u), jnp.asarray(z), jnp.asarray(d))) <= 1e-10

@@ -215,3 +215,24 @@ def test_stencil_of_jax_matches_port_apply():
                     tuple(jnp.asarray(a.numpy()) for a in tS.upper))
     x = np.random.default_rng(13).standard_normal((7, 6))
     _close(tS.apply(_t(x)), jS.apply(jnp.asarray(x)))
+
+
+def test_mapped_grid_levels_and_vcycle_match_jax():
+    """On a mapped grid every coarse level carries the AxisMap.restrict of
+    the fine map: the JAX hierarchy's levels, bit for bit (the V-cycles on
+    them are held to the JAX package through the mapped Poisson solve's
+    counts, test_torch_poisson.py)."""
+    from spectral_tpu.ops.mapping import AxisMap as JAxisMap
+    from spectral_tpu_torch.ops.mapping import AxisMap
+
+    def maps(pkg, dims):
+        return (pkg.tanh_cluster(0.0, 2.0, dims[0], 1.3), pkg.kte(-1.0, 1.0, dims[1], 0.9))
+
+    dims = (33, 25)
+    jmg = JMultigrid.build(JGrid(dims, maps=maps(JAxisMap, dims)))
+    tmg = Multigrid.build(Grid(dims, maps=maps(AxisMap, dims), device="cpu"))
+    assert len(tmg.grids) == len(jmg.grids) == 3
+    for tg, jg in zip(tmg.grids, jmg.grids):
+        assert tg.dims == jg.dims
+        for tm, jm in zip(tg.maps, jg.maps):
+            assert tm.x == jm.x and tm.w == jm.w

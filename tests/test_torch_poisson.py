@@ -186,10 +186,15 @@ def test_unported_paths_raise():
     g = Grid((8, 8), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PoissonModel(g, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Grid((8, 8), maps=(None, None), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_main(["poisson", "-m", "8", "-n", "8", "-map", "bump:0.1", "-device", "cpu"])
+    # axis maps and -map run (tests/test_torch_curvilinear.py); a map per
+    # axis, and -map excludes -domain, as in the JAX package
+    from spectral_tpu_torch.ops.mapping import AxisMap
+
+    with pytest.raises(ValueError, match="one AxisMap per axis"):
+        Grid((8, 8), maps=(AxisMap.affine(0.0, 1.0, 8),), device="cpu")
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        t_main(["poisson", "-m", "8", "-n", "8", "-map", "bump:0.1", "-domain", "0,1,0,1",
+                "-device", "cpu"])
 
 
 def test_device_cuda_without_cuda_raises(monkeypatch):
@@ -226,3 +231,26 @@ def test_package_never_imports_jax():
                      r"|from spectral_tpu(\.| )(?!_torch))", re.M)
     for src in list((ROOT / "spectral_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         assert not pat.search(src.read_text()), src
+
+
+def test_mapped_poisson_solve_matches_jax():
+    """Grid(maps=...) through the Poisson model (2-D, tanh-clustered and
+    Kosloff-Tal-Ezer axes): the fastdiag solve on the physical nodes has
+    the JAX solve's count and error."""
+    from spectral_tpu.ops.mapping import AxisMap as JAxisMap
+    from spectral_tpu_torch.ops.mapping import AxisMap
+
+    dims = (14, 12)
+
+    def maps(pkg):
+        return (pkg.tanh_cluster(0.0, 2.0, dims[0], 1.5), pkg.kte(0.0, 1.0, dims[1], 0.9))
+
+    jm = JPoisson(JGrid(dims, maps=maps(JAxisMap)))
+    ju, jf = jm.exact_solution()
+    jres = jm.solve(jm.rhs(ju, jf))
+    tm = PoissonModel(Grid(dims, maps=maps(AxisMap), device="cpu"))
+    tu, tf = tm.exact_solution()
+    tres = tm.solve(tm.rhs(tu, tf))
+    assert tres.iters == int(jres.iters) and tres.reason == int(jres.reason)
+    assert abs(float(torch.max(torch.abs(tres.x - tu))) - float(jnp.max(jnp.abs(jres.x - ju)))) \
+        <= 1e-12

@@ -559,8 +559,9 @@ def test_unported_options_raise():
         StokesProblem(g, StokesConfig(mass_shift=1.0)).solve()
     with pytest.raises(NotImplementedError, match="item 7"):
         StokesProblem(g, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        StokesProblem(g, phi=lambda x: x)
+    with pytest.raises(ValueError, match="unmapped Grid"):   # curved domains run
+        StokesProblem(Grid((8, 8), intervals=((0.0, 1.0),) * 2, device="cpu"),
+                      phi=lambda x: x)
     p = StokesProblem(g, StokesConfig(exact=2))
     for fn, name in ((p.solve_family, "item 7"),
                      (lambda: p.solve_continuation(checkpoint_dir="x"), "item 8")):
@@ -571,7 +572,7 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="host-loop-only"):
         pr.solve(fused=True)
     for opt, name in (("-checkpoint_dir d", "item 8"), ("-output_vtk", "item 8"),
-                      ("-map bump:0.1", "item 6"), ("-log_summary", "item 8")):
+                      ("-map bump:0.1 -output_vtk", "item 8"), ("-log_summary", "item 8")):
         with pytest.raises(NotImplementedError, match=name):
             t_main(["stokes", "-device", "cpu", "-dim", "6,6", *opt.split()])
     # items 3c and 3d run: every pcvel, the mixed PC with tbc, the fused paths

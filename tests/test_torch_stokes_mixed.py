@@ -203,8 +203,11 @@ def test_nodal_stencil_matches_fd_and_jax(dims):
     tS = nodal_jacfwd_stencil(Grid(dims, device="cpu"), _t(eta))
     _close_stencil(tS, velocity_fd_stencil(Grid(dims, device="cpu"), _t(eta)), 1e-13)
     _close_stencil(tS, jax.jit(lambda e: j_nodal(JGrid(dims), e))(jnp.asarray(eta)), 1e-13)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        nodal_jacfwd_stencil(Grid(dims, device="cpu"), _t(eta), caxes=[_t(eta)] * len(dims))
+    # the metric form's arguments: eta in every axis and a unit row scale
+    # are the plain stencil
+    _close_stencil(nodal_jacfwd_stencil(Grid(dims, device="cpu"), _t(eta),
+                                        caxes=[_t(eta)] * len(dims),
+                                        row_scale=_t(np.ones(dims))), tS, 1e-13)
 
 
 # -- the mixed velocity PC --------------------------------------------------------

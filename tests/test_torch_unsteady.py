@@ -16,6 +16,7 @@ package): each JAX step then compiles in a third of the time.
 import contextlib
 import dataclasses
 import io
+import types
 
 import jax
 import jax.numpy as jnp
@@ -217,8 +218,10 @@ def test_unsteady_raises():
     m = UnsteadyStokes(g, StokesConfig(**LINEAR), dt=DT)
     with pytest.raises(NotImplementedError, match="item 7"):
         m.family_rollout()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        UnsteadyStokes(g, StokesConfig(**LINEAR), dt=DT, phi=lambda x: x)
+    # a curved domain runs (tests/test_torch_curvilinear.py): phi reaches
+    # the problem
+    assert UnsteadyStokes(g, StokesConfig(**LINEAR), dt=DT,
+                          phi=lambda x: x).problem.cmap is not None
     with pytest.raises(ValueError, match="Dirichlet"):
         UnsteadyStokes(g, StokesConfig(exact=2, boundary=2), dt=DT)
     with pytest.raises(ValueError, match="scheme"):
@@ -244,6 +247,35 @@ def test_ustokes_cli_matches_oracle():
             "  omega = 1.0  steps = 10") in out
     assert "Outer iterations per step: min 15  max 15" in out
     assert "Norm of error            : abs = 1.412196e-06 (time-integration)" in out
-    for opt, item in (("-map bump:0.1", "item 6"), ("-output_vtk", "item 8")):
+    for opt, item in (("-map bump:0.1 -output_vtk", "item 8"), ("-output_vtk", "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             t_main(["ustokes", "-device", "cpu", *opt.split()])
+
+
+def test_curved_cn_step_matches_jax():
+    """Crank-Nicolson steps on bump:0.05 at 8^2 (the Piola divergence of
+    the full field, the shifted metric-multigrid velocity PC) in the
+    ustokes CLI's configuration: the continuity rows against the JAX
+    package's live, and three steps against the JAX CLI's run
+    (stokes_oracle.py curvedcpu, "ustokes bump 8^2": 11 outer iterations a
+    step, end-time error 7.999803e-03)."""
+    from spectral_tpu.models.stokes import StokesProblem as JStokes
+    from spectral_tpu.ops.curvilinear import named_map as j_named_map
+    from spectral_tpu_torch.ops.curvilinear import named_map
+
+    cfg = dict(exact=1, pcvel="mg")
+    outer = dict(type="fgmres", rtol=1e-9, max_it=400, restart=100)
+    tm = UnsteadyStokes(Grid(DIMS, device="cpu"), StokesConfig(outer_ksp=KSPConfig(**outer), **cfg),
+                        dt=DT, phi=named_map("bump:0.05"))
+    # the JAX model's continuity rows on its problem alone (building the JAX
+    # integrator would set up its step's preconditioner)
+    jp = JStokes(JGrid(DIMS), JConfig(mass_shift=tm.sigma, **cfg), phi=j_named_map("bump:0.05"))
+    u0, s_of_t, f_of_t, u_of_t, _ = tm.manufactured()
+    v = np.random.default_rng(10).standard_normal(DIMS + (2,))
+    ref = JUnsteady._div_full(types.SimpleNamespace(problem=jp), jnp.asarray(v))
+    assert _rel(tm._div_full(_T(v)), ref) <= 1e-12
+    times = np.arange(4) * DT
+    vT, _, its = tm.rollout(u0, times, s_of_t, f_of_t)
+    assert [int(i) for i in its] == [11, 11, 11]
+    assert abs(float(torch.max(torch.abs(vT - u_of_t(times[-1])))) - 7.999803e-03) <= 5e-10
+
