@@ -105,17 +105,34 @@ paths at their real sizes through the entry points a user calls:
      (float32 inner solves, error <= 1e-5); (f) the ``heat`` CLI with
      ``-map``; (g) unsteady Stokes on a curved domain.  Phase 1 holds K1
      bit for bit at every shape these paths give it (K1_CURVED_SHAPES).
+ 16. batched and parallel solves in float64, gated on FAMILY_ORACLE (the
+     JAX package's counts, ``stokes_oracle.py family``) and on the card's
+     own sequential solves: (a) bench.py's stokes_family8 (8 power-law
+     exponents at 16^2) through ``solve_family``, its warm time against
+     bench.py's baseline (8 x one warm solve of member 7) and the sum of
+     the 8 warm solves, 3 repeats; (b) the curved family (annulus 10^2,
+     the metric multigrid); (c) ``family_rollout`` of 4 manufactured
+     members at 11b's 20^3 CN configuration; (d) ``solve_batched`` and
+     ``block_gmres`` on phase 3's 64^3 Poisson operator with 8 seeded
+     right-hand sides; (e) two gloo processes sharing the card
+     (``parallel/``): the pencil and the halo at 64^3, the sharded 64^3
+     Poisson solve (phase 3's 3 iterations; K2 at 0 launches, K1 on the
+     slabs), the elliptic and Stokes residual and Jacobian action.  Phase 1
+     holds K1 bit for bit at the batched shapes, directly and under
+     ``torch.func.vmap`` (K1_FAMILY_SHAPES), and at the slab shapes
+     (K1_SLAB_SHAPES).
 
 ``python3 chip_smoke.py --phases 3,8-15,13b-d`` runs phase 0 and the
 phases listed in this process (a check run: no kernels line, no result
 line).  With no argument every phase runs, as the smoke test is meant to
 run: phases 0-2, 5 and 13a first, alone on the card (they time the
-kernels), then the paths in five worker processes at once
-(``WORKER_GROUPS``), which report their launch counts back.  The workers'
+kernels), then the paths in seven worker processes at once
+(``WORKER_GROUPS``), which report their launch counts back (phase 16e's
+two processes report theirs to their worker).  The workers'
 path times are taken while the others run; ``--serial`` runs every phase
 in this process, for path times taken alone.
 
-Each path (phases 3-15) is driven with the launch counts set to 0 just
+Each path (phases 3-16) is driven with the launch counts set to 0 just
 before it and read just after (K1's forward and transposed launches also
 by shape), and times nothing inside it (a call captured in a CUDA graph counts once and launches at
 every replay); every phase raises on failure.  A timed comparison gives
@@ -130,6 +147,7 @@ comparisons; K2 as its two passes; K1^T as its own row); the last line is {"ok":
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -170,6 +188,13 @@ K1_PATH_SHAPES = ((64, 64, 64), (32, 32, 32), (12,) * 5, (20, 20, 20), (16, 16),
 # launches K1 on to be here or in K1_PATH_SHAPES
 K1_CURVED_SHAPES = ((8, 8), (13, 13), (14, 14), (17, 17), (18, 18), (20, 20), (25, 25),
                     (32, 32), (14, 14, 14), (24, 24, 24))
+# phase 16's shapes: the families' batches (K1's vmap rule, one launch a
+# batch: family8 (8, 16, 16), the curved family (3, 10, 10), the rollout
+# family (4, 20, 20, 20), the batched 64^3 Poisson (8, 64, 64, 64)), held
+# bit for bit directly and under vmap; the slabs of 16e's two processes
+# and the curved family's sequential solve, held as the curved shapes are
+K1_FAMILY_SHAPES = ((8, 16, 16), (3, 10, 10), (4, 20, 20, 20), (8, 64, 64, 64))
+K1_SLAB_SHAPES = ((32, 64, 64), (8, 12), (10, 10))
 K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
 # K3's ragged cases, each in float32 and float64: (rows, n, pack, row tile,
 # offset of u2d in its storage).  n % 4 == 0 goes by bulk copies (n = 12:
@@ -1287,6 +1312,8 @@ def timed_once(fn):
 
 K1_NAME = "chebdiff_last_kernel"
 PARTS13 = frozenset("abcde")   # phase 13's runs, 13a-13e
+PARTS16 = frozenset(f"16{c}" for c in "abcde")   # phase 16's runs, 16a-16e
+PARTS = PARTS13 | PARTS16
 
 
 class Phase13:
@@ -2245,6 +2272,372 @@ def phase15(cli_main, path, k1_shapes) -> dict:
     return out
 
 
+# phase 16: the JAX package's Newton counts of the families (stokes_oracle.py
+# family, CPU oracle): bench.py's stokes_family8 at 16^2 and the curved family
+FAMILY_ORACLE = {"family8": [1, 5, 8, 9, 12, 11, 18, 17], "curved10": [7, 18, 10]}
+FAMILY_REPEATS = 3
+
+
+def _phase16e_rank(rank: int, store: str, queue) -> None:
+    """One of phase 16e's two processes: a gloo mesh {"x": 2} over one card,
+    each process holding its slab of axis 0.  The unsharded references run
+    first, uncounted; then the sharded runs, with the launch counts set to
+    0 before them and read after (the parent adds them to the path's); then
+    the timings.  Puts (rank, record) on ``queue``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                                world_size=2)
+        from spectral_tpu_torch.grid import Grid
+        from spectral_tpu_torch.models.elliptic import EllipticModel
+        from spectral_tpu_torch.models.poisson import PoissonModel
+        from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+        from spectral_tpu_torch.ops import cuda_cheb
+        from spectral_tpu_torch.ops.chebyshev import chebdiff
+        from spectral_tpu_torch.ops.stencil import shift
+        from spectral_tpu_torch.parallel import (chebdiff_pencil, gather_tensor, halo_shift,
+                                                 make_mesh, shard_tensor)
+        from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+        dev = torch.device("cuda")
+        f64 = torch.float64
+        mesh = make_mesh({"x": 2})
+        amap = {0: "x"}
+        sh = lambda t: shard_tensor(t, mesh, amap)   # noqa: E731
+        ga = lambda t: gather_tensor(t, mesh, amap)   # noqa: E731
+        u = torch.randn((64, 64, 64), generator=torch.Generator(device=dev).manual_seed(16),
+                        device=dev, dtype=f64)
+        ksp = KSPConfig(type="gmres", rtol=1e-10, max_it=200)
+        g64 = Grid((64, 64, 64), device=dev, dtype=f64)
+        p_one = PoissonModel(g64)
+        p_sh = PoissonModel(g64, method="kernel", mesh=mesh)   # K2 guarded off the slabs
+        ue, fe = p_one.exact_solution()
+        b = p_one.rhs(ue, fe)
+        g2 = Grid((16, 12), device=dev, dtype=f64)
+        e_one, e_sh = EllipticModel(g2, gamma=1.0), EllipticModel(g2, gamma=1.0, mesh=mesh)
+        eu, eb, ed = e_one.setup_problem(exact=0)
+        s_one = StokesProblem(g2, StokesConfig(exact=2))
+        s_sh = StokesProblem(g2, StokesConfig(exact=2), mesh=mesh)
+        sx = s_one.exact_state()
+        sxl = {k: sh(v) for k, v in sx.items()}
+        # references, one process, uncounted
+        ref_dif = {ax: chebdiff(u, ax) for ax in (0, 2)}
+        ref_shift = {s: shift(u, 0, s) for s in (-1, 1)}
+        ref_solve = p_one.solve(b, ksp=ksp)
+        eF, elin = e_one.make_residual(eb, ed)(eu)
+        eJ = e_one.jacobian_action(eu, elin, eu)
+        sF, slin = s_one.make_residual(s_one.params_at(1))(sx)
+        sJ = s_one.jacobian_action(sx, slin, sx)
+        torch.cuda.synchronize()
+        dist.barrier()
+        # the sharded runs, counted
+        cuda_cheb.reset_launch_counts()
+        ul = sh(u)
+        got_dif = {ax: chebdiff_pencil(ul, ax, mesh) for ax in (0, 2)}
+        got_shift = {s: halo_shift(ul, 0, s, mesh) for s in (-1, 1)}
+        res = p_sh.solve(p_sh.local(b), ksp=ksp)
+        eFs, elins = e_sh.make_residual(sh(eb), sh(ed))(sh(eu))
+        eJs = e_sh.jacobian_action(sh(eu), elins, sh(eu))
+        sFs, slins = s_sh.make_residual(s_sh.params_at(1))(sxl)
+        sJs = s_sh.jacobian_action(sxl, slins, sxl)
+        torch.cuda.synchronize()
+        launches = dict(cuda_cheb.LAUNCHES)
+        by_shape = {f"{tuple(sp)} {str(dt)[6:]}": c
+                    for (sp, dt), c in cuda_cheb.K1_LAUNCHES_BY_SHAPE.items()}
+
+        def err(a, ref):
+            return float(torch.max(torch.abs(ga(a) - ref)))
+
+        def rel(a, ref):
+            return err(a, ref) / float(torch.max(torch.abs(ref)))
+
+        rec = {"comm_path": mesh.comm_path, "launches": launches, "k1_launches_by_shape": by_shape,
+               "pencil_rel_err": {f"axis {ax}": rel(got_dif[ax], ref_dif[ax]) for ax in (0, 2)},
+               "halo_err": {f"shift {s}": err(got_shift[s], ref_shift[s]) for s in (-1, 1)},
+               "poisson_iters": res.iters, "poisson_iters_one_process": ref_solve.iters,
+               "poisson_reason": res.reason, "poisson_x_err": err(res.x, ref_solve.x),
+               "elliptic_F_err": err(eFs, eF), "elliptic_J_err": err(eJs, eJ),
+               "stokes_F_err": max(err(sFs[k], sF[k]) for k in ("v", "p")),
+               "stokes_J_err": max(err(sJs[k], sJ[k]) for k in ("v", "p"))}
+
+        def per_call(fn, reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps
+
+        bl = p_sh.local(b)
+        rec["times_s"] = {
+            "pencil_axis0_sharded": per_call(lambda: chebdiff_pencil(ul, 0, mesh), 20),
+            "pencil_axis0_one_process": per_call(lambda: chebdiff(u, 0), 20),
+            "poisson_apply_sharded": per_call(lambda: p_sh.operator(bl), 20),
+            "poisson_apply_one_process": per_call(lambda: p_one.operator(b), 20),
+            "poisson_solve_sharded": per_call(lambda: p_sh.solve(bl, ksp=ksp), 3),
+            "poisson_solve_one_process": per_call(lambda: p_one.solve(b, ksp=ksp), 3)}
+        queue.put((rank, rec))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def phase16(path, k1_shapes, launches, parts=PARTS16) -> dict:
+    """Phase 16 (see above), the runs in ``parts`` ("16a"..."16e"): every
+    family path counted, K1 required on each; every K1 (shape, dtype) it
+    takes, 16e's processes included, held in phase 1."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.poisson import PoissonModel
+    from spectral_tpu_torch.models.rheology import PowerLawParams
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.models.stokes_unsteady import UnsteadyStokes
+    from spectral_tpu_torch.ops.curvilinear import named_map
+    from spectral_tpu_torch.solvers.krylov import KSPConfig, block_gmres
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+
+    K1 = "chebdiff_last_kernel"
+    K2 = ("laplacian3d_plane_kernel", "laplacian3d_x_kernel")
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    out = {}
+    t_part = [time.perf_counter()]
+
+    def vdiff(a, b):
+        return float(torch.max(torch.abs(a - b)))
+
+    def done(name, rec):   # each run's line as it ends, with its seconds
+        now = time.perf_counter()
+        out[name] = {**rec, "seconds": now - t_part[0]}
+        t_part[0] = now
+        print("phase16 " + json.dumps({name: out[name]}), flush=True)
+
+    if "16a" in parts:
+        # bench.py's stokes_family8: a short warm-up (one Newton step of two
+        # members), then FAMILY_REPEATS warm repeats of the family and the 8
+        # sequential solves; the first repeat is the counted path and gated
+        name = "16a family8"
+        cfg = StokesConfig(exact=2, rheology=1, newton=NewtonConfig(rtol=1e-4, max_it=25))
+        grid = Grid((16, 16), device=dev, dtype=f64)
+        fam = [PowerLawParams(1.0, 1.0 + 0.25 * i, 1e-2, 1.0) for i in range(8)]
+        warm = StokesProblem(grid, dataclasses.replace(cfg, newton=NewtonConfig(max_it=1)))
+        warm.solve_family(fam[6:])
+        warm.solve(params=fam[7])
+        p = StokesProblem(grid, cfg)
+        (res, t_fam), counts = path(name, lambda: timed_once(lambda: p.solve_family(fam)), [K1])
+        iters = [int(i) for i in res.iters]
+        require(bool((res.reason > 0).all()), f"{name}: reasons {res.reason.tolist()}")
+        require(iters == FAMILY_ORACLE["family8"],
+                f"{name}: Newton {iters}, JAX family {FAMILY_ORACLE['family8']}")
+        def sequential():   # (results, warm seconds) of the 8 solves
+            runs = [timed_once(lambda f=f: p.solve(params=f)) for f in fam]
+            return [r for r, _ in runs], [t for _, t in runs]
+
+        (seq, ts), _ = path(name + " sequential", sequential, [K1])
+        dv = [vdiff(res.x["v"][b], seq[b].x["v"]) for b in range(8)]
+        require([r.iters for r in seq] == iters,
+                f"{name}: sequential Newton {[r.iters for r in seq]}")
+        require(max(dv) <= 1e-10, f"{name}: members off their sequential solves by {dv}")
+        repeats = []
+        for rep in range(FAMILY_REPEATS):
+            if rep:
+                t_fam = timed_once(lambda: p.solve_family(fam))[1]
+                ts = [timed_once(lambda f=f: p.solve(params=f))[1] for f in fam]
+            repeats.append({"family_s": t_fam, "member7_s": ts[7], "sum8_s": sum(ts),
+                            "speedup_vs_8x_member7": 8 * ts[7] / t_fam,
+                            "speedup_vs_sum8": sum(ts) / t_fam})
+
+        def spread(key):
+            v = [r[key] for r in repeats]
+            return {"median": statistics.median(v), "min": min(v), "max": max(v)}
+
+        done(name, {"newton": iters, "oracle": FAMILY_ORACLE["family8"],
+                    "krylov": res.ksp_iters.T.tolist(), "v_vs_sequential": dv,
+                    "repeats": repeats,
+                    "speedup_vs_8x_member7": spread("speedup_vs_8x_member7"),
+                    "speedup_vs_sum8": spread("speedup_vs_sum8"),
+                    "k1_launches": counts[K1], "k1_launches_by_shape": k1_shapes[name],
+                    "sequential_k1_launches_by_shape": k1_shapes[name + " sequential"]})
+        del p, res, seq
+
+    if "16b" in parts:
+        # 16b: the curved family
+        name = "16b curved family"
+        cfg = StokesConfig(exact=0, boundary=3, rheology=1, regularization=1e-3, pcvel="mg",
+                           newton=NewtonConfig(rtol=1e-8, max_it=40))
+        p = StokesProblem(Grid((10, 10), device=dev, dtype=f64), cfg,
+                          phi=named_map("annulus:1:2"))
+        params = [PowerLawParams(1.0, e, 1e-3, 1.0) for e in (1.5, 2.0, 2.5)]
+        (res, first_s), counts = path(name, lambda: timed_once(lambda: p.solve_family(params)),
+                                      [K1])
+        iters = [int(i) for i in res.iters]
+        require(bool((res.reason > 0).all()) and iters == FAMILY_ORACLE["curved10"],
+                f"{name}: Newton {iters} {res.reason.tolist()}, "
+                f"JAX family {FAMILY_ORACLE['curved10']}")
+        (seq, seq_s), _ = path(name + " sequential",
+                               lambda: timed_once(lambda: p.solve(params=params[1])), [K1])
+        d1 = max(vdiff(res.x[k][1], seq.x[k]) for k in ("v", "p"))
+        require(seq.iters == iters[1] and d1 <= 1e-10,
+                f"{name}: member 1 {seq.iters} Newton, {d1:.3e} off its sequential solve")
+        done(name, {"newton": iters, "oracle": FAMILY_ORACLE["curved10"],
+                    "member1_vs_sequential": d1, "first_s": first_s,
+                    "sequential_member1_s": seq_s, "k1_launches": counts[K1],
+                    "k1_launches_by_shape": k1_shapes[name]})
+        del p, res, seq
+
+    if "16c" in parts:
+        # 16c: family_rollout, 4 manufactured members at 11b's 20^3 CN configuration
+        name = "16c family_rollout"
+        cfg = StokesConfig(exact=1, boundary=0, pcvel="fastdiag",
+                           outer_ksp=KSPConfig(type="fgmres", rtol=1e-9, max_it=400, restart=100))
+        m = UnsteadyStokes(Grid((20, 20, 20), device=dev, dtype=f64), cfg, dt=0.05, theta=0.5)
+        times = np.arange(11) * 0.05
+        omegas = (0.5, 1.0, 2.0, 4.0)
+        v0s, sss, fbs, exact = [], [], [], []
+        for om in omegas:
+            u0, sf, ff, uf, _ = m.manufactured(omega=om)
+            v0s.append(u0)
+            sss.append(torch.tensor([sf(t) for t in times[1:]], dtype=f64))
+            fbs.append(torch.stack([m.theta * ff(t1) + (1 - m.theta) * ff(t0)
+                                    for t0, t1 in zip(times[:-1], times[1:])]))
+            exact.append(uf(times[-1]))
+        ((vs, ps, its), first_s), counts = path(name, lambda: timed_once(lambda: m.family_rollout(
+            torch.stack(v0s), torch.stack(sss), torch.stack(fbs))), [K1])
+        (seq, seq_s), _ = path(name + " members", lambda: timed_once(
+            lambda: [m.rollout_scan(v0s[b], sss[b], fbs[b]) for b in range(4)]), [K1])
+        # the same rollouts from starts moved by 1e-14: how far round-off alone
+        # moves a member at this tolerance (ROADMAP queue 3)
+        gen = torch.Generator(device=dev).manual_seed(161)
+        pert = [m.rollout_scan(v0s[b] + m.problem.mask_v(1e-14 * torch.randn(
+            v0s[b].shape, generator=gen, device=dev, dtype=f64)), sss[b], fbs[b]) for b in range(4)]
+        per_member, own = its.tolist(), [r[2].tolist() for r in seq]
+        moved = [r[2].tolist() for r in pert]
+        dv = [vdiff(vs[b], seq[b][0]) for b in range(4)]
+        dv_pert = [vdiff(pert[b][0], seq[b][0]) for b in range(4)]
+        dp = [vdiff(ps[b], seq[b][1]) for b in range(4)]
+        dp_pert = [vdiff(pert[b][1], seq[b][1]) for b in range(4)]
+        # a step's count moves by one under the perturbation, and so does the
+        # family's; v and p within 4x the perturbation's largest move
+        steps = [abs(a - b) for fm, om_ in zip(per_member, own) for a, b in zip(fm, om_)]
+        require(max(steps) <= 1, f"{name}: counts {per_member}, members' own {own}")
+        require(max(dv) <= 4 * max(dv_pert) + 1e-12,
+                f"{name}: v off the members' own rollouts by {dv}, perturbed starts by {dv_pert}")
+        require(max(dp) <= 4 * max(dp_pert) + 1e-12,
+                f"{name}: p off the members' own rollouts by {dp}, perturbed starts by {dp_pert}")
+        done(name, {"iters": per_member, "members_own_iters": own, "perturbed_iters": moved,
+                    "v_vs_members": dv, "perturbed_v_vs_members": dv_pert,
+                    "p_vs_members": dp, "perturbed_p_vs_members": dp_pert,
+                    "error": [vdiff(vs[b], exact[b]) for b in range(4)],
+                    "members_own_error": [vdiff(seq[b][0], exact[b]) for b in range(4)],
+                    "first_s": first_s, "members_sequential_s": seq_s, "k1_launches": counts[K1],
+                    "k1_launches_by_shape": k1_shapes[name]})
+        del m, vs, ps, seq, pert, v0s, fbs
+
+    if "16d" in parts:
+        # 16d: solve_batched and block_gmres on phase 3's 64^3 Poisson operator
+        g = Grid((64, 64, 64), device=dev, dtype=f64)
+        model = PoissonModel(g)
+        M = model.build_pc("fastdiag")
+        ksp = KSPConfig(type="gmres", rtol=1e-10, max_it=200)
+        Bm = torch.randn((8, 64, 64, 64), generator=torch.Generator(device=dev).manual_seed(160),
+                         device=dev, dtype=f64)
+        name = "16d solve_batched"
+        (rb, t_b), counts = path(name, lambda: timed_once(
+            lambda: ksp.solve_batched(model.operator, Bm, M=M)), [K1])
+        (singles, t_s), _ = path("16d single solves", lambda: timed_once(
+            lambda: [ksp.solve(model.operator, Bm[i], M=M) for i in range(8)]), [K1])
+        require(rb.iters.tolist() == [r.iters for r in singles] and bool((rb.reason > 0).all()),
+                f"{name}: counts {rb.iters.tolist()}, single {[r.iters for r in singles]}")
+        dx = max(vdiff(rb.x[i], singles[i].x) for i in range(8))
+        done(name, {"iters": rb.iters.tolist(), "x_vs_single": dx, "batched_s": t_b,
+                    "single_sum_s": t_s, "k1_launches": counts[K1],
+                    "k1_launches_by_shape": k1_shapes[name]})
+        name = "16d block_gmres"
+        (rk, t_k), counts = path(name, lambda: timed_once(
+            lambda: block_gmres(model.operator, Bm, M=M, rtol=1e-10, max_it=200, restart=30)), [K1])
+        R = Bm - torch.stack([model.operator(rk.x[i]) for i in range(8)])
+        rel_pc = [float(torch.linalg.vector_norm(M(R[i])) / torch.linalg.vector_norm(M(Bm[i])))
+                  for i in range(8)]
+        rel = [float(torch.linalg.vector_norm(R[i]) / torch.linalg.vector_norm(Bm[i]))
+               for i in range(8)]
+        # the gate is the residual the solvers' rtol holds (left-preconditioned,
+        # as GMRES's); the unpreconditioned one is recorded beside the single
+        # solves' own, which the same rtol leaves at the same level
+        rel_single = [float(torch.linalg.vector_norm(Bm[i] - model.operator(singles[i].x))
+                            / torch.linalg.vector_norm(Bm[i])) for i in range(8)]
+        require(rk.reason > 0 and max(rel_pc) <= 1e-10,
+                f"{name}: reason {rk.reason}, true preconditioned residuals {rel_pc}")
+        done(name, {"block_steps": rk.iters, "operator_applications": 8 * rk.iters,
+                    "single_operator_applications": sum(r.iters for r in singles),
+                    "true_rel_residual_preconditioned": rel_pc, "true_rel_residual": rel,
+                    "single_true_rel_residual": rel_single,
+                    "block_s": t_k, "k1_launches": counts[K1],
+                    "k1_launches_by_shape": k1_shapes[name]})
+        del model, M, Bm, rb, singles, rk, R
+
+    if "16e" in parts:
+        # 16e: two gloo processes sharing the card
+        name = "16e two processes"
+        ctx = mp.get_context("spawn")
+        queue = ctx.Queue()
+        recs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = [ctx.Process(target=_phase16e_rank, args=(r, os.path.join(tmp, "store"), queue))
+                     for r in range(2)]
+            try:
+                for pr in procs:
+                    pr.start()
+                for _ in range(2):
+                    rank, rec = queue.get(timeout=600)
+                    recs[rank] = rec
+                for pr in procs:
+                    pr.join(timeout=60)
+            finally:
+                for pr in procs:
+                    if pr.is_alive():
+                        pr.kill()
+                    pr.join()
+        for rank, rec in recs.items():
+            require("error" not in rec, f"{name}: rank {rank}: {rec.get('error')}")
+        for rank in (0, 1):
+            rec = recs[rank]
+            for k, v in rec["launches"].items():
+                launches[k] += v
+            k1_shapes[f"16e rank {rank}"] = rec["k1_launches_by_shape"]
+            require(rec["launches"][K1] > 0, f"{name}: rank {rank} launched no K1")
+            require(all(rec["launches"][k] == 0 for k in K2), f"{name}: K2 launched on a slab")
+        r0 = recs[0]
+        require(max(r0["pencil_rel_err"].values()) <= 1e-12 and
+                max(r0["halo_err"].values()) == 0.0, f"{name}: pencil/halo {r0}")
+        require(r0["poisson_iters"] == r0["poisson_iters_one_process"] == 3
+                and r0["poisson_x_err"] <= 1e-9, f"{name}: Poisson {r0}")
+        require(max(r0[k] for k in ("elliptic_F_err", "elliptic_J_err", "stokes_F_err",
+                                    "stokes_J_err")) <= 1e-10, f"{name}: residuals {r0}")
+        done(name, {**{k: v for k, v in r0.items() if k not in ("launches",)},
+                    "k2_launches": [sum(recs[r]["launches"][k] for k in K2) for r in (0, 1)],
+                    "times_s_rank1": recs[1]["times_s"]})
+
+    held = {f"{s} float64" for s in K1_PATH_SHAPES + K1_CURVED_SHAPES + K1_SLAB_SHAPES
+            + K1_FAMILY_SHAPES + K1_BATCHED_SHAPES}
+    seen = {k for n, by in k1_shapes.items() if n.startswith("16") for k in by}
+    require(seen <= held, f"phase 16: K1 launched on {sorted(seen - held)}, which phase 1 "
+                          "does not hold (add them to K1_FAMILY_SHAPES or K1_SLAB_SHAPES)")
+    return out
+
+
 def stokes_krylov_range(spec: dict):
     """Per Newton step, and in total, the least and the most Krylov
     iterations among the oracle's run and its perturbed runs."""
@@ -2562,35 +2955,39 @@ def run_cli(cli_main, argv) -> tuple[int, str]:
     return rc, buf.getvalue()
 
 
-ALL_PHASES = frozenset(range(16))
+ALL_PHASES = frozenset(range(17))
 # The full run: phases 0-2, 5 and 13a in this process, so that their kernel
 # timings have the card to themselves, then the paths in worker processes
 # run at once, one a group.  The paths are host-bound (the card idles 91-99%
 # in each, PERF.md section 3), so the groups share the card and the cores
 # with little loss; they are balanced by the seconds of a serial run.
 PARENT_PHASES = "1-2,5,13a"
-WORKER_GROUPS = ("8-9", "13e", "3-4,6-7,11,13b-d", "10,12,14", "15")
+WORKER_GROUPS = ("8-9", "13e", "3-4,6-7,11,13b-d", "10,12,14", "15", "16a", "16b-e")
 # The workers end within this many seconds of the script's start.
 WORKER_DEADLINE_S = 1100.0
-USAGE = "usage: chip_smoke.py [--serial | --phases 1,3,8-15,13b-d]"
+USAGE = "usage: chip_smoke.py [--serial | --phases 1,3,8-16,13b-d,16a]"
 
 
 def parse_phases(spec: str) -> tuple[frozenset, frozenset]:
-    """``3,8-14,13b-d`` -> (phases, letters of phase 13's runs): phase 0,
-    the build, always; 9 brings 8, whose solutions 9d reuses; 13 alone is
-    13a-13e."""
+    """``3,8-14,13b-d,16a`` -> (phases, runs of phases 13 and 16: 13's by
+    letter, 16's as "16a"..."16e"): phase 0, the build, always; 9 brings 8,
+    whose solutions 9d reuses; 13 alone is 13a-13e, 16 alone 16a-16e."""
     want, parts = {0}, set()
     for part in spec.split(","):
-        m = re.fullmatch(r"13([a-e])(?:-([a-e]))?", part)
+        m = re.fullmatch(r"(13|16)([a-e])(?:-([a-e]))?", part)
         if m:
-            want.add(13)
-            parts.update(c for c in PARTS13 if m.group(1) <= c <= (m.group(2) or m.group(1)))
+            want.add(int(m.group(1)))
+            lo, hi = m.group(2), m.group(3) or m.group(2)
+            parts.update(c if m.group(1) == "13" else "16" + c
+                         for c in "abcde" if lo <= c <= hi)
             continue
         lo, _, hi = part.partition("-")
         span = range(int(lo), int(hi or lo) + 1)
         want.update(span)
         if 13 in span:
             parts.update(PARTS13)
+        if 16 in span:
+            parts.update(PARTS16)
     if 9 in want:
         want.add(8)
     unknown = want - ALL_PHASES
@@ -2600,14 +2997,14 @@ def parse_phases(spec: str) -> tuple[frozenset, frozenset]:
 
 
 def parse_args(argv: list[str]) -> tuple[frozenset, frozenset, str]:
-    """(phases, phase 13's runs, mode): no argument is the full run
+    """(phases, the runs of phases 13 and 16, mode): no argument is the full run
     ("full": the paths in concurrent workers), ``--serial`` the full run in
     this process, ``--phases`` a check run, ``--worker --phases`` one
     worker of the full run."""
     if not argv:
-        return ALL_PHASES, PARTS13, "full"
+        return ALL_PHASES, PARTS, "full"
     if argv == ["--serial"]:
-        return ALL_PHASES, PARTS13, "serial"
+        return ALL_PHASES, PARTS, "serial"
     mode = "check"
     if argv[:1] == ["--worker"]:
         mode, argv = "worker", argv[1:]
@@ -2671,9 +3068,9 @@ def run_workers(groups, deadline_s: float) -> list[dict]:
 
 def main(argv: list[str] | None = None) -> int:
     t_start = time.monotonic()
-    phases, parts13, mode = parse_args(sys.argv[1:] if argv is None else argv)
+    phases, parts, mode = parse_args(sys.argv[1:] if argv is None else argv)
     if mode == "full":   # this process's share; the rest go to the workers
-        phases, parts13 = parse_phases(PARENT_PHASES)
+        phases, parts = parse_phases(PARENT_PHASES)
     import torch
 
     if not torch.cuda.is_available():
@@ -2728,7 +3125,8 @@ def main(argv: list[str] | None = None) -> int:
         # small and ragged cases, then the shapes the paths give K1
         k1_cases = [((3, 10, 16), None), ((7, 12), None), ((5, 12), 0.25),
                     ((11, 10), None), ((4, 9, 128), None)] + [(s, None) for s in K1_PATH_SHAPES]
-        k1_curved = [(s, None) for s in K1_CURVED_SHAPES if s not in K1_PATH_SHAPES]
+        k1_curved = [(s, None) for s in K1_CURVED_SHAPES + K1_SLAB_SHAPES
+                     if s not in K1_PATH_SHAPES]
         for dtype in (torch.float32, torch.float64):
             for seed, (shape, scale) in enumerate(k1_cases):
                 u = randn(shape, dtype, seed)
@@ -2789,7 +3187,7 @@ def main(argv: list[str] | None = None) -> int:
         # bit its plain version, on the tensor and under torch.func.vmap (one launch)
         from spectral_tpu_torch.ops.chebyshev import chebdiff
 
-        for seed, shape in enumerate(K1_BATCHED_SHAPES):
+        for seed, shape in enumerate(K1_BATCHED_SHAPES + K1_FAMILY_SHAPES):
             u = randn(shape, torch.float64, 100 + seed)
             k1.append(compare("K1", lambda: cuda_cheb.chebdiff_last(u),
                               lambda: cuda_cheb.chebdiff_last_ref(u), u, f"{shape} batched"))
@@ -3295,7 +3693,8 @@ def main(argv: list[str] | None = None) -> int:
     # -- phase 13: the differentiable tier --------------------------------------
     if 13 in phases:
         t_phase = time.perf_counter()
-        phase13_out, k1t_timed = Phase13(path, k1_shapes, k1t_shapes, readme52).run(parts13)
+        phase13_out, k1t_timed = Phase13(path, k1_shapes, k1t_shapes, readme52).run(
+            parts & PARTS13)
         phase13_out["seconds"] = time.perf_counter() - t_phase
         print("phase13 " + json.dumps(phase13_out))
 
@@ -3312,6 +3711,12 @@ def main(argv: list[str] | None = None) -> int:
         phase15_out = phase15(cli_main, path, k1_shapes)
         phase15_out["seconds"] = time.perf_counter() - t_phase
         print("phase15 " + json.dumps(phase15_out))
+
+    # -- phase 16: batched and parallel solves -----------------------------------
+    if 16 in phases:
+        t_phase = time.perf_counter()
+        phase16(path, k1_shapes, launches, parts)   # prints a line a run
+        print("phase16 " + json.dumps({"seconds": time.perf_counter() - t_phase}))
 
     if mode == "worker":   # the parent adds these to its own
         print("worker " + json.dumps({"launches": launches, "k1t_shapes": k1t_shapes}))

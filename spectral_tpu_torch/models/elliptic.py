@@ -20,6 +20,10 @@ On a curved domain (``phi=``, ``ops/curvilinear.py``) the operator runs in
 metric form, -div(eta grad u) = -(1/detJ) d_l(eta A_lm d_m u) with
 A = detJ Jinv Jinv^T; the eta' Newton term contracts through the same A,
 so the model stays in reference-gradient space.
+
+With ``mesh=`` (``parallel/``) the residual and the Jacobian action run on
+this process' slab, every derivative through the pencil exchange
+(``make_dif``); the sharded Newton solve is ROADMAP item 7c.
 """
 
 from __future__ import annotations
@@ -113,15 +117,40 @@ class EllipticModel:
     gamma: float = 0.0
     exponent: float = 2.0
     method: str = "auto"   # chebdiff execution path
-    mesh: object = None
+    mesh: object = None    # parallel.mesh.Mesh: residual and Jacobian on slabs
     phi: object = None
+    sharded_axis: int = 0
+    mesh_axis: str = "x"
+    axis_map: object = None    # {grid_axis: mesh_axis} for P x Q meshes
+    pipeline_chunks: int = 1   # > 1: the chunked pencil exchange
 
     def __post_init__(self):
-        if self.mesh is not None:
+        if self.mesh is not None and (self.phi is not None or self.grid.maps is not None):
             raise NotImplementedError(
-                "EllipticModel(mesh=...) is not ported yet (ROADMAP.md queue 1, "
-                "item 7: parallel)")
+                "EllipticModel(mesh=...) on a curved or mapped domain is not ported "
+                "yet (ROADMAP.md queue 1, item 7c)")
         object.__setattr__(self, "_pc_cache", {})
+        if self.mesh is not None:
+            from spectral_tpu_torch.parallel.mesh import shard_tensor
+            from spectral_tpu_torch.parallel.pencil import make_dif
+
+            amap = self.axis_map or {self.sharded_axis: self.mesh_axis}
+            object.__setattr__(self, "_bmask", shard_tensor(self.grid.boundary_mask,
+                                                            self.mesh, amap))
+            object.__setattr__(self, "_mesh_dif", make_dif(
+                self.mesh, self.axis_map, sharded_axis=self.sharded_axis,
+                mesh_axis=self.mesh_axis, method=self.method,
+                pipeline_chunks=self.pipeline_chunks))
+
+    def _set_boundary(self, u, values):
+        if self.mesh is None:
+            return self.grid.set_boundary(u, values)
+        return torch.where(self._bmask, values, u)
+
+    def _zero_boundary(self, u):
+        if self.mesh is None:
+            return self.grid.zero_boundary(u)
+        return torch.where(self._bmask, torch.zeros((), dtype=u.dtype, device=u.device), u)
 
     @cached_property
     def cmap(self):
@@ -155,7 +184,8 @@ class EllipticModel:
         return y
 
     def _dif(self, v: torch.Tensor, axis: int) -> torch.Tensor:
-        return self.grid.apply_dif_weight(chebdiff(v, axis, self.method), axis)
+        d = chebdiff(v, axis, self.method) if self.mesh is None else self._mesh_dif(v, axis)
+        return self.grid.apply_dif_weight(d, axis)
 
     # -- coefficients ---------------------------------------------------------
     def eta(self, u):
@@ -176,13 +206,13 @@ class EllipticModel:
         g = self.grid
 
         def residual(uG):
-            u = g.set_boundary(uG, dirichlet)
+            u = self._set_boundary(uG, dirichlet)
             gradu = [self._dif(u, ax) for ax in range(g.ndim)]
             eta, deta = self.eta(u)
             flux = [eta * gu for gu in gradu]
             if self.cmap is not None:
                 flux = self._metric_flux(flux)
-            return g.zero_boundary(self._div_flux(flux)) - b, (eta, deta, gradu)
+            return self._zero_boundary(self._div_flux(flux)) - b, (eta, deta, gradu)
 
         return residual
 
@@ -217,11 +247,11 @@ class EllipticModel:
         y = -sum_j D_j flux_j, homogeneous Dirichlet on the perturbation."""
         g = self.grid
         eta, deta, gradu0 = lin_state
-        w = g.zero_boundary(wG)
+        w = self._zero_boundary(wG)
         flux = [eta * self._dif(w, ax) + deta * w * gradu0[ax] for ax in range(g.ndim)]
         if self.cmap is not None:
             flux = self._metric_flux(flux)
-        return g.zero_boundary(self._div_flux(flux))
+        return self._zero_boundary(self._div_flux(flux))
 
     # -- preconditioners ------------------------------------------------------
     def _fastdiag(self, dtype: torch.dtype) -> FastDiagSolver:

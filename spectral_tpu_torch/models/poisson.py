@@ -13,6 +13,10 @@ Operator paths:
   in its epilogue.  On a mapped grid (``Grid(maps=...)``) the chain-rule
   weights apply per node between the two derivatives, so the operator
   takes the composed path.
+- ``mesh=``: the explicit pencil path on this process' slab
+  (``parallel/``): derivatives through ``make_dif``, the fastdiag PC's
+  transforms through the pencil exchange, Krylov inner products summed
+  over the mesh.  K2 is never offered a slab.
 """
 
 from __future__ import annotations
@@ -39,17 +43,51 @@ class PoissonModel:
 
     grid: Grid
     method: str = "auto"  # chebdiff execution path; "kernel" = K1 / K2
-    mesh: object = None
+    mesh: object = None   # parallel.mesh.Mesh: the explicit pencil path on slabs
+    sharded_axis: int = 0
+    mesh_axis: str = "x"
+    axis_map: object = None   # {grid_axis: mesh_axis} for P x Q meshes
+    pipeline_chunks: int = 1  # > 1: the chunked pencil exchange
 
     def __post_init__(self):
-        if self.mesh is not None:
+        if self.mesh is not None and self.grid.maps is not None:
             raise NotImplementedError(
-                "PoissonModel(mesh=...) is not ported yet (ROADMAP.md queue 1, "
-                "item 7: parallel)")
+                "PoissonModel(mesh=...) on a mapped grid is not ported yet "
+                "(ROADMAP.md queue 1, item 7c)")
+
+    @property
+    def _axis_map(self) -> dict:
+        """The slab layout: grid axis -> mesh axis name."""
+        return self.axis_map or {self.sharded_axis: self.mesh_axis}
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This process' slab of a global grid tensor (itself without a
+        mesh)."""
+        if self.mesh is None:
+            return t
+        from spectral_tpu_torch.parallel.mesh import shard_tensor
+        return shard_tensor(t, self.mesh, self._axis_map)
+
+    @cached_property
+    def _bmask(self) -> torch.Tensor:
+        return self.local(self.grid.boundary_mask)
 
     def operator(self, u: torch.Tensor) -> torch.Tensor:
-        """y = -sum_j D_j(D_j u); boundary rows y_b = u_b."""
+        """y = -sum_j D_j(D_j u); boundary rows y_b = u_b.  With ``mesh``,
+        u is this process' slab and every derivative takes the pencil path
+        (K1 on a CUDA slab's unsharded last axis; never K2, which
+        differentiates along the sharded axis too)."""
         g = self.grid
+        if self.mesh is not None:
+            from spectral_tpu_torch.parallel.pencil import make_dif
+
+            dif = make_dif(self.mesh, self.axis_map, sharded_axis=self.sharded_axis,
+                           mesh_axis=self.mesh_axis, pipeline_chunks=self.pipeline_chunks)
+            wgt = g.apply_dif_weight
+            y = torch.zeros_like(u)
+            for ax in range(g.ndim):
+                y = y - wgt(dif(wgt(dif(u, ax), ax), ax), ax)
+            return torch.where(self._bmask, u, y)
         # K2 takes a constant per-axis scale: a mapped grid's per-node
         # weights sit between the two derivatives, so it takes K1's
         # composition instead
@@ -71,6 +109,12 @@ class PoissonModel:
     def build_pc(self, pc_type: str = "fastdiag", dtype: torch.dtype | None = None):
         """Strong PC on the FD surrogate, in ``dtype`` (default: the grid's)."""
         dtype = dtype or self.grid.dtype
+        if self.mesh is not None:
+            if pc_type != "fastdiag":
+                raise NotImplementedError(
+                    f"pc_type {pc_type!r} on a mesh is not ported yet "
+                    "(ROADMAP.md queue 1, item 7c)")
+            return self._sharded_fastdiag(dtype)
         if pc_type == "fastdiag":
             return FastDiagSolver.build(self.grid, dtype=dtype)
         if pc_type == "jacobi":
@@ -101,6 +145,42 @@ class PoissonModel:
             return None
         raise ValueError(f"unknown pc_type {pc_type!r}")
 
+    def _sharded_fastdiag(self, dtype: torch.dtype):
+        """The fastdiag apply on slabs: each axis' interior eigenvector
+        factors embedded in the full axis (zero boundary rows and columns),
+        so a transform is one per-axis product, through the pencil exchange
+        along a sharded axis (``apply_axis_pencil``); the eigenvalue sum
+        divides the interior (ones on the boundary, whose transformed
+        entries are zero), and boundary entries pass through."""
+        from spectral_tpu_torch.parallel.pencil import apply_axis_pencil
+
+        fd = FastDiagSolver.build(self.grid, dtype=dtype)
+        g, dev = self.grid, self.grid.device
+
+        def full(M):
+            n = M.shape[0] + 2
+            F = torch.zeros((n, n), dtype=dtype, device=dev)
+            F[1:-1, 1:-1] = M
+            return F
+
+        V = [full(M) for M in fd.V]
+        Vinv = [full(M) for M in fd.Vinv]
+        lam = torch.ones(g.dims, dtype=dtype, device=dev)
+        lam[tuple([slice(1, -1)] * g.ndim)] = fd.lam_sum
+        lam = self.local(lam)
+        amap = self._axis_map
+
+        def apply(r):
+            w = r
+            for ax in range(g.ndim):
+                w = apply_axis_pencil(Vinv[ax], w, ax, self.mesh, amap)
+            w = w / lam
+            for ax in range(g.ndim):
+                w = apply_axis_pencil(V[ax], w, ax, self.mesh, amap)
+            return torch.where(self._bmask, r, w.to(r.dtype))
+
+        return apply
+
     def exact_solution(self) -> tuple[torch.Tensor, torch.Tensor]:
         """u = prod_j cos(pi x_j / 2), f = d (pi/2)^2 u, in the grid's dtype."""
         x = self.grid.coords  # (dims..., d)
@@ -114,6 +194,10 @@ class PoissonModel:
 
     def solve(self, b: torch.Tensor, *, ksp: KSPConfig | None = None,
               pc_type: str = "fastdiag") -> SolveResult:
+        """Solve; with ``mesh``, b is this process' slab (``local``) and
+        so is the solution, and the Krylov inner products are summed over
+        the mesh (the ``reduce`` hook)."""
         ksp = ksp or KSPConfig(type="gmres", rtol=1e-10, max_it=200)
         M = self.build_pc(pc_type, dtype=b.dtype)
-        return ksp.solve(self.operator, b, M=M)
+        reduce = None if self.mesh is None else self.mesh.allreduce
+        return ksp.solve(self.operator, b, M=M, reduce=reduce)

@@ -57,8 +57,15 @@ Newton with parameter continuation (stokes.C:217-235).
   curved default of the CLI); the metric fields are float64 masters cast
   once per dtype, as the boundary data are.
 
-Parameter families and the pencil mesh raise ``NotImplementedError``
-naming their ROADMAP item.
+- ``solve_family`` solves a parameter family at once: one batched Newton
+  loop (``newton_solve_family``) over ``make_pc(batched=True)``, the nested tree
+  with its loop-free blocks mapped over the family by ``torch.func.vmap``
+  and every nested solve a ``KSPConfig.solve_batched``.
+
+- ``mesh=`` runs the residual and the Jacobian action on this process'
+  slab of a sharded grid (``parallel/``: the pencil exchange for every
+  derivative along a sharded axis); the sharded Newton solve raises
+  naming ROADMAP item 7c.
 """
 
 from __future__ import annotations
@@ -136,9 +143,23 @@ class StokesProblem:
     operators of one Stokes problem on ``grid``."""
 
     def __init__(self, grid: Grid, config: StokesConfig = StokesConfig(),
-                 mesh=None, phi: Callable | None = None):
-        if mesh is not None:
-            raise _todo("StokesProblem(mesh=...)", "item 7: parallel")
+                 mesh=None, sharded_axis: int = 0, mesh_axis: str = "x",
+                 axis_map: dict | None = None, phi: Callable | None = None,
+                 pipeline_chunks: int = 1):
+        """``mesh`` (``parallel.mesh.Mesh``) runs the residual and the
+        Jacobian action on this process' slab: grid axis ``sharded_axis``
+        over mesh axis ``mesh_axis`` (or ``axis_map`` for a P x Q mesh),
+        every derivative and the pressure extrapolation along a sharded
+        axis through the pencil exchange, the masks and boundary data as
+        slabs, the pressure mean summed over the mesh.  The sharded Newton
+        solve (its nested PC on slabs) is ROADMAP item 7c."""
+        self.mesh = mesh
+        self.sharded_axis = sharded_axis
+        self.mesh_axis = mesh_axis
+        self.axis_map = axis_map
+        self.pipeline_chunks = pipeline_chunks
+        if mesh is not None and grid.maps is not None:
+            raise _todo("StokesProblem(mesh=...) on a mapped grid", "item 7c")
         self.cmap = None
         if phi is not None:
             if grid.intervals is not None or grid.maps is not None:
@@ -159,9 +180,51 @@ class StokesProblem:
         self._adjoint_ops: dict = {}   # dtype -> (PV^T, VP^T)
         self._setup_domain()
         self._setup_exact_and_force()
+        if mesh is not None:
+            from spectral_tpu_torch.parallel.pencil import make_dif
+
+            self._mesh_dif = make_dif(mesh, axis_map, sharded_axis=sharded_axis,
+                                      mesh_axis=mesh_axis, pipeline_chunks=pipeline_chunks)
+            for name in ("vel_mask", "p_mask", "dirichlet_mask", "nm_mask", "mixed_mask",
+                         "neumann_mask"):
+                setattr(self, name, self._slab(getattr(self, name)))
+            self._dirichlet_v = self.dirichlet_mask[..., None]
+            self._nm_v = self.nm_mask[..., None]
+            self._mixed_v = self.mixed_mask[..., None]
+            self._neumann_v = self.neumann_mask[..., None]
+
+    @property
+    def _axis_map(self) -> dict:
+        return self.axis_map or {self.sharded_axis: self.mesh_axis}
+
+    def _slab(self, t: torch.Tensor) -> torch.Tensor:
+        """This process' slab of a global grid tensor (itself without a
+        mesh)."""
+        if self.mesh is None:
+            return t
+        from spectral_tpu_torch.parallel.mesh import shard_tensor
+        return shard_tensor(t, self.mesh, self._axis_map)
 
     def _dif(self, v: torch.Tensor, axis: int) -> torch.Tensor:
-        return self.grid.apply_dif_weight(chebdiff(v, axis), axis)
+        d = chebdiff(v, axis) if self.mesh is None else self._mesh_dif(v, axis)
+        return self.grid.apply_dif_weight(d, axis)
+
+    def _reduce_order(self, p: torch.Tensor) -> torch.Tensor:
+        """pressure_reduce_order, through the pencil exchange along a
+        sharded axis."""
+        if self.mesh is None:
+            return pressure_reduce_order(p, self.grid.nodes_1d)
+        from spectral_tpu_torch.ops.extrapolation import reduce_order_matrix
+        from spectral_tpu_torch.parallel.pencil import apply_axis_pencil
+
+        for ax in reversed(range(self.d)):
+            E = reduce_order_matrix(self.grid.nodes_1d[ax], p.dtype, p.device)
+            p = apply_axis_pencil(E, p, ax, self.mesh, self._axis_map)
+        return p
+
+    def _no_mesh(self, what: str):
+        if self.mesh is not None:
+            raise _todo(f"{what} on a mesh (the nested PC on slabs)", "item 7c")
 
     # ------------------------------------------------------------------
     # Domain setup: masks instead of IS/scatters (StokesSetupDomain analog)
@@ -309,7 +372,8 @@ class StokesProblem:
         if t is None:
             a = (self.force_np[name[-1]] if name.startswith("force_")
                  else getattr(self, name + "_np"))
-            t = self._consts[key] = torch.as_tensor(a, dtype=dtype, device=self.grid.device)
+            t = self._consts[key] = self._slab(
+                torch.as_tensor(a, dtype=dtype, device=self.grid.device))
         return t
 
     # the grid dtype's copies, as the JAX package names them
@@ -429,7 +493,7 @@ class StokesProblem:
         carry the pressure's share of the traction), mask to the global
         velocity."""
         cfg = self.config
-        pL = pressure_reduce_order(self.mask_p(pG), self.grid.nodes_1d)
+        pL = self._reduce_order(self.mask_p(pG))
         gp = torch.stack([self._dif(pL, i) for i in range(self.d)], dim=-1)
         if self.cmap is not None:
             gp = torch.einsum("...li,...l->...i", self._c("Jinv", gp.dtype), gp)
@@ -540,8 +604,10 @@ class StokesProblem:
         if not self.has_p_null:   # -traction_p pins the constant
             return self.mask_p(p)
         count = float(self.grid.num_interior)
-        mean = torch.sum(self.mask_p(p)) / count
-        return self.mask_p(p - mean)
+        total = torch.sum(self.mask_p(p))
+        if self.mesh is not None:
+            total = self.mesh.allreduce(total)
+        return self.mask_p(p - total / count)
 
     def null_project(self, x: dict) -> dict:
         if not self.has_p_null:
@@ -883,7 +949,7 @@ class StokesProblem:
             return setup, apply
         raise ValueError(f"unknown pcvel {pcvel!r}")
 
-    def make_pc(self, adjoint: bool = False):
+    def make_pc(self, adjoint: bool = False, batched: bool = False):
         """(pc_setup, pc_apply) of the saddle-point preconditioner: saddle
         type 0 full block LU, 1 upper, 2 block diagonal, 3 lower
         triangular (stokes.C:1710-1817), each with the nested ``-vel_``
@@ -897,17 +963,47 @@ class StokesProblem:
         off-diagonal roles swap).  VV^T is built once a linearization, in
         ``pc_setup``, and reused by every nested solve; the velocity sub-PC
         and the 1/eta Schur diagonal are reused as they are ((near-)
-        symmetric)."""
+        symmetric).
+
+        ``batched=True`` is the same tree over a batch of linearizations (a
+        family, or B right-hand sides of one operator): its loop-free blocks
+        (the VV action, gradient, divergence, the velocity sub-PC apply, the
+        pressure projection) mapped over the batch by ``torch.func.vmap``,
+        so a derivative launches K1 once for the batch, the masks and the
+        1/eta Schur Jacobi applied to the batched tensors directly, and
+        every nested solve a ``KSPConfig.solve_batched``; pc_setup(x_b,
+        lin_b) takes the batched linearization states."""
         from spectral_tpu_torch.solvers.adjoint import transpose_op
+        from spectral_tpu_torch.solvers.batching import batch_map
 
         cfg = self.config
+        self._no_mesh("make_pc")
         if cfg.saddle not in (0, 1, 2, 3):
             raise ValueError(f"pc_saddle_type {cfg.saddle} not implemented")
-        vel_setup, vel_apply = self.make_vel_pc()
+        if adjoint and batched:
+            raise ValueError("make_pc: the adjoint PC has no batched form")
+        if batched:   # (one solve, one loop-free block) of a family
+            vel_setup, vel_apply = self._vel_pc_batched()
+
+            def solve(ksp, A, b, **kw):
+                return ksp.solve_batched(A, b, batched=True, **kw).x
+
+            lift = batch_map
+        else:
+            vel_setup, vel_apply = self.make_vel_pc()
+
+            def solve(ksp, A, b, **kw):
+                return ksp.solve(A, b, **kw).x
+
+            def lift(f):
+                return f
+        vv, project = lift(self.vv_action), lift(self.project_p)
+        grad_op = lift(self.pressure_gradient)
+        div_op = lift(lambda v: self.divergence(v, with_dirichlet=False))
 
         def vel_solve(state, rv, ksp):
-            lin_state, vstate, (vv, _, _) = state
-            return ksp.solve(vv, rv, M=lambda r: vel_apply(vstate, r)).x
+            lin_state, vstate, (vv_op, _, _) = state
+            return solve(ksp, vv_op, rv, M=lambda r: vel_apply(vstate, r))
 
         def schur_solve(state, rp):
             eta = state[0][0]
@@ -918,8 +1014,8 @@ class StokesProblem:
 
             # Jacobi PC with diag = 1/eta (StokesMatGetDiagonalSchur,
             # stokes.C:538-553): the apply multiplies by eta
-            return cfg.schur_ksp.solve(schur_action, rp, M=lambda r: self.mask_p(r * eta),
-                                       null_project=self.project_p).x
+            return solve(cfg.schur_ksp, schur_action, rp, M=lambda r: self.mask_p(r * eta),
+                         null_project=project)
 
         def pc_setup(x, lin_state):
             if adjoint:
@@ -927,8 +1023,7 @@ class StokesProblem:
                                     self.zero_state(lin_state[0].dtype)["v"]),
                        *self._adjoint_blocks(lin_state[0].dtype))
             else:
-                ops = (lambda w: self.vv_action(lin_state, w), self.pressure_gradient,
-                       lambda v: self.divergence(v, with_dirichlet=False))
+                ops = (lambda w: vv(lin_state, w), grad_op, div_op)
             return (lin_state, vel_setup(lin_state), ops)
 
         def pc_apply(state, r):
@@ -1111,10 +1206,74 @@ class StokesProblem:
                             control_dtype=x0["p"].dtype if fused else None,
                             recycle_U0=recycle_U0)
 
-    def solve_family(self, *args, **kwargs):
-        if self.config.mass_shift:
+    def _vel_pc_batched(self):
+        """(setup, apply) of the velocity sub-PC over a batch: the fastdiag
+        and separable-Q1 solves do not depend on the linearization, so one
+        state serves every member (fastdiag takes the batch as a trailing
+        axis of its tensor solve; q1sep maps its apply over the batch);
+        the multigrid, nodal and Jacobi setups are mapped member by member
+        (``torch.func.vmap``, batched stencils and coarse LUs), and so are
+        their applies.  The other velocity PCs and the mixed/Neumann line
+        and traction-block corrections raise naming ROADMAP item 7c."""
+        from spectral_tpu_torch.solvers.batching import batch_map, member
+
+        pcvel = self.config.pcvel
+        if self.num_mixed:
+            raise _todo("a family with mixed/Neumann boundaries", "item 7c")
+        setup, apply = self.make_vel_pc()
+        if pcvel == "fastdiag":
+            # the batch rides as one more trailing axis of the tensor solve
+            return (lambda lin_b: setup(member(lin_b, 0)),
+                    lambda fd, r: self.mask_v(torch.movedim(
+                        fd.apply(torch.movedim(r, 0, -1)), -1, 0)))
+        if pcvel == "q1sep":
+            return (lambda lin_b: setup(member(lin_b, 0)),
+                    batch_map(apply, in_dims=(None, 0)))
+        if pcvel in ("mg", "nodal", "jacobi"):
+            return batch_map(setup), batch_map(apply)
+        raise _todo(f"a family with pcvel {pcvel!r}", "item 7c")
+
+    def family_params(self, params_list, dtype: torch.dtype | None = None) -> PowerLawParams:
+        """A family's PowerLawParams as (B,) tensors on the grid's device."""
+        dt = dtype or self.grid.dtype
+        return PowerLawParams(*[
+            torch.tensor([float(getattr(p, f.name)) for p in params_list], dtype=dt,
+                         device=self.grid.device)
+            for f in dataclasses.fields(PowerLawParams)])
+
+    def solve_family(self, params_list, x0=None, monitor: bool = False,
+                     x0_batched: bool = False):
+        """Solve a parameter family of Stokes problems at once: one batched
+        Newton loop (``newton_solve_family``) drives every member, each
+        Krylov step applying the operator and the nested PC to the B
+        states together (``make_pc(batched=True)``).
+
+        Args:
+          params_list: a sequence of PowerLawParams (the family).
+          x0: one state (broadcast) or, with ``x0_batched``, a batch.
+        Returns a NewtonFamilyResult (leading axis = member).  Each member
+        takes the Newton and Krylov counts of its own ``solve``."""
+        cfg = self.config
+        if cfg.mass_shift:
             raise ValueError(_MASS_SHIFT_STEADY)
-        raise _todo("solve_family", "item 7: batched solves")
+        from spectral_tpu_torch.solvers.batching import batch_map
+        from spectral_tpu_torch.solvers.newton import newton_solve_family
+
+        x0 = x0 if x0 is not None else self.zero_state()
+        dt = x0["p"].dtype
+
+        def residual(x, theta):
+            F, lin_state = self.make_residual(theta)(x)
+            return {"v": F["v"], "p": self.project_p(F["p"])}, lin_state
+
+        pc_setup, pc_apply = self.make_pc(batched=True)
+        return newton_solve_family(
+            batch_map(residual), x0, self.family_params(params_list, dt),
+            jacobian_action=batch_map(self.jacobian_action),
+            pc_setup=pc_setup, pc_apply=pc_apply, ksp=cfg.outer_ksp,
+            config=dataclasses.replace(cfg.newton, monitor=monitor),
+            null_project=batch_map(self.null_project), x0_batched=x0_batched,
+            batched=True)
 
     def solve_continuation(self, monitor: bool = False, checkpoint_dir: str | None = None,
                            clamp_f32: bool = False, dtype: torch.dtype | None = None,

@@ -32,7 +32,10 @@ into one program; here every rollout is a host loop over one cached step
 through the theta steps with one transposed saddle solve a step.
 ``phi`` runs the integrator on a curved domain (the strain, the Piola
 divergence and the shifted metric-multigrid velocity PC come from the
-steady model).  ``family_rollout`` raises naming ROADMAP item 7.
+steady model).  ``family_rollout`` runs B independent linear rollouts
+over the shared operator and preconditioner, each step one batched
+saddle solve (``KSPConfig.solve_batched`` over the steady model's
+``make_pc(batched=True)``).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import numpy as np
 import torch
 
 from spectral_tpu_torch.grid import Grid
-from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem, _todo
+from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,19 +103,24 @@ class UnsteadyStokes:
                                factor="device" if p.config.saddle_pc == "dense-device"
                                else "host")
 
-    def _saddle_pc(self, adjoint: bool = False):
+    def _saddle_pc(self, adjoint: bool = False, batched: bool = False):
         """(pc_setup, pc_apply) honoring ``config.saddle_pc``: the linear
         step operator is the SAME mass-shifted saddle Jacobian at every
         step, so 'dense'/'dense-device' invert it once (make_dense_pc at
         the frozen linear state) and each apply is one matmul.  The
         power-law Newton loops keep the nested tree: their linearization
         moves every iteration.  ``adjoint``: the PC of the transposed step
-        operator (Ainv^T; the nested tree transposed)."""
+        operator (Ainv^T; the nested tree transposed).  ``batched``: over
+        a batch of states (``make_pc(batched=True)``)."""
+        from spectral_tpu_torch.solvers.batching import batch_map
+
         p = self.problem
         if p.config.saddle_pc in ("dense", "dense-device") and self._linear:
             _, fwd, adj = self._dense_pc
-            return (lambda x, lin: None), (adj if adjoint else fwd)
-        return p.make_pc(adjoint=adjoint)
+            apply = adj if adjoint else fwd
+            return (lambda x, lin: None), (batch_map(apply, in_dims=(None, 0)) if batched
+                                           else apply)
+        return p.make_pc(adjoint=adjoint, batched=batched)
 
     @cached_property
     def sigma(self) -> float:
@@ -168,20 +176,40 @@ class UnsteadyStokes:
         pc_setup, pc_apply = self._saddle_pc()
         return lin_state, pc_apply, pc_setup(None, lin_state)
 
-    def _step_fn(self):
+    def _step_fn(self, nb: int | None = None):
         """(v0_full, s1, fbar) -> (v1_full, p1, iters, rnorm), over the PC
-        built here once."""
+        built here once.  With ``nb``, the same step over a batch of ``nb``
+        states (``s1`` a (nb,) tensor): its loop-free blocks mapped over
+        the batch, one batched outer solve, iters and rnorm per member."""
+        from spectral_tpu_torch.solvers.batching import batch_map
+
         p, th, sigma = self.problem, self.theta, self.sigma
-        pc = self._frozen_pc()
+        lin = self._frozen_lin()
+        pc_setup, pc_apply = self._saddle_pc(batched=nb is not None)
+        ksp = p.config.outer_ksp
+        if nb is None:
+            pc_state = pc_setup(None, lin)
+            solve, lift = ksp.solve, (lambda f: f)
+        else:
+            pc_state = pc_setup(None, tuple(t.expand((nb,) + t.shape) for t in lin))
+
+            def solve(A, b, **kw):
+                return ksp.solve_batched(A, b, batched=True, **kw)
+
+            lift = batch_map
+        visc, div, null = lift(self._visc_rows), lift(self._div_full), lift(p.null_project)
+        jac = lift(lambda w: p.jacobian_action(None, lin, w))
 
         def step(v0_full, s1, fbar):
-            R = sigma * v0_full - ((1.0 - th) / th) * self._visc_rows(v0_full) + fbar / th
+            R = sigma * v0_full - ((1.0 - th) / th) * visc(v0_full) + fbar / th
+            if nb is not None:   # one modulation a member
+                s1 = s1.to(v0_full.dtype).reshape((nb,) + (1,) * (v0_full.ndim - 1))
             bc1 = self._bc_ext(s1)
             # the unknowns' boundary coupling is the NONLOCAL viscous and
             # divergence action of the bc extension (the mass term is
             # diagonal: nothing on the interior rows)
-            b = {"v": p.mask_v(R) - self._visc_rows(bc1), "p": -self._div_full(bc1)}
-            res = self._linear_solve(b, pc)
+            b = {"v": p.mask_v(R) - visc(bc1), "p": -div(bc1)}
+            res = solve(jac, b, M=lambda r: pc_apply(pc_state, r), null_project=null)
             v1_full = bc1 + p.mask_v(res.x["v"])
             return v1_full, th * p.mask_p(res.x["p"]), res.iters, res.rnorm
 
@@ -471,8 +499,28 @@ class UnsteadyStokes:
                 "qoi": qoi_val, "segments": len(bounds) - 1}
         return gtheta, info
 
-    def family_rollout(self, *args, **kwargs):
-        raise _todo("UnsteadyStokes.family_rollout", "item 7: batched solves")
+    def family_rollout(self, v0s, s_values, fbars):
+        """A batch of independent linear integrations (distinct initial
+        states, boundary modulations and forcings) over the shared operator
+        and PC: each step is one batched saddle solve, every member keeping
+        its own Krylov state and count.
+
+        ``v0s``: (B, dims..., d); ``s_values``: (B, nsteps); ``fbars``:
+        (B, nsteps, dims..., d).  Returns (v_finals, p_finals, iters
+        (B, nsteps) int32)."""
+        if not self._linear:
+            raise ValueError("family_rollout is the linear fast path")
+        s_values = torch.as_tensor(s_values, dtype=torch.float64)
+        nb, nsteps = s_values.shape
+        steps = self.__dict__.setdefault("_family_steps", {})   # one a batch size
+        step = steps[nb] if nb in steps else steps.setdefault(nb, self._step_fn(nb))
+        v = v0s
+        pl = torch.zeros_like(v0s[..., 0])
+        its = []
+        for j in range(nsteps):
+            v, pl, it, _ = step(v, s_values[:, j].to(v.device), fbars[:, j])
+            its.append(np.asarray(it))
+        return v, pl, torch.as_tensor(np.stack(its, axis=1), dtype=torch.int32)
 
     def rollout_scan(self, v0_full, s_values, fbars):
         """The linear rollout over precomputed per-step data, with the JAX

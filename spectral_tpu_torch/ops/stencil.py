@@ -14,6 +14,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.utils._pytree
 
 from spectral_tpu_torch.grid import Grid
 
@@ -101,6 +102,11 @@ class StencilOp:
             A[flat[has_m], flat[has_m] - strides[ax]] += lo[has_m]
             A[flat[has_p], flat[has_p] + strides[ax]] += up[has_p]
         return A
+
+
+# a pytree of its coefficient fields, so a family's multigrid setup maps
+# over the batch (torch.func.vmap) and returns batched stencils
+torch.utils._pytree.register_dataclass(StencilOp)
 
 
 def poisson_fd_stencil(grid: Grid, dtype: torch.dtype | None = None) -> StencilOp:

@@ -52,4 +52,5 @@ def stencil_to_dense(stencil, dims: tuple[int, ...]) -> torch.Tensor:
     A = torch.zeros((size, size), dtype=vals.dtype, device=vals.device)
     index = (torch.as_tensor(rows, device=vals.device),
              torch.as_tensor(cols, device=vals.device))
-    return A.index_put_(index, vals, accumulate=True)
+    # out of place, so a family's setup can map it over the batch
+    return A.index_put(index, vals, accumulate=True)

@@ -1,0 +1,61 @@
+"""Halo exchange for stencil operators on sharded grids.
+
+Counterpart of ``spectral_tpu/parallel/halo.py``: the low-order FD
+surrogate needs a one-deep halo along the sharded axis.  ``halo_shift``
+is ``ops.stencil.shift`` on a slab: the neighbour's edge plane arrives by
+point-to-point exchange (``torch.distributed.batch_isend_irecv``), and
+the grid's global ends stay zero-filled (the dropped boundary couplings).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spectral_tpu_torch.ops.stencil import StencilOp, shift
+from spectral_tpu_torch.parallel.mesh import Mesh
+
+
+def _shift_with_halo(x: torch.Tensor, axis: int, s: int, mesh: Mesh, name: str) -> torch.Tensor:
+    """y_i = x_{i+s} (|s| = 1) on a slab, across slab edges."""
+    y = shift(x, axis, s)
+    p, me = mesh.size(name), mesh.index(name)
+    if p == 1:
+        return y
+    n = x.shape[axis]
+    first, last = x.narrow(axis, 0, 1), x.narrow(axis, n - 1, 1)
+    if s > 0:
+        # my first plane to the previous process; the next one's into my last slot
+        got = mesh.sendrecv(first if me > 0 else None, me - 1,
+                            first if me < p - 1 else None, me + 1, name)
+        if got is not None:
+            y.narrow(axis, n - 1, 1).copy_(got)
+    else:
+        got = mesh.sendrecv(last if me < p - 1 else None, me + 1,
+                            last if me > 0 else None, me - 1, name)
+        if got is not None:
+            y.narrow(axis, 0, 1).copy_(got)
+    return y
+
+
+def halo_shift(x: torch.Tensor, axis: int, s: int, mesh: Mesh, sharded_axis: int = 0,
+               mesh_axis: str = "x") -> torch.Tensor:
+    """``shift`` of this process' slab of a grid sharded on ``sharded_axis``
+    (zero fill at the global ends)."""
+    if axis == sharded_axis:
+        return _shift_with_halo(x, axis, s, mesh, mesh_axis)
+    return shift(x, axis, s)
+
+
+def stencil_apply_sharded(S: StencilOp, x: torch.Tensor, mesh: Mesh, sharded_axis: int = 0,
+                          mesh_axis: str = "x") -> torch.Tensor:
+    """Apply a stencil to a slab (its coefficient fields sliced the same
+    way); the shifts along the sharded axis take the neighbours' planes."""
+    def b(c):
+        return c.reshape(c.shape + (1,) * (x.ndim - c.ndim)) if x.ndim > c.ndim else c
+
+    y = b(S.center) * x
+    for ax in range(S.grid_ndim):
+        xm = halo_shift(x, ax, -1, mesh, sharded_axis, mesh_axis)
+        xp = halo_shift(x, ax, +1, mesh, sharded_axis, mesh_axis)
+        y = y + b(S.lower[ax]) * xm + b(S.upper[ax]) * xp
+    return y

@@ -1,12 +1,11 @@
 """Solver library: Krylov methods, the SNES family, FAS, eigenvalues,
-time stepping, adjoints and optimization (the JAX package's exports that
-the port carries; ``block_gmres`` waits for ROADMAP item 7)."""
+time stepping, adjoints and optimization (the JAX package's exports)."""
 
 from spectral_tpu_torch.solvers.types import ConvergedReason, SolveResult
 from spectral_tpu_torch.solvers.adjoint import implicit_gradient, implicit_hvp
 from spectral_tpu_torch.solvers.fas import FASSolver
 from spectral_tpu_torch.solvers.krylov import (KSPConfig, ksp_solve, gmres, fgmres,
-                                               cg, chebyshev, minres)
+                                               cg, block_gmres, chebyshev, minres)
 from spectral_tpu_torch.solvers.eig import EPSResult, eigs, shift_invert
 from spectral_tpu_torch.solvers.optimize import (OptimizeConfig, OptimizeResult,
                                                  lbfgs_minimize, newton_cg_minimize)
@@ -34,6 +33,7 @@ __all__ = [
     "gmres",
     "fgmres",
     "cg",
+    "block_gmres",
     "chebyshev",
     "minres",
     "FASSolver",

@@ -3,8 +3,10 @@
 Counterpart of ``spectral_tpu/solvers/krylov.py`` for ``gmres``,
 ``fgmres`` (with deflation over a recycled subspace), ``cg``,
 ``bicgstab``, ``richardson``, ``chebyshev``, ``minres``, ``preonly``,
-``extreme_singular_values``, ``KSPConfig.solve`` and
-``KSPConfig.solve_recycled``.  A state is a tensor or
+``extreme_singular_values``, ``KSPConfig.solve``,
+``KSPConfig.solve_recycled``, ``KSPConfig.solve_batched`` (B systems,
+one Krylov space each, for gmres, fgmres, cg and preonly) and
+``block_gmres`` (B right-hand sides in one shared space).  A state is a tensor or
 a dict of tensors (the Stokes state {"v": (dims..., d), "p": dims}),
 flattened by concatenation in sorted key order, as ``ravel_pytree``
 flattens it.  It keeps the JAX package's algorithm step for step:
@@ -25,6 +27,12 @@ the convergence test needs.  The short-recurrence solvers keep their
 vectors and inner products on the device and pull one residual norm a
 step (MINRES: its two Lanczos inner products, whose rotations run on the
 host).
+
+A batched solve keeps the same arithmetic member by member: (B, ...)
+host arrays for the Hessenberg state, (B, n) device blocks for the
+vectors, one host transfer a step for the whole batch.  A solve on a
+mesh slab (``reduce=``) sums every inner product and norm over the
+mesh's processes: one reduction a CGS2 pass and one a norm.
 """
 
 from __future__ import annotations
@@ -132,7 +140,8 @@ def _reason(rnorm, it: int, rnorm0, *, rtol, atol, dtol=None, max_it) -> int:
 
 
 def _gmres_flat(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
-                flexible, history_len):
+                flexible, history_len, reduce=None):
+    red = reduce or _identity
     m = restart
     n = b.shape[0]
     dtype, dev = b.dtype, b.device
@@ -161,7 +170,7 @@ def _gmres_flat(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
     # --- initialization -----------------------------------------------------
     r0 = P(b - A(x0))
     rp0 = r0 if flexible else M(r0)
-    beta0 = sc(_norm(rp0).item())
+    beta0 = sc(torch.sqrt(red(torch.dot(rp0, rp0))).item())
     hist = np.full(history_len, -1.0, sc)
     hist[0] = beta0
     reason = int(ConvergedReason.CONVERGED_ATOL if beta0 <= atol
@@ -220,12 +229,14 @@ def _gmres_flat(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
         else:
             w = M(P(A(v)))
         # CGS2 against the active basis rows: two basis products per pass
+        # (on a mesh slab, one reduction over the mesh a pass and one for
+        # the norm)
         Vk = V[:k + 1]
-        h1 = Vk @ w
+        h1 = red(Vk @ w)
         w = w - Vk.T @ h1
-        h2 = Vk @ w
+        h2 = red(Vk @ w)
         w = w - Vk.T @ h2
-        hk1 = _norm(w)
+        hk1 = torch.sqrt(red(torch.dot(w, w)))
         V[k + 1] = w * torch.where(hk1 > _TINY, 1.0 / hk1, 0.0)
         host = torch.cat([h1 + h2, hk1.reshape(1)]).cpu().numpy()
         Hraw[:k + 2, k] = host
@@ -280,7 +291,7 @@ def _deflated(Af, Mf, Pf, bf, recycle_U):
 
 def _gmres_like(A, b, x0, *, M, rtol, atol, dtol, max_it, restart,
                 null_project, history_len, flexible, recycle_U=None,
-                return_basis=False):
+                return_basis=False, reduce=None):
     Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
     restart = min(restart, max_it) or 1
     history_len = _hist_len(history_len, max_it)
@@ -288,7 +299,7 @@ def _gmres_like(A, b, x0, *, M, rtol, atol, dtol, max_it, restart,
         Mf = _deflated(Af, Mf, Pf, bf, recycle_U)
     xf, it, reason, rnorm, hist, basis, H, k_last = _gmres_flat(
         Af, Mf, Pf, bf, x0f, restart=restart, rtol=rtol, atol=atol, dtol=dtol,
-        max_it=max_it, flexible=flexible, history_len=history_len)
+        max_it=max_it, flexible=flexible, history_len=history_len, reduce=reduce)
     res = SolveResult(unravel(xf), it, reason, rnorm, hist)
     if return_basis:
         return res, basis, H, k_last
@@ -297,21 +308,24 @@ def _gmres_like(A, b, x0, *, M, rtol, atol, dtol, max_it, restart,
 
 def gmres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
           rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000, restart=30,
-          null_project=None, history_len=HISTORY_LEN) -> SolveResult:
-    """Restarted GMRES with left preconditioning (PETSc KSPGMRES semantics)."""
+          null_project=None, history_len=HISTORY_LEN, reduce=None) -> SolveResult:
+    """Restarted GMRES with left preconditioning (PETSc KSPGMRES semantics).
+    ``reduce``: the mesh reduction hook of a solve on slabs (a tensor
+    summed over the mesh's processes, ``parallel.mesh.Mesh.allreduce``);
+    every inner product and norm goes through it."""
     return _gmres_like(A, b, x0, M=M, rtol=rtol, atol=atol, dtol=dtol,
                        max_it=max_it, restart=restart, null_project=null_project,
-                       history_len=history_len, flexible=False)
+                       history_len=history_len, flexible=False, reduce=reduce)
 
 
 def fgmres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
            rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000, restart=30,
-           null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+           null_project=None, history_len=HISTORY_LEN, reduce=None) -> SolveResult:
     """Flexible GMRES, right preconditioning (PETSc KSPFGMRES semantics):
     the preconditioner may change between applications."""
     return _gmres_like(A, b, x0, M=M, rtol=rtol, atol=atol, dtol=dtol,
                        max_it=max_it, restart=restart, null_project=null_project,
-                       history_len=history_len, flexible=True)
+                       history_len=history_len, flexible=True, reduce=reduce)
 
 
 def _cg_flat(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len):
@@ -623,6 +637,388 @@ def extreme_singular_values(A: Operator, b, *, m: int = 30,
     return float(s[0]), float(s[-1])
 
 
+# ---------------------------------------------------------------------------
+# Batched solves: B independent systems, one Krylov space each
+# ---------------------------------------------------------------------------
+
+def _ravel_batched(x, dtype):
+    """(flat (B, n) in ``dtype``, unravel) of a batched state: a tensor
+    whose leading axis is the batch, or a dict of such tensors flattened
+    member by member in sorted key order (``_ravel`` of each member)."""
+    if isinstance(x, torch.Tensor):
+        shape = x.shape
+        return x.reshape(shape[0], -1).to(dtype), (lambda vf: vf.reshape(shape))
+    keys = sorted(x)
+    nb = x[keys[0]].shape[0]
+    shapes = [x[k].shape for k in keys]
+    sizes = [x[k][0].numel() for k in keys]
+    flat = torch.cat([x[k].reshape(nb, -1).to(dtype) for k in keys], dim=1)
+
+    def unravel(vf):
+        return {k: part.reshape(shp)
+                for k, part, shp in zip(keys, torch.split(vf, sizes, dim=1), shapes)}
+
+    return flat, unravel
+
+
+def _flatten_batched(A, b, x0, M, null_project, batched: bool):
+    """``_flatten_system`` of a batch: (B, n) vectors.  ``batched=False``:
+    the operators act on one member and are mapped over the batch by
+    ``torch.func.vmap`` (they must be loop-free); True: they act on the
+    whole batch themselves (a preconditioner with nested solves)."""
+    from spectral_tpu_torch.solvers.batching import batch_map
+
+    dtype = _leaf_dtype(b)
+    bf, unravel = _ravel_batched(b, dtype)
+
+    def wrap(op):
+        if op is None:
+            return None
+        if not batched:
+            op = batch_map(op)
+        return lambda vf: _ravel_batched(op(unravel(vf)), dtype)[0]
+
+    Af = wrap(A)
+    Mf = wrap(M) or _identity
+    Pf = wrap(null_project) or _identity
+    x0f = torch.zeros_like(bf) if x0 is None else _ravel_batched(x0, dtype)[0]
+    return Af, bf, x0f, Mf, Pf, unravel
+
+
+def _reasons(rnorm, it, rnorm0, *, rtol, atol, dtol, max_it) -> np.ndarray:
+    """``_reason`` member by member ((B,) host arrays)."""
+    tol = np.maximum(rtol * rnorm0, atol)
+    return np.where(
+        ~np.isfinite(rnorm), int(ConvergedReason.DIVERGED_NANORINF),
+        np.where(rnorm <= tol,
+                 np.where(rnorm <= atol, int(ConvergedReason.CONVERGED_ATOL),
+                          int(ConvergedReason.CONVERGED_RTOL)),
+                 np.where(it >= max_it, int(ConvergedReason.DIVERGED_ITS),
+                          np.where(rnorm >= dtol * rnorm0,
+                                   int(ConvergedReason.DIVERGED_DTOL),
+                                   int(ConvergedReason.ITERATING)))))
+
+
+def _start_batched(r0: torch.Tensor, atol, history_len: int, active):
+    """(sc, beta0, rnorm0, hist, reason) of a batched solve from its (B, n)
+    initial residual: one host transfer.  Members outside ``active`` start
+    terminal (CONVERGED_ITS, no iteration)."""
+    sc = _scalar_type(r0.dtype)
+    beta0 = torch.sqrt(torch.sum(r0 * r0, dim=1)).cpu().numpy().astype(sc)
+    hist = np.full((r0.shape[0], history_len), -1.0, sc)
+    hist[:, 0] = beta0
+    reason = np.where(beta0 <= sc(atol), int(ConvergedReason.CONVERGED_ATOL),
+                      int(ConvergedReason.ITERATING))
+    reason[~active] = int(ConvergedReason.CONVERGED_ITS)
+    return sc, beta0, np.maximum(beta0, sc(_TINY)), hist, reason
+
+
+def _rows(mask: np.ndarray, dev) -> torch.Tensor:
+    """A (B,) host mask as a (B, 1) boolean tensor on ``dev``."""
+    return torch.as_tensor(mask, device=dev)[:, None]
+
+
+def _gmres_batched(A, M, P, b, x0, *, restart, rtol, atol, dtol, max_it,
+                   flexible, history_len, active):
+    """``_gmres_flat`` over a leading batch axis: every member has its own
+    Krylov basis, Hessenberg, Givens pair, cycle, reason, count and
+    history; the host state is (B, ...) numpy arrays updated member by
+    member with the same arithmetic.  A member that reaches a terminal
+    reason is frozen (its state is no longer written; the operators see
+    zeros in its place), as under the JAX package's ``vmap`` of the
+    ``while_loop``; the loop ends when every member is terminal.  Each
+    loop pass closes the cycle of the members that asked for it and makes
+    one Arnoldi step for the others, with one host transfer for the whole
+    batch."""
+    m = restart
+    nb, n = b.shape
+    dtype, dev = b.dtype, b.device
+    L = history_len
+    r0 = P(b - A(x0))
+    rp0 = r0 if flexible else M(r0)
+    sc, beta0, rnorm0, hist, reason = _start_batched(rp0, atol, L, active)
+    tiny, atol, dtol = sc(_TINY), sc(atol), sc(dtol)
+    rtol = np.broadcast_to(np.asarray(rtol, sc), (nb,)).copy()
+    zero, one = sc(0.0), sc(1.0)
+    rows = np.arange(nb)
+
+    V = torch.zeros((nb, m + 1, n), dtype=dtype, device=dev)
+    Z = torch.zeros((nb, m, n), dtype=dtype, device=dev) if flexible else None
+    R = np.zeros((nb, m, m), sc)
+    g = np.zeros((nb, m + 1), sc)
+    cs = np.zeros((nb, m), sc)
+    sn = np.zeros((nb, m), sc)
+    k = np.zeros(nb, np.int64)
+    it = np.zeros(nb, np.int64)
+    rnorm = beta0.copy()
+    pending = np.zeros(nb, bool)
+    x = x0.clone()
+
+    def new_cycle(sel, rp, beta):
+        idx = torch.as_tensor(np.flatnonzero(sel), device=dev)
+        scale = torch.as_tensor(np.where(beta > tiny, one / np.where(beta > tiny, beta, one),
+                                         zero), device=dev)
+        V[idx] = 0.0
+        V[idx, 0] = rp[idx] * scale[idx, None]
+        g[sel] = zero
+        g[sel, 0] = beta[sel]
+        R[sel] = zero
+        cs[sel] = zero
+        sn[sel] = zero
+        k[sel] = 0
+
+    new_cycle(reason == ConvergedReason.ITERATING, rp0, beta0)
+
+    def close(sel):
+        nonlocal x
+        on = np.arange(m)[None, :] < k[:, None]
+        Rk = np.where(on[:, :, None] & on[:, None, :], R, np.eye(m, dtype=sc))
+        gk = np.where(on, g[:, :m], zero)
+        y = torch.linalg.solve_triangular(torch.from_numpy(Rk[sel]),
+                                          torch.from_numpy(gk[sel])[..., None],
+                                          upper=True)[..., 0]
+        idx = torch.as_tensor(np.flatnonzero(sel), device=dev)
+        basis = Z if flexible else V[:, :m]
+        x[idx] = x[idx] + torch.einsum("bm,bmn->bn", y.to(dev), basis[idx])
+        # b - A x = V Q^T (e_k g_k): the inverse Givens sweep, member by member
+        q = np.zeros((nb, m + 1), sc)
+        q[rows, k] = g[rows, k]
+        for i in range(int(k[sel].max()) - 1, -1, -1):
+            on_i = i < k
+            qi, qi1 = q[:, i].copy(), q[:, i + 1].copy()
+            q[:, i] = np.where(on_i, cs[:, i] * qi - sn[:, i] * qi1, qi)
+            q[:, i + 1] = np.where(on_i, sn[:, i] * qi + cs[:, i] * qi1, qi1)
+        beta = np.abs(g[rows, k])
+        new = _reasons(beta, it, rnorm0, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it)
+        reason[sel] = new[sel]
+        pending[sel] = False
+        rnorm[sel] = beta[sel]
+        go = sel & (reason == ConvergedReason.ITERATING)
+        if go.any():
+            kmax = int(k[go].max())
+            rp = torch.einsum("bj,bjn->bn", torch.from_numpy(q[:, :kmax + 1]).to(dev),
+                              V[:, :kmax + 1])
+            new_cycle(go, rp, beta)
+
+    def arnoldi(sel):
+        # the live members step together (all close their cycle at k == m,
+        # and a member that asks to close early ends its solve), so one k
+        # indexes them all; a frozen member's operators see zeros, its
+        # rows take values no one reads again
+        kmax = int(k[sel][0])
+        if not (k[sel] == kmax).all():
+            raise RuntimeError("batched GMRES: live members out of step")
+        on = None if sel.all() else _rows(sel, dev)
+        v = V[:, kmax] if on is None else torch.where(on, V[:, kmax], 0.0)
+        if flexible:
+            z = M(v)
+            w = P(A(z))
+            Z[:, kmax] = z
+        else:
+            w = M(P(A(v)))
+        Vk = V[:, :kmax + 1]
+        h1 = torch.einsum("bjn,bn->bj", Vk, w)
+        w = w - torch.einsum("bjn,bj->bn", Vk, h1)
+        h2 = torch.einsum("bjn,bn->bj", Vk, w)
+        w = w - torch.einsum("bjn,bj->bn", Vk, h2)
+        hk1 = torch.sqrt(torch.sum(w * w, dim=1))
+        V[:, kmax + 1] = w * torch.where(hk1 > _TINY, 1.0 / hk1, 0.0)[:, None]
+        host = torch.cat([h1 + h2, hk1[:, None]], dim=1).cpu().numpy()
+        s = np.flatnonzero(sel)
+        col = host[s]   # (S, kmax + 2): the new Hessenberg column of each live member
+        for i in range(kmax):
+            t0 = cs[s, i] * col[:, i] + sn[s, i] * col[:, i + 1]
+            t1 = -sn[s, i] * col[:, i] + cs[s, i] * col[:, i + 1]
+            col[:, i], col[:, i + 1] = t0, t1
+        a0, a1 = col[:, kmax], col[:, kmax + 1]
+        denom = np.sqrt(a0 * a0 + a1 * a1)
+        big = denom > tiny
+        ck = np.where(big, a0 / np.where(big, denom, one), one)
+        sk = np.where(big, a1 / np.where(big, denom, one), zero)
+        col[:, kmax], col[:, kmax + 1] = denom, zero
+        gk = g[s, kmax]
+        g[s, kmax] = ck * gk
+        g[s, kmax + 1] = -sk * gk
+        rn = np.abs(g[s, kmax + 1])
+        it[s] += 1
+        hist[s, np.minimum(it[s], L - 1)] = rn
+        pending[s] = ((rn <= np.maximum(rtol[s] * rnorm0[s], atol)) | (it[s] >= max_it)
+                      | ~np.isfinite(rn) | (rn >= dtol * rnorm0[s]))
+        top = min(kmax + 2, m)
+        R[s, :top, kmax] = col[:, :top]
+        cs[s, kmax], sn[s, kmax] = ck, sk
+        rnorm[s] = rn
+        k[s] += 1
+
+    while True:
+        live = reason == ConvergedReason.ITERATING
+        if not live.any():
+            break
+        shut = live & (pending | (k == m))
+        if shut.any():
+            close(shut)
+        step = live & ~shut
+        if step.any():
+            arnoldi(step)
+    return x, it, reason, rnorm, torch.from_numpy(hist)
+
+
+def _cg_batched(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len, active):
+    """``_cg_flat`` over a leading batch axis: per-member step lengths and
+    directions on the device, masked once a member is terminal; one host
+    transfer (the B residual norms) an iteration."""
+    nb = b.shape[0]
+    dev = b.device
+    r = P(b - A(x0))
+    z = M(r)
+    sc, beta0, rnorm0, hist, reason = _start_batched(r, atol, history_len, active)
+    rtol = np.broadcast_to(np.asarray(rtol, sc), (nb,)).copy()
+    atol, dtol = sc(atol), sc(dtol)
+    x, p = x0, z
+    rz = torch.sum(r * z, dim=1)
+    it = np.zeros(nb, np.int64)
+    rnorm = beta0.copy()
+
+    def safe(d):
+        return torch.where(torch.abs(d) > _TINY, d, torch.ones_like(d))
+
+    while True:
+        live = reason == ConvergedReason.ITERATING
+        if not live.any():
+            break
+        on = _rows(live, dev)
+        Ap = P(A(torch.where(on, p, 0.0)))
+        alpha = rz / safe(torch.sum(p * Ap, dim=1))
+        xn = x + alpha[:, None] * p
+        rn_ = r - alpha[:, None] * Ap
+        rnv = torch.sqrt(torch.sum(rn_ * rn_, dim=1))
+        zn = M(torch.where(on, rn_, 0.0))
+        rz_new = torch.sum(rn_ * zn, dim=1)
+        pn = zn + (rz_new / safe(rz))[:, None] * p
+        x, r, p = torch.where(on, xn, x), torch.where(on, rn_, r), torch.where(on, pn, p)
+        rz = torch.where(on[:, 0], rz_new, rz)
+        rh = rnv.cpu().numpy().astype(sc)
+        it[live] += 1
+        rnorm[live] = rh[live]
+        s = np.flatnonzero(live)
+        hist[s, np.minimum(it[s], history_len - 1)] = rh[s]
+        new = _reasons(rh, it, rnorm0, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it)
+        reason[live] = new[live]
+    return x, it, reason, rnorm, torch.from_numpy(hist)
+
+
+# ---------------------------------------------------------------------------
+# Block GMRES: one SHARED Krylov space for a block of right-hand sides
+# ---------------------------------------------------------------------------
+
+def _qr_block(W: torch.Tensor):
+    """Thin QR of the (B, n) row block: (Q rows (B, n), R (B, B))."""
+    Q, R = torch.linalg.qr(W.T, mode="reduced")
+    return Q.T, R
+
+
+def _lstsq_min_norm(H: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """Minimum-norm least squares by the SVD with ``jnp.linalg.lstsq``'s
+    cut (singular values below eps max(H.shape) times the largest are
+    dropped), on H's device: all-zero columns get exactly-zero rows."""
+    U, s, Vh = torch.linalg.svd(H, full_matrices=False)
+    keep = s >= torch.finfo(H.dtype).eps * max(H.shape) * s[0]
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
+                        torch.zeros_like(s))
+    return Vh.T @ (s_inv[:, None] * (U.T @ G))
+
+
+def block_gmres(A: Operator, B_rhs, X0=None, *, M: Optional[Operator] = None,
+                rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000, restart=30,
+                null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+    """Restarted block GMRES with left preconditioning: B right-hand sides
+    sharing one operator and one Krylov space, which grows by B directions
+    a block step (block CGS2, then an intra-block thin QR).  A direction
+    is deflated (zeroed) when the R diagonal of its column is below
+    16 eps (in the solve's dtype) times that column's own norm: a true
+    near-duplicate.  Each cycle ends with the minimum-norm least squares
+    (SVD) and the true residual recomputed; all members must pass
+    ``rtol``/``atol``.
+
+    ``B_rhs``/``X0`` carry a leading block axis on every leaf; ``A``,
+    ``M`` and ``null_project`` act on one system and are mapped over the
+    block by ``torch.func.vmap`` (loop-free operators).  ``iters`` counts
+    block steps (times B for operator applications); the history records
+    the largest member norm.  The basis and the Hessenberg stay on the
+    device; the host reads the B residual norms once a cycle."""
+    Af, Bmat, X, Mf, Pf, unravel = _flatten_batched(A, B_rhs, X0, M, null_project, False)
+    nb, n = Bmat.shape
+    dtype, dev = Bmat.dtype, Bmat.device
+    sc = _scalar_type(dtype)
+    m = max(1, min(restart, max_it, -(-n // nb) + 1))
+    L = _hist_len(history_len, max_it)
+    rows = (m + 1) * nb
+    eps16 = 16 * torch.finfo(dtype).eps
+
+    def residual_block(X):
+        Rp = Mf(Pf(Bmat - Af(X)))
+        return Rp, torch.sqrt(torch.sum(Rp * Rp, dim=1))
+
+    Rp, rn = residual_block(X)
+    rnorms0 = rn.cpu().numpy().astype(sc)
+    rnorms = rnorms0.copy()
+    r0 = np.maximum(rnorms0, sc(_TINY))
+    hist = np.full(L, -1.0, sc)
+    hist[0] = rnorms0.max()
+    reason = int(ConvergedReason.CONVERGED_ATOL if rnorms0.max() <= atol
+                 else ConvergedReason.ITERATING)
+    it = 0
+
+    def new_cycle(Rp):
+        Q0, R0 = _qr_block(Rp)
+        V = torch.zeros((rows, n), dtype=dtype, device=dev)
+        V[:nb] = Q0
+        G = torch.zeros((rows, nb), dtype=dtype, device=dev)
+        G[:nb] = R0
+        return V, torch.zeros((rows, m * nb), dtype=dtype, device=dev), G
+
+    V, H, G = new_cycle(Rp)
+    k = 0
+    while reason == ConvergedReason.ITERATING:
+        if k == m or it >= max_it:
+            # cycle end: min-norm least squares over the active columns
+            Hm = H.clone()
+            Hm[:, k * nb:] = 0.0
+            Y = _lstsq_min_norm(Hm, G)
+            X = X + Y.T @ V[:m * nb]
+            Rp, rn = residual_block(X)
+            rnorms = rn.cpu().numpy().astype(sc)
+            hist[min(it, L - 1)] = rnorms.max()
+            if not np.all(np.isfinite(rnorms)):
+                reason = int(ConvergedReason.DIVERGED_NANORINF)
+            elif np.all(rnorms <= np.maximum(rtol * r0, atol)):
+                reason = int(ConvergedReason.CONVERGED_ATOL if np.all(rnorms <= atol)
+                             else ConvergedReason.CONVERGED_RTOL)
+            elif it >= max_it:
+                reason = int(ConvergedReason.DIVERGED_ITS)
+            elif np.any(rnorms >= dtol * r0):
+                reason = int(ConvergedReason.DIVERGED_DTOL)
+            V, H, G = new_cycle(Rp)
+            k = 0
+            continue
+        Vk = V[k * nb:(k + 1) * nb]
+        W = Mf(Pf(Af(Vk)))
+        Va = V[:(k + 1) * nb]
+        H1 = Va @ W.T
+        W = W - H1.T @ Va
+        H2 = Va @ W.T
+        W = W - H2.T @ Va
+        wn = torch.sqrt(torch.sum(W * W, dim=1))
+        Qn, Rn = _qr_block(W)
+        keep = torch.abs(torch.diagonal(Rn)) > eps16 * torch.clamp_min(wn, _TINY)
+        V[(k + 1) * nb:(k + 2) * nb] = Qn * keep[:, None].to(dtype)
+        H[:(k + 1) * nb, k * nb:(k + 1) * nb] = H1 + H2
+        H[(k + 1) * nb:(k + 2) * nb, k * nb:(k + 1) * nb] = Rn
+        k += 1
+        it += 1
+    return SolveResult(unravel(X), it, reason, float(rnorms.max()), torch.from_numpy(hist))
+
+
 _KSP_TYPES = {
     "gmres": gmres,
     "fgmres": fgmres,
@@ -634,6 +1030,11 @@ _KSP_TYPES = {
     "minres": minres,
     "preonly": preonly,
 }
+
+
+# the types that take a mesh reduction hook, and those with a batched core
+_MESH_TYPES = ("gmres", "fgmres")
+_BATCHED_TYPES = ("gmres", "fgmres", "cg", "preonly")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -653,8 +1054,10 @@ class KSPConfig:
     emax: Optional[float] = None
 
     def solve(self, A: Operator, b, x0=None, *, M=None,
-              null_project=None) -> SolveResult:
-        """Solve A x = b; b (and x0) a tensor or a dict of tensors."""
+              null_project=None, reduce=None) -> SolveResult:
+        """Solve A x = b; b (and x0) a tensor or a dict of tensors.
+        ``reduce``: the mesh reduction hook of a solve on slabs (gmres and
+        fgmres take it)."""
         if self.type not in _KSP_TYPES:
             raise ValueError(f"unknown KSP type {self.type!r}")
         kwargs = dict(M=M, null_project=null_project, history_len=self.history_len)
@@ -665,7 +1068,62 @@ class KSPConfig:
             kwargs["restart"] = self.restart
         if self.type == "chebyshev":
             kwargs.update(emin=self.emin, emax=self.emax)
+        if reduce is not None:
+            if self.type not in _MESH_TYPES:
+                raise NotImplementedError(
+                    f"KSP type {self.type!r} on a mesh is not ported yet "
+                    "(ROADMAP.md queue 1, item 7c)")
+            kwargs["reduce"] = reduce
         return _KSP_TYPES[self.type](A, b, x0, **kwargs)
+
+    def solve_batched(self, A: Operator, b, x0=None, *, M=None, null_project=None,
+                      rtol=None, active=None, batched: bool = False) -> SolveResult:
+        """Solve a batch of systems, each in its own Krylov space: ``b``
+        (and ``x0``) carry a leading batch axis on every leaf.
+
+        ``A``/``M``/``null_project`` act on one member and are mapped over
+        the batch by ``torch.func.vmap`` (the JAX package's signature; they
+        must be loop-free), or with ``batched=True`` act on the whole batch
+        themselves (a preconditioner whose nested solves are themselves
+        ``solve_batched``).  ``rtol`` optionally gives each member its own
+        tolerance ((B,), the Eisenstat-Walker forcing of a family);
+        ``active`` ((B,) bools) leaves the other members untouched (x0,
+        no iteration, CONVERGED_ITS).  Each member keeps its own
+        Hessenberg, count, reason and history, frozen once terminal: the
+        SolveResult's ``iters``, ``reason`` and ``rnorm`` are (B,) numpy
+        arrays and ``history`` a (B, L) tensor.  gmres, fgmres, cg and
+        preonly; the other types raise naming ROADMAP item 7c."""
+        if self.type not in _KSP_TYPES:
+            raise ValueError(f"unknown KSP type {self.type!r}")
+        if self.type not in _BATCHED_TYPES:
+            raise NotImplementedError(
+                f"solve_batched with KSP type {self.type!r} is not ported yet "
+                "(ROADMAP.md queue 1, item 7c)")
+        from spectral_tpu_torch.solvers.batching import batch_map
+
+        dtype = _leaf_dtype(b)
+        nb = (b if isinstance(b, torch.Tensor) else b[sorted(b)[0]]).shape[0]
+        act = np.ones(nb, bool) if active is None else np.asarray(active, bool)
+        if self.type == "preonly":
+            Mb = M if batched or M is None else batch_map(M)
+            Pb = null_project if batched or null_project is None else batch_map(null_project)
+            xb = (Mb or _identity)((Pb or _identity)(b))
+            return SolveResult(xb, act.astype(np.int64),
+                               np.full(nb, int(ConvergedReason.CONVERGED_ITS)),
+                               np.zeros(nb), torch.full((nb, self.history_len), -1.0,
+                                                        dtype=dtype))
+        Af, bf, x0f, Mf, Pf, unravel = _flatten_batched(A, b, x0, M, null_project, batched)
+        L = _hist_len(self.history_len, self.max_it)
+        rt = self.rtol if rtol is None else rtol
+        common = dict(rtol=rt, atol=self.atol, dtol=self.dtol, max_it=self.max_it,
+                      history_len=L, active=act)
+        if self.type == "cg":
+            xf, it, reason, rnorm, hist = _cg_batched(Af, Mf, Pf, bf, x0f, **common)
+        else:
+            xf, it, reason, rnorm, hist = _gmres_batched(
+                Af, Mf, Pf, bf, x0f, restart=min(self.restart, self.max_it) or 1,
+                flexible=self.type == "fgmres", **common)
+        return SolveResult(unravel(xf), it, reason, rnorm.astype(np.float64), hist)
 
     def solve_recycled(self, A: Operator, b, x0=None, *, M=None,
                        null_project=None, U=None, nkeep: int = 8):

@@ -4,7 +4,9 @@ Counterpart of ``spectral_tpu/solvers/newton.py`` for ``newton_solve``
 (line-search Newton with Eisenstat-Walker forcing, a lagged
 preconditioner and Krylov recycling) and the rest of the SNES family:
 ``newton_tr_solve`` (trust region), ``quasi_newton_solve`` (L-BFGS),
-``anderson_solve`` and ``ngmres_solve``.  For ``newton_solve``:
+``anderson_solve`` and ``ngmres_solve``, and ``newton_solve_family`` (a
+parameter family in one batched loop over ``KSPConfig.solve_batched``,
+per-member reasons, forcing and line search).  For ``newton_solve``:
 
 - the residual returns ``(F, lin_state)`` and the Jacobian action and the
   PC setup consume ``lin_state``: the linearization state is threaded
@@ -42,7 +44,9 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
+from spectral_tpu_torch.solvers.batching import batch_map, where_members
 from spectral_tpu_torch.solvers.krylov import KSPConfig, _leaf_dtype, _ravel
 from spectral_tpu_torch.solvers.types import ConvergedReason
 
@@ -159,9 +163,206 @@ class NewtonConfig:
             raise ValueError(f"NewtonConfig: pc_lag must be >= 1, got {self.pc_lag}")
 
 
-def newton_solve_family(*args, **kwargs):
-    raise NotImplementedError("newton_solve_family is not ported yet "
-                              "(ROADMAP.md queue 1, item 7)")
+@dataclasses.dataclass
+class NewtonFamilyResult:
+    """Batched Newton outcome: the leading axis of x is the family member.
+    ``ksp_iters`` holds each step's linear iterations per member (0 for a
+    frozen member), which the JAX package does not return."""
+
+    x: Any
+    iters: np.ndarray          # (B,) iterations each member took
+    reason: np.ndarray         # (B,) ConvergedReason codes
+    fnorm: np.ndarray          # (B,)
+    fnorm_history: np.ndarray  # (steps + 1, B)
+    ksp_iters: np.ndarray = None   # (steps, B)
+
+    def reason_str(self, b: int) -> str:
+        return ConvergedReason.describe(int(self.reason[b]))
+
+
+def _norms(x) -> torch.Tensor:
+    """(B,) member norms of a batched tensor or dict of batched tensors
+    (leaves summed in sorted key order, as ``_norm`` sums a member's)."""
+    if isinstance(x, torch.Tensor):
+        return torch.sqrt(torch.sum((x * x).reshape(x.shape[0], -1), dim=1))
+    return torch.sqrt(sum(torch.sum((x[k] * x[k]).reshape(x[k].shape[0], -1), dim=1)
+                          for k in sorted(x)))
+
+
+def _step_members(x, dx, lam: torch.Tensor):
+    """x - lam_b dx_b member by member; lam a (B,) tensor."""
+    def one(a, d):
+        return a - lam.reshape(lam.shape + (1,) * (a.ndim - 1)).to(a.dtype) * d
+
+    if isinstance(x, torch.Tensor):
+        return one(x, dx)
+    return {k: one(x[k], dx[k]) for k in x}
+
+
+def _line_search_bt_family(res_b, x, dx, fnorm0: np.ndarray, live: np.ndarray,
+                           cfg: NewtonConfig, dev: torch.device):
+    """The backtracking line search (``_line_search_bt``) member by member,
+    the JAX package's under ``vmap``: each member halves its own lambda
+    until it accepts or has made ``ls_max_steps`` trials, and is frozen
+    from then on; every trial evaluates the residual on the whole batch
+    and reads the B norms in one host transfer.  Returns the kept trial
+    (x, F, lin_state), its norms and the accepted flags."""
+    lam = np.ones(len(fnorm0))
+    xt = _step_members(x, dx, torch.as_tensor(lam, device=dev))
+    Ft, lst = res_b(xt)
+    fn = _norms(Ft).cpu().numpy()
+    ok = np.isfinite(fn) & (fn <= (1.0 - cfg.ls_alpha * lam) * fnorm0)
+    best = (xt, Ft, lst)
+    tries = 1
+    while np.any(live & ~ok) and tries < cfg.ls_max_steps:
+        go = ~ok
+        lam = np.where(go, 0.5 * lam, lam)
+        xt = _step_members(x, dx, torch.as_tensor(lam, device=dev))
+        Ft, lst = res_b(xt)
+        fnt = _norms(Ft).cpu().numpy()
+        best = where_members(torch.as_tensor(go, device=dev), (xt, Ft, lst), best)
+        fn = np.where(go, fnt, fn)
+        ok = ok | (go & np.isfinite(fnt) & (fnt <= (1.0 - cfg.ls_alpha * lam) * fnorm0))
+        tries += 1
+    return best, fn, ok
+
+
+def newton_solve_family(
+    residual_fn: Callable[[Any, Any], tuple[Any, Any]],
+    x0: Any,
+    thetas: Any,
+    *,
+    jacobian_action: Callable[[Any, Any, Any], Any],
+    pc_setup: Optional[Callable[[Any, Any], Any]] = None,
+    pc_apply: Optional[Callable[[Any, Any], Any]] = None,
+    ksp: KSPConfig = KSPConfig(type="gmres", rtol=1e-5),
+    config: NewtonConfig = NewtonConfig(),
+    null_project: Optional[Callable] = None,
+    x0_batched: bool = False,
+    batched: bool = False,
+) -> NewtonFamilyResult:
+    """Solve F(x; theta_b) = 0 for a whole parameter family at once.
+
+    Args:
+      residual_fn: (x, theta) -> (F, lin_state); ``thetas`` is a pytree
+        whose tensor leaves carry the leading family axis B (for example
+        ``PowerLawParams`` of (B,) tensors).
+      x0: one member's initial guess (broadcast to the family), or, with
+        ``x0_batched=True``, a batch with leading axis B (an explicit flag:
+        a shape heuristic would misread a grid whose leading extent is B).
+      jacobian_action/pc_setup/pc_apply/null_project: as in
+        ``newton_solve``.  With ``batched=False`` (the JAX package's
+        signature) they act on one member and are mapped over the family by
+        ``torch.func.vmap``, so they must be loop-free; with
+        ``batched=True`` they act on the whole family themselves (the
+        Stokes family, whose preconditioner holds nested Krylov solves).
+
+    The Krylov solve is ``KSPConfig.solve_batched`` (one space a member,
+    per-member forcing under ``config.ksp_ew``, Eisenstat-Walker choice 2
+    member by member); the line search is per member.  Members that reach
+    a terminal reason (atol, rtol, NaN/Inf, the iteration limit, a failed
+    line search, a small step) are frozen while the rest iterate; the loop
+    ends when every member is terminal.  The stopping tests and the
+    forcing run on the host in float64, as in the JAX package's loop.
+    """
+    leaves = [a for a in pytree.tree_leaves(thetas) if isinstance(a, torch.Tensor)]
+    B = int(leaves[0].shape[0])
+    if not x0_batched:
+        x0 = pytree.tree_map(lambda a: a.expand((B,) + a.shape).clone(), x0)
+    if batched:
+        res_b, jac_b, setup_b, apply_b, null_b = (residual_fn, jacobian_action, pc_setup,
+                                                  pc_apply, null_project)
+    else:
+        res_b = batch_map(residual_fn)
+        jac_b = batch_map(jacobian_action)
+        setup_b = None if pc_setup is None else batch_map(pc_setup)
+        apply_b = None if pc_apply is None else batch_map(pc_apply)
+        null_b = None if null_project is None else batch_map(null_project)
+    if callable(config.line_search):
+        raise NotImplementedError("a callable line search in a family is not "
+                                  "ported yet (ROADMAP.md queue 1, item 7c)")
+    if config.line_search not in ("bt", "basic"):
+        raise ValueError(f"unknown line search {config.line_search!r}")
+
+    def res_t(z):
+        return res_b(z, thetas)
+
+    x = x0
+    F, lin_state = res_t(x)
+    fn_t = _norms(F)
+    fnorm, dev = fn_t.cpu().numpy(), fn_t.device
+    fnorm0 = np.maximum(fnorm, 1e-300)
+    hist = [fnorm.copy()]
+    ksp_hist = []
+    reason = np.full(B, int(ConvergedReason.ITERATING), dtype=np.int64)
+    iters = np.zeros(B, dtype=np.int64)
+    eta_prev = None
+    fnorm_prev = None
+
+    for it in range(config.max_it + 1):
+        fn = fnorm
+        live = reason == int(ConvergedReason.ITERATING)
+        reason[live & (fn <= config.atol)] = int(ConvergedReason.CONVERGED_ATOL)
+        live = reason == int(ConvergedReason.ITERATING)
+        reason[live & (fn <= config.rtol * fnorm0)] = int(ConvergedReason.CONVERGED_RTOL)
+        live = reason == int(ConvergedReason.ITERATING)
+        reason[live & ~np.isfinite(fn)] = int(ConvergedReason.DIVERGED_NANORINF)
+        live = reason == int(ConvergedReason.ITERATING)
+        if it == config.max_it:
+            reason[live] = int(ConvergedReason.DIVERGED_ITS)
+            live[:] = False
+        if not live.any():
+            break
+        if config.monitor:
+            print(f"{it:3d} SNES family fnorms " + " ".join(f"{v:.3e}" for v in fn))
+        lin_rtol = np.full(B, ksp.rtol)
+        if config.ksp_ew:
+            if eta_prev is None:
+                eta = np.full(B, config.ew_eta0)
+            else:
+                ratio = fn / np.maximum(fnorm_prev, 1e-300)
+                eta = config.ew_gamma * ratio ** config.ew_alpha
+                guard = config.ew_gamma * eta_prev ** config.ew_alpha
+                eta = np.where(guard > 0.1, np.maximum(eta, guard), eta)
+            eta = np.minimum(eta, config.ew_etamax)
+            eta = np.maximum(eta, 0.5 * config.rtol * fnorm0 / np.maximum(fn, 1e-300))
+            eta = np.minimum(eta, config.ew_etamax)
+            lin_rtol = np.maximum(eta, ksp.rtol)
+            eta_prev = lin_rtol
+        fnorm_prev = fn
+
+        pc_state = setup_b(x, lin_state) if setup_b is not None else None
+        M = (lambda r, st=pc_state: apply_b(st, r)) if apply_b is not None else None
+        xc, lsc = x, lin_state
+        lres = ksp.solve_batched(lambda w: jac_b(xc, lsc, w), F, M=M,
+                                 null_project=null_b, rtol=lin_rtol, active=live,
+                                 batched=True)
+        dx = lres.x
+        if config.line_search == "basic":
+            xn = _step_members(x, dx, torch.ones(B, device=dev))
+            Fn, lsn = res_t(xn)
+            fnn = _norms(Fn).cpu().numpy()
+            new, ok = (xn, Fn, lsn), np.isfinite(fnn)
+        else:
+            new, fnn, ok = _line_search_bt_family(res_t, x, dx, fnorm, live, config, dev)
+        host = torch.stack([_norms(dx), _norms(new[0])]).cpu().numpy()
+        dxn, xn_norm = host[0], host[1]
+        on = torch.as_tensor(live, device=dev)
+        x, F, lin_state = where_members(on, new, (x, F, lin_state))
+        fnorm = np.where(live, fnn, fnorm)
+        iters[live] = it + 1
+        hist.append(fnorm.copy())
+        ksp_hist.append(np.where(live, lres.iters, 0))
+        if config.line_search != "basic":
+            reason[live & ~ok] = int(ConvergedReason.DIVERGED_LINE_SEARCH)
+        small = live & (dxn <= config.stol * np.maximum(xn_norm, 1e-30))
+        small &= reason == int(ConvergedReason.ITERATING)
+        reason[small] = int(ConvergedReason.CONVERGED_SNORM_RELATIVE)
+
+    return NewtonFamilyResult(x=x, iters=iters, reason=reason, fnorm=fnorm,
+                              fnorm_history=np.stack(hist),
+                              ksp_iters=(np.stack(ksp_hist) if ksp_hist
+                                         else np.zeros((0, B), np.int64)))
 
 
 def _trial(residual_fn, x, dx, lam: float, dxnorm: torch.Tensor):

@@ -105,6 +105,11 @@ Sections (all by default), each one JSON line:
   lines of ``CURVED_CPU``'s small command lines (stokes and ustokes with
   ``-map``), which ``tests/test_torch_curvilinear.py`` holds the port's
   CLI to.
+- ``family``: the batched solves of ROADMAP item 7a (``solve_family``
+  flat and curved at 10^2, ``family_rollout`` at 10^2, bench.py's
+  family8 at 16^2): Newton counts and reasons (``FAMILY_ORACLE`` of
+  ``chip_smoke.py`` phase 16, ``tests/test_torch_family.py``) and the 10^2
+  solutions, written to ``tests/data/torch_family_oracle.npz``.
 """
 
 from __future__ import annotations
@@ -1304,6 +1309,72 @@ def curvedcpu() -> list:
         jax.clear_caches()
     return rows
 
+FAMILY_NPZ = "tests/data/torch_family_oracle.npz"
+
+
+def family() -> list:
+    """The batched solves of item 7a through the JAX package, float64:
+    ``solve_family`` at 10^2 (exact 2, power law, exponents 1/2/3 at eps
+    1e-2: JAX ``tests/test_stokes.py``'s family), the curved family (the
+    annulus sector at 10^2 with the metric multigrid, exponents
+    1.5/2.0/2.5: ``tests/test_curvilinear.py``'s), ``family_rollout`` at
+    10^2 (three manufactured members, omega 0.5/1/2, four CN steps:
+    ``tests/test_stokes_unsteady.py``'s), and bench.py's ``stokes_family8``
+    configuration at 16^2 (exponents 1 + 0.25 i, i < 8, Newton rtol 1e-4),
+    whose Newton counts ``chip_smoke.py`` phase 16a holds the card's to.
+    The 10^2 solutions go to ``FAMILY_NPZ`` for ``tests/test_torch_family.py``."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.rheology import PowerLawParams
+    from spectral_tpu.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu.models.stokes_unsteady import UnsteadyStokes
+    from spectral_tpu.ops.curvilinear import named_map
+    from spectral_tpu.solvers.krylov import KSPConfig
+    from spectral_tpu.solvers.newton import NewtonConfig
+
+    rows, arrays = [], {}
+
+    def run(name, p, params):
+        t0 = time.perf_counter()
+        res = p.solve_family(params)
+        rows.append({"name": name, "iters": [int(i) for i in res.iters],
+                     "reason": [int(r) for r in res.reason],
+                     "fnorm": [float(f) for f in res.fnorm],
+                     "seconds": time.perf_counter() - t0})
+        return res
+
+    res = run("flat10", StokesProblem(Grid((10, 10)), StokesConfig(exact=2, rheology=1)),
+              [PowerLawParams(1.0, e, 1e-2, 1.0) for e in (1.0, 2.0, 3.0)])
+    arrays.update(flat10_v=np.asarray(res.x["v"]), flat10_p=np.asarray(res.x["p"]))
+    cfg = StokesConfig(exact=0, boundary=3, rheology=1, regularization=1e-3, pcvel="mg",
+                       newton=NewtonConfig(rtol=1e-8, max_it=40))
+    res = run("curved10", StokesProblem(Grid((10, 10)), cfg, phi=named_map("annulus:1:2")),
+              [PowerLawParams(1.0, e, 1e-3, 1.0) for e in (1.5, 2.0, 2.5)])
+    arrays.update(curved10_v=np.asarray(res.x["v"]), curved10_p=np.asarray(res.x["p"]))
+    run("family8", StokesProblem(Grid((16, 16)), StokesConfig(
+        exact=2, rheology=1, newton=NewtonConfig(rtol=1e-4, max_it=25))),
+        [PowerLawParams(1.0, 1.0 + 0.25 * i, 1e-2, 1.0) for i in range(8)])
+
+    ucfg = StokesConfig(exact=1, boundary=0, pcvel="fastdiag",
+                        outer_ksp=KSPConfig(type="fgmres", rtol=1e-10, max_it=300, restart=100))
+    m = UnsteadyStokes(Grid((10, 10)), ucfg, dt=0.05, theta=0.5)
+    times = np.arange(0.0, 0.2 + 1e-12, 0.05)
+    v0s, sss, fbs = [], [], []
+    for om in (0.5, 1.0, 2.0):
+        u0, sf, ff, _, _ = m.manufactured(omega=om)
+        v0s.append(u0)
+        sss.append(jnp.asarray([sf(t) for t in times[1:]]))
+        fbs.append(jnp.stack([m.theta * ff(t1) + (1 - m.theta) * ff(t0)
+                              for t0, t1 in zip(times[:-1], times[1:])]))
+    t0 = time.perf_counter()
+    vs, ps, its = m.family_rollout(jnp.stack(v0s), jnp.stack(sss), jnp.stack(fbs))
+    rows.append({"name": "rollout10", "iters": np.asarray(its).tolist(),
+                 "seconds": time.perf_counter() - t0})
+    arrays.update(rollout10_v=np.asarray(vs), rollout10_p=np.asarray(ps),
+                  rollout10_iters=np.asarray(its))
+    np.savez_compressed(FAMILY_NPZ, **arrays)
+    return rows
+
+
 SECTIONS = {
     "cli43": lambda: run_cli(README43),
     "cli52": lambda: run_cli(README52),
@@ -1335,6 +1406,7 @@ SECTIONS = {
     "recycle12": recycle12,
     "curved": curved,
     "curvedcpu": curvedcpu,
+    "family": family,
 }
 
 

@@ -1,6 +1,6 @@
 """chip_smoke.py's plan of a run, on the CPU: the full run's own phases and
-its worker groups cover every phase and every run of phase 13 exactly
-once, the argument modes parse as documented, and a worker that fails
+its worker groups cover every phase and every run of phases 13 and 16
+exactly once, the argument modes parse as documented, and a worker that fails
 fails the run with its error.  The smoke test itself needs the card."""
 
 import time
@@ -13,10 +13,10 @@ import chip_smoke
 def test_worker_groups_cover_every_phase_once():
     plans = [chip_smoke.parse_phases(spec)
              for spec in (chip_smoke.PARENT_PHASES, *chip_smoke.WORKER_GROUPS)]
-    for phase in chip_smoke.ALL_PHASES - {0, 13}:
+    for phase in chip_smoke.ALL_PHASES - {0, 13, 16}:
         owners = [i for i, (phases, _) in enumerate(plans) if phase in phases]
         assert len(owners) == 1, (phase, owners)
-    for part in chip_smoke.PARTS13:
+    for part in chip_smoke.PARTS:   # 13a-13e as letters, 16a-16e
         owners = [i for i, (_, parts) in enumerate(plans) if part in parts]
         assert len(owners) == 1, (part, owners)
     assert all(0 in phases for phases, _ in plans)
@@ -26,20 +26,22 @@ def test_worker_groups_cover_every_phase_once():
 
 
 @pytest.mark.parametrize("argv, phases, parts, mode", [
-    ([], chip_smoke.ALL_PHASES, chip_smoke.PARTS13, "full"),
-    (["--serial"], chip_smoke.ALL_PHASES, chip_smoke.PARTS13, "serial"),
+    ([], chip_smoke.ALL_PHASES, chip_smoke.PARTS, "full"),
+    (["--serial"], chip_smoke.ALL_PHASES, chip_smoke.PARTS, "serial"),
     (["--phases", "1,14"], {0, 1, 14}, set(), "check"),
     (["--phases", "9"], {0, 8, 9}, set(), "check"),
     (["--phases", "15"], {0, 15}, set(), "check"),
     (["--phases", "12-13"], {0, 12, 13}, chip_smoke.PARTS13, "check"),
     (["--worker", "--phases", "3,13b-d"], {0, 3, 13}, {"b", "c", "d"}, "worker"),
     (["--worker", "--phases", "13e,13a"], {0, 13}, {"a", "e"}, "worker"),
+    (["--phases", "16"], {0, 16}, chip_smoke.PARTS16, "check"),
+    (["--worker", "--phases", "16b-e"], {0, 16}, {"16b", "16c", "16d", "16e"}, "worker"),
 ])
 def test_parse_args(argv, phases, parts, mode):
     assert chip_smoke.parse_args(argv) == (frozenset(phases), frozenset(parts), mode)
 
 
-@pytest.mark.parametrize("argv", [["--phases"], ["--phases", "16"], ["--worker"],
+@pytest.mark.parametrize("argv", [["--phases"], ["--phases", "17"], ["--worker"],
                                   ["--serial", "--phases", "1"], ["-x"]])
 def test_parse_args_refuses(argv):
     with pytest.raises(SystemExit):

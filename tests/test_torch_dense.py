@@ -166,7 +166,7 @@ def test_dense_pc_var_matches_jax():
 def test_steady_solve_refuses_mass_shift():
     """The JAX package's ValueError: the steady residual has no mass term."""
     tp = StokesProblem(Grid(DIMS, device="cpu"), StokesConfig(**SHIFTED))
-    for fn in (tp.solve, tp.solve_family):
+    for fn in (tp.solve, lambda: tp.solve_family([tp.params_at(1)])):
         with pytest.raises(ValueError, match="UNSTEADY"):
             fn()
     # and a shift takes fastdiag or mg only

@@ -203,8 +203,12 @@ def test_cli_debug2_prints_the_field():
 
 def test_unported_options_raise():
     g = Grid((8, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EllipticModel(g, mesh=object())
+    # mesh= runs the residual on slabs (tests/test_torch_parallel.py); a
+    # curved domain on a mesh waits for item 7c
+    from spectral_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        EllipticModel(g, mesh=make_mesh({"x": 1}), phi=lambda x: x)
     # curved domains run (tests/test_torch_curvilinear.py); phi needs an
     # unmapped grid, and -map excludes -domain, as in the JAX package
     with pytest.raises(ValueError, match="unmapped Grid"):
@@ -213,8 +217,13 @@ def test_unported_options_raise():
     base = ["elliptic", "-device", "cpu", "-dim", "8,8"]
     with pytest.raises(SystemExit, match="mutually exclusive"):
         _run(t_main, base + ["-map", "bump:0.1", "-domain", "0,1,0,1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        newton.newton_solve_family(None, None)
+    # families run (tests/test_torch_family.py); a callable line search in
+    # a family waits for item 7c
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        newton.newton_solve_family(
+            lambda x, t: (x - t, None), torch.zeros(2, dtype=torch.float64),
+            torch.ones(2, dtype=torch.float64), jacobian_action=lambda x, ls, w: w,
+            config=NewtonConfig(line_search=lambda *a: None))
     # the SNES family runs (tests/test_torch_snes.py); an unknown type exits
     with pytest.raises(SystemExit, match="unknown -snes_type"):
         _run(t_main, base + ["-snes_type", "ncg"])

@@ -995,3 +995,79 @@ def test_curved_poisson_on_card_matches_host(cuda):
     assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] > 0
     assert cuda_cheb.LAUNCHES["laplacian3d_plane_kernel"] == 0
     assert cuda_cheb.LAUNCHES["laplacian3d_x_kernel"] == 0
+
+
+def test_stokes_family_on_card_matches_host(cuda):
+    """ROADMAP item 7a on the card: a 3-member power-law family at 8x8,
+    its Newton counts equal the host's, every member within 1e-10 of the
+    host's family, K1 launched once a batch under vmap ((3, 8, 8))."""
+    from spectral_tpu_torch.models.rheology import PowerLawParams
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+
+    fam = [PowerLawParams(1.0, e, 1e-2, 1.0) for e in (1.0, 2.0, 3.0)]
+    res = {}
+    for dev in ("cpu", cuda):
+        p = StokesProblem(Grid((8, 8), device=dev, dtype=torch.float64),
+                          StokesConfig(exact=2, rheology=1))
+        cuda_cheb.reset_launch_counts()
+        res[str(dev)] = p.solve_family(fam)
+    host, card = res["cpu"], res["cuda"]
+    assert card.iters.tolist() == host.iters.tolist() and (card.reason > 0).all()
+    for k in ("v", "p"):
+        assert float(torch.max(torch.abs(card.x[k].cpu() - host.x[k]))) <= 1e-10
+    assert cuda_cheb.K1_LAUNCHES_BY_SHAPE.get(((3, 8, 8), torch.float64), 0) > 0
+
+
+def _pencil_rank(rank, store, queue):
+    import torch.distributed as dist
+
+    from spectral_tpu_torch.parallel import (chebdiff_pencil, chebdiff_pencil_pipelined,
+                                             gather_tensor, halo_shift, make_mesh,
+                                             shard_tensor)
+    from spectral_tpu_torch.ops.stencil import shift
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    dev = torch.device("cuda")
+    mesh = make_mesh({"x": 2})
+    u = _randn((16, 12, 8), torch.float64, dev, 3)
+    ul = shard_tensor(u, mesh, {0: "x"})
+    out = {"path": mesh.comm_path}
+    for ax in range(3):
+        got = gather_tensor(chebdiff_pencil(ul, ax, mesh), mesh, {0: "x"})
+        out[f"pencil {ax}"] = _rel(got, chebyshev.chebdiff(u, ax))
+    got = gather_tensor(chebdiff_pencil_pipelined(ul, 0, mesh, chunks=2), mesh, {0: "x"})
+    out["pipelined"] = _rel(got, chebyshev.chebdiff(u, 0))
+    for s in (-1, 1):
+        got = gather_tensor(halo_shift(ul, 0, s, mesh), mesh, {0: "x"})
+        out[f"halo {s}"] = float(torch.max(torch.abs(got - shift(u, 0, s))))
+    if rank == 0:
+        queue.put(out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def test_pencil_two_gloo_ranks_on_card(cuda, tmp_path):
+    """ROADMAP item 7b on the card: two gloo processes sharing it, the
+    pencil along each axis, its pipelined form (asynchronous exchanges)
+    and the halo (staged through pinned host memory: gloo takes no CUDA
+    send/recv) against the one-process results."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_pencil_rank, args=(r, str(tmp_path / "store"), queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        out = queue.get(timeout=300)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert out["path"] == "gloo; CUDA tensors staged through pinned host memory: sendrecv"
+    assert max(out[f"pencil {ax}"] for ax in range(3)) <= 1e-12
+    assert out["pipelined"] <= 1e-12
+    assert out["halo -1"] == out["halo 1"] == 0.0

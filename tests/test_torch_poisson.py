@@ -184,12 +184,19 @@ def test_mg_pc_matches_jax():
 
 def test_unported_paths_raise():
     g = Grid((8, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoissonModel(g, mesh=object())
+    # mesh= runs on slabs (tests/test_torch_parallel.py); a mapped grid and
+    # the other PCs on a mesh wait for item 7c
+    from spectral_tpu_torch.ops.mapping import AxisMap
+    from spectral_tpu_torch.parallel import make_mesh
+
+    mesh1 = make_mesh({"x": 1})
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        PoissonModel(g, mesh=mesh1).build_pc("mg")
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        PoissonModel(Grid((8, 8), maps=(AxisMap.affine(0.0, 1.0, 8),) * 2, device="cpu"),
+                     mesh=mesh1)
     # axis maps and -map run (tests/test_torch_curvilinear.py); a map per
     # axis, and -map excludes -domain, as in the JAX package
-    from spectral_tpu_torch.ops.mapping import AxisMap
-
     with pytest.raises(ValueError, match="one AxisMap per axis"):
         Grid((8, 8), maps=(AxisMap.affine(0.0, 1.0, 8),), device="cpu")
     with pytest.raises(SystemExit, match="mutually exclusive"):

@@ -557,13 +557,26 @@ def test_unported_options_raise():
     # refused as the JAX package refuses it
     with pytest.raises(ValueError, match="UNSTEADY step operator"):
         StokesProblem(g, StokesConfig(mass_shift=1.0)).solve()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        StokesProblem(g, mesh=object())
+    # item 7b runs the residual on slabs (tests/test_torch_parallel.py); the
+    # sharded Newton solve and a mapped grid on a mesh wait for item 7c
+    from spectral_tpu_torch.parallel import make_mesh
+
+    mesh1 = make_mesh({"x": 1})
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        StokesProblem(g, StokesConfig(exact=2), mesh=mesh1).solve()
+    from spectral_tpu_torch.ops.mapping import AxisMap
+
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        StokesProblem(Grid((8, 8), maps=(AxisMap.affine(0.0, 1.0, 8),) * 2, device="cpu"),
+                      mesh=mesh1)
     with pytest.raises(ValueError, match="unmapped Grid"):   # curved domains run
         StokesProblem(Grid((8, 8), intervals=((0.0, 1.0),) * 2, device="cpu"),
                       phi=lambda x: x)
     p = StokesProblem(g, StokesConfig(exact=2))
-    for fn, name in ((p.solve_family, "item 7"),
+    # item 7a runs families (tests/test_torch_family.py); the Q1 and probed
+    # velocity PCs in a family wait for item 7c
+    pq = StokesProblem(g, StokesConfig(exact=2, pcvel="probed"))
+    for fn, name in ((lambda: pq.solve_family([pq.params_at(1)]), "item 7c"),
                      (lambda: p.solve_continuation(checkpoint_dir="x"), "item 8")):
         with pytest.raises(NotImplementedError, match=name):
             fn()

@@ -216,8 +216,11 @@ def test_dense_adjoint_pc_is_the_transpose():
 def test_unsteady_raises():
     g = Grid(DIMS, device="cpu")
     m = UnsteadyStokes(g, StokesConfig(**LINEAR), dt=DT)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        m.family_rollout()
+    # family_rollout runs (tests/test_torch_family.py); the power law is
+    # refused, as the JAX package refuses it
+    pl = UnsteadyStokes(g, StokesConfig(**POWER_LAW), dt=DT)
+    with pytest.raises(ValueError, match="linear fast path"):
+        pl.family_rollout(None, None, None)
     # a curved domain runs (tests/test_torch_curvilinear.py): phi reaches
     # the problem
     assert UnsteadyStokes(g, StokesConfig(**LINEAR), dt=DT,
