@@ -110,7 +110,7 @@ paths at their real sizes through the entry points a user calls:
      own sequential solves: (a) bench.py's stokes_family8 (8 power-law
      exponents at 16^2) through ``solve_family``, its warm time against
      bench.py's baseline (8 x one warm solve of member 7) and the sum of
-     the 8 warm solves, 3 repeats; (b) the curved family (annulus 10^2,
+     the 8 warm solves, 2 repeats; (b) the curved family (annulus 10^2,
      the metric multigrid); (c) ``family_rollout`` of 4 manufactured
      members at 11b's 20^3 CN configuration; (d) ``solve_batched`` and
      ``block_gmres`` on phase 3's 64^3 Poisson operator with 8 seeded
@@ -121,18 +121,26 @@ paths at their real sizes through the entry points a user calls:
      holds K1 bit for bit at the batched shapes, directly and under
      ``torch.func.vmap`` (K1_FAMILY_SHAPES), and at the slab shapes
      (K1_SLAB_SHAPES).
+ 17. sharded solves in float64, gloo processes sharing the card, each
+     held to the card's one-process run of the same configuration (see
+     ``P17_RUNS``): (a) README:43 at 20^3 on {"x": 2}; (b) the same on
+     {"x": 2, "y": 2}, four processes; (c) the curved 14^3 Stokes of 15d;
+     (d) the elliptic 32^3 mg3 Newton solve; (e) two CN steps of 11b's
+     ustokes and three Blankenbach 1a convection steps; (f) 16d's batch of
+     8 cut over the mesh.  Every process's K1 launches count (K2 must stay
+     at 0); phase 1 holds K1 at the slab shapes (K1_SLAB_SHAPES).
 
 ``python3 chip_smoke.py --phases 3,8-15,13b-d`` runs phase 0 and the
 phases listed in this process (a check run: no kernels line, no result
 line).  With no argument every phase runs, as the smoke test is meant to
 run: phases 0-2, 5 and 13a first, alone on the card (they time the
-kernels), then the paths in seven worker processes at once
-(``WORKER_GROUPS``), which report their launch counts back (phase 16e's
-two processes report theirs to their worker).  The workers'
+kernels), then the paths in eight worker processes at once
+(``WORKER_GROUPS``), which report their launch counts back (the
+processes of phases 16e and 17 report theirs to their worker).  The workers'
 path times are taken while the others run; ``--serial`` runs every phase
 in this process, for path times taken alone.
 
-Each path (phases 3-16) is driven with the launch counts set to 0 just
+Each path (phases 3-17) is driven with the launch counts set to 0 just
 before it and read just after (K1's forward and transposed launches also
 by shape), and times nothing inside it (a call captured in a CUDA graph counts once and launches at
 every replay); every phase raises on failure.  A timed comparison gives
@@ -193,8 +201,12 @@ K1_CURVED_SHAPES = ((8, 8), (13, 13), (14, 14), (17, 17), (18, 18), (20, 20), (2
 # family (4, 20, 20, 20), the batched 64^3 Poisson (8, 64, 64, 64)), held
 # bit for bit directly and under vmap; the slabs of 16e's two processes
 # and the curved family's sequential solve, held as the curved shapes are
-K1_FAMILY_SHAPES = ((8, 16, 16), (3, 10, 10), (4, 20, 20, 20), (8, 64, 64, 64))
-K1_SLAB_SHAPES = ((32, 64, 64), (8, 12), (10, 10))
+K1_FAMILY_SHAPES = ((8, 16, 16), (3, 10, 10), (4, 20, 20, 20), (8, 64, 64, 64),
+                    (4, 64, 64, 64))
+# phase 17's slabs: README:43 on {"x": 2} and on 2 x 2, the curved 14^3,
+# the elliptic 32^3, Blankenbach's 16^2 (and 17f's batch of 4 a process)
+K1_SLAB_SHAPES = ((32, 64, 64), (8, 12), (10, 10), (10, 20, 20), (10, 10, 20), (7, 14, 14),
+                  (16, 32, 32), (8, 16))
 K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
 # K3's ragged cases, each in float32 and float64: (rows, n, pack, row tile,
 # offset of u2d in its storage).  n % 4 == 0 goes by bulk copies (n = 12:
@@ -1313,7 +1325,7 @@ def timed_once(fn):
 K1_NAME = "chebdiff_last_kernel"
 PARTS13 = frozenset("abcde")   # phase 13's runs, 13a-13e
 PARTS16 = frozenset(f"16{c}" for c in "abcde")   # phase 16's runs, 16a-16e
-PARTS = PARTS13 | PARTS16
+PARTS = PARTS13 | PARTS16 | frozenset(f"17{c}" for c in "abcdef")
 
 
 class Phase13:
@@ -2275,6 +2287,7 @@ def phase15(cli_main, path, k1_shapes) -> dict:
 # phase 16: the JAX package's Newton counts of the families (stokes_oracle.py
 # family, CPU oracle): bench.py's stokes_family8 at 16^2 and the curved family
 FAMILY_ORACLE = {"family8": [1, 5, 8, 9, 12, 11, 18, 17], "curved10": [7, 18, 10]}
+# 3 warm repeats: the speed-up is reported as a spread (median, min, max)
 FAMILY_REPEATS = 3
 
 
@@ -2955,17 +2968,420 @@ def run_cli(cli_main, argv) -> tuple[int, str]:
     return rc, buf.getvalue()
 
 
-ALL_PHASES = frozenset(range(17))
+# -- phase 17: sharded solves, gloo processes sharing the one card ------------
+# Each run is built as one process builds it (the CLI's own configuration
+# builders) and then with a mesh; the worker runs the one-process
+# reference on the card, then spawns the ranks, which run the sharded
+# form with the launch counts and the exchange counters set to 0 before
+# it and read after.  Gates: the one-process run's counts, and its fields
+# to 1e-9 relative (17f: the batch's per-member counts, x to 1e-12), except
+# where round-off alone moves them: README:43's pressure carries spurious
+# modes that a start moved by 1e-14 changes by ~100% (12^3, on the CPU),
+# and such a start moves an FGMRES count by one, as it does the 20^3 CN
+# step's (ROADMAP queue 3).  There (17a, 17b, 17e's unsteady steps) the one-process run is
+# repeated from a start moved by 1e-14: the sharded Krylov counts lie
+# within max(3, 10%) of the two runs' range (the repo's rule), the Newton
+# counts equal, v within 4x the perturbed run's move (or 1e-9), and the
+# pressure is held by the one-process residual (the Newton residual, or
+# the last CN step's) evaluated at the gathered sharded state: its norm
+# within 4x the larger of the two one-process runs' own, and 17a/17b's
+# error within 2x theirs.
+P17_RUNS = {   # run -> (mesh axes, axis_map)
+    "17a": ({"x": 2}, None), "17b": ({"x": 2, "y": 2}, {0: "x", 1: "y"}),
+    "17c": ({"x": 2}, None), "17d": ({"x": 2}, None), "17e": ({"x": 2}, None),
+    "17f": ({"x": 2}, None)}
+PARTS17 = frozenset(P17_RUNS)
+USTOKES_STEPS = 2
+
+
+def _p17_fields(out: dict, slab) -> dict:
+    """The global fields of a run's result (gathered on a mesh)."""
+    import torch
+
+    return {k: (slab.gather(v) if slab is not None else v).cpu()
+            for k, v in out.items() if isinstance(v, torch.Tensor)}
+
+
+def _on(a, dev):
+    """A gathered host array as a float64 tensor on ``dev``."""
+    import torch
+    return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+
+def p17_run(run: str, dev, mesh=None, axis_map=None, perturb: float = 0.0) -> dict:
+    """One phase-17 configuration, in one process (mesh None) or on this
+    process' slab: its counts, errors and global fields.  ``perturb``
+    moves the start (17a-c's zero state, 17e's initial velocity) by that
+    much seeded masked noise (in one process)."""
+    import numpy as np
+    import torch
+
+    from spectral_tpu_torch.cli.drivers import convection_config, stokes_config, ustokes_config
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.convection import ConvectionModel
+    from spectral_tpu_torch.models.elliptic import EllipticModel
+    from spectral_tpu_torch.models.poisson import PoissonModel
+    from spectral_tpu_torch.models.stokes import StokesProblem
+    from spectral_tpu_torch.models.stokes_unsteady import UnsteadyStokes
+    from spectral_tpu_torch.ops.curvilinear import named_map
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig, _norm
+    from spectral_tpu_torch.utils.options import Options
+
+    f64 = torch.float64
+    kw = {} if mesh is None else dict(mesh=mesh, axis_map=axis_map)
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def noise(t):
+        return perturb * torch.randn(t.shape, generator=gen, device=dev, dtype=t.dtype)
+
+    if run in ("17a", "17b", "17c"):
+        if run == "17c":   # "15d stokes 3d": the curved default, the metric multigrid
+            argv = CURVED_ORACLE["15d stokes 3d"]["argv"][1:]
+            cfg = dataclasses.replace(stokes_config(Options(argv), f64), pcvel="mg")
+            p = StokesProblem(Grid((14, 14, 14), device=dev), cfg, phi=named_map("bump:0.06"),
+                              **kw)
+        else:
+            p = StokesProblem(Grid((20, 20, 20), device=dev),
+                              stokes_config(Options(STOKES_README43), f64), **kw)
+        if perturb:   # solve_continuation's loop from the moved start
+            z = p.zero_state()
+            x = {"v": p.mask_v(noise(z["v"])), "p": p.mask_p(noise(z["p"]))}
+            res = []
+            for i in range(p.config.cont0, p.config.cont + 1):
+                res.append(p.solve(x, params=p.params_at(i)))
+                x = res[-1].x
+        else:
+            res = p.solve_continuation()
+        x = res[-1].x
+        div = p.divergence(x["v"], with_dirichlet=True)
+        div = torch.max(torch.abs(div)).reshape(1)
+        if mesh is not None:
+            div = mesh.allmax(div)
+        out = {"newton": [r.iters for r in res], "krylov": [r.ksp_iters for r in res],
+               "error": p.error_vs_exact(x), "divergence": float(div), "v": x["v"],
+               "p": p.project_p(x["p"])}
+        out = {**out, **_p17_fields(out, p.slab)}
+        if mesh is None:   # the Newton residual's norm at a gathered state
+            params = p.params_at(p.config.cont)
+
+            def fnorm_at(v, pr):
+                F = p.make_residual(params)({"v": _on(v, dev), "p": _on(pr, dev)})[0]
+                return float(_norm({"v": F["v"], "p": p.project_p(F["p"])}))
+
+            out["fnorm_at"] = fnorm_at
+        return out
+    if run == "17d":   # the elliptic CLI's 32^3 mg3 configuration
+        m = EllipticModel(Grid((32, 32, 32), device=dev), gamma=1.0, **kw)
+        u, b, d = EllipticModel(Grid((32, 32, 32), device=dev), gamma=1.0).setup_problem(exact=0)
+        if mesh is not None:
+            u, b, d = m.local(u), m.local(b), m.local(d)
+        r = m.solve(b, d, ksp=KSPConfig(type="fgmres", rtol=1e-5, max_it=500),
+                    newton=NewtonConfig(rtol=1e-10, max_it=50), pc_type="mg3")
+        err = torch.max(torch.abs(r.x - u)).reshape(1)
+        if mesh is not None:
+            err = mesh.allmax(err)
+        out = {"newton": r.iters, "krylov": r.ksp_iters, "error": float(err), "x": r.x}
+        return {**out, **_p17_fields(out, m.slab)}
+    if run == "17e":
+        # two CN steps at 11b's 20^3 configuration, then two convection
+        # steps and one step_dt at 12a's Blankenbach 16^2 configuration
+        cfg = ustokes_config(Options(USTOKES20), f64)
+        us = UnsteadyStokes(Grid((20, 20, 20), device=dev), cfg, dt=0.05, **kw)
+        u0, s_of_t, f_of_t, _, _ = us.manufactured()
+        if perturb:
+            u0 = u0 + us.problem.mask_v(noise(u0))
+        times = np.arange(USTOKES_STEPS + 1) * 0.05
+        fbars = [0.5 * f_of_t(t1) + 0.5 * f_of_t(t0) for t0, t1 in zip(times[:-1], times[1:])]
+        s_last = float(s_of_t(times[-1]))
+        v0, _, its = us.rollout_scan(u0, [s_of_t(t) for t in times[1:-1]], fbars[:-1])
+        v, pr, it, _ = us.step(v0, s_last, fbars[-1])
+        its = [*its.tolist(), int(it)]
+        ccfg = convection_config(Options(BLANKENBACH))
+        m = ConvectionModel.box((16, 16), ccfg, device=dev, **kw)
+        with captured_returns(ConvectionModel, "solve_stokes") as solves:
+            carry = m.init_carry(m.conductive_state(amp=0.05))
+            for _ in range(2):
+                carry = m.step(*carry)
+            T, N, x = m.step_dt(*carry, 4e-4, 0.8)
+        out = {"ustokes_outer": [int(i) for i in its], "conv_krylov": [int(s.iters) for s in solves],
+               "nu_top": float(m.nusselt_top(T)), "vrms": float(m.vrms(x)),
+               "us_v0": v0, "us_v": v, "us_p": pr, "T": T, "N": N, "xv": x["v"]}
+        out = {**out, **_p17_fields(out, us.problem.slab)}
+        if mesh is None:   # the last CN step's residual norm at a gathered state
+            params = us.problem.params_at(us.problem.config.cont)
+
+            def us_fnorm_at(v_0, v_1, p_1):
+                F = us._step_residual({"v": _on(v_1, dev), "p": _on(p_1, dev) / us.theta},
+                                      _on(v_0, dev), params, s_last, fbars[-1])[0]
+                return float(_norm(F))
+
+            out["us_fnorm_at"] = us_fnorm_at
+        return out
+    if run == "17f":   # 16d's 8 right-hand sides, the batch cut over the mesh
+        model = PoissonModel(Grid((64, 64, 64), device=dev, dtype=f64))
+        M = model.build_pc("fastdiag")
+        Bm = torch.randn((8, 64, 64, 64), generator=torch.Generator(device=dev).manual_seed(160),
+                         device=dev, dtype=f64)
+        r = KSPConfig(type="gmres", rtol=1e-10, max_it=200).solve_batched(
+            model.operator, Bm, M=M, mesh=mesh)
+        return {"iters": r.iters.tolist(), "reason": r.reason.tolist(), "x": r.x.cpu()}
+    raise ValueError(run)
+
+
+def _phase17_rank(rank: int, world: int, store: str, axes: dict, axis_map, runs, queue):
+    """One gloo process of phase 17 on the one card: each run of ``runs``
+    on this process' slab, its K1 launches (by shape) and exchanges
+    counted.  Puts (rank, run, record) on ``queue`` as each run ends, rank
+    0's with the gathered fields."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world)
+        from spectral_tpu_torch.ops import cuda_cheb
+        from spectral_tpu_torch.parallel import make_mesh
+        from spectral_tpu_torch.parallel.mesh import EXCHANGES
+
+        dev = torch.device("cuda")
+        mesh = make_mesh(axes)
+        for run in runs:
+            dist.barrier()
+            cuda_cheb.reset_launch_counts()
+            EXCHANGES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = p17_run(run, dev, mesh, axis_map)
+            torch.cuda.synchronize()
+            rec = {"seconds": time.perf_counter() - t0, "launches": dict(cuda_cheb.LAUNCHES),
+                   "k1_launches_by_shape": {f"{tuple(sp)} {str(dt)[6:]}": c for (sp, dt), c
+                                            in cuda_cheb.K1_LAUNCHES_BY_SHAPE.items()},
+                   "exchanges": dict(EXCHANGES)}
+            rec["out"] = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                          for k, v in out.items() if rank == 0 or not isinstance(v, torch.Tensor)}
+            queue.put((rank, run, rec))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, None, {"error": traceback.format_exc()}))
+        raise
+
+
+def _spawn17(world: int, axes: dict, axis_map, runs) -> dict:
+    """Run ``runs`` in ``world`` gloo processes; {rank: {run: record}}.  A
+    run may take up to 600 s; a rank's failure ends the phase."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    recs = {r: {} for r in range(world)}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_phase17_rank,
+                             args=(r, world, os.path.join(tmp, "store"), axes, axis_map, runs,
+                                   queue)) for r in range(world)]
+        try:
+            for pr in procs:
+                pr.start()
+            for _ in range(world * len(runs)):
+                rank, run, rec = queue.get(timeout=600)
+                require("error" not in rec, f"phase 17: rank {rank}: {rec.get('error')}")
+                recs[rank][run] = rec
+            for pr in procs:
+                pr.join(timeout=60)
+        finally:
+            for pr in procs:
+                if pr.pid is None:   # never started
+                    continue
+                if pr.is_alive():
+                    pr.kill()
+                pr.join()
+    return recs
+
+
+def _rel(a, ref) -> float:
+    import numpy as np
+    a, ref = np.asarray(a), np.asarray(ref)
+    return float(np.max(np.abs(a - ref)) / max(float(np.max(np.abs(ref))), 1e-300))
+
+
+def phase17(path, k1_shapes, launches, parts=PARTS17) -> dict:
+    """Phase 17 (see above), the runs in ``parts``: the one-process
+    references on the card (counted as their own paths), then the sharded
+    runs in gloo processes (17b in four, the rest in two), every rank's K1
+    launches added to the path's and K2 held at 0; a K1 (shape, dtype) the
+    slabs take that phase 1 does not hold is held here, bit for bit."""
+    import numpy as np
+    import torch
+
+    from spectral_tpu_torch.ops import cuda_cheb
+
+    dev = torch.device("cuda")
+    K1 = "chebdiff_last_kernel"
+    K2 = ("laplacian3d_plane_kernel", "laplacian3d_x_kernel")
+    out = {}
+    refs = {}
+    def host(rec):
+        return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                for k, v in rec.items()}
+
+    perturbed = {}
+    for run in sorted(parts):
+        if run == "17b" and "17a" in refs:
+            refs[run], perturbed[run] = refs["17a"], perturbed["17a"]
+            continue
+        (ref, t), _ = path(f"phase17 {run} one process",
+                           lambda: timed_once(lambda: p17_run(run, dev)), [K1])
+        refs[run] = {**host(ref), "seconds": t}
+        if run in ("17a", "17b", "17e"):   # round-off's own move
+            perturbed[run] = host(p17_run(run, dev, perturb=1e-14))
+
+    def krylov_ok(got, ref, pert) -> bool:   # within max(3, 10%) of the range
+        lo, hi = min(ref, pert), max(ref, pert)
+        return lo - max(3, math.ceil(0.1 * hi)) <= got <= hi + max(3, math.ceil(0.1 * hi))
+
+    def flat(k):
+        return [int(i) for row in k for i in (row if isinstance(row, list) else [row])]
+    groups = [(4, {"x": 2, "y": 2}, {0: "x", 1: "y"}, ["17b"]),
+              (2, {"x": 2}, None, [r for r in sorted(parts) if r != "17b"])]
+    held = {f"{s} float64" for s in K1_PATH_SHAPES + K1_CURVED_SHAPES + K1_SLAB_SHAPES
+            + K1_FAMILY_SHAPES + K1_BATCHED_SHAPES}
+    for world, axes, amap, runs in groups:
+        runs = [r for r in runs if r in parts]
+        if not runs:
+            continue
+        recs = _spawn17(world, axes, amap, runs)
+        for run in runs:
+            name = f"phase17 {run}"
+            ref, got = refs[run], recs[0][run]["out"]
+            for rank in range(world):
+                rec = recs[rank][run]
+                for k, v in rec["launches"].items():
+                    launches[k] += v
+                k1_shapes[f"{name} rank {rank}"] = rec["k1_launches_by_shape"]
+                require(rec["launches"][K1] > 0, f"{name}: rank {rank} launched no K1")
+                require(all(rec["launches"][k] == 0 for k in K2),
+                        f"{name}: K2 launched on a slab (rank {rank})")
+            if run in ("17a", "17b", "17c"):
+                dv, dp = _rel(got["v"], ref["v"]), _rel(got["p"], ref["p"])
+                de = abs(got["error"] - ref["error"]) / ref["error"]
+                dd = abs(got["divergence"] - ref["divergence"]) / max(ref["divergence"], 1e-300)
+                rec = dict(newton=got["newton"], krylov=got["krylov"], error=got["error"],
+                           divergence=got["divergence"], v_rel=dv, p_rel=dp, error_rel=de,
+                           divergence_rel=dd, one_process=[ref["newton"], ref["krylov"],
+                                                           ref["error"]])
+                counts = f"{got['newton']} {got['krylov']}, one process {ref['newton']} " \
+                         f"{ref['krylov']}"
+                if run == "17c":
+                    require(got["newton"] == ref["newton"] and got["krylov"] == ref["krylov"],
+                            f"{name}: counts {counts}")
+                    require(max(dv, dp, de, dd) <= 1e-9,
+                            f"{name}: v {dv:.3e} p {dp:.3e} error {de:.3e} divergence {dd:.3e}")
+                else:
+                    pt = perturbed[run]
+                    mv, mp = _rel(pt["v"], ref["v"]), _rel(pt["p"], ref["p"])
+                    require(got["newton"] == ref["newton"] and all(
+                        krylov_ok(g, r, q) for g, r, q in zip(
+                            flat(got["krylov"]), flat(ref["krylov"]), flat(pt["krylov"]))),
+                        f"{name}: counts {counts}, perturbed {pt['krylov']}")
+                    # p is held by the one-process residual at the gathered
+                    # state (v, p): within 4x the larger of the one-process
+                    # runs' own, which round-off cannot move past the solve's
+                    # tolerance (a wrong pressure's gradient leaves it O(1))
+                    fn = {k: ref["fnorm_at"](d["v"], d["p"])
+                          for k, d in (("sharded", got), ("one", ref), ("perturbed", pt))}
+                    require(dv <= max(1e-9, 4 * mv),
+                            f"{name}: v {dv:.3e}, perturbed {mv:.3e}")
+                    require(fn["sharded"] <= 4 * max(fn["one"], fn["perturbed"]),
+                            f"{name}: residual at the sharded state {fn}")
+                    require(got["error"] <= 2 * max(ref["error"], pt["error"]),
+                            f"{name}: error {got['error']:.6e}, one process {ref['error']:.6e},"
+                            f" perturbed {pt['error']:.6e}")
+                    rec.update(perturbed=[pt["krylov"], pt["error"]], v_move=mv, p_move=mp,
+                               fnorm=fn, counts_equal=got["krylov"] == ref["krylov"])
+            elif run == "17d":
+                require(got["newton"] == ref["newton"] and got["krylov"] == ref["krylov"],
+                        f"{name}: counts {got['newton']} {got['krylov']}, one process "
+                        f"{ref['newton']} {ref['krylov']}")
+                rec = dict(newton=got["newton"], krylov=got["krylov"], error=got["error"],
+                           x_rel=_rel(got["x"], ref["x"]))
+            elif run == "17e":
+                pt = perturbed[run]
+                require(got["conv_krylov"] == ref["conv_krylov"] and all(
+                    krylov_ok(g, r, q) for g, r, q in zip(
+                        got["ustokes_outer"], ref["ustokes_outer"], pt["ustokes_outer"])),
+                        f"{name}: counts {got['ustokes_outer']} {got['conv_krylov']}, one "
+                        f"process {ref['ustokes_outer']} {ref['conv_krylov']}, perturbed "
+                        f"{pt['ustokes_outer']}")
+                rels = {k: _rel(got[k], ref[k]) for k in ("us_v", "us_p", "T", "N", "xv")}
+                moves = {k: _rel(pt[k], ref[k]) for k in ("us_v", "us_p")}
+                # the unsteady p as 17a's: the last step's one-process residual
+                fn = {k: ref["us_fnorm_at"](d["us_v0"], d["us_v"], d["us_p"])
+                      for k, d in (("sharded", got), ("one", ref), ("perturbed", pt))}
+                require(rels["us_v"] <= max(1e-9, 4 * moves["us_v"])
+                        and max(rels[k] for k in ("T", "N", "xv")) <= 1e-9,
+                        f"{name}: fields {rels}, perturbed {moves}")
+                require(fn["sharded"] <= 4 * max(fn["one"], fn["perturbed"]),
+                        f"{name}: the last CN step's residual at the sharded state {fn}")
+                rec = dict(ustokes_outer=got["ustokes_outer"], conv_krylov=got["conv_krylov"],
+                           one_process=[ref["ustokes_outer"], ref["conv_krylov"]],
+                           perturbed=pt["ustokes_outer"], nu_top=got["nu_top"], vrms=got["vrms"],
+                           field_rel=rels, unsteady_move=moves, unsteady_fnorm=fn,
+                           nu_rel=abs(got["nu_top"] - ref["nu_top"]) / ref["nu_top"])
+            else:
+                require(got["iters"] == ref["iters"] and all(r > 0 for r in got["reason"]),
+                        f"{name}: counts {got['iters']}, the unsharded batch {ref['iters']}")
+                dx = _rel(got["x"], ref["x"])
+                require(dx <= 1e-12, f"{name}: x {dx:.3e} off the unsharded batch")
+                rec = dict(iters=got["iters"], x_rel=dx,
+                           bitwise=bool(np.array_equal(got["x"], ref["x"])))
+            ex = recs[0][run]["exchanges"]
+            outer = (sum(sum(k) for k in rec["krylov"]) if run in ("17a", "17b", "17c")
+                     else None)
+            rec.update(seconds=recs[0][run]["seconds"], one_process_s=ref["seconds"],
+                       processes=world, exchanges_rank0=ex,
+                       exchanges_per_outer=(None if not outer
+                                            else {k: v / outer for k, v in ex.items()}),
+                       k1_launches=[recs[r][run]["launches"][K1] for r in range(world)],
+                       k2_launches=[sum(recs[r][run]["launches"][k] for k in K2)
+                                    for r in range(world)],
+                       k1_launches_by_shape=recs[0][run]["k1_launches_by_shape"])
+            out[run] = rec
+            print(f"{name} " + json.dumps(rec))
+    # a slab shape phase 1 does not hold: held here, bit for bit in float64
+    seen = {k for n, by in k1_shapes.items() if n.startswith("phase17") for k in by}
+    extra = {}
+    for key in sorted(seen - held):
+        shape = tuple(int(s) for s in key.split(")")[0].strip("(").split(",") if s.strip())
+        dt = getattr(torch, key.split()[-1])
+        u = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(17),
+                        device=dev, dtype=dt)
+        got = cuda_cheb.chebdiff_last(u)
+        ref = cuda_cheb.chebdiff_last_ref(u)
+        extra[key] = bool(torch.equal(got, ref)) if dt == torch.float64 else _rel(
+            got.cpu(), ref.cpu())
+        require(extra[key] is True or (dt != torch.float64 and extra[key] <= BOUND["float32"]),
+                f"phase 17: K1 {key} not its plain version ({extra[key]})")
+    out["k1_held_in_phase17"] = extra
+    return out
+
+
+ALL_PHASES = frozenset(range(18))
 # The full run: phases 0-2, 5 and 13a in this process, so that their kernel
 # timings have the card to themselves, then the paths in worker processes
 # run at once, one a group.  The paths are host-bound (the card idles 91-99%
 # in each, PERF.md section 3), so the groups share the card and the cores
 # with little loss; they are balanced by the seconds of a serial run.
 PARENT_PHASES = "1-2,5,13a"
-WORKER_GROUPS = ("8-9", "13e", "3-4,6-7,11,13b-d", "10,12,14", "15", "16a", "16b-e")
+WORKER_GROUPS = ("8-9", "13e", "3-4,6-7,11,13b-d", "10,12,14", "15", "16a", "16b-e", "17")
 # The workers end within this many seconds of the script's start.
 WORKER_DEADLINE_S = 1100.0
-USAGE = "usage: chip_smoke.py [--serial | --phases 1,3,8-16,13b-d,16a]"
+USAGE = "usage: chip_smoke.py [--serial | --phases 1,3,8-17,13b-d,16a,17b]"
 
 
 def parse_phases(spec: str) -> tuple[frozenset, frozenset]:
@@ -2974,12 +3390,13 @@ def parse_phases(spec: str) -> tuple[frozenset, frozenset]:
     whose solutions 9d reuses; 13 alone is 13a-13e, 16 alone 16a-16e."""
     want, parts = {0}, set()
     for part in spec.split(","):
-        m = re.fullmatch(r"(13|16)([a-e])(?:-([a-e]))?", part)
+        m = re.fullmatch(r"(13|16|17)([a-f])(?:-([a-f]))?", part)
         if m:
             want.add(int(m.group(1)))
             lo, hi = m.group(2), m.group(3) or m.group(2)
-            parts.update(c if m.group(1) == "13" else "16" + c
-                         for c in "abcde" if lo <= c <= hi)
+            parts.update(c if m.group(1) == "13" else m.group(1) + c
+                         for c in ("abcdef" if m.group(1) == "17" else "abcde")
+                         if lo <= c <= hi)
             continue
         lo, _, hi = part.partition("-")
         span = range(int(lo), int(hi or lo) + 1)
@@ -2988,6 +3405,8 @@ def parse_phases(spec: str) -> tuple[frozenset, frozenset]:
             parts.update(PARTS13)
         if 16 in span:
             parts.update(PARTS16)
+        if 17 in span:
+            parts.update(f"17{c}" for c in "abcdef")
     if 9 in want:
         want.add(8)
     unknown = want - ALL_PHASES
@@ -3717,6 +4136,13 @@ def main(argv: list[str] | None = None) -> int:
         t_phase = time.perf_counter()
         phase16(path, k1_shapes, launches, parts)   # prints a line a run
         print("phase16 " + json.dumps({"seconds": time.perf_counter() - t_phase}))
+
+    # -- phase 17: sharded solves -------------------------------------------------
+    if 17 in phases:
+        t_phase = time.perf_counter()
+        phase17_out = phase17(path, k1_shapes, launches, parts & PARTS17)
+        phase17_out["seconds"] = time.perf_counter() - t_phase
+        print("phase17 " + json.dumps(phase17_out))
 
     if mode == "worker":   # the parent adds these to its own
         print("worker " + json.dumps({"launches": launches, "k1t_shapes": k1t_shapes}))

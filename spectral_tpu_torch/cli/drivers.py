@@ -300,31 +300,14 @@ _STOKES_NOT_PORTED = {
 }
 
 
-def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
-    """Stokes driver (stokes.C:119-253) with continuation; ``-map`` solves
-    on a curved domain (the metric-aware multigrid velocity PC unless
-    -pcvel is given).  Prints the JAX driver's lines, then the Newton and Krylov counts of
-    every continuation step; with -snes_grid_sequence, also those of the
-    coarse level's continuation (``Continuation steps on level ...``, a line
-    the JAX driver does not print).  Exit code 0 when the last Newton solve
-    converged, 2 when it did not."""
-    from spectral_tpu_torch.grid import Grid
-    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
-    from spectral_tpu_torch.ops.chebyshev import cheb_regrid
-    from spectral_tpu_torch.solvers.krylov import KSPConfig, extreme_singular_values
+def stokes_config(opts: Options, dtype: torch.dtype):
+    """The StokesConfig of a ``stokes`` command line (without -map's
+    pcvel default), as the driver builds it."""
+    from spectral_tpu_torch.models.stokes import StokesConfig
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
     from spectral_tpu_torch.solvers.newton import NewtonConfig
-    from spectral_tpu_torch.utils.printing import vec_print2
 
-    if opts.has("fused") and opts.get_string("checkpoint_dir", ""):
-        raise SystemExit("-fused and -checkpoint_dir are mutually exclusive (fused runs "
-                         "have no host loop to checkpoint)")
-    for key, item in _STOKES_NOT_PORTED.items():
-        if opts.has(key):
-            raise NotImplementedError(
-                f"stokes -{key} is not ported yet (ROADMAP.md queue 1, {item})")
-    dims = opts.get_int_array("dim", (8, 6))
-    debug = opts.get_int("debug", 0)
-    cfg = StokesConfig(
+    return StokesConfig(
         exact=opts.get_int("exact", 0),
         boundary=opts.get_int("boundary", 0),
         rheology=opts.get_int("rheology", 0),
@@ -357,6 +340,33 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
             rtol=1e-8 if dtype == torch.float64 else 1e-5, max_it=50)),
         cont_predictor=opts.get_string("cont_predictor", "none"),
     )
+
+
+def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
+    """Stokes driver (stokes.C:119-253) with continuation; ``-map`` solves
+    on a curved domain (the metric-aware multigrid velocity PC unless
+    -pcvel is given).  Prints the JAX driver's lines, then the Newton and Krylov counts of
+    every continuation step; with -snes_grid_sequence, also those of the
+    coarse level's continuation (``Continuation steps on level ...``, a line
+    the JAX driver does not print).  Exit code 0 when the last Newton solve
+    converged, 2 when it did not."""
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.ops.chebyshev import cheb_regrid
+    from spectral_tpu_torch.solvers.krylov import KSPConfig, extreme_singular_values
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+    from spectral_tpu_torch.utils.printing import vec_print2
+
+    if opts.has("fused") and opts.get_string("checkpoint_dir", ""):
+        raise SystemExit("-fused and -checkpoint_dir are mutually exclusive (fused runs "
+                         "have no host loop to checkpoint)")
+    for key, item in _STOKES_NOT_PORTED.items():
+        if opts.has(key):
+            raise NotImplementedError(
+                f"stokes -{key} is not ported yet (ROADMAP.md queue 1, {item})")
+    dims = opts.get_int_array("dim", (8, 6))
+    debug = opts.get_int("debug", 0)
+    cfg = stokes_config(opts, dtype)
     print(f"Stokes problem  dim = [{','.join(map(str, dims))}]")
     print(f"  hardness = {cfg.hardness:f}    exponent = {cfg.exponent:8f}"
           f"    regularization = {cfg.regularization:8f}    gamma0 = {cfg.gamma0:8f}")
@@ -559,6 +569,31 @@ def heat_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int
     return 0 if err < 1.0 else 2
 
 
+def ustokes_config(opts: Options, dtype: torch.dtype, curved: bool = False):
+    """The StokesConfig of a ``ustokes`` command line, as the driver builds
+    it (``curved``: a -map run, whose pcvel defaults to mg)."""
+    from spectral_tpu_torch.models.stokes import StokesConfig
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+    from spectral_tpu_torch.solvers.newton import NewtonConfig
+
+    return StokesConfig(
+        exact=opts.get_int("exact", 1), boundary=0,
+        rheology=opts.get_int("rheology", 0),
+        hardness=opts.get_real("hardness", 1.0),
+        exponent=opts.get_real("exponent", 1.0),
+        regularization=opts.get_real("eps", 1.0),
+        gamma0=opts.get_real("gamma0", 1.0),
+        pcvel=opts.get_string("pcvel", "mg" if curved else "fastdiag"),
+        # -saddle_pc dense|dense-device: the exact inverse of the fixed
+        # mass-shifted step operator (one matmul an apply)
+        saddle_pc=opts.get_string("saddle_pc", "schur"),
+        outer_ksp=opts.ksp_config("", KSPConfig(type="fgmres", rtol=1e-9,
+                                                max_it=400, restart=100)),
+        # float32 cannot reach the float64 default tolerance: follow the dtype
+        newton=opts.newton_config(NewtonConfig(
+            rtol=1e-8 if dtype == torch.float64 else 1e-5, max_it=25)))
+
+
 def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
     """Time-dependent Stokes driver (models/stokes_unsteady.py):
 
@@ -592,22 +627,7 @@ def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dt
     if map_spec:
         from spectral_tpu_torch.ops.curvilinear import named_map
         phi = named_map(map_spec)
-    cfg = StokesConfig(
-        exact=opts.get_int("exact", 1), boundary=0,
-        rheology=opts.get_int("rheology", 0),
-        hardness=opts.get_real("hardness", 1.0),
-        exponent=opts.get_real("exponent", 1.0),
-        regularization=opts.get_real("eps", 1.0),
-        gamma0=opts.get_real("gamma0", 1.0),
-        pcvel=opts.get_string("pcvel", "mg" if map_spec else "fastdiag"),
-        # -saddle_pc dense|dense-device: the exact inverse of the fixed
-        # mass-shifted step operator (one matmul an apply)
-        saddle_pc=opts.get_string("saddle_pc", "schur"),
-        outer_ksp=opts.ksp_config("", KSPConfig(type="fgmres", rtol=1e-9,
-                                                max_it=400, restart=100)),
-        # float32 cannot reach the float64 default tolerance: follow the dtype
-        newton=opts.newton_config(NewtonConfig(
-            rtol=1e-8 if dtype == torch.float64 else 1e-5, max_it=25)))
+    cfg = ustokes_config(opts, dtype, bool(map_spec))
     scheme = opts.get_string("scheme", "theta")
     print(f"Unsteady Stokes  dim = [{','.join(map(str, dims))}]  dt = {dt}"
           f"  scheme = {scheme}" + ("" if scheme == "bdf2" else f"  theta = {theta}")
@@ -642,6 +662,30 @@ def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dt
     return 0 if np.isfinite(err) and err < 1e-2 else 2
 
 
+def convection_config(opts: Options):
+    """The ConvectionConfig of a ``convection`` command line, as the driver
+    builds it."""
+    from spectral_tpu_torch.models.convection import ConvectionConfig
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+    return ConvectionConfig(
+        Ra=opts.get_real("ra", 1e4),
+        dt=opts.get_real("dt", 5e-4),
+        theta=opts.get_real("theta", 0.5),
+        velocity_bc=opts.get_string("bc", "freeslip"),
+        side_bc=opts.get_string("sides", "insulated"),
+        eta_contrast=opts.get_real("eta_contrast", 1.0),
+        heating=opts.get_real("heating", 0.0),
+        tbc=opts.get_int("tbc", 0) if opts.has("tbc") else None,
+        pcvel=opts.get_string("pcvel", "fastdiag"),
+        stokes_pc=opts.get_string("stokes_pc", "nested"),
+        # -dealias 1 = the 3/2 rule; -dealias 2.0 etc. = an explicit ratio
+        dealias=(False if not opts.has("dealias")
+                 else (lambda r: True if r in (0.0, 1.0) else r)(opts.get_real("dealias", 1.0))),
+        stokes_ksp=opts.ksp_config("", KSPConfig(type="fgmres", rtol=1e-7, max_it=150,
+                                                 restart=60)))
+
+
 def convection_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> int:
     """Coupled Boussinesq convection driver (models/convection.py):
     infinite-Prandtl Rayleigh-Benard on the box, marched to steady state
@@ -666,22 +710,7 @@ def convection_main(opts: Options, *, device: torch.device, dtype: torch.dtype) 
         raise NotImplementedError("convection -output_vtk is not ported yet "
                                   "(ROADMAP.md queue 1, item 8: utils/vtk.py)")
     dims = opts.get_int_array("dim", (16, 16))
-    cfg = ConvectionConfig(
-        Ra=opts.get_real("ra", 1e4),
-        dt=opts.get_real("dt", 5e-4),
-        theta=opts.get_real("theta", 0.5),
-        velocity_bc=opts.get_string("bc", "freeslip"),
-        side_bc=opts.get_string("sides", "insulated"),
-        eta_contrast=opts.get_real("eta_contrast", 1.0),
-        heating=opts.get_real("heating", 0.0),
-        tbc=opts.get_int("tbc", 0) if opts.has("tbc") else None,
-        pcvel=opts.get_string("pcvel", "fastdiag"),
-        stokes_pc=opts.get_string("stokes_pc", "nested"),
-        # -dealias 1 = the 3/2 rule; -dealias 2.0 etc. = an explicit ratio
-        dealias=(False if not opts.has("dealias")
-                 else (lambda r: True if r in (0.0, 1.0) else r)(opts.get_real("dealias", 1.0))),
-        stokes_ksp=opts.ksp_config("", KSPConfig(type="fgmres", rtol=1e-7, max_it=150,
-                                                 restart=60)))
+    cfg = convection_config(opts)
     aspect = opts.get_real("aspect", 1.0)
     m = ConvectionModel.box(dims, cfg, aspect=aspect, device=device, dtype=dtype)
     print(f"Convection  dim = [{','.join(map(str, dims))}]  Ra = {cfg.Ra}"

@@ -119,23 +119,27 @@ class Grid:
         return {}
 
     def _dif_weight_t(self, axis: int, dtype: torch.dtype,
-                      device: torch.device) -> torch.Tensor:
-        """A general map's (n,) weight as a tensor, built once per axis,
-        dtype and device."""
-        key = (axis, dtype, device)
+                      device: torch.device, sl: slice = slice(None)) -> torch.Tensor:
+        """A general map's (n,) weight as a tensor (its ``sl`` block along
+        the axis, a slab's), built once per axis, block, dtype and device."""
+        key = (axis, sl.start, sl.stop, dtype, device)
         w = self._weights.get(key)
         if w is None:
-            w = self._weights[key] = torch.as_tensor(self.maps[axis].w, dtype=dtype,
-                                                     device=device)
+            w = self._weights[key] = torch.as_tensor(np.asarray(self.maps[axis].w)[sl],
+                                                     dtype=dtype, device=device)
         return w
 
-    def apply_dif_weight(self, v: torch.Tensor, axis: int) -> torch.Tensor:
+    def apply_dif_weight(self, v: torch.Tensor, axis: int,
+                         sl: slice = slice(None)) -> torch.Tensor:
         """v * d(xi)/d(x) along ``axis`` (broadcast over every other axis,
-        trailing component axes included); identity on unmapped grids."""
+        trailing component axes included); identity on unmapped grids.
+        ``sl``: the block of the axis that v holds (a slab of a sharded
+        grid), the whole axis by default."""
         if self.maps is not None:
+            w = self._dif_weight_t(axis, v.dtype, v.device, sl)
             shape = [1] * v.ndim
-            shape[axis] = self.dims[axis]
-            return v * self._dif_weight_t(axis, v.dtype, v.device).reshape(shape)
+            shape[axis] = w.shape[0]
+            return v * w.reshape(shape)
         if self.intervals is None:
             return v
         return v * float(self.deriv_scale_np[axis])

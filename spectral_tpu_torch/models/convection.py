@@ -126,7 +126,19 @@ class _SaddleSolve(torch.autograd.Function):
 class ConvectionModel:
     """Coupled Stokes + energy stepping on the unit (or aspect-ratio) box."""
 
-    def __init__(self, grid: Grid, config: ConvectionConfig = ConvectionConfig()):
+    def __init__(self, grid: Grid, config: ConvectionConfig = ConvectionConfig(), *,
+                 mesh=None, sharded_axis: int = 0, mesh_axis: str = "x",
+                 axis_map: dict | None = None):
+        """``mesh`` (``parallel.mesh.Mesh``) runs the coupled step on this
+        process' slab (grid axis ``sharded_axis`` over ``mesh_axis``, or
+        ``axis_map``; the vertical axis stays whole): the Stokes solve with
+        its nested PC on slabs, the AB2 advection's derivatives through the
+        pencil exchange (the rest pointwise), the implicit heat solve with
+        its insulated sides folded on slabs, and the Nusselt and Vrms
+        integrals summed over the mesh.  Temperatures, states and the
+        conductive profile are slabs.  The dense tiers, the 3/2-rule
+        advection, the steady solvers and the stability analysis on a
+        mesh are ROADMAP item 7d."""
         if grid.intervals is None or any(abs(a) > 1e-12 for a, _ in grid.intervals) or \
                 abs(grid.intervals[-1][1] - 1.0) > 1e-12:
             raise ValueError(
@@ -136,10 +148,21 @@ class ConvectionModel:
                 "(ConvectionModel.unit_box / ConvectionModel.box)")
         if config.velocity_bc not in _BOUNDARY:
             raise ValueError(f"unknown velocity_bc {config.velocity_bc!r}")
+        from spectral_tpu_torch.parallel.slab import Slab
+
         self.grid = grid
         self.config = config
         self.d = grid.ndim
         self.vax = grid.ndim - 1      # vertical = last axis
+        self.mesh = mesh
+        self.slab = Slab.of(mesh, axis_map, sharded_axis, mesh_axis)
+        if self.slab is not None:
+            if self.vax in self.slab.axis_map:
+                raise ValueError("the vertical (last) axis stays whole on a mesh")
+            if config.stokes_pc != "nested" or config.dealias:
+                raise NotImplementedError("the dense tiers and the 3/2-rule advection on a "
+                                          "mesh are not ported yet (ROADMAP.md queue 1, "
+                                          "item 7d)")
         self._var_eta = config.eta_contrast != 1.0
         pcvel = config.pcvel
         if self._var_eta and pcvel == "fastdiag":
@@ -151,7 +174,8 @@ class ConvectionModel:
         scfg = StokesConfig(exact=0, boundary=_BOUNDARY[config.velocity_bc], rheology=1,
                             hardness=2.0, exponent=1.0, pcvel=pcvel, tbc=tbc,
                             outer_ksp=config.stokes_ksp)
-        self.stokes = StokesProblem(grid, scfg)
+        self.stokes = StokesProblem(grid, scfg, mesh=mesh, sharded_axis=sharded_axis,
+                                    mesh_axis=mesh_axis, axis_map=axis_map)
         self._params = PowerLawParams(2.0, 1.0, 1.0, 1.0)
         # the frozen linearization of the linear operator (eta = 2, deta = 0)
         zero = self.stokes.zero_state()
@@ -190,9 +214,12 @@ class ConvectionModel:
         else:
             raise ValueError(f"unknown side_bc {config.side_bc!r}")
         self.heat = HeatModel(grid, dt=config.dt, theta=config.theta, ksp=config.temp_ksp,
-                              neumann_axes=nm_axes)
+                              neumann_axes=nm_axes, slab=self.slab)
 
-        def t(a):
+        def t(a):   # a global host array, as this process' block of it
+            if self.slab is not None and np.ndim(a) >= 1:
+                a = self.slab.local_np(a) if np.ndim(a) == self.d else a[
+                    self.slab.slices(grid.dims)[:np.ndim(a)]]
             return torch.as_tensor(a, dtype=grid.dtype, device=grid.device)
 
         # the conductive profile T = 1 - y and its boundary trace
@@ -201,7 +228,7 @@ class ConvectionModel:
         self.bc_T = t(np.where(grid.boundary_mask_np, self._T_cond_np, 0.0))
         e = np.zeros(self.d)
         e[self.vax] = 1.0
-        self._evert = t(e)                     # buoyancy direction
+        self._evert = torch.as_tensor(e, dtype=grid.dtype, device=grid.device)   # buoyancy
         self._W = t(grid.quad_weights_np)      # volume quadrature
         # surface quadrature over the horizontal axes (top/bottom slices)
         Wh = np.ones(grid.dims[:-1])
@@ -220,26 +247,36 @@ class ConvectionModel:
 
     @classmethod
     def unit_box(cls, dims, config: ConvectionConfig = ConvectionConfig(), *,
-                 device: torch.device | str = "cuda", dtype: torch.dtype = torch.float64):
+                 device: torch.device | str = "cuda", dtype: torch.dtype = torch.float64,
+                 **mesh_kw):
+        """The unit box; ``mesh_kw`` (mesh, sharded_axis, mesh_axis,
+        axis_map) puts the model on a mesh."""
         g = Grid(tuple(dims), intervals=((0.0, 1.0),) * len(dims), device=device, dtype=dtype)
-        return cls(g, config)
+        return cls(g, config, **mesh_kw)
 
     @classmethod
     def box(cls, dims, config: ConvectionConfig = ConvectionConfig(), aspect=1.0, *,
-            device: torch.device | str = "cuda", dtype: torch.dtype = torch.float64):
+            device: torch.device | str = "cuda", dtype: torch.dtype = torch.float64,
+            **mesh_kw):
         """Aspect-ratio box: horizontal width(s) ``aspect`` (a scalar or
-        one per horizontal axis), depth 1."""
+        one per horizontal axis), depth 1; ``mesh_kw`` as in ``unit_box``."""
         d = len(dims)
         widths = ((float(aspect),) * (d - 1) if np.ndim(aspect) == 0
                   else tuple(map(float, aspect)))
         if len(widths) != d - 1:
             raise ValueError(f"aspect needs {d - 1} widths, got {widths}")
         ivals = tuple((0.0, w) for w in widths) + ((0.0, 1.0),)
-        return cls(Grid(tuple(dims), intervals=ivals, device=device, dtype=dtype), config)
+        return cls(Grid(tuple(dims), intervals=ivals, device=device, dtype=dtype), config,
+                   **mesh_kw)
 
     # ------------------------------------------------------------------
     # Coupled step pieces
     # ------------------------------------------------------------------
+    def _one_process(self, what: str) -> None:
+        if self.slab is not None:
+            raise NotImplementedError(f"ConvectionModel.{what} on a mesh is not ported yet "
+                                      "(ROADMAP.md queue 1, item 7d)")
+
     def buoyancy_rhs(self, T: torch.Tensor, Ra=None) -> dict:
         """Saddle right-hand side {Ra T ghat, 0} on the free velocity dofs;
         mixed (free-slip) rows are traction rows with zero datum."""
@@ -275,7 +312,8 @@ class ConvectionModel:
             state = self._pc_setup(None, lin) if self._var_eta else self._pc_state
         return self.config.stokes_ksp.solve(
             lambda w: self.stokes.jacobian_action(None, lin, w), self.buoyancy_rhs(T), x0,
-            M=lambda r: self._pc_apply(state, r), null_project=self.stokes.null_project)
+            M=lambda r: self._pc_apply(state, r), null_project=self.stokes.null_project,
+            reduce=self.stokes._reduce)
 
     def velocity_full(self, x: dict) -> torch.Tensor:
         """Full-grid velocity with the reconstructed mixed components."""
@@ -369,6 +407,7 @@ class ConvectionModel:
         segment-boundary states and integrates one segment again at a time
         (one extra forward pass in all), the rest of n - 1 steps after the
         peeled first one unsegmented.  The same gradient."""
+        self._one_process("rollout_diff")
         from torch.utils.checkpoint import checkpoint as ckpt
 
         Ra = self.config.Ra if Ra is None else Ra
@@ -429,8 +468,8 @@ class ConvectionModel:
         if self._dealias is None:
             N = torch.zeros_like(T)
             for ax in range(self.d):
-                N = N + v_full[..., ax] * g.apply_dif_weight(chebdiff(T, ax), ax)
-            return g.zero_boundary(N)
+                N = N + v_full[..., ax] * self.stokes._dif(T, ax)
+            return self.heat._zero_b(N)
         Us, Ds = self._dealias
         Nf = None
         for ax in range(self.d):
@@ -499,6 +538,7 @@ class ConvectionModel:
         Returns (T, x, info); info adds 'rejects' and 'dts' to the
         march_to_steady keys, and 'steps' counts accepted steps.
         ``checkpoint``/``resume`` raise naming ROADMAP item 8."""
+        self._one_process("march_adaptive")
         from spectral_tpu_torch.solvers.ts import wrms
 
         if checkpoint or resume:
@@ -620,6 +660,7 @@ class ConvectionModel:
 
         Returns (T, x, info) with march_to_steady's keys; info['steps'] =
         warmup + iterations * chunk, the physical steps taken."""
+        self._one_process("steady_accelerated")
         from spectral_tpu_torch.solvers.newton import NewtonConfig, anderson_solve
 
         if warmup:
@@ -659,6 +700,7 @@ class ConvectionModel:
         march_to_steady keys; info['steps'] = warmup + total Krylov
         iterations + accepted Newton residual evaluations, a lower bound
         on the Stokes-solve count."""
+        self._one_process("steady_newton")
         from spectral_tpu_torch.solvers.newton import NewtonConfig, newton_solve
 
         g = self.grid
@@ -705,6 +747,7 @@ class ConvectionModel:
         """March until || dT/dt ||_inf < tol, checked every ``chunk`` steps.
         Returns (T, x, info) with info = {steps, rate, nu_top, nu_bottom,
         vrms, converged}."""
+        self._one_process("march_to_steady")
         T_prev = T0
         carry = self.init_carry(T0)
         steps = 0
@@ -840,6 +883,7 @@ class ConvectionModel:
         mu_max the largest positive eigenvalue of (-Lap)^{-1} B' (one
         Stokes and one Poisson solve an Arnoldi step).  Free-slip insulated
         unit box: Ra_c = 8 pi^4.  Returns (Ra_c, EPSResult)."""
+        self._one_process("critical_rayleigh")
         from spectral_tpu_torch.solvers.eig import eigs
 
         if not self._conduction_base_is_equilibrium:
@@ -871,6 +915,7 @@ class ConvectionModel:
         iterations applies a Stokes solve).  ``base=None``: the conduction
         state; ``base=(T, x)``: a convecting steady state.  Returns an
         EPSResult with transformed eigenvalues."""
+        self._one_process("stability_eigenvalues")
         from spectral_tpu_torch.solvers.eig import eigs, shift_invert
 
         Ra = self.config.Ra if Ra is None else Ra
@@ -896,26 +941,31 @@ class ConvectionModel:
     # Diagnostics (unit-box nondimensionalization: conductive flux = 1)
     # ------------------------------------------------------------------
     def _dTdy(self, T: torch.Tensor) -> torch.Tensor:
-        return self.grid.apply_dif_weight(chebdiff(T, self.vax), self.vax)
+        return self.stokes._dif(T, self.vax)
+
+    def _mean(self, f: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+        """sum(f W) / sum(W), both sums over the mesh on slabs (one
+        reduction)."""
+        s = torch.stack([torch.sum(f * W), torch.sum(W)])
+        if self.slab is not None:
+            s = self.slab.allreduce(s)
+        return s[0] / s[1]
 
     def nusselt_top(self, T: torch.Tensor) -> torch.Tensor:
         """Nu = -<dT/dy> over the cold top surface (CGL index 0 is y = 1)."""
-        flux = -torch.select(self._dTdy(T), self.vax, 0)
-        return torch.sum(flux * self._Wh) / torch.sum(self._Wh)
+        return self._mean(-torch.select(self._dTdy(T), self.vax, 0), self._Wh)
 
     def nusselt_bottom(self, T: torch.Tensor) -> torch.Tensor:
-        flux = -torch.select(self._dTdy(T), self.vax, -1)
-        return torch.sum(flux * self._Wh) / torch.sum(self._Wh)
+        return self._mean(-torch.select(self._dTdy(T), self.vax, -1), self._Wh)
 
     def nusselt_volume(self, T: torch.Tensor, x: dict) -> torch.Tensor:
         """Power-balance form Nu = 1 + <v_y T> (a steady-state identity)."""
         vy = self.velocity_full(x)[..., self.vax]
-        return 1.0 + torch.sum(vy * T * self._W) / torch.sum(self._W)
+        return 1.0 + self._mean(vy * T, self._W)
 
     def vrms(self, x: dict) -> torch.Tensor:
         v = self.velocity_full(x)
-        v2 = torch.sum(v * v, dim=-1)
-        return torch.sqrt(torch.sum(v2 * self._W) / torch.sum(self._W))
+        return torch.sqrt(self._mean(torch.sum(v * v, dim=-1), self._W))
 
     # ------------------------------------------------------------------
     # Initial states
@@ -937,4 +987,6 @@ class ConvectionModel:
                 else:
                     pert = pert * np.sin(modes[ax] * np.pi * xi / L)
             T = T + amp * pert
+        if self.slab is not None:
+            T = self.slab.local_np(T)
         return torch.as_tensor(T, dtype=self.grid.dtype, device=self.grid.device)

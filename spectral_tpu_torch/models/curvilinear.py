@@ -7,6 +7,11 @@ operator is in conservative metric form (``ops/curvilinear.py``; its
 last-axis derivatives run kernel K1 on a CUDA tensor), and the
 preconditioner is a multigrid V-cycle on the variable-coefficient FD
 surrogate with the cross terms dropped.
+
+``mesh=`` solves on this process' slab (``parallel/``): the derivatives
+through the pencil exchange, the metric fields cut to the slab (the
+metric contractions are pointwise), the multigrid on slabs with its
+coarse levels replicated, the Krylov norms summed over the mesh.
 """
 
 from __future__ import annotations
@@ -30,13 +35,27 @@ class CurvilinearPoisson:
 
     grid: Grid
     phi: Callable
+    mesh: object = None      # parallel.mesh.Mesh: the solve on slabs
+    sharded_axis: int = 0
+    mesh_axis: str = "x"
+    axis_map: object = None
 
     @cached_property
     def map(self) -> CurvilinearMap:
         return CurvilinearMap.build(self.grid, self.phi)
 
+    @cached_property
+    def slab(self):
+        from spectral_tpu_torch.parallel.slab import Slab
+        return Slab.of(self.mesh, self.axis_map, self.sharded_axis, self.mesh_axis)
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This process' slab of a global tensor (itself without a mesh)."""
+        return t if self.slab is None else self.slab.local(t)
+
     def operator(self, u: torch.Tensor) -> torch.Tensor:
-        return torch.where(self.grid.boundary_mask, u, -self.map.laplacian(u))
+        return torch.where(self.local(self.grid.boundary_mask), u,
+                           -self.map.laplacian(u, self.slab))
 
     def build_pc(self, pc_type: str = "mg", dtype: torch.dtype | None = None):
         """The PC on the separable metric surrogate in ``dtype`` (default:
@@ -49,10 +68,11 @@ class CurvilinearPoisson:
 
             mg = Multigrid.build(self.grid, builder=builder,
                                  cycles=int(pc_type[2:]) if pc_type[2:] else 2)
+            mg = mg.with_slab(self.slab)
             state = mg.setup(coeffs)
             return lambda r: mg.vcycle(state, r)
         if pc_type == "jacobi":
-            diag = builder(self.grid, coeffs).diag()
+            diag = self.local(builder(self.grid, coeffs).diag())
             return lambda r: r / diag
         if pc_type == "none":
             return None
@@ -71,4 +91,5 @@ class CurvilinearPoisson:
     def solve(self, b: torch.Tensor, *, ksp: KSPConfig | None = None,
               pc_type: str = "mg") -> SolveResult:
         ksp = ksp or KSPConfig(type="gmres", rtol=1e-10, max_it=300)
-        return ksp.solve(self.operator, b, M=self.build_pc(pc_type, dtype=b.dtype))
+        return ksp.solve(self.operator, b, M=self.build_pc(pc_type, dtype=b.dtype),
+                         reduce=None if self.mesh is None else self.mesh.allreduce)

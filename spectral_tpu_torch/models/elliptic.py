@@ -21,9 +21,13 @@ metric form, -div(eta grad u) = -(1/detJ) d_l(eta A_lm d_m u) with
 A = detJ Jinv Jinv^T; the eta' Newton term contracts through the same A,
 so the model stays in reference-gradient space.
 
-With ``mesh=`` (``parallel/``) the residual and the Jacobian action run on
-this process' slab, every derivative through the pencil exchange
-(``make_dif``); the sharded Newton solve is ROADMAP item 7c.
+With ``mesh=`` (``parallel/``) the whole Newton solve runs on this
+process' slab: every derivative through the pencil exchange
+(``make_dif``), a mapped grid's weights and a curved domain's metric
+fields cut to the slab, the preconditioners on slabs (fastdiag through
+the pencil exchange, jacobi, multigrid with replicated coarse levels,
+dense LU replicated), and the Newton and Krylov norms summed over the
+mesh.
 """
 
 from __future__ import annotations
@@ -125,22 +129,24 @@ class EllipticModel:
     pipeline_chunks: int = 1   # > 1: the chunked pencil exchange
 
     def __post_init__(self):
-        if self.mesh is not None and (self.phi is not None or self.grid.maps is not None):
-            raise NotImplementedError(
-                "EllipticModel(mesh=...) on a curved or mapped domain is not ported "
-                "yet (ROADMAP.md queue 1, item 7c)")
-        object.__setattr__(self, "_pc_cache", {})
-        if self.mesh is not None:
-            from spectral_tpu_torch.parallel.mesh import shard_tensor
-            from spectral_tpu_torch.parallel.pencil import make_dif
+        from spectral_tpu_torch.parallel.slab import Slab
 
-            amap = self.axis_map or {self.sharded_axis: self.mesh_axis}
-            object.__setattr__(self, "_bmask", shard_tensor(self.grid.boundary_mask,
-                                                            self.mesh, amap))
-            object.__setattr__(self, "_mesh_dif", make_dif(
-                self.mesh, self.axis_map, sharded_axis=self.sharded_axis,
-                mesh_axis=self.mesh_axis, method=self.method,
-                pipeline_chunks=self.pipeline_chunks))
+        object.__setattr__(self, "_pc_cache", {})
+        slab = Slab.of(self.mesh, self.axis_map, self.sharded_axis, self.mesh_axis,
+                       self.pipeline_chunks)
+        object.__setattr__(self, "slab", slab)
+        if slab is not None:
+            object.__setattr__(self, "_bmask", slab.local(self.grid.boundary_mask))
+            object.__setattr__(self, "_mesh_dif", slab.dif(self.method))
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This process' slab of a global grid tensor (itself without a
+        mesh)."""
+        return t if self.slab is None else self.slab.local(t)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The global tensor of a slab (itself without a mesh)."""
+        return t if self.slab is None else self.slab.gather(t)
 
     def _set_boundary(self, u, values):
         if self.mesh is None:
@@ -170,7 +176,7 @@ class EllipticModel:
 
     def _metric_flux(self, flux_ref: list) -> list:
         """A reference-gradient-space flux list contracted with A = Acoef."""
-        A = self.cmap.field("Acoef", flux_ref[0].dtype, flux_ref[0].device)
+        A = self.cmap.field("Acoef", flux_ref[0].dtype, flux_ref[0].device, self.slab)
         d = self.grid.ndim
         return [sum(A[..., l, m] * flux_ref[m] for m in range(d)) for l in range(d)]
 
@@ -180,12 +186,13 @@ class EllipticModel:
         for ax in range(self.grid.ndim):
             y = y - self._dif(flux[ax], ax)
         if self.cmap is not None:
-            y = y / self.cmap.field("detJ", y.dtype, y.device)
+            y = y / self.cmap.field("detJ", y.dtype, y.device, self.slab)
         return y
 
     def _dif(self, v: torch.Tensor, axis: int) -> torch.Tensor:
-        d = chebdiff(v, axis, self.method) if self.mesh is None else self._mesh_dif(v, axis)
-        return self.grid.apply_dif_weight(d, axis)
+        if self.mesh is None:
+            return self.grid.apply_dif_weight(chebdiff(v, axis, self.method), axis)
+        return self.slab.dif_weight(self.grid, self._mesh_dif(v, axis), axis)
 
     # -- coefficients ---------------------------------------------------------
     def eta(self, u):
@@ -273,7 +280,7 @@ class EllipticModel:
                 from spectral_tpu_torch.ops.curvilinear import metric_surrogate_builder
                 mg = Multigrid.build(self.grid, builder=metric_surrogate_builder(self.grid.ndim),
                                      cycles=cycles)
-            self._pc_cache[key] = mg
+            self._pc_cache[key] = mg.with_slab(self.slab)
         return self._pc_cache[key]
 
     def make_pc(self, pc_type: str = "fastdiag", dtype: torch.dtype | None = None):
@@ -293,13 +300,22 @@ class EllipticModel:
         separable metric stencil -(1/detJ) d_l(eta A_ll d_l .), the cross
         terms and the eta' term dropped; "fastdiag" and "q1fem" stay
         metric-blind (usable on gentle maps).
+
+        With ``mesh`` every type but q1fem applies to slabs: fastdiag
+        through the pencil exchange; the stencil setups gather the
+        linearization's fields and build the global surrogate as one
+        process does, then jacobi keeps the slab's diagonal, mg runs its
+        cycle on slabs (coarse levels replicated) and lu solves replicated.
         """
-        g = self.grid
+        g, slab = self.grid, self.slab
         if pc_type == "none":
             return None, None
 
+        def gathered(lin_state):   # the global linearization (one all_gather a field)
+            return lin_state if slab is None else slab.gather_fields(lin_state)
+
         def _stencil(lin_state):
-            eta, deta, gradu = lin_state
+            eta, deta, gradu = gathered(lin_state)
             if self.cmap is None:
                 return elliptic_jacobian_stencil(g, eta, deta, gradu)
             from spectral_tpu_torch.ops.curvilinear import metric_surrogate_builder
@@ -307,8 +323,11 @@ class EllipticModel:
 
         if pc_type == "fastdiag":
             fd = self._fastdiag(dtype or g.dtype)
-            return (lambda x, lin_state: None), (lambda state, r: fd.apply(r))
+            return (lambda x, lin_state: None), (lambda state, r: fd.apply(r, slab=slab))
         if pc_type == "q1fem":
+            if slab is not None:
+                raise NotImplementedError("the Q1 FEM preconditioner on a mesh is not ported "
+                                          "yet (ROADMAP.md queue 1, item 7d)")
             from spectral_tpu_torch.ops.fem import Q1FastDiag
 
             key = ("q1fem", dtype or g.dtype)
@@ -317,7 +336,7 @@ class EllipticModel:
             q1 = self._pc_cache[key]
             return (lambda x, lin_state: None), (lambda state, r: q1.apply(r))
         if pc_type == "jacobi":
-            return (lambda x, lin_state: _stencil(lin_state).diag()), \
+            return (lambda x, lin_state: self.local(_stencil(lin_state).diag())), \
                    (lambda diag, r: r / diag)
         if pc_type == "lu":
             if g.size > 5000:
@@ -326,17 +345,18 @@ class EllipticModel:
             def setup(x, lin_state):
                 return torch.linalg.lu_factor(stencil_to_dense(_stencil(lin_state), g.dims))
 
-            def apply(lu, r):
+            def apply(lu, r):   # replicated on a mesh: r gathered, z cut back
                 LU, piv = lu
-                z = torch.linalg.lu_solve(LU, piv, r.reshape(-1, 1).to(LU.dtype))
-                return z.reshape(r.shape)
+                rg = self.gather(r)
+                z = torch.linalg.lu_solve(LU, piv, rg.reshape(-1, 1).to(LU.dtype))
+                return self.local(z.reshape(rg.shape))
 
             return setup, apply
         if pc_type.startswith("mg"):
             mg = self._multigrid(int(pc_type[2:]) if pc_type[2:] else 2)
 
             def setup(x, lin_state):
-                eta, deta, gradu = lin_state
+                eta, deta, gradu = gathered(lin_state)
                 if self.cmap is not None:
                     return mg.setup(self.cmap.pc_coeffs(eta))
                 return mg.setup({"eta": eta, "deta": deta, "gradu": list(gradu)})
@@ -375,7 +395,9 @@ class EllipticModel:
     def solve(self, b: torch.Tensor, dirichlet: torch.Tensor, x0=None, *,
               ksp: KSPConfig | None = None, newton: NewtonConfig | None = None,
               pc_type: str = "fastdiag") -> NewtonResult:
-        """Newton-Krylov in b's dtype on b's device (main, elliptic.C:117-246)."""
+        """Newton-Krylov in b's dtype on b's device (main, elliptic.C:117-246).
+        With ``mesh``, b, dirichlet and x0 are this process' slabs
+        (``local``) and so is the solution."""
         ksp = ksp or KSPConfig(type="fgmres", rtol=1e-5, max_it=300)
         newton = newton or NewtonConfig(rtol=1e-8, max_it=50)
         pc_setup, pc_apply = self.make_pc(pc_type, dtype=b.dtype)
@@ -383,7 +405,8 @@ class EllipticModel:
         return newton_solve(self.make_residual(b, dirichlet), x0,
                             jacobian_action=self.jacobian_action,
                             pc_setup=pc_setup, pc_apply=pc_apply, ksp=ksp,
-                            config=newton)
+                            config=newton,
+                            reduce=None if self.mesh is None else self.mesh.allreduce)
 
     def _dev32(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.float32,

@@ -55,8 +55,15 @@ class HeatModel:
     ksp: KSPConfig = KSPConfig(type="cg", rtol=1e-10, max_it=100)
     phi: object = None
     neumann_axes: tuple = ()
+    # parallel.slab.Slab: the step on this process' slab (states, forcing
+    # and Dirichlet data are slabs; the fastdiag PC through the pencil
+    # exchange, its zero-flux folds along a sharded axis included)
+    slab: object = None
 
     def __post_init__(self):
+        if self.slab is not None and self.phi is not None:
+            raise NotImplementedError("the curved heat step on a mesh is not ported yet "
+                                      "(ROADMAP.md queue 1, item 7d)")
         if self.neumann_axes and len(self.neumann_axes) >= self.grid.ndim:
             raise ValueError("at least one axis must stay Dirichlet "
                              "(all-Neumann diffusion is singular)")
@@ -76,6 +83,29 @@ class HeatModel:
         from spectral_tpu_torch.ops.curvilinear import CurvilinearMap
         return CurvilinearMap.build(self.grid, self.phi)
 
+    @cached_property
+    def _bmask(self) -> torch.Tensor:
+        """The boundary mask (this process' slab of it on a mesh)."""
+        bm = self.grid.boundary_mask
+        return bm if self.slab is None else self.slab.local(bm)
+
+    @cached_property
+    def _slab_dif(self):
+        return self.slab.dif()
+
+    def _dif(self, u: torch.Tensor, ax: int) -> torch.Tensor:
+        """The first derivative along ``ax`` with its chain-rule weight."""
+        if self.slab is None:
+            return self.grid.apply_dif_weight(chebdiff(u, ax), ax)
+        return self.slab.dif_weight(self.grid, self._slab_dif(u, ax), ax)
+
+    def _zero_b(self, u: torch.Tensor) -> torch.Tensor:
+        return torch.where(self._bmask, torch.zeros((), dtype=u.dtype, device=u.device), u)
+
+    @property
+    def _reduce(self):
+        return None if self.slab is None else self.slab.allreduce
+
     def laplacian(self, u: torch.Tensor) -> torch.Tensor:
         """Spectral Laplacian with homogeneous rows at the boundary (the
         solution's boundary values are held by the Dirichlet data)."""
@@ -84,9 +114,8 @@ class HeatModel:
             return g.zero_boundary(self.cmap.laplacian(u))
         y = torch.zeros_like(u)
         for ax in range(g.ndim):
-            du = g.apply_dif_weight(chebdiff(u, ax), ax)
-            y = y + g.apply_dif_weight(chebdiff(du, ax), ax)
-        return g.zero_boundary(y)
+            y = y + self._dif(self._dif(u, ax), ax)
+        return self._zero_b(y)
 
     @cached_property
     def _nm_masks(self):
@@ -111,7 +140,11 @@ class HeatModel:
                 m &= face_count == 1
                 masks[(ax, lbl)] = torch.as_tensor(m, device=g.device)
                 any_nm |= m
-        return masks, torch.as_tensor(any_nm, device=g.device)
+        any_nm = torch.as_tensor(any_nm, device=g.device)
+        if self.slab is not None:
+            masks = {k: self.slab.local(m) for k, m in masks.items()}
+            any_nm = self.slab.local(any_nm)
+        return masks, any_nm
 
     def _bc_rows(self, y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """Overwrite the boundary rows of an interior result: identity
@@ -120,7 +153,7 @@ class HeatModel:
         domain the outward conormal flux sum_j A_{ax j} d_j u (the mapped
         face's physical normal flux)."""
         g = self.grid
-        y = torch.where(g.boundary_mask, u, y)
+        y = torch.where(self._bmask, u, y)
         if self.neumann_axes:
             masks, _ = self._nm_masks
             if self.cmap is not None:
@@ -128,7 +161,7 @@ class HeatModel:
                 grads = [chebdiff(u, j) for j in range(g.ndim)]
             for ax in self.neumann_axes:
                 if self.cmap is None:
-                    du = g.apply_dif_weight(chebdiff(u, ax), ax)
+                    du = self._dif(u, ax)
                 else:
                     du = sum(A[..., ax, j] * grads[j] for j in range(g.ndim))
                 y = torch.where(masks[(ax, "lo")], du, y)
@@ -155,7 +188,8 @@ class HeatModel:
     @cached_property
     def _pc_apply(self):
         if self.cmap is None:
-            return self._fastdiag(1.0 / self.dt, self.theta).apply
+            fd = self._fastdiag(1.0 / self.dt, self.theta)
+            return lambda r: fd.apply(r, slab=self.slab)
         # the shift-free theta-scaled metric hierarchy, shifted by 1/dt: the
         # fixed-dt and the dt-argument steps solve the same surrogate
         mg, state0, folds = self._mgc_theta
@@ -227,15 +261,15 @@ class HeatModel:
         """(initial guess, rhs) of the theta-scheme step A u_next = rhs.
         Insulated faces carry the zero-flux row (rhs 0) and keep the
         current value as the initial guess."""
-        g = self.grid
         uL = self._masked_state(u, dirichlet)
-        rhs = uL / self.dt + (1.0 - self.theta) * self.laplacian(uL) + g.zero_boundary(f)
+        rhs = uL / self.dt + (1.0 - self.theta) * self.laplacian(uL) + self._zero_b(f)
         return uL, self._bc_rhs(rhs, dirichlet)
 
     def step(self, u: torch.Tensor, f: torch.Tensor, dirichlet: torch.Tensor) -> torch.Tensor:
         """One theta-scheme step: solve A u_next = rhs."""
         uL, rhs = self._step_rhs(u, f, dirichlet)
-        return self.ksp.solve(self.implicit_operator, rhs, x0=uL, M=self._pc_apply).x
+        return self.ksp.solve(self.implicit_operator, rhs, x0=uL, M=self._pc_apply,
+                              reduce=self._reduce).x
 
     def step_diff(self, u: torch.Tensor, f: torch.Tensor, dirichlet: torch.Tensor) -> torch.Tensor:
         """``step``, differentiable in u, f and the Dirichlet data: the
@@ -315,7 +349,7 @@ class HeatModel:
             fd = self._fd0_unit
         else:  # exotic theta override: exact surrogate for this c
             fd = self._fastdiag(0.0, c)
-        return lambda r: fd.apply(r, shift=shift)
+        return lambda r: fd.apply(r, shift=shift, slab=self.slab)
 
     @cached_property
     def _fd0_theta(self) -> FastDiagSolver:
@@ -332,14 +366,14 @@ class HeatModel:
     def _masked_state(self, u: torch.Tensor, dirichlet: torch.Tensor) -> torch.Tensor:
         """The state with the Dirichlet trace imposed (insulated faces
         keep their evolved value)."""
-        uL = self.grid.set_boundary(u, dirichlet)
+        uL = torch.where(self._bmask, dirichlet, u)
         if self.neumann_axes:
             _, any_nm = self._nm_masks
             uL = torch.where(any_nm, u, uL)
         return uL
 
     def _bc_rhs(self, rhs: torch.Tensor, dirichlet: torch.Tensor) -> torch.Tensor:
-        rhs = torch.where(self.grid.boundary_mask, dirichlet, rhs)
+        rhs = torch.where(self._bmask, dirichlet, rhs)
         if self.neumann_axes:
             _, any_nm = self._nm_masks
             rhs = torch.where(any_nm, 0.0, rhs)
@@ -351,9 +385,9 @@ class HeatModel:
         th = self.theta if theta is None else float(theta)
         uL = self._masked_state(u, dirichlet)
         rhs = self._bc_rhs(uL / dt + (1.0 - th) * self.laplacian(uL)
-                           + self.grid.zero_boundary(f), dirichlet)
+                           + self._zero_b(f), dirichlet)
         return self.ksp.solve(lambda w: self._implicit_op_c(w, 1.0 / dt, th), rhs,
-                              x0=uL, M=self._traced_pc(th, 1.0 / dt)).x
+                              x0=uL, M=self._traced_pc(th, 1.0 / dt), reduce=self._reduce).x
 
     def step_bdf2_dt(self, u, u_prev, f, dirichlet, dt: float, rr: float):
         """One variable-step BDF2 step of size ``dt`` with step ratio
@@ -367,6 +401,6 @@ class HeatModel:
         a = (1.0 + 2.0 * rr) / (1.0 + rr)
         uL = self._masked_state(u, dirichlet)
         rhs = self._bc_rhs(((1.0 + rr) * uL - (rr * rr / (1.0 + rr)) * u_prev) / dt
-                           + self.grid.zero_boundary(f), dirichlet)
+                           + self._zero_b(f), dirichlet)
         return self.ksp.solve(lambda w: self._implicit_op_c(w, a / dt, 1.0), rhs,
-                              x0=uL, M=self._traced_pc(1.0, a / dt)).x
+                              x0=uL, M=self._traced_pc(1.0, a / dt), reduce=self._reduce).x

@@ -14,9 +14,11 @@ Operator paths:
   weights apply per node between the two derivatives, so the operator
   takes the composed path.
 - ``mesh=``: the explicit pencil path on this process' slab
-  (``parallel/``): derivatives through ``make_dif``, the fastdiag PC's
-  transforms through the pencil exchange, Krylov inner products summed
-  over the mesh.  K2 is never offered a slab.
+  (``parallel/``): derivatives through ``make_dif``, a mapped grid's
+  chain-rule weights cut to the slab, Krylov inner products summed over
+  the mesh, and every preconditioner on slabs (fastdiag through the
+  pencil exchange, jacobi the slab's diagonal, multigrid with its coarse
+  levels replicated, dense LU replicated).  K2 is never offered a slab.
 """
 
 from __future__ import annotations
@@ -49,24 +51,17 @@ class PoissonModel:
     axis_map: object = None   # {grid_axis: mesh_axis} for P x Q meshes
     pipeline_chunks: int = 1  # > 1: the chunked pencil exchange
 
-    def __post_init__(self):
-        if self.mesh is not None and self.grid.maps is not None:
-            raise NotImplementedError(
-                "PoissonModel(mesh=...) on a mapped grid is not ported yet "
-                "(ROADMAP.md queue 1, item 7c)")
-
-    @property
-    def _axis_map(self) -> dict:
-        """The slab layout: grid axis -> mesh axis name."""
-        return self.axis_map or {self.sharded_axis: self.mesh_axis}
+    @cached_property
+    def slab(self):
+        """The slab layout on the mesh (``parallel.slab.Slab``), or None."""
+        from spectral_tpu_torch.parallel.slab import Slab
+        return Slab.of(self.mesh, self.axis_map, self.sharded_axis, self.mesh_axis,
+                       self.pipeline_chunks)
 
     def local(self, t: torch.Tensor) -> torch.Tensor:
         """This process' slab of a global grid tensor (itself without a
         mesh)."""
-        if self.mesh is None:
-            return t
-        from spectral_tpu_torch.parallel.mesh import shard_tensor
-        return shard_tensor(t, self.mesh, self._axis_map)
+        return t if self.mesh is None else self.slab.local(t)
 
     @cached_property
     def _bmask(self) -> torch.Tensor:
@@ -79,11 +74,11 @@ class PoissonModel:
         differentiates along the sharded axis too)."""
         g = self.grid
         if self.mesh is not None:
-            from spectral_tpu_torch.parallel.pencil import make_dif
+            dif = self.slab.dif()
 
-            dif = make_dif(self.mesh, self.axis_map, sharded_axis=self.sharded_axis,
-                           mesh_axis=self.mesh_axis, pipeline_chunks=self.pipeline_chunks)
-            wgt = g.apply_dif_weight
+            def wgt(v, ax):
+                return self.slab.dif_weight(g, v, ax)
+
             y = torch.zeros_like(u)
             for ax in range(g.ndim):
                 y = y - wgt(dif(wgt(dif(u, ax), ax), ax), ax)
@@ -106,19 +101,23 @@ class PoissonModel:
     def fd_stencil(self):
         return poisson_fd_stencil(self.grid)
 
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The global tensor of a slab (itself without a mesh)."""
+        return t if self.mesh is None else self.slab.gather(t)
+
     def build_pc(self, pc_type: str = "fastdiag", dtype: torch.dtype | None = None):
-        """Strong PC on the FD surrogate, in ``dtype`` (default: the grid's)."""
+        """Strong PC on the FD surrogate, in ``dtype`` (default: the grid's).
+        With ``mesh`` it applies to slabs: fastdiag through the pencil
+        exchange, jacobi the slab's diagonal, mg / mg<k> the multigrid on
+        slabs with its coarse levels replicated (``ops/multigrid.py``), lu
+        replicated on every process (the residual gathered, solved, and cut
+        back)."""
         dtype = dtype or self.grid.dtype
-        if self.mesh is not None:
-            if pc_type != "fastdiag":
-                raise NotImplementedError(
-                    f"pc_type {pc_type!r} on a mesh is not ported yet "
-                    "(ROADMAP.md queue 1, item 7c)")
-            return self._sharded_fastdiag(dtype)
         if pc_type == "fastdiag":
-            return FastDiagSolver.build(self.grid, dtype=dtype)
+            fd = FastDiagSolver.build(self.grid, dtype=dtype)
+            return fd if self.mesh is None else (lambda r: fd.apply(r, slab=self.slab))
         if pc_type == "jacobi":
-            diag = self.fd_stencil.diag().to(dtype)
+            diag = self.local(self.fd_stencil.diag().to(dtype))
             return lambda r: r / diag
         if pc_type.startswith("mg"):
             # "mg<k>": k residual-corrected V-cycles an apply (2 for "mg"),
@@ -126,6 +125,7 @@ class PoissonModel:
             from spectral_tpu_torch.ops.multigrid import Multigrid
 
             mg = Multigrid.build(self.grid, cycles=int(pc_type[2:]) if pc_type[2:] else 2)
+            mg = mg.with_slab(self.slab)
             state = mg.setup({})
             return lambda r: mg.vcycle(state, r)
         if pc_type == "lu":
@@ -139,47 +139,11 @@ class PoissonModel:
                                 device=self.grid.device)
             LU, piv = torch.linalg.lu_factor(A)
             dims = self.grid.dims
-            return lambda r: torch.linalg.lu_solve(
-                LU, piv, r.reshape(-1, 1).to(LU.dtype)).reshape(dims)
+            return lambda r: self.local(torch.linalg.lu_solve(
+                LU, piv, self.gather(r).reshape(-1, 1).to(LU.dtype)).reshape(dims))
         if pc_type == "none":
             return None
         raise ValueError(f"unknown pc_type {pc_type!r}")
-
-    def _sharded_fastdiag(self, dtype: torch.dtype):
-        """The fastdiag apply on slabs: each axis' interior eigenvector
-        factors embedded in the full axis (zero boundary rows and columns),
-        so a transform is one per-axis product, through the pencil exchange
-        along a sharded axis (``apply_axis_pencil``); the eigenvalue sum
-        divides the interior (ones on the boundary, whose transformed
-        entries are zero), and boundary entries pass through."""
-        from spectral_tpu_torch.parallel.pencil import apply_axis_pencil
-
-        fd = FastDiagSolver.build(self.grid, dtype=dtype)
-        g, dev = self.grid, self.grid.device
-
-        def full(M):
-            n = M.shape[0] + 2
-            F = torch.zeros((n, n), dtype=dtype, device=dev)
-            F[1:-1, 1:-1] = M
-            return F
-
-        V = [full(M) for M in fd.V]
-        Vinv = [full(M) for M in fd.Vinv]
-        lam = torch.ones(g.dims, dtype=dtype, device=dev)
-        lam[tuple([slice(1, -1)] * g.ndim)] = fd.lam_sum
-        lam = self.local(lam)
-        amap = self._axis_map
-
-        def apply(r):
-            w = r
-            for ax in range(g.ndim):
-                w = apply_axis_pencil(Vinv[ax], w, ax, self.mesh, amap)
-            w = w / lam
-            for ax in range(g.ndim):
-                w = apply_axis_pencil(V[ax], w, ax, self.mesh, amap)
-            return torch.where(self._bmask, r, w.to(r.dtype))
-
-        return apply
 
     def exact_solution(self) -> tuple[torch.Tensor, torch.Tensor]:
         """u = prod_j cos(pi x_j / 2), f = d (pi/2)^2 u, in the grid's dtype."""

@@ -62,10 +62,17 @@ Newton with parameter continuation (stokes.C:217-235).
   with its loop-free blocks mapped over the family by ``torch.func.vmap``
   and every nested solve a ``KSPConfig.solve_batched``.
 
-- ``mesh=`` runs the residual and the Jacobian action on this process'
-  slab of a sharded grid (``parallel/``: the pencil exchange for every
-  derivative along a sharded axis); the sharded Newton solve raises
-  naming ROADMAP item 7c.
+- ``mesh=`` runs the whole Newton solve on this process' slab of a
+  sharded grid (``parallel/``): the pencil exchange for every derivative
+  along a sharded axis, the masks, boundary data and metric fields cut to
+  the slab, and the nested PC tree on slabs: the velocity sub-PC (fastdiag
+  through the pencil exchange, multigrid and nodal with their coarse
+  levels replicated, jacobi), the Schur block's pressure pieces and its
+  null-space projection, every nested solve and the Newton norms summed
+  over the mesh.  The mixed/Neumann line correction sweeps its lines
+  through the pencil exchange; the traction-block correction solves its
+  small dense block replicated.  The Q1 and probed velocity PCs and the
+  dense tier on a mesh are ROADMAP item 7d.
 """
 
 from __future__ import annotations
@@ -146,20 +153,23 @@ class StokesProblem:
                  mesh=None, sharded_axis: int = 0, mesh_axis: str = "x",
                  axis_map: dict | None = None, phi: Callable | None = None,
                  pipeline_chunks: int = 1):
-        """``mesh`` (``parallel.mesh.Mesh``) runs the residual and the
-        Jacobian action on this process' slab: grid axis ``sharded_axis``
-        over mesh axis ``mesh_axis`` (or ``axis_map`` for a P x Q mesh),
-        every derivative and the pressure extrapolation along a sharded
-        axis through the pencil exchange, the masks and boundary data as
-        slabs, the pressure mean summed over the mesh.  The sharded Newton
-        solve (its nested PC on slabs) is ROADMAP item 7c."""
+        """``mesh`` (``parallel.mesh.Mesh``) runs the solve on this process'
+        slab: grid axis ``sharded_axis`` over mesh axis ``mesh_axis`` (or
+        ``axis_map`` for a P x Q mesh), every derivative and the pressure
+        extrapolation along a sharded axis through the pencil exchange, the
+        masks, boundary data and metric fields as slabs, the pressure mean,
+        the Krylov and Newton norms summed over the mesh, the nested PC on
+        slabs.  States (``zero_state``, ``exact_state``, x0) are slabs."""
+        from spectral_tpu_torch.parallel.slab import Slab
+
         self.mesh = mesh
         self.sharded_axis = sharded_axis
         self.mesh_axis = mesh_axis
         self.axis_map = axis_map
         self.pipeline_chunks = pipeline_chunks
-        if mesh is not None and grid.maps is not None:
-            raise _todo("StokesProblem(mesh=...) on a mapped grid", "item 7c")
+        self.phi = phi
+        self.slab = Slab.of(mesh, axis_map, sharded_axis, mesh_axis, pipeline_chunks)
+        self._reduce = None if mesh is None else mesh.allreduce
         self.cmap = None
         if phi is not None:
             if grid.intervals is not None or grid.maps is not None:
@@ -181,33 +191,27 @@ class StokesProblem:
         self._setup_domain()
         self._setup_exact_and_force()
         if mesh is not None:
-            from spectral_tpu_torch.parallel.pencil import make_dif
-
-            self._mesh_dif = make_dif(mesh, axis_map, sharded_axis=sharded_axis,
-                                      mesh_axis=mesh_axis, pipeline_chunks=pipeline_chunks)
+            self._mesh_dif = self.slab.dif()
+            # the global masks stay for the PC setups that build global stencils
+            self._global = {}
             for name in ("vel_mask", "p_mask", "dirichlet_mask", "nm_mask", "mixed_mask",
                          "neumann_mask"):
+                self._global[name] = getattr(self, name)
                 setattr(self, name, self._slab(getattr(self, name)))
             self._dirichlet_v = self.dirichlet_mask[..., None]
             self._nm_v = self.nm_mask[..., None]
             self._mixed_v = self.mixed_mask[..., None]
             self._neumann_v = self.neumann_mask[..., None]
 
-    @property
-    def _axis_map(self) -> dict:
-        return self.axis_map or {self.sharded_axis: self.mesh_axis}
-
     def _slab(self, t: torch.Tensor) -> torch.Tensor:
         """This process' slab of a global grid tensor (itself without a
         mesh)."""
-        if self.mesh is None:
-            return t
-        from spectral_tpu_torch.parallel.mesh import shard_tensor
-        return shard_tensor(t, self.mesh, self._axis_map)
+        return t if self.mesh is None else self.slab.local(t)
 
     def _dif(self, v: torch.Tensor, axis: int) -> torch.Tensor:
-        d = chebdiff(v, axis) if self.mesh is None else self._mesh_dif(v, axis)
-        return self.grid.apply_dif_weight(d, axis)
+        if self.mesh is None:
+            return self.grid.apply_dif_weight(chebdiff(v, axis), axis)
+        return self.slab.dif_weight(self.grid, self._mesh_dif(v, axis), axis)
 
     def _reduce_order(self, p: torch.Tensor) -> torch.Tensor:
         """pressure_reduce_order, through the pencil exchange along a
@@ -215,16 +219,25 @@ class StokesProblem:
         if self.mesh is None:
             return pressure_reduce_order(p, self.grid.nodes_1d)
         from spectral_tpu_torch.ops.extrapolation import reduce_order_matrix
-        from spectral_tpu_torch.parallel.pencil import apply_axis_pencil
 
         for ax in reversed(range(self.d)):
-            E = reduce_order_matrix(self.grid.nodes_1d[ax], p.dtype, p.device)
-            p = apply_axis_pencil(E, p, ax, self.mesh, self._axis_map)
+            p = self.slab.apply_axis(reduce_order_matrix(self.grid.nodes_1d[ax], p.dtype,
+                                                         p.device), p, ax)
         return p
 
-    def _no_mesh(self, what: str):
-        if self.mesh is not None:
-            raise _todo(f"{what} on a mesh (the nested PC on slabs)", "item 7c")
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The global tensor of a slab (itself without a mesh)."""
+        return t if self.mesh is None else self.slab.gather(t)
+
+    def _whole(self, name: str) -> torch.Tensor:
+        """A mask of the global grid (``vel_mask``, ``nm_mask``, ...)."""
+        return getattr(self, name) if self.mesh is None else self._global[name]
+
+    @cached_property
+    def _one(self) -> "StokesProblem":
+        """This problem in one process (the same grid, configuration and
+        map): the replicated pieces of a PC on a mesh build on it."""
+        return StokesProblem(self.grid, self.config, phi=self.phi)
 
     # ------------------------------------------------------------------
     # Domain setup: masks instead of IS/scatters (StokesSetupDomain analog)
@@ -365,15 +378,16 @@ class StokesProblem:
 
     def _c(self, name: str, dtype: torch.dtype) -> torch.Tensor:
         """The float64 host master ``<name>_np`` (or force_np["v"|"p"] as
-        "force_v"/"force_p") as a tensor in ``dtype`` on the grid's device,
-        cast once per dtype."""
+        "force_v"/"force_p") as a tensor in ``dtype`` on the grid's device
+        (this process' slab on a mesh), cast once per dtype."""
         key = (name, dtype)
         t = self._consts.get(key)
         if t is None:
             a = (self.force_np[name[-1]] if name.startswith("force_")
                  else getattr(self, name + "_np"))
-            t = self._consts[key] = self._slab(
-                torch.as_tensor(a, dtype=dtype, device=self.grid.device))
+            if self.mesh is not None:
+                a = self.slab.local_np(a)
+            t = self._consts[key] = torch.as_tensor(a, dtype=dtype, device=self.grid.device)
         return t
 
     # the grid dtype's copies, as the JAX package names them
@@ -654,7 +668,8 @@ class StokesProblem:
             base = metric_surrogate_builder(self.d)
         sigma = self.config.mass_shift
         if not sigma:
-            return Multigrid.build(self.grid, builder=base, smoother=self.config.pcvel_smoother)
+            return Multigrid.build(self.grid, builder=base, smoother=self.config.pcvel_smoother
+                                   ).with_slab(self.slab)
 
         def builder(grid, coeffs):
             # the shifted surrogate sigma + A rediscretized on every level
@@ -662,7 +677,8 @@ class StokesProblem:
             return dataclasses.replace(
                 S, center=torch.where(grid.interior_mask, S.center + sigma, S.center))
 
-        return Multigrid.build(self.grid, builder=builder, smoother=self.config.pcvel_smoother)
+        return Multigrid.build(self.grid, builder=builder, smoother=self.config.pcvel_smoother
+                               ).with_slab(self.slab)
 
     @cached_property
     def _vel_mg_nodal(self):
@@ -685,7 +701,8 @@ class StokesProblem:
                 return nodal_jacfwd_stencil(
                     grid, eta, caxes=[eta * coeffs[f"metric_a{ax}"] for ax in range(d)],
                     row_scale=1.0 / coeffs["metric_detJ"])
-        return Multigrid.build(self.grid, builder=builder, smoother=self.config.pcvel_smoother)
+        return Multigrid.build(self.grid, builder=builder, smoother=self.config.pcvel_smoother
+                               ).with_slab(self.slab)
 
     def _mixed_fd_stencil(self, eta: torch.Tensor):
         """The FD velocity surrogate with the one-sided traction rows,
@@ -729,8 +746,12 @@ class StokesProblem:
         built once per PC setup."""
         from spectral_tpu_torch.ops.tridiag import build_line_solvers
 
-        S = self._mixed_fd_stencil(eta)
         axes = self._nm_axes or tuple(range(self.d))
+        if self.mesh is not None:   # the global surrogate, its lines on slabs
+            S = self._one._mixed_fd_stencil(self._gather(eta))
+            return self.slab.stencil(S), build_line_solvers(
+                S, axes, mask=self._whole("vel_mask"), slab=self.slab)
+        S = self._mixed_fd_stencil(eta)
         return S, build_line_solvers(S, axes, mask=self.vel_mask)
 
     def _mixed_line_correct(self, state, z: torch.Tensor, r: torch.Tensor,
@@ -774,7 +795,11 @@ class StokesProblem:
         A_BB, in the linearization's dtype: column j is vv_action of the
         j-th one-hot sampled at the block DOFs.  The one-hots go through
         ``torch.func.vmap(vv_action)`` in batches of about
-        _TBC_BATCH_BYTES."""
+        _TBC_BATCH_BYTES.  On a mesh the block is built replicated from the
+        gathered linearization (every process holds the same factors)."""
+        if self.mesh is not None:
+            lu, piv, _ = self._one._tbc_setup(self.slab.gather_fields(lin_state))
+            return lu, piv, lin_state
         idx = self._tbc_idx
         m = idx.numel()
         dt = lin_state[0].dtype
@@ -799,10 +824,11 @@ class StokesProblem:
         on error modes supported in the traction block."""
         lu, piv, lin_state = tb_state
         idx = self._tbc_idx
-        rz = (r - self.vv_action(lin_state, z)).reshape(-1)
+        rz = r - self.vv_action(lin_state, z)
+        zg, rz = self._gather(z), self._gather(rz).reshape(-1)   # replicated block solve
         dB = torch.linalg.lu_solve(lu, piv, rz[idx][:, None].to(lu.dtype))[:, 0]
-        z = z.reshape(-1).index_add(0, idx, dB.to(z.dtype)).reshape(z.shape)
-        return self.mask_v(z)
+        zg = zg.reshape(-1).index_add(0, idx, dB.to(z.dtype)).reshape(zg.shape)
+        return self.mask_v(zg if self.mesh is None else self.slab.local(zg))
 
     def make_vel_pc(self):
         """(setup: lin_state -> vstate, apply: (vstate, r) -> z), the
@@ -851,37 +877,44 @@ class StokesProblem:
           same sweeps a component.
         With mixed/Neumann nodes, fastdiag and mg add the line-relaxed
         traction rows (_mixed_line_correct); the Q1 and probed PCs add no
-        line correction, as in the JAX package."""
+        line correction, as in the JAX package.  With ``mesh``, fastdiag,
+        mg, nodal and jacobi apply to slabs: fastdiag through the pencil
+        exchange, the stencil setups from the gathered viscosity (the
+        global hierarchy, as one process builds it), mg and nodal cycling
+        on slabs with their coarse levels replicated, jacobi the slab's
+        diagonal."""
         pcvel = self.config.pcvel
         if self.config.mass_shift and pcvel not in ("fastdiag", "mg"):
             raise ValueError(f"mass_shift (unsteady Stokes) supports pcvel fastdiag|mg, "
                              f"not {pcvel!r}")
+        if self.mesh is not None and pcvel not in ("fastdiag", "mg", "nodal", "jacobi"):
+            raise _todo(f"pcvel {pcvel!r} on a mesh", "item 7d")
         mixed = self.num_mixed > 0
         if pcvel == "fastdiag":
             if mixed:
                 return (lambda ls: (self._vel_fastdiag(ls[0].dtype),
                                     self._mixed_line_state(ls[0])),
                         lambda st, r: self._mixed_line_correct(
-                            st[1], self.mask_v(st[0].apply(r)), r))
+                            st[1], self.mask_v(st[0].apply(r, slab=self.slab)), r))
             return (lambda lin_state: self._vel_fastdiag(lin_state[0].dtype),
-                    lambda fd, r: self.mask_v(fd.apply(r)))
+                    lambda fd, r: self.mask_v(fd.apply(r, slab=self.slab)))
         if pcvel == "mg":
             mg = self._vel_mg
             if mixed:
-                return (lambda ls: (mg.setup(self._vel_mg_coeffs(ls[0])),
+                return (lambda ls: (mg.setup(self._vel_mg_coeffs(self._gather(ls[0]))),
                                     self._mixed_line_state(ls[0])),
                         lambda st, r: self._mixed_line_correct(
                             st[1], self.mask_v(mg.vcycle(st[0], r)), r))
-            return (lambda lin_state: mg.setup(self._vel_mg_coeffs(lin_state[0])),
+            return (lambda lin_state: mg.setup(self._vel_mg_coeffs(self._gather(lin_state[0]))),
                     lambda vstate, r: self.mask_v(mg.vcycle(vstate, r)))
         if pcvel == "nodal":
             mg = self._vel_mg_nodal
-            return (lambda lin_state: mg.setup(self._vel_mg_coeffs(lin_state[0])),
+            return (lambda lin_state: mg.setup(self._vel_mg_coeffs(self._gather(lin_state[0]))),
                     lambda vstate, r: self.mask_v(mg.vcycle(vstate, r)))
         if pcvel == "jacobi":
             from spectral_tpu_torch.models.stokes_pc import velocity_fd_stencil
-            return (lambda lin_state: velocity_fd_stencil(
-                        self.grid, lin_state[0]).diag()[..., None],
+            return (lambda lin_state: self._slab(velocity_fd_stencil(
+                        self.grid, self._gather(lin_state[0])).diag())[..., None],
                     lambda diag, r: self.mask_v(r / diag))
         if pcvel == "q1fem":
             from spectral_tpu_torch.ops.fem import assemble_q1_strain
@@ -977,7 +1010,8 @@ class StokesProblem:
         from spectral_tpu_torch.solvers.batching import batch_map
 
         cfg = self.config
-        self._no_mesh("make_pc")
+        if self.mesh is not None and (adjoint or batched):
+            raise _todo("the adjoint or batched PC tree of a problem on a mesh", "item 7d")
         if cfg.saddle not in (0, 1, 2, 3):
             raise ValueError(f"pc_saddle_type {cfg.saddle} not implemented")
         if adjoint and batched:
@@ -993,7 +1027,7 @@ class StokesProblem:
             vel_setup, vel_apply = self.make_vel_pc()
 
             def solve(ksp, A, b, **kw):
-                return ksp.solve(A, b, **kw).x
+                return ksp.solve(A, b, reduce=self._reduce, **kw).x
 
             def lift(f):
                 return f
@@ -1094,6 +1128,8 @@ class StokesProblem:
 
         if factor not in ("host", "device"):
             raise ValueError(f"unknown factor {factor!r}")
+        if self.mesh is not None:
+            raise _todo("the dense tier on a mesh", "item 7d")
         if lin_state is None:
             params = self.params_at(self.config.cont) if params is None else params
             _, lin_state = self.make_residual(params)(self.zero_state() if x is None else x)
@@ -1127,6 +1163,8 @@ class StokesProblem:
                                                   regularized_inverse_device)
         from spectral_tpu_torch.solvers.krylov import _ravel
 
+        if self.mesh is not None:
+            raise _todo("the dense tier on a mesh", "item 7d")
         free, nulls = self._dense_free_and_nulls()
         _, unravel = _ravel(self.zero_state(), self.grid.dtype)
 
@@ -1142,10 +1180,12 @@ class StokesProblem:
     # Drivers (main, stokes.C:119-253)
     # ------------------------------------------------------------------
     def zero_state(self, dtype: torch.dtype | None = None) -> dict:
+        """The zero state (this process' slab on a mesh)."""
         dt = dtype or self.grid.dtype
         dev = self.grid.device
-        return {"v": torch.zeros(self.grid.dims + (self.d,), dtype=dt, device=dev),
-                "p": torch.zeros(self.grid.dims, dtype=dt, device=dev)}
+        dims = self.p_mask.shape
+        return {"v": torch.zeros(dims + (self.d,), dtype=dt, device=dev),
+                "p": torch.zeros(dims, dtype=dt, device=dev)}
 
     def exact_state(self, dtype: torch.dtype | None = None) -> dict:
         dt = dtype or self.grid.dtype
@@ -1204,7 +1244,7 @@ class StokesProblem:
                             config=dataclasses.replace(cfg.newton, monitor=monitor and not fused),
                             null_project=self.null_project,
                             control_dtype=x0["p"].dtype if fused else None,
-                            recycle_U0=recycle_U0)
+                            recycle_U0=recycle_U0, reduce=self._reduce)
 
     def _vel_pc_batched(self):
         """(setup, apply) of the velocity sub-PC over a batch: the fastdiag
@@ -1213,14 +1253,22 @@ class StokesProblem:
         axis of its tensor solve; q1sep maps its apply over the batch);
         the multigrid, nodal and Jacobi setups are mapped member by member
         (``torch.func.vmap``, batched stencils and coarse LUs), and so are
-        their applies.  The other velocity PCs and the mixed/Neumann line
-        and traction-block corrections raise naming ROADMAP item 7c."""
+        their applies.  The Q1 FEM and probed PCs, and any PC with the
+        mixed/Neumann line and traction-block corrections (whose per-member
+        state holds line solvers and dense factors), set up and apply member
+        by member."""
         from spectral_tpu_torch.solvers.batching import batch_map, member
 
         pcvel = self.config.pcvel
-        if self.num_mixed:
-            raise _todo("a family with mixed/Neumann boundaries", "item 7c")
         setup, apply = self.make_vel_pc()
+        if self.num_mixed or pcvel in ("q1fem", "probed", "probed1"):
+            def setup_members(lin_b):
+                return [setup(member(lin_b, b)) for b in range(lin_b[0].shape[0])]
+
+            def apply_members(states, r):
+                return torch.stack([apply(st, r[b]) for b, st in enumerate(states)])
+
+            return setup_members, apply_members
         if pcvel == "fastdiag":
             # the batch rides as one more trailing axis of the tensor solve
             return (lambda lin_b: setup(member(lin_b, 0)),
@@ -1231,7 +1279,7 @@ class StokesProblem:
                     batch_map(apply, in_dims=(None, 0)))
         if pcvel in ("mg", "nodal", "jacobi"):
             return batch_map(setup), batch_map(apply)
-        raise _todo(f"a family with pcvel {pcvel!r}", "item 7c")
+        raise ValueError(f"unknown pcvel {pcvel!r}")
 
     def family_params(self, params_list, dtype: torch.dtype | None = None) -> PowerLawParams:
         """A family's PowerLawParams as (B,) tensors on the grid's device."""
@@ -1242,7 +1290,7 @@ class StokesProblem:
             for f in dataclasses.fields(PowerLawParams)])
 
     def solve_family(self, params_list, x0=None, monitor: bool = False,
-                     x0_batched: bool = False):
+                     x0_batched: bool = False, *, mesh=None, mesh_axis: str = "x"):
         """Solve a parameter family of Stokes problems at once: one batched
         Newton loop (``newton_solve_family``) drives every member, each
         Krylov step applying the operator and the nested PC to the B
@@ -1252,10 +1300,18 @@ class StokesProblem:
           params_list: a sequence of PowerLawParams (the family).
           x0: one state (broadcast) or, with ``x0_batched``, a batch.
         Returns a NewtonFamilyResult (leading axis = member).  Each member
-        takes the Newton and Krylov counts of its own ``solve``."""
+        takes the Newton and Krylov counts of its own ``solve``.
+
+        ``mesh`` cuts the family over mesh axis ``mesh_axis`` (a dp axis:
+        each process solves its B / P members, every process gets the
+        whole result, the per-step histories padded as the unsharded loop
+        pads a finished member); the problem itself is a one-process one."""
         cfg = self.config
         if cfg.mass_shift:
             raise ValueError(_MASS_SHIFT_STEADY)
+        if mesh is not None and mesh.size(mesh_axis) > 1:
+            return self._solve_family_dp(params_list, x0, monitor, x0_batched, mesh,
+                                         mesh_axis)
         from spectral_tpu_torch.solvers.batching import batch_map
         from spectral_tpu_torch.solvers.newton import newton_solve_family
 
@@ -1274,6 +1330,32 @@ class StokesProblem:
             config=dataclasses.replace(cfg.newton, monitor=monitor),
             null_project=batch_map(self.null_project), x0_batched=x0_batched,
             batched=True)
+
+    def _solve_family_dp(self, params_list, x0, monitor, x0_batched, mesh, mesh_axis):
+        """``solve_family`` with the family cut over a mesh axis."""
+        import torch.utils._pytree as pytree
+
+        from spectral_tpu_torch.solvers.batching import dp_cut, dp_gather
+        from spectral_tpu_torch.solvers.newton import NewtonFamilyResult
+
+        sl = dp_cut(len(params_list), mesh, mesh_axis)
+        if x0 is not None and x0_batched:
+            x0 = pytree.tree_map(lambda a: a[sl], x0)
+        r = self.solve_family(list(params_list)[sl], x0, monitor, x0_batched)
+        # the loop ran until this block's last member finished: pad the
+        # step histories to the longest block (norms held, no iterations)
+        n = int(dp_gather(torch.tensor([len(r.fnorm_history)]), mesh, mesh_axis).max())
+        fh = np.concatenate([r.fnorm_history] + [r.fnorm_history[-1:]] *
+                            (n - len(r.fnorm_history)))
+        kh = np.concatenate([r.ksp_iters, np.zeros((n - 1 - len(r.ksp_iters),
+                                                    r.ksp_iters.shape[1]), np.int64)])
+        return NewtonFamilyResult(
+            x=pytree.tree_map(lambda a: dp_gather(a, mesh, mesh_axis), r.x),
+            iters=dp_gather(r.iters, mesh, mesh_axis),
+            reason=dp_gather(r.reason, mesh, mesh_axis),
+            fnorm=dp_gather(r.fnorm, mesh, mesh_axis),
+            fnorm_history=dp_gather(fh, mesh, mesh_axis, axis=1),
+            ksp_iters=dp_gather(kh, mesh, mesh_axis, axis=1))
 
     def solve_continuation(self, monitor: bool = False, checkpoint_dir: str | None = None,
                            clamp_f32: bool = False, dtype: torch.dtype | None = None,
@@ -1308,8 +1390,8 @@ class StokesProblem:
                 theta = min(max(theta, 0.0), 2.0)
                 x_pred = {k: x[k] + theta * (x[k] - x_prev[k]) for k in x}
                 rfn = self.make_residual(p)
-                fn_plain = float(_norm(rfn(x)[0]))
-                fn_pred = float(_norm(rfn(x_pred)[0]))
+                fn_plain = float(_norm(rfn(x)[0], self._reduce))
+                fn_pred = float(_norm(rfn(x_pred)[0], self._reduce))
                 if fn_pred < fn_plain:
                     x_start = x_pred
                 if monitor:
@@ -1577,4 +1659,7 @@ class StokesProblem:
         dt = x["v"].dtype
         dv = x["v"] - self._c("exact_v", dt)
         dp = self.project_p(x["p"] - self._c("exact_p", dt))
-        return max(float(torch.max(torch.abs(dv))), float(torch.max(torch.abs(dp))))
+        err = torch.stack([torch.max(torch.abs(dv)), torch.max(torch.abs(dp))])
+        if self.mesh is not None:
+            err = self.mesh.allmax(err)
+        return float(torch.max(err))

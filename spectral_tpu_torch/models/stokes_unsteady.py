@@ -68,6 +68,13 @@ class UnsteadyStokes:
     theta: float = 0.5
     phi: object = None
     scheme: str = "theta"
+    # the step on this process' slab (StokesProblem's mesh arguments):
+    # states, forcings and boundary data are slabs, every solve on slabs
+    mesh: object = None
+    sharded_axis: int = 0
+    mesh_axis: str = "x"
+    axis_map: object = None
+    pipeline_chunks: int = 1
 
     def __post_init__(self):
         if self.scheme not in ("theta", "bdf2"):
@@ -91,10 +98,10 @@ class UnsteadyStokes:
     def _frozen_lin(self):
         """The linear rheology's linearization state: eta 1, deta 0, S 0."""
         p = self.problem
-        dev, dt = p.grid.device, p.grid.dtype
-        return (torch.ones(p.grid.dims, dtype=dt, device=dev),
-                torch.zeros(p.grid.dims, dtype=dt, device=dev),
-                torch.zeros(p.grid.dims + (p.d, p.d), dtype=dt, device=dev))
+        dev, dt, dims = p.grid.device, p.grid.dtype, p.p_mask.shape
+        return (torch.ones(dims, dtype=dt, device=dev),
+                torch.zeros(dims, dtype=dt, device=dev),
+                torch.zeros(dims + (p.d, p.d), dtype=dt, device=dev))
 
     @cached_property
     def _dense_pc(self):
@@ -131,7 +138,9 @@ class UnsteadyStokes:
     @cached_property
     def problem(self) -> StokesProblem:
         return StokesProblem(self.grid, dataclasses.replace(self.config, mass_shift=self.sigma),
-                             phi=self.phi)
+                             phi=self.phi, mesh=self.mesh, sharded_axis=self.sharded_axis,
+                             mesh_axis=self.mesh_axis, axis_map=self.axis_map,
+                             pipeline_chunks=self.pipeline_chunks)
 
     # -- spatial blocks on FULL velocity fields (boundary values baked) ----
     def _momentum_rows(self, vfull, params=None):
@@ -169,7 +178,8 @@ class UnsteadyStokes:
         lin_state, pc_apply, pc_state = pc
         return p.config.outer_ksp.solve(
             lambda w: p.jacobian_action(None, lin_state, w), b,
-            M=lambda r: pc_apply(pc_state, r), null_project=p.null_project)
+            M=lambda r: pc_apply(pc_state, r), null_project=p.null_project,
+            reduce=p._reduce)
 
     def _frozen_pc(self):
         lin_state = self._frozen_lin()
@@ -189,7 +199,12 @@ class UnsteadyStokes:
         ksp = p.config.outer_ksp
         if nb is None:
             pc_state = pc_setup(None, lin)
-            solve, lift = ksp.solve, (lambda f: f)
+
+            def solve(A, b, **kw):
+                return ksp.solve(A, b, reduce=p._reduce, **kw)
+
+            def lift(f):
+                return f
         else:
             pc_state = pc_setup(None, tuple(t.expand((nb,) + t.shape) for t in lin))
 
@@ -241,8 +256,9 @@ class UnsteadyStokes:
         from spectral_tpu_torch.solvers.newton import _line_search_bt, _norm
 
         p, ncfg, ksp = self.problem, self.config.newton, self.config.outer_ksp
+        red = p._reduce
         x, (F, lst) = x0, residual(x0)
-        fnorm = float(_norm(F))
+        fnorm = float(_norm(F, red))
         floor = max(ncfg.rtol * fnorm, ncfg.atol)
         it = its = 0
         ok = True
@@ -250,9 +266,10 @@ class UnsteadyStokes:
             pc_state = pc_setup(x, lst)
             xc, lc = x, lst
             lres = ksp.solve(lambda w: p.jacobian_action(xc, lc, w), F,
-                             M=lambda r: pc_apply(pc_state, r), null_project=p.null_project)
+                             M=lambda r: pc_apply(pc_state, r), null_project=p.null_project,
+                             reduce=red)
             (x, F, lst, (fnorm, _, _)), ok = _line_search_bt(
-                residual, x, lres.x, fnorm, _norm(lres.x), ncfg)
+                residual, x, lres.x, fnorm, _norm(lres.x, red), ncfg, red)
             it += 1
             its += int(lres.iters)
         return x, fnorm, its
@@ -499,7 +516,7 @@ class UnsteadyStokes:
                 "qoi": qoi_val, "segments": len(bounds) - 1}
         return gtheta, info
 
-    def family_rollout(self, v0s, s_values, fbars):
+    def family_rollout(self, v0s, s_values, fbars, *, mesh=None, mesh_axis: str = "x"):
         """A batch of independent linear integrations (distinct initial
         states, boundary modulations and forcings) over the shared operator
         and PC: each step is one batched saddle solve, every member keeping
@@ -507,9 +524,18 @@ class UnsteadyStokes:
 
         ``v0s``: (B, dims..., d); ``s_values``: (B, nsteps); ``fbars``:
         (B, nsteps, dims..., d).  Returns (v_finals, p_finals, iters
-        (B, nsteps) int32)."""
+        (B, nsteps) int32).  ``mesh`` cuts the batch over mesh axis
+        ``mesh_axis`` (a dp axis: each process integrates its B / P
+        members, every process gets the whole result); the integrator
+        itself is a one-process one."""
         if not self._linear:
             raise ValueError("family_rollout is the linear fast path")
+        if mesh is not None and mesh.size(mesh_axis) > 1:
+            from spectral_tpu_torch.solvers.batching import dp_cut, dp_gather
+
+            sl = dp_cut(len(v0s), mesh, mesh_axis)
+            out = self.family_rollout(v0s[sl], torch.as_tensor(s_values)[sl], fbars[sl])
+            return tuple(dp_gather(t, mesh, mesh_axis) for t in out)
         s_values = torch.as_tensor(s_values, dtype=torch.float64)
         nb, nsteps = s_values.shape
         steps = self.__dict__.setdefault("_family_steps", {})   # one a batch size

@@ -122,29 +122,36 @@ class CurvilinearMap:
         return {}
 
     def field(self, name: str, dtype: torch.dtype,
-              device: torch.device | str | None = None) -> torch.Tensor:
+              device: torch.device | str | None = None, slab=None) -> torch.Tensor:
         """The float64 field ``name`` (coords, detJ, Acoef, Jinv, cofactor)
         as a tensor in ``dtype`` on ``device`` (the grid's by default),
-        made once per (dtype, device)."""
+        made once per (dtype, device); with ``slab`` (``parallel.slab``)
+        cut to this process' slab, once per slab.  The metric contractions
+        are pointwise, so a slab's fields serve its operators."""
         device = torch.device(device or self.grid.device)
-        key = (name, dtype, device)
-        t = self._fields.get(key)
-        if t is None:
-            t = self._fields[key] = torch.as_tensor(getattr(self, name), dtype=dtype,
-                                                    device=device)
-        return t
+        key = (name, dtype, device, id(slab))
+        got = self._fields.get(key)
+        if got is None:
+            a = np.asarray(getattr(self, name))
+            t = torch.as_tensor(a if slab is None else slab.local_np(a), dtype=dtype,
+                                device=device)
+            got = self._fields[key] = (t, slab)
+        return got[0]
 
-    def laplacian(self, u: torch.Tensor) -> torch.Tensor:
+    def laplacian(self, u: torch.Tensor, slab=None) -> torch.Tensor:
         """Physical Laplacian of a field on the mapped grid (conservative
-        form), in u's dtype on u's device."""
+        form), in u's dtype on u's device.  With ``slab``
+        (``parallel.slab.Slab``) u is this process' slab: the derivatives
+        go through the pencil exchange and the fields are cut to the slab."""
         d = self.grid.ndim
-        A = self.field("Acoef", u.dtype, u.device)
-        grads = [chebdiff(u, j) for j in range(d)]
+        dif = chebdiff if slab is None else slab.dif()
+        A = self.field("Acoef", u.dtype, u.device, slab)
+        grads = [dif(u, j) for j in range(d)]
         y = torch.zeros_like(u)
         for i in range(d):
             flux = sum(A[..., i, j] * grads[j] for j in range(d))
-            y = y + chebdiff(flux, i)
-        return y / self.field("detJ", u.dtype, u.device)
+            y = y + dif(flux, i)
+        return y / self.field("detJ", u.dtype, u.device, slab)
 
     def pc_coeffs(self, eta: torch.Tensor | None = None,
                   dtype: torch.dtype | None = None) -> dict:

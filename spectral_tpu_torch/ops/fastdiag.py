@@ -5,6 +5,13 @@ FD Laplacian on a tensor grid is a Kronecker sum of 1-D tridiagonals, so
 its exact inverse is u = V ((V^{-1} f) / (L_0 (+) ... (+) L_{d-1})): each
 axis is diagonalized once on the host in numpy float64, and the apply is
 per-axis dense products (``torch.tensordot``) on the grid's device.
+
+``apply(slab=)`` is the same solve on one process' slab of a grid
+sharded over a mesh (``parallel.slab.Slab``): each axis' factors are
+embedded in the full axis (zero boundary rows and columns), so a
+transform is one per-axis product, through the pencil exchange along a
+sharded axis, and the zero-flux folds keep the mask/roll form, whose
+rolls only read a neighbour inside the same slab.
 """
 
 from __future__ import annotations
@@ -162,28 +169,34 @@ class FastDiagSolver:
             out[ax] = tuple(masks)
         return out
 
-    def apply(self, r: torch.Tensor, shift=None) -> torch.Tensor:
+    def apply(self, r: torch.Tensor, shift=None, slab=None) -> torch.Tensor:
         """Full-grid preconditioner apply: interior exact solve, boundary
         identity, except zero-flux faces, whose residual is folded into the
         adjacent interior row and whose value is reconstructed from the
         eliminated end row (still an exact solve of the surrogate).
 
-        ``shift`` solves (A + shift_const + shift)."""
+        ``shift`` solves (A + shift_const + shift).  With ``slab``
+        (``parallel.slab.Slab``), r is this process' slab of the grid
+        (trailing component axes broadcast) and the interior solve runs
+        through the pencil exchange (``_solve_slab``); the folds are the
+        same."""
         d = self.grid.ndim
         trail = (1,) * (r.ndim - d)
-        inner = tuple([slice(1, -1)] * d)
         zero = torch.zeros((), dtype=r.dtype, device=r.device)
-        masks = {ax: tuple(m.reshape(m.shape + trail) for m in ms)
-                 for ax, ms in self._nm_masks.items()}
+        nm = self._nm_masks if slab is None else self._slab_factors(slab)[4]
+        masks = {ax: tuple(m.reshape(m.shape + trail) for m in ms) for ax, ms in nm.items()}
 
         reff = r
         for ax, (face_lo, adj_lo, adj_hi, face_hi) in masks.items():
             h_lo, f_lo, h_hi, f_hi = self.neumann_fold[ax]
             reff = reff + torch.where(adj_lo, torch.roll(r, 1, ax) * -f_lo, zero) \
                         + torch.where(adj_hi, torch.roll(r, -1, ax) * -f_hi, zero)
-        z = self.solve_interior(reff[inner], shift=shift).to(r.dtype)
-        out = r.clone()
-        out[inner] = z
+        if slab is None:
+            inner = tuple([slice(1, -1)] * d)
+            out = r.clone()
+            out[inner] = self.solve_interior(reff[inner], shift=shift).to(r.dtype)
+        else:
+            out = self._solve_slab(reff, r, slab, shift)
         for ax, (face_lo, adj_lo, adj_hi, face_hi) in masks.items():
             h_lo, f_lo, h_hi, f_hi = self.neumann_fold[ax]
             out = torch.where(face_lo, torch.roll(out, -1, ax) + r * h_lo, out)
@@ -192,3 +205,51 @@ class FastDiagSolver:
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         return self.apply(r)
+
+    @cached_property
+    def _slabs(self) -> dict:
+        return {}
+
+    def _slab_factors(self, slab):
+        """(V, Vinv embedded in the full axes, the full eigenvalue sum with
+        ones on the boundary cut to the slab, the interior and zero-flux
+        masks cut to the slab), built once a slab."""
+        got = self._slabs.get(id(slab))
+        if got is not None and got[0] is slab:
+            return got[1]
+        dt, dev = self.lam_sum.dtype, self.lam_sum.device
+
+        def full(M):
+            n = M.shape[0] + 2
+            F = torch.zeros((n, n), dtype=dt, device=dev)
+            F[1:-1, 1:-1] = M
+            return F
+
+        for ax, f in enumerate(self.neumann_fold):
+            if f is not None and ax in slab.axis_map and \
+                    self.grid.dims[ax] // slab.mesh.size(slab.axis_map[ax]) < 2:
+                raise ValueError(f"a zero-flux axis {ax} needs >= 2 nodes a slab")
+        lam = torch.ones(self.grid.dims, dtype=dt, device=dev)
+        lam[tuple([slice(1, -1)] * self.grid.ndim)] = self.lam_sum
+        out = (tuple(full(M) for M in self.V), tuple(full(M) for M in self.Vinv),
+               slab.local(lam), slab.local(self.grid.interior_mask),
+               {ax: tuple(slab.local(m) for m in ms) for ax, ms in self._nm_masks.items()})
+        self._slabs[id(slab)] = (slab, out)
+        return out
+
+    def _solve_slab(self, reff: torch.Tensor, r: torch.Tensor, slab, shift) -> torch.Tensor:
+        """The interior solve of ``apply`` on a slab: r's boundary rows, the
+        solve of reff's interior, each transform one per-axis product
+        (through the pencil exchange along a sharded axis)."""
+        V, Vinv, lam, interior, _ = self._slab_factors(slab)
+        trail = (1,) * (r.ndim - self.grid.ndim)
+        w = reff.to(lam.dtype)
+        for ax in range(self.grid.ndim):
+            w = slab.apply_axis(Vinv[ax], w, ax)
+        if shift is not None:
+            lam = torch.where(interior, lam + torch.as_tensor(shift, dtype=lam.dtype,
+                                                              device=lam.device), lam)
+        w = w / lam.reshape(lam.shape + trail)
+        for ax in range(self.grid.ndim):
+            w = slab.apply_axis(V[ax], w, ax)
+        return torch.where(interior.reshape(interior.shape + trail), w.to(r.dtype), r)

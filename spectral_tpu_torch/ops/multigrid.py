@@ -12,6 +12,25 @@ Works on full-grid tensors with identity Dirichlet rows and zero boundary
 values; trailing component axes broadcast through every level.  JAX's
 ``fori_loop`` is a Python loop here, and the eigenvalue bound stays a 0-d
 tensor on the device, so a V-cycle never waits for the host.
+
+On a mesh (``slab=``, ``parallel.slab.Slab``) the cycle runs on slabs:
+- a level whose extents the mesh divides (with its pencil partner's) is
+  sharded: its smoother applies the slab's stencil with a halo plane from
+  each neighbour (``SlabStencilOp``), the Chebyshev bound comes from a
+  power iteration on slabs (its norms summed over the mesh), the Jacobi
+  diagonal is the slab's, and line sweeps along a sharded axis go through
+  the pencil exchange (``ops/tridiag.py``); transfers between two sharded
+  levels apply their per-axis matrices through the pencil exchange;
+- coarsening halves extents, (n + 1) // 2, so levels soon stop dividing
+  (20 -> 10 -> 5 over 2 processes): from the first such level down, every
+  level runs replicated on every process (the residual ``all_gather``ed on
+  the way down, the correction cut back to the slab on the way up), the
+  usual agglomeration of coarse levels; the coarse LU is always
+  replicated.
+- ``setup`` takes the global coefficient fields and rediscretizes every
+  level on the global grid exactly as one process does, then cuts the
+  sharded levels' stencils to slabs, so the hierarchy, and with it the
+  iteration counts, are the one-process ones.
 """
 
 from __future__ import annotations
@@ -108,10 +127,35 @@ class Multigrid:
     omega: float = 0.8
     smoother: str = "chebyshev"  # "chebyshev" | "jacobi" | "line"
     cycles: int = 1              # V-cycles per apply (residual-corrected)
+    slab: object = None          # parallel.slab.Slab: the cycle on slabs
 
     def __post_init__(self):
         if self.smoother not in ("chebyshev", "jacobi", "line"):
             raise ValueError(f"unknown smoother {self.smoother!r}")
+        if self.slab is not None and not self.slab.divides(self.grids[0].dims):
+            raise ValueError(f"the fine level {self.grids[0].dims} does not divide over "
+                             f"the mesh {self.slab.axis_map}")
+
+    def with_slab(self, slab) -> "Multigrid":
+        """This hierarchy on the slabs of ``slab`` (None: one process)."""
+        return self if slab is self.slab else dataclasses.replace(self, slab=slab)
+
+    @functools.cached_property
+    def sharded(self) -> tuple:
+        """Per level: True if it runs on slabs, False if replicated."""
+        out, on = [], self.slab is not None
+        for g in self.grids:
+            on = on and self.slab.divides(g.dims)
+            out.append(on)
+        return tuple(out)
+
+    @functools.cached_property
+    def _masks(self) -> tuple:
+        """Per level (interior, boundary) masks, cut to the slab on sharded
+        levels."""
+        return tuple((self.slab.local(g.interior_mask), self.slab.local(g.boundary_mask))
+                     if sh else (g.interior_mask, g.boundary_mask)
+                     for g, sh in zip(self.grids, self.sharded))
 
     @staticmethod
     def build(grid: Grid, builder: Callable = default_stencil_builder,
@@ -163,76 +207,116 @@ class Multigrid:
                          **cfg)
 
     # -- transfers ------------------------------------------------------------
-    def _prolong(self, lvl: int, xc: torch.Tensor) -> torch.Tensor:
+    def _transfer(self, mats, lvl: int, x: torch.Tensor, down: bool) -> torch.Tensor:
+        """Apply the per-axis matrices between levels lvl and lvl + 1: on
+        slabs through the pencil exchange when both levels are sharded;
+        gathered before a restriction and cut after a prolongation where a
+        sharded level meets a replicated one."""
+        coarse_sh = self.slab is not None and self.sharded[lvl + 1]
+        if down and self.slab is not None and self.sharded[lvl] and not coarse_sh:
+            x = self.slab.gather(x)
         for ax in range(self.grids[0].ndim):
-            xc = apply_axis_matmul(self.prolong[lvl][ax].to(xc.dtype), xc, ax)
-        return xc
+            M = mats[lvl][ax].to(x.dtype)
+            x = self.slab.apply_axis(M, x, ax) if coarse_sh else apply_axis_matmul(M, x, ax)
+        if not down and self.slab is not None and self.sharded[lvl] and not coarse_sh:
+            x = self.slab.local(x)
+        return x
+
+    def _prolong(self, lvl: int, xc: torch.Tensor) -> torch.Tensor:
+        return self._transfer(self.prolong, lvl, xc, down=False)
 
     def _restrict(self, lvl: int, f: torch.Tensor) -> torch.Tensor:
         """Residuals and coefficient fields alike: normalized averaging."""
+        return self._transfer(self.restrict_coeff, lvl, f, down=True)
+
+    def _restrict_global(self, lvl: int, f: torch.Tensor) -> torch.Tensor:
+        """``_restrict`` of a global field (the setup's coefficients)."""
         for ax in range(self.grids[0].ndim):
             f = apply_axis_matmul(self.restrict_coeff[lvl][ax].to(f.dtype), f, ax)
         return f
 
     def _mask(self, lvl: int, x: torch.Tensor) -> torch.Tensor:
-        return self.grids[lvl].zero_boundary(x)
+        if self.slab is None:
+            return self.grids[lvl].zero_boundary(x)
+        return torch.where(self.grids[lvl]._mask_for(self._masks[lvl][0], x), x,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
     # -- per-solve state ------------------------------------------------------
     def _level(self, lvl: int, S: StencilOp):
+        """(stencil, diagonal, bound) of a level from its global stencil,
+        the stencil cut to the slab on a sharded level."""
+        if self.slab is not None and self.sharded[lvl]:
+            S = self.slab.stencil(S)
         diag = S.diag()
         lam_max = None
         if self.smoother == "chebyshev" and lvl < len(self.grids) - 1:
             lam_max = self._power_lambda_max(lvl, S, diag)
         return S, diag, lam_max
 
-    def _finish(self, levels) -> dict:
-        """The state of per-level (stencil, diagonal, bound) triples: the
-        coarsest level's dense LU and, for the line smoother, every
-        level's line solvers (state["line"])."""
-        A = stencil_to_dense(levels[-1][0], self.grids[-1].dims)
+    def _finish(self, stencils) -> dict:
+        """The state from every level's global stencil: per-level (stencil,
+        diagonal, bound) triples, the coarsest level's dense LU and, for the
+        line smoother, every level's line solvers (state["line"]); on a
+        mesh the global stencils too (state["global"], for shift_state)."""
+        levels = [self._level(lvl, S) for lvl, S in enumerate(stencils)]
+        A = stencil_to_dense(stencils[-1], self.grids[-1].dims)
         state = {"levels": levels, "coarse_lu": torch.linalg.lu_factor(A)}
         if self.smoother == "line":
-            state["line"] = [build_line_solvers(S, tuple(range(S.grid_ndim)))
-                             for S, _, _ in levels]
+            state["line"] = [build_line_solvers(S, tuple(range(S.grid_ndim)),
+                                                slab=self.slab if sh else None)
+                             for S, sh in zip(stencils, self.sharded)]
+        if self.slab is not None:
+            state["global"] = list(stencils)
         return state
 
     def setup(self, coeffs: dict | None = None) -> dict:
         """Restrict coefficient fields, rediscretize every level, estimate
         the smoother's eigenvalue bounds, factor the coarsest level (the
-        analog of PCSetUp + hypre setup)."""
+        analog of PCSetUp + hypre setup).  On a mesh the fields are the
+        global grid's (every process rediscretizes the same hierarchy)."""
         coeffs = dict(coeffs or {})
-        levels = []
+        stencils = []
         for lvl, g in enumerate(self.grids):
-            levels.append(self._level(lvl, self.builder(g, coeffs)))
+            stencils.append(self.builder(g, coeffs))
             if lvl < len(self.grids) - 1:
-                coeffs = _map_fields(lambda f, lvl=lvl: self._restrict(lvl, f), coeffs)
-        return self._finish(levels)
+                coeffs = _map_fields(lambda f, lvl=lvl: self._restrict_global(lvl, f), coeffs)
+        return self._finish(stencils)
 
     def shift_state(self, state: dict, shift) -> dict:
         """State solving (S + shift) on the interior of every level, from a
         shift-free ``setup`` state: centers get ``shift`` on interior rows;
         diagonals, eigenvalue bounds, line solvers and the coarse LU are
         recomputed.  ``shift`` may be a number or a 0-d tensor."""
-        levels = []
-        for lvl, (S, _diag, _lam) in enumerate(state["levels"]):
+        stencils = []
+        glob = state.get("global") or [S for S, _, _ in state["levels"]]
+        for lvl, S in enumerate(glob):
             interior = self.grids[lvl].interior_mask
             sh = torch.as_tensor(shift, dtype=S.center.dtype, device=S.center.device)
-            Ss = dataclasses.replace(S, center=torch.where(interior, S.center + sh,
-                                                           S.center))
-            levels.append(self._level(lvl, Ss))
-        return self._finish(levels)
+            stencils.append(dataclasses.replace(
+                S, center=torch.where(interior, S.center + sh, S.center)))
+        return self._finish(stencils)
 
     def _power_lambda_max(self, lvl: int, S: StencilOp, diag: torch.Tensor,
                           iters: int = 12) -> torch.Tensor:
         """Largest eigenvalue of D^{-1} S by power iteration, times 1.1 (the
-        analog of hypre's smoother eigenvalue estimate); a 0-d tensor."""
+        analog of hypre's smoother eigenvalue estimate); a 0-d tensor.  On
+        a sharded level the iteration runs on slabs, its norms and inner
+        products summed over the mesh."""
         x = _power_start(self.grids[lvl], diag.dtype)
+        if self.slab is not None and self.sharded[lvl]:
+            x = self.slab.local(x)
+            dot = self.slab.dot
+        else:
+            def dot(a, b):
+                return torch.dot(a.reshape(-1), b.reshape(-1))
         for _ in range(iters):
             y = S.apply(x) / diag
-            x = y / torch.clamp_min(torch.linalg.vector_norm(y), 1e-30)
+            nrm = (torch.linalg.vector_norm(y) if self.slab is None
+                   else torch.sqrt(dot(y, y)))
+            x = y / torch.clamp_min(nrm, 1e-30)
         y = S.apply(x) / diag
-        num = torch.dot(x.reshape(-1), y.reshape(-1))
-        den = torch.dot(x.reshape(-1), x.reshape(-1))
+        num = dot(x, y)
+        den = dot(x, x)
         return 1.1 * num / torch.clamp_min(den, 1e-30)
 
     # -- cycle ----------------------------------------------------------------
@@ -268,11 +352,15 @@ class Multigrid:
         S, diag, lam_max = state["levels"][lvl]
         if lvl == len(self.grids) - 1:
             # torch.linalg.lu_solve is dtype-strict: solve in the factors'
-            # dtype and cast back to the cycle's working dtype
+            # dtype and cast back to the cycle's working dtype; a sharded
+            # coarsest level gathers, solves replicated and cuts back
+            on_slab = self.slab is not None and self.sharded[lvl]
+            bg = self.slab.gather(b) if on_slab else b
             size = self.grids[lvl].size
             LU, piv = state["coarse_lu"]
-            z = torch.linalg.lu_solve(LU, piv, b.reshape(size, -1).to(LU.dtype))
-            return z.reshape(b.shape).to(b.dtype)
+            z = torch.linalg.lu_solve(LU, piv, bg.reshape(size, -1).to(LU.dtype))
+            z = z.reshape(bg.shape).to(b.dtype)
+            return self.slab.local(z) if on_slab else z
         solvers = state["line"][lvl] if self.smoother == "line" else None
         x = self._smooth(S, diag, lam_max, torch.zeros_like(b), b, self.pre_smooth, solvers)
         r = b - S.apply(x)
@@ -289,5 +377,5 @@ class Multigrid:
         S = state["levels"][0][0]
         for _ in range(self.cycles - 1):
             z = z + self._cycle(state, 0, bi - self._mask(0, S.apply(z)))
-        bmask = self.grids[0]._mask_for(self.grids[0].boundary_mask, b)
-        return torch.where(bmask, b, z)
+        bm = self.grids[0].boundary_mask if self.slab is None else self._masks[0][1]
+        return torch.where(self.grids[0]._mask_for(bm, b), b, z)

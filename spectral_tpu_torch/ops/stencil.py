@@ -81,6 +81,11 @@ class StencilOp:
             y = y + self._b(self.upper[ax], x) * shift(x, ax, +1)
         return y
 
+    def shift(self, x: torch.Tensor, axis: int, s: int) -> torch.Tensor:
+        """``shift`` along a grid axis of a field this stencil acts on (a
+        slab's stencil takes its neighbours' planes)."""
+        return shift(x, axis, s)
+
     def diag(self) -> torch.Tensor:
         return self.center
 

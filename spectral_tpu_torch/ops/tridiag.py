@@ -15,6 +15,13 @@ line axis, batched over every other axis and any trailing component
 axes.  ``LineSolver`` holds the per-line dense inverse (a batched
 ``torch.linalg.inv`` at PC setup), applied as one batched ``torch.matmul``:
 neither is a kernel of the JAX package (XLA's inverse and einsum there).
+
+On a slab of a sharded grid (``slab=``, ``parallel.slab.Slab``) a line
+along an unsharded axis is local; a line along a sharded axis is made
+whole by the pencil exchange with the partner axis, solved, and sent
+back (the ``apply_axis_pencil`` pattern), its inverses built on that
+transposed layout.  A slab's stencil (``SlabStencilOp``) takes its
+neighbours' planes in the sweeps' shifts.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import dataclasses
 
 import torch
 
-from spectral_tpu_torch.ops.stencil import StencilOp, shift
+from spectral_tpu_torch.ops.stencil import StencilOp
 
 
 def _expand(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -72,15 +79,25 @@ class LineSolver:
 
     axis: int
     Tinv: torch.Tensor   # coefficient dims with ``axis`` moved last, then (n, n)
+    slab: object = None  # parallel.slab.Slab: the lines of a slab
 
     @staticmethod
     def build(lower: torch.Tensor, center: torch.Tensor, upper: torch.Tensor,
-              axis: int, mask: torch.Tensor | None = None) -> "LineSolver":
+              axis: int, mask: torch.Tensor | None = None, slab=None) -> "LineSolver":
         """Coefficients follow the StencilOp single-axis convention; with
         ``mask`` (True = free dof, may add trailing component axes),
         masked rows become identities.  With a component mask the lines
         run along ``axis`` of the grid, one set per component: the
-        component axis is never the line axis."""
+        component axis is never the line axis.  With ``slab`` the
+        coefficients are the global grid's, and the solver keeps the
+        inverses of this process' lines (on the exchanged layout along a
+        sharded axis)."""
+        if slab is not None:
+            dims = center.shape
+            sl = (slab.pencil_slices(dims, axis) if axis in slab.axis_map
+                  else slab.slices(dims))
+            lower, center, upper = lower[sl], center[sl], upper[sl]
+            mask = None if mask is None else mask[sl]
         if mask is not None:
             mf = mask.to(lower.dtype)
             lower = torch.where(mask, _expand(lower, mf), 0.0)
@@ -96,9 +113,14 @@ class LineSolver:
         sub = torch.diag(torch.ones(n - 1, dtype=b.dtype, device=b.device), -1)
         sup = torch.diag(torch.ones(n - 1, dtype=b.dtype, device=b.device), 1)
         T = b[..., :, None] * eye + a[..., :, None] * sub + c[..., :, None] * sup
-        return LineSolver(axis=axis, Tinv=torch.linalg.inv(T))
+        return LineSolver(axis=axis, Tinv=torch.linalg.inv(T), slab=slab)
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        if self.slab is not None:
+            return self.slab.exchanged(rhs, self.axis, self._solve)
+        return self._solve(rhs)
+
+    def _solve(self, rhs: torch.Tensor) -> torch.Tensor:
         rm = torch.movedim(rhs, self.axis, -1)
         Ti = self.Tinv
         extra = rm.ndim - (Ti.ndim - 1)
@@ -109,9 +131,12 @@ class LineSolver:
 
 
 def build_line_solvers(S: StencilOp, axes: tuple[int, ...],
-                       mask: torch.Tensor | None = None) -> tuple:
-    """A LineSolver per axis, for line_smooth(..., solvers=...)."""
-    return tuple(LineSolver.build(S.lower[ax], S.center, S.upper[ax], ax, mask=mask)
+                       mask: torch.Tensor | None = None, slab=None) -> tuple:
+    """A LineSolver per axis, for line_smooth(..., solvers=...); with
+    ``slab``, S and ``mask`` are the global grid's and the solvers keep
+    this process' lines."""
+    return tuple(LineSolver.build(S.lower[ax], S.center, S.upper[ax], ax, mask=mask,
+                                  slab=slab)
                  for ax in axes)
 
 
@@ -128,13 +153,14 @@ def line_smooth(S: StencilOp, x: torch.Tensor, b: torch.Tensor,
     component-dependent mask (the removed normal component at mixed Stokes
     nodes) does not spread a masked row's value along its line.
     ``solvers`` (from build_line_solvers, one per entry of ``axes``)
-    replaces the Thomas loop by the dense inverses."""
+    replaces the Thomas loop by the dense inverses; a slab's sweep
+    (``SlabStencilOp``) needs them."""
     for _ in range(sweeps):
         for i, ax in enumerate(axes):
             laE = _expand(S.lower[ax], x)
             ceE = _expand(S.center, x)
             uaE = _expand(S.upper[ax], x)
-            tx = ceE * x + laE * shift(x, ax, -1) + uaE * shift(x, ax, +1)
+            tx = ceE * x + laE * S.shift(x, ax, -1) + uaE * S.shift(x, ax, +1)
             rhs = b - (S.apply(x) - tx)
             if mask is not None:
                 rhs = torch.where(mask, rhs, 0.0)

@@ -9,6 +9,8 @@ the grid's global ends stay zero-filled (the dropped boundary couplings).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from spectral_tpu_torch.ops.stencil import StencilOp, shift
@@ -38,24 +40,42 @@ def _shift_with_halo(x: torch.Tensor, axis: int, s: int, mesh: Mesh, name: str) 
 
 
 def halo_shift(x: torch.Tensor, axis: int, s: int, mesh: Mesh, sharded_axis: int = 0,
-               mesh_axis: str = "x") -> torch.Tensor:
+               mesh_axis: str = "x", axis_map: dict | None = None) -> torch.Tensor:
     """``shift`` of this process' slab of a grid sharded on ``sharded_axis``
-    (zero fill at the global ends)."""
-    if axis == sharded_axis:
-        return _shift_with_halo(x, axis, s, mesh, mesh_axis)
+    over ``mesh_axis`` (or on every axis of ``axis_map``, grid axis ->
+    mesh axis name), zero fill at the global ends."""
+    amap = axis_map or {sharded_axis: mesh_axis}
+    if axis in amap:
+        return _shift_with_halo(x, axis, s, mesh, amap[axis])
     return shift(x, axis, s)
 
 
 def stencil_apply_sharded(S: StencilOp, x: torch.Tensor, mesh: Mesh, sharded_axis: int = 0,
-                          mesh_axis: str = "x") -> torch.Tensor:
+                          mesh_axis: str = "x", axis_map: dict | None = None) -> torch.Tensor:
     """Apply a stencil to a slab (its coefficient fields sliced the same
-    way); the shifts along the sharded axis take the neighbours' planes."""
+    way); the shifts along a sharded axis take the neighbours' planes."""
     def b(c):
         return c.reshape(c.shape + (1,) * (x.ndim - c.ndim)) if x.ndim > c.ndim else c
 
     y = b(S.center) * x
     for ax in range(S.grid_ndim):
-        xm = halo_shift(x, ax, -1, mesh, sharded_axis, mesh_axis)
-        xp = halo_shift(x, ax, +1, mesh, sharded_axis, mesh_axis)
+        xm = halo_shift(x, ax, -1, mesh, sharded_axis, mesh_axis, axis_map)
+        xp = halo_shift(x, ax, +1, mesh, sharded_axis, mesh_axis, axis_map)
         y = y + b(S.lower[ax]) * xm + b(S.upper[ax]) * xp
     return y
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabStencilOp(StencilOp):
+    """A stencil whose coefficient fields are this process' slab
+    (``Slab.stencil``): its apply and its shifts take the neighbours'
+    edge planes along the sharded axes, so the smoothers and line sweeps
+    that call ``S.apply`` and ``S.shift`` run on slabs unchanged."""
+
+    slab: object = None
+
+    def shift(self, x: torch.Tensor, axis: int, s: int) -> torch.Tensor:
+        return self.slab.shift(x, axis, s)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return stencil_apply_sharded(self, x, self.slab.mesh, axis_map=self.slab.axis_map)

@@ -20,6 +20,7 @@ them are CUDA tensors.  ``Mesh.comm_path`` names the choice.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import os
@@ -34,6 +35,10 @@ import torch.distributed as dist
 # all_to_all_single, all_gather and broadcast on CUDA tensors and aborts
 # the process on a CUDA send/recv (gloo_cuda_probe.py)
 GLOO_CUDA_STAGED = frozenset({"sendrecv"})
+
+# exchanges this process issued, by kind (a mesh of one issues none); the
+# caller clears it before a run and reads it after
+EXCHANGES: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(eq=False)
@@ -72,7 +77,15 @@ class Mesh:
     def allreduce(self, t: torch.Tensor) -> torch.Tensor:
         """t summed over every process of the mesh (in place, returned)."""
         if math.prod(self.shape) > 1:
+            EXCHANGES["allreduce"] += 1
             dist.all_reduce(t)
+        return t
+
+    def allmax(self, t: torch.Tensor) -> torch.Tensor:
+        """t's elementwise maximum over every process (in place, returned)."""
+        if math.prod(self.shape) > 1:
+            EXCHANGES["allreduce"] += 1
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return t
 
     def all_to_all(self, y: torch.Tensor, name: str):
@@ -80,6 +93,7 @@ class Mesh:
         of y's leading dimension, issued without waiting: (the result, its
         work handle), to be read after ``wait()``.  Block j goes to the
         axis' j-th process, block i of the result came from the i-th."""
+        EXCHANGES["all_to_all"] += 1
         out = torch.empty_like(y)
         return out, dist.all_to_all_single(out, y, group=self.groups[name][0], async_op=True)
 
@@ -90,6 +104,7 @@ class Mesh:
         ``like``'s device (None without a receive).  CUDA tensors go
         through pinned host memory where the mesh's comm path says so."""
         group, ranks = self.groups[name]
+        EXCHANGES["sendrecv"] += 1
         ops, got = [], None
         if send is not None:
             staged = "sendrecv" in self.staged and send.is_cuda
@@ -107,6 +122,7 @@ class Mesh:
 
     def all_gather(self, t: torch.Tensor, name: str) -> list:
         group, ranks = self.groups[name]
+        EXCHANGES["all_gather"] += 1
         outs = [torch.empty_like(t) for _ in ranks]
         dist.all_gather(outs, t.contiguous(), group=group)
         return outs

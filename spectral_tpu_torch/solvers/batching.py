@@ -72,3 +72,24 @@ def where_members(active: torch.Tensor, new, old):
         return torch.where(m, a, b)
 
     return pytree.tree_map(pick, new, old)
+
+
+def dp_cut(nb: int, mesh, mesh_axis: str) -> slice:
+    """This process' block of a batch of ``nb`` members cut over mesh axis
+    ``mesh_axis`` (data parallelism, rank order); nb must divide."""
+    p, me = mesh.size(mesh_axis), mesh.index(mesh_axis)
+    if nb % p:
+        raise ValueError(f"batch of {nb} not divisible by mesh axis {mesh_axis!r} size {p}")
+    c = nb // p
+    return slice(me * c, (me + 1) * c)
+
+
+def dp_gather(t, mesh, mesh_axis: str, axis: int = 0):
+    """The whole batch from every process' block (a tensor or a numpy
+    array), concatenated along ``axis`` in rank order."""
+    import numpy as np
+
+    if isinstance(t, np.ndarray):
+        return dp_gather(torch.from_numpy(np.ascontiguousarray(t)), mesh, mesh_axis,
+                         axis).numpy()
+    return torch.cat(mesh.all_gather(t.contiguous(), mesh_axis), dim=axis)

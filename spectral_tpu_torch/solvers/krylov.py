@@ -328,31 +328,43 @@ def fgmres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
                        history_len=history_len, flexible=True, reduce=reduce)
 
 
-def _cg_flat(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len):
+def _dot_norm(reduce):
+    """(dot, norm) of a short-recurrence solve: torch's, or summed over the
+    mesh by the reduction hook (one reduction each)."""
+    if reduce is None:
+        return torch.dot, _norm
+    return (lambda a, b: reduce(torch.dot(a, b))), \
+        (lambda v: torch.sqrt(reduce(torch.dot(v, v))))
+
+
+def _cg_flat(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len, reduce=None):
     sc = _scalar_type(b.dtype)
     tiny, rtol, atol, dtol = sc(_TINY), sc(rtol), sc(atol), sc(dtol)
+    red = reduce or _identity
+    dot, norm = _dot_norm(reduce)
 
     r = P(b - A(x0))
     z = M(r)
-    beta0 = sc(_norm(r).item())
+    beta0 = sc(norm(r).item())
     hist = np.full(history_len, -1.0, sc)
     hist[0] = beta0
     reason = int(ConvergedReason.CONVERGED_ATOL if beta0 <= atol
                  else ConvergedReason.ITERATING)
     rnorm0 = max(beta0, tiny)
-    x, p, rz = x0, z, torch.dot(r, z)
+    x, p, rz = x0, z, dot(r, z)
     it, rnorm = 0, beta0
     while reason == ConvergedReason.ITERATING:
         Ap = P(A(p))
-        pAp = torch.dot(p, Ap)
+        pAp = dot(p, Ap)
         alpha = rz / torch.where(torch.abs(pAp) > _TINY, pAp, 1.0)
         x = x + alpha * p
         r = r - alpha * Ap
-        rn = _norm(r)
         # the next direction is queued before the norm reaches the host,
-        # as the JAX loop body computes it on its last pass too
+        # as the JAX loop body computes it on its last pass too; on a mesh
+        # the norm and r.z share one reduction
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rr, rz_new = red(torch.stack([torch.dot(r, r), torch.dot(r, z)]))
+        rn = torch.sqrt(rr)
         p = z + (rz_new / torch.where(torch.abs(rz) > _TINY, rz, 1.0)) * p
         rz = rz_new
         rnorm = sc(rn.item())
@@ -364,21 +376,22 @@ def _cg_flat(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len):
 
 def cg(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
        rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
-       null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+       null_project=None, history_len=HISTORY_LEN, reduce=None) -> SolveResult:
     """Preconditioned conjugate gradients (for SPD operators); one host
-    synchronisation per iteration, the residual norm."""
+    synchronisation per iteration, the residual norm.  ``reduce``: the
+    mesh reduction hook (two reductions an iteration)."""
     Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
     xf, it, reason, rnorm, hist = _cg_flat(
         Af, Mf, Pf, bf, x0f, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it,
-        history_len=_hist_len(history_len, max_it))
+        history_len=_hist_len(history_len, max_it), reduce=reduce)
     return SolveResult(unravel(xf), it, reason, rnorm, hist)
 
 
-def _start(r0: torch.Tensor, atol, history_len: int):
+def _start(r0: torch.Tensor, atol, history_len: int, norm=_norm):
     """(beta0, rnorm0, hist, reason) of a short-recurrence solve from its
     initial residual r0: one host transfer."""
     sc = _scalar_type(r0.dtype)
-    beta0 = sc(_norm(r0).item())
+    beta0 = sc(norm(r0).item())
     hist = np.full(history_len, -1.0, sc)
     hist[0] = beta0
     reason = int(ConvergedReason.CONVERGED_ATOL if beta0 <= sc(atol)
@@ -393,38 +406,42 @@ def _safe(d: torch.Tensor) -> torch.Tensor:
 
 def bicgstab(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
              rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
-             null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+             null_project=None, history_len=HISTORY_LEN, reduce=None) -> SolveResult:
     """BiCGStab with left preconditioning (PETSc KSPBCGS semantics): short
     recurrences for nonsymmetric systems, two operator applications a step,
     its inner products on the device, one host transfer (the residual
-    norm) a step."""
+    norm) a step.  ``reduce``: the mesh reduction hook (four reductions a
+    step, omega's two inner products in one)."""
     Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
     history_len = _hist_len(history_len, max_it)
     sc = _scalar_type(bf.dtype)
     rtol, atol, dtol = sc(rtol), sc(atol), sc(dtol)
+    red = reduce or _identity
+    dot, norm = _dot_norm(reduce)
 
     def op(v):
         return Mf(Pf(Af(v)))
 
     r = Mf(Pf(bf - Af(x0f)))
-    beta0, rnorm0, hist, reason = _start(r, atol, history_len)
+    beta0, rnorm0, hist, reason = _start(r, atol, history_len, norm)
     x, rhat = x0f, r
     p = v = torch.zeros_like(r)
     rho_old = alpha = omega = torch.ones((), dtype=bf.dtype, device=bf.device)
     it, rnorm = 0, beta0
     while reason == ConvergedReason.ITERATING:
-        rho = torch.dot(rhat, r)
+        rho = dot(rhat, r)
         beta = (rho / _safe(rho_old)) * (alpha / _safe(omega))
         p = r + beta * (p - omega * v)
         v = op(p)
-        alpha = rho / _safe(torch.dot(rhat, v))
+        alpha = rho / _safe(dot(rhat, v))
         sres = r - alpha * v
         t = op(sres)
-        omega = torch.dot(t, sres) / _safe(torch.dot(t, t))
+        ts, tt = red(torch.stack([torch.dot(t, sres), torch.dot(t, t)]))
+        omega = ts / _safe(tt)
         x = x + alpha * p + omega * sres
         r = sres - omega * t
         rho_old = rho
-        rnorm = sc(_norm(r).item())
+        rnorm = sc(norm(r).item())
         it += 1
         hist[min(it, history_len - 1)] = rnorm
         reason = _reason(rnorm, it, rnorm0, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it)
@@ -433,22 +450,23 @@ def bicgstab(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
 
 def richardson(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
                scale=1.0, rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
-               null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+               null_project=None, history_len=HISTORY_LEN, reduce=None) -> SolveResult:
     """Richardson iteration x += scale * M(b - A x) (PETSc KSPRICHARDSON):
     one operator application and one host transfer a step; no divergence
     test, as in the JAX package (a growing iterate runs to max_it or to a
-    non-finite norm)."""
+    non-finite norm).  ``reduce``: the mesh reduction hook (the norm)."""
     Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
     history_len = _hist_len(history_len, max_it)
     sc = _scalar_type(bf.dtype)
     rtol, atol = sc(rtol), sc(atol)
+    _, norm = _dot_norm(reduce)
     r = Pf(bf - Af(x0f))
-    beta0, rnorm0, hist, reason = _start(r, atol, history_len)
+    beta0, rnorm0, hist, reason = _start(r, atol, history_len, norm)
     x, it, rnorm = x0f, 0, beta0
     while reason == ConvergedReason.ITERATING:
         x = x + scale * Mf(r)
         r = Pf(bf - Af(x))
-        rnorm = sc(_norm(r).item())
+        rnorm = sc(norm(r).item())
         it += 1
         hist[min(it, history_len - 1)] = rnorm
         reason = _reason(rnorm, it, rnorm0, rtol=rtol, atol=atol, max_it=max_it)
@@ -460,26 +478,28 @@ def chebyshev(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
               est_steps: int = 12, eig_ratio: float = 1.0 / 30.0,
               eig_safety: float = 1.1,
               rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
-              null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+              null_project=None, history_len=HISTORY_LEN, reduce=None) -> SolveResult:
     """Chebyshev semi-iteration (PETSc KSPCHEBYSHEV) for a preconditioned
     spectrum in [emin, emax]: no inner product in the recurrence, one
     operator and one PC application a step, one host transfer (the
     convergence-test norm).  Without bounds, ``est_steps`` power
     iterations on M P A from a vector of ones estimate lambda_max:
     emax = eig_safety * lambda, emin = eig_ratio * emax (the JAX
-    package's in-solve estimate, the -ksp_chebyshev_esteig analog)."""
+    package's in-solve estimate, the -ksp_chebyshev_esteig analog).
+    ``reduce``: the mesh reduction hook (the norms)."""
     Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
     history_len = _hist_len(history_len, max_it)
     sc = _scalar_type(bf.dtype)
     rtol, atol, dtol = sc(rtol), sc(atol), sc(dtol)
+    _, norm = _dot_norm(reduce)
 
     if emax is None:
         v = torch.ones_like(bf)
-        v = v / _norm(v)
+        v = v / norm(v)
         lam = torch.ones((), dtype=bf.dtype, device=bf.device)
         for _ in range(est_steps):
             w = Mf(Pf(Af(v)))
-            lam = _norm(w)
+            lam = norm(w)
             v = w / torch.clamp(lam, min=_TINY)
         e_hi = sc(eig_safety) * max(sc(lam.item()), sc(_TINY))
         e_lo = e_hi * sc(eig_ratio)
@@ -491,14 +511,14 @@ def chebyshev(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
     sigma1 = theta / delta
 
     r = Pf(bf - Af(x0f))
-    beta0, rnorm0, hist, reason = _start(r, atol, history_len)
+    beta0, rnorm0, hist, reason = _start(r, atol, history_len, norm)
     d = Mf(r) / float(theta)
     rho = sc(1.0) / sigma1
     x, it, rnorm = x0f, 0, beta0
     while reason == ConvergedReason.ITERATING:
         x = x + d
         r = r - Pf(Af(d))
-        rn = _norm(r)
+        rn = norm(r)
         # the next direction is queued before the norm reaches the host
         z = Mf(r)
         rho_new = sc(1.0) / (sc(2.0) * sigma1 - rho)
@@ -513,26 +533,28 @@ def chebyshev(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
 
 def minres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
            rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000,
-           null_project=None, history_len=HISTORY_LEN) -> SolveResult:
+           null_project=None, history_len=HISTORY_LEN, reduce=None) -> SolveResult:
     """Preconditioned MINRES (Paige-Saunders; PETSc KSPMINRES) for
     symmetric, possibly indefinite operators with an SPD preconditioner.
     It monitors sqrt(r^T M r); a PC with <r, M r> < 0 ends the solve as
     DIVERGED_INDEFINITE_PC.  The returned ``rnorm`` is the recomputed true
     residual norm.  The Lanczos vectors live on the device; each step
     brings its two inner products to the host in one transfer, where the
-    Givens rotations run in the solve's dtype."""
+    Givens rotations run in the solve's dtype.  ``reduce``: the mesh
+    reduction hook (two reductions a step)."""
     Af, bf, x0f, Mf, Pf, unravel = _flatten_system(A, b, x0, M, null_project)
     history_len = _hist_len(history_len, max_it)
     sc = _scalar_type(bf.dtype)
     rtol, atol, dtol = sc(rtol), sc(atol), sc(dtol)
     tiny, zero, one = sc(_TINY), sc(0.0), sc(1.0)
+    dot, norm = _dot_norm(reduce)
 
     def safe(d):
         return d if abs(d) > tiny else one
 
     r1 = Pf(bf - Af(x0f))
     y = Mf(r1)
-    beta1sq = sc(torch.dot(r1, y).item())
+    beta1sq = sc(dot(r1, y).item())
     beta1 = np.sqrt(max(beta1sq, zero))
     phibar0 = max(beta1, tiny)
     hist = np.full(history_len, -1.0, sc)
@@ -552,11 +574,11 @@ def minres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
         y = Pf(Af(v))
         if it >= 1:
             y = y - float(beta / safe(oldb)) * r1
-        alfa_d = torch.dot(v, y)
+        alfa_d = dot(v, y)
         y = y - (alfa_d / float(safe(beta))) * r2
         r1, r2 = r2, y
         y = Mf(r2)
-        alfa, betasq = (sc(t) for t in torch.stack([alfa_d, torch.dot(r2, y)]).cpu().tolist())
+        alfa, betasq = (sc(t) for t in torch.stack([alfa_d, dot(r2, y)]).cpu().tolist())
         oldb = beta
         beta = np.sqrt(max(betasq, zero))
         # the previous rotation, then the next one
@@ -578,7 +600,7 @@ def minres(A: Operator, b, x0=None, *, M: Optional[Operator] = None,
         else:
             reason = _reason(phibar, it, phibar0, rtol=rtol, atol=atol, dtol=dtol,
                              max_it=max_it)
-    rnorm_true = float(_norm(Pf(bf - Af(x))))
+    rnorm_true = float(norm(Pf(bf - Af(x))))
     return SolveResult(unravel(x), it, reason, rnorm_true, torch.from_numpy(hist))
 
 
@@ -907,6 +929,217 @@ def _cg_batched(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len, active
     return x, it, reason, rnorm, torch.from_numpy(hist)
 
 
+def _sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B,) member inner products of (B, n) blocks."""
+    return torch.sum(a * b, dim=1)
+
+
+def _safe_rows(d: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.abs(d) > _TINY, d, torch.ones_like(d))
+
+
+def _record(rh, live, it, hist, rnorm, history_len):
+    """Count a step of the live members and log their (B,) host norms."""
+    it[live] += 1
+    rnorm[live] = rh[live]
+    s = np.flatnonzero(live)
+    hist[s, np.minimum(it[s], history_len - 1)] = rh[s]
+
+
+def _bicgstab_batched(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len, active):
+    """``bicgstab`` over a leading batch axis: per-member scalars on the
+    device, a member's update masked once it is terminal, one host
+    transfer (the B residual norms) a step."""
+    nb, dev = b.shape[0], b.device
+
+    def op(v):
+        return M(P(A(v)))
+
+    r = M(P(b - A(x0)))
+    sc, beta0, rnorm0, hist, reason = _start_batched(r, atol, history_len, active)
+    rtol = np.broadcast_to(np.asarray(rtol, sc), (nb,)).copy()
+    atol, dtol = sc(atol), sc(dtol)
+    x, rhat = x0, r
+    p = v = torch.zeros_like(r)
+    rho_old = alpha = omega = torch.ones(nb, dtype=b.dtype, device=dev)
+    it, rnorm = np.zeros(nb, np.int64), beta0.copy()
+    while True:
+        live = reason == ConvergedReason.ITERATING
+        if not live.any():
+            break
+        on = _rows(live, dev)
+        rho = _sums(rhat, r)
+        beta = (rho / _safe_rows(rho_old)) * (alpha / _safe_rows(omega))
+        pn = r + beta[:, None] * (p - omega[:, None] * v)
+        vn = op(torch.where(on, pn, 0.0))
+        an = rho / _safe_rows(_sums(rhat, vn))
+        sres = r - an[:, None] * vn
+        t = op(torch.where(on, sres, 0.0))
+        wn = _sums(t, sres) / _safe_rows(_sums(t, t))
+        xn = x + an[:, None] * pn + wn[:, None] * sres
+        rn_ = sres - wn[:, None] * t
+        x, r = torch.where(on, xn, x), torch.where(on, rn_, r)
+        p, v = torch.where(on, pn, p), torch.where(on, vn, v)
+        o = on[:, 0]
+        rho_old, alpha, omega = (torch.where(o, rho, rho_old), torch.where(o, an, alpha),
+                                 torch.where(o, wn, omega))
+        rh = torch.sqrt(_sums(r, r)).cpu().numpy().astype(sc)
+        _record(rh, live, it, hist, rnorm, history_len)
+        new = _reasons(rh, it, rnorm0, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it)
+        reason[live] = new[live]
+    return x, it, reason, rnorm, torch.from_numpy(hist)
+
+
+def _richardson_batched(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len, active,
+                        scale=1.0):
+    """``richardson`` over a leading batch axis (no divergence test)."""
+    nb, dev = b.shape[0], b.device
+    r = P(b - A(x0))
+    sc, beta0, rnorm0, hist, reason = _start_batched(r, atol, history_len, active)
+    rtol = np.broadcast_to(np.asarray(rtol, sc), (nb,)).copy()
+    atol = sc(atol)
+    x, it, rnorm = x0, np.zeros(nb, np.int64), beta0.copy()
+    while True:
+        live = reason == ConvergedReason.ITERATING
+        if not live.any():
+            break
+        on = _rows(live, dev)
+        x = torch.where(on, x + scale * M(torch.where(on, r, 0.0)), x)
+        r = torch.where(on, P(b - A(x)), r)
+        rh = torch.sqrt(_sums(r, r)).cpu().numpy().astype(sc)
+        _record(rh, live, it, hist, rnorm, history_len)
+        new = _reasons(rh, it, rnorm0, rtol=rtol, atol=atol, dtol=np.inf, max_it=max_it)
+        reason[live] = new[live]
+    return x, it, reason, rnorm, torch.from_numpy(hist)
+
+
+def _chebyshev_batched(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len, active,
+                       emin=None, emax=None, est_steps=12, eig_ratio=1.0 / 30.0,
+                       eig_safety=1.1):
+    """``chebyshev`` over a leading batch axis: each member its own
+    power-iteration bound (as under ``vmap``), its own recurrence scalars."""
+    nb, dev, dtype = b.shape[0], b.device, b.dtype
+    sc = _scalar_type(dtype)
+    if emax is None:
+        v = torch.ones_like(b)
+        v = v / torch.sqrt(_sums(v, v))[:, None]
+        lam = torch.ones(nb, dtype=dtype, device=dev)
+        for _ in range(est_steps):
+            w = M(P(A(v)))
+            lam = torch.sqrt(_sums(w, w))
+            v = w / torch.clamp(lam, min=_TINY)[:, None]
+        e_hi = sc(eig_safety) * np.maximum(lam.cpu().numpy().astype(sc), sc(_TINY))
+        e_lo = e_hi * sc(eig_ratio)
+    else:
+        e_hi = np.full(nb, emax, sc)
+        e_lo = np.full(nb, emax * eig_ratio if emin is None else emin, sc)
+    theta = sc(0.5) * (e_hi + e_lo)
+    delta = np.maximum(sc(0.5) * (e_hi - e_lo), sc(_TINY))
+    sigma1 = theta / delta
+
+    def col(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)[:, None]
+
+    r = P(b - A(x0))
+    sc, beta0, rnorm0, hist, reason = _start_batched(r, atol, history_len, active)
+    rtol = np.broadcast_to(np.asarray(rtol, sc), (nb,)).copy()
+    atol, dtol = sc(atol), sc(dtol)
+    d = M(r) / col(theta)
+    rho = sc(1.0) / sigma1
+    x, it, rnorm = x0, np.zeros(nb, np.int64), beta0.copy()
+    while True:
+        live = reason == ConvergedReason.ITERATING
+        if not live.any():
+            break
+        on = _rows(live, dev)
+        x = torch.where(on, x + d, x)
+        r = torch.where(on, r - P(A(torch.where(on, d, 0.0))), r)
+        rn = torch.sqrt(_sums(r, r))
+        z = M(torch.where(on, r, 0.0))
+        rho_new = sc(1.0) / (sc(2.0) * sigma1 - rho)
+        d = torch.where(on, col(rho_new * rho) * d + col(sc(2.0) * rho_new / delta) * z, d)
+        rho = np.where(live, rho_new, rho)
+        rh = rn.cpu().numpy().astype(sc)
+        _record(rh, live, it, hist, rnorm, history_len)
+        new = _reasons(rh, it, rnorm0, rtol=rtol, atol=atol, dtol=dtol, max_it=max_it)
+        reason[live] = new[live]
+    return x, it, reason, rnorm, torch.from_numpy(hist)
+
+
+def _minres_batched(A, M, P, b, x0, *, rtol, atol, dtol, max_it, history_len, active):
+    """``minres`` over a leading batch axis: the Lanczos vectors on the
+    device, each member's Givens rotations on the host as (B,) arrays,
+    one host transfer (the B pairs of inner products) a step; ``rnorm``
+    the recomputed true residual norms."""
+    nb, dev, dtype = b.shape[0], b.device, b.dtype
+    sc = _scalar_type(dtype)
+    tiny, zero, one = sc(_TINY), sc(0.0), sc(1.0)
+    rtol = np.broadcast_to(np.asarray(rtol, sc), (nb,)).copy()
+    atol, dtol = sc(atol), sc(dtol)
+
+    def safe(a):
+        return np.where(np.abs(a) > tiny, a, one)
+
+    def col(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)[:, None]
+
+    r1 = P(b - A(x0))
+    y = M(r1)
+    beta1sq = _sums(r1, y).cpu().numpy().astype(sc)
+    beta1 = np.sqrt(np.maximum(beta1sq, zero))
+    phibar0 = np.maximum(beta1, tiny)
+    hist = np.full((nb, history_len), -1.0, sc)
+    hist[:, 0] = beta1
+    reason = np.where(beta1sq < zero, int(ConvergedReason.DIVERGED_INDEFINITE_PC),
+                      np.where(beta1 <= atol, int(ConvergedReason.CONVERGED_ATOL),
+                               int(ConvergedReason.ITERATING)))
+    reason[~active] = int(ConvergedReason.CONVERGED_ITS)
+    x, r2 = x0, r1
+    w = w2 = torch.zeros_like(b)
+    oldb, beta, dbar, epsln = np.zeros(nb, sc), beta1.copy(), np.zeros(nb, sc), np.zeros(nb, sc)
+    phibar, cs, sn = beta1.copy(), np.full(nb, -one, sc), np.zeros(nb, sc)
+    it = np.zeros(nb, np.int64)
+    while True:
+        live = reason == ConvergedReason.ITERATING
+        if not live.any():
+            break
+        on = _rows(live, dev)
+        v = y / col(safe(beta))
+        yy = P(A(torch.where(on, v, 0.0)))
+        yy = torch.where(_rows(it >= 1, dev), yy - col(beta / safe(oldb)) * r1, yy)
+        alfa_d = _sums(v, yy)
+        yy = yy - (alfa_d / col(safe(beta))[:, 0])[:, None] * r2
+        yn = M(torch.where(on, yy, 0.0))
+        host = torch.stack([alfa_d, _sums(yy, yn)]).cpu().numpy().astype(sc)
+        alfa, betasq = host[0], host[1]
+        beta_n = np.sqrt(np.maximum(betasq, zero))
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        gamma = np.maximum(np.sqrt(gbar * gbar + beta_n * beta_n), tiny)
+        phi = (gbar / gamma) * phibar
+        wn = (v - col(oldeps) * w2 - col(delta) * w) / col(gamma)
+        x = torch.where(on, x + col(phi) * wn, x)
+        r1, r2, y = torch.where(on, r2, r1), torch.where(on, yy, r2), torch.where(on, yn, y)
+        w2, w = torch.where(on, w, w2), torch.where(on, wn, w)
+        oldb = np.where(live, beta, oldb)
+        epsln = np.where(live, sn * beta_n, epsln)
+        dbar = np.where(live, -cs * beta_n, dbar)
+        phibar = np.where(live, (beta_n / gamma) * phibar, phibar)
+        cs, sn = np.where(live, gbar / gamma, cs), np.where(live, beta_n / gamma, sn)
+        beta = np.where(live, beta_n, beta)
+        it[live] += 1
+        s = np.flatnonzero(live)
+        hist[s, np.minimum(it[s], history_len - 1)] = phibar[s]
+        new = np.where(betasq < zero, int(ConvergedReason.DIVERGED_INDEFINITE_PC),
+                       _reasons(phibar, it, phibar0, rtol=rtol, atol=atol, dtol=dtol,
+                                max_it=max_it))
+        reason[live] = new[live]
+    rt = P(b - A(x))
+    rnorm = torch.sqrt(_sums(rt, rt)).cpu().numpy().astype(sc)
+    return x, it, reason, rnorm, torch.from_numpy(hist)
+
+
 # ---------------------------------------------------------------------------
 # Block GMRES: one SHARED Krylov space for a block of right-hand sides
 # ---------------------------------------------------------------------------
@@ -1031,10 +1264,14 @@ _KSP_TYPES = {
     "preonly": preonly,
 }
 
-
-# the types that take a mesh reduction hook, and those with a batched core
-_MESH_TYPES = ("gmres", "fgmres")
-_BATCHED_TYPES = ("gmres", "fgmres", "cg", "preonly")
+_BATCHED_CORES = {
+    "cg": _cg_batched,
+    "bcgs": _bicgstab_batched,
+    "bicgstab": _bicgstab_batched,
+    "richardson": _richardson_batched,
+    "chebyshev": _chebyshev_batched,
+    "minres": _minres_batched,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1056,8 +1293,8 @@ class KSPConfig:
     def solve(self, A: Operator, b, x0=None, *, M=None,
               null_project=None, reduce=None) -> SolveResult:
         """Solve A x = b; b (and x0) a tensor or a dict of tensors.
-        ``reduce``: the mesh reduction hook of a solve on slabs (gmres and
-        fgmres take it)."""
+        ``reduce``: the mesh reduction hook of a solve on slabs (every
+        inner product and norm summed over the mesh; preonly has none)."""
         if self.type not in _KSP_TYPES:
             raise ValueError(f"unknown KSP type {self.type!r}")
         kwargs = dict(M=M, null_project=null_project, history_len=self.history_len)
@@ -1068,16 +1305,13 @@ class KSPConfig:
             kwargs["restart"] = self.restart
         if self.type == "chebyshev":
             kwargs.update(emin=self.emin, emax=self.emax)
-        if reduce is not None:
-            if self.type not in _MESH_TYPES:
-                raise NotImplementedError(
-                    f"KSP type {self.type!r} on a mesh is not ported yet "
-                    "(ROADMAP.md queue 1, item 7c)")
+        if reduce is not None and self.type != "preonly":
             kwargs["reduce"] = reduce
         return _KSP_TYPES[self.type](A, b, x0, **kwargs)
 
     def solve_batched(self, A: Operator, b, x0=None, *, M=None, null_project=None,
-                      rtol=None, active=None, batched: bool = False) -> SolveResult:
+                      rtol=None, active=None, batched: bool = False, mesh=None,
+                      mesh_axis: str = "x") -> SolveResult:
         """Solve a batch of systems, each in its own Krylov space: ``b``
         (and ``x0``) carry a leading batch axis on every leaf.
 
@@ -1091,14 +1325,20 @@ class KSPConfig:
         no iteration, CONVERGED_ITS).  Each member keeps its own
         Hessenberg, count, reason and history, frozen once terminal: the
         SolveResult's ``iters``, ``reason`` and ``rnorm`` are (B,) numpy
-        arrays and ``history`` a (B, L) tensor.  gmres, fgmres, cg and
-        preonly; the other types raise naming ROADMAP item 7c."""
+        arrays and ``history`` a (B, L) tensor.  Every type has a batched
+        core.
+
+        ``mesh`` (``parallel.mesh.Mesh``) cuts the batch over mesh axis
+        ``mesh_axis`` (data parallelism: each process solves its B / P
+        members, in rank order, and every process gets the whole result);
+        members are independent, so each takes the counts of the
+        unsharded batch.  B must be divisible by the axis' size."""
         if self.type not in _KSP_TYPES:
             raise ValueError(f"unknown KSP type {self.type!r}")
-        if self.type not in _BATCHED_TYPES:
-            raise NotImplementedError(
-                f"solve_batched with KSP type {self.type!r} is not ported yet "
-                "(ROADMAP.md queue 1, item 7c)")
+        if mesh is not None and mesh.size(mesh_axis) > 1:
+            return self._solve_batched_dp(A, b, x0, M=M, null_project=null_project,
+                                          rtol=rtol, active=active, batched=batched,
+                                          mesh=mesh, mesh_axis=mesh_axis)
         from spectral_tpu_torch.solvers.batching import batch_map
 
         dtype = _leaf_dtype(b)
@@ -1117,13 +1357,41 @@ class KSPConfig:
         rt = self.rtol if rtol is None else rtol
         common = dict(rtol=rt, atol=self.atol, dtol=self.dtol, max_it=self.max_it,
                       history_len=L, active=act)
-        if self.type == "cg":
-            xf, it, reason, rnorm, hist = _cg_batched(Af, Mf, Pf, bf, x0f, **common)
+        if self.type == "chebyshev":
+            common.update(emin=self.emin, emax=self.emax)
+        if self.type in _BATCHED_CORES:
+            xf, it, reason, rnorm, hist = _BATCHED_CORES[self.type](Af, Mf, Pf, bf, x0f,
+                                                                    **common)
         else:
             xf, it, reason, rnorm, hist = _gmres_batched(
                 Af, Mf, Pf, bf, x0f, restart=min(self.restart, self.max_it) or 1,
                 flexible=self.type == "fgmres", **common)
         return SolveResult(unravel(xf), it, reason, rnorm.astype(np.float64), hist)
+
+    def _solve_batched_dp(self, A, b, x0, *, M, null_project, rtol, active, batched,
+                          mesh, mesh_axis):
+        """``solve_batched`` with the batch cut over a mesh axis: this
+        process' members solved here, every result field gathered."""
+        import torch.utils._pytree as pytree
+
+        from spectral_tpu_torch.solvers.batching import dp_cut, dp_gather
+
+        nb = (b if isinstance(b, torch.Tensor) else b[sorted(b)[0]]).shape[0]
+        sl = dp_cut(nb, mesh, mesh_axis)
+
+        def cut(t):   # a batch's tensors and (B,) arrays; None and scalars pass
+            if isinstance(t, (torch.Tensor, dict)):
+                return pytree.tree_map(lambda a: a[sl], t)
+            return t if t is None or np.ndim(t) == 0 else np.asarray(t)[sl]
+
+        res = self.solve_batched(A, cut(b), cut(x0), M=M, null_project=null_project,
+                                 rtol=cut(rtol), active=cut(active), batched=batched)
+
+        def gather(t):
+            return dp_gather(t, mesh, mesh_axis)
+
+        return SolveResult(pytree.tree_map(gather, res.x), gather(res.iters),
+                           gather(res.reason), gather(res.rnorm), gather(res.history))
 
     def solve_recycled(self, A: Operator, b, x0=None, *, M=None,
                        null_project=None, U=None, nkeep: int = 8):

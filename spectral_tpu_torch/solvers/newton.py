@@ -46,14 +46,20 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from spectral_tpu_torch.solvers.batching import batch_map, where_members
+from spectral_tpu_torch.solvers.batching import batch_map, member, where_members
 from spectral_tpu_torch.solvers.krylov import KSPConfig, _leaf_dtype, _ravel
 from spectral_tpu_torch.solvers.types import ConvergedReason
 
 
-def _norm(x) -> torch.Tensor:
+def _norm(x, reduce=None) -> torch.Tensor:
     """2-norm of a tensor, or over every leaf of a dict of tensors (sorted
-    key order, as the JAX package sums a pytree's leaves); a 0-d tensor."""
+    key order, as the JAX package sums a pytree's leaves); a 0-d tensor.
+    ``reduce`` sums the square over a mesh (the norm of a slab's global
+    vector)."""
+    if reduce is not None:
+        leaves = [x] if isinstance(x, torch.Tensor) else [x[k] for k in sorted(x)]
+        return torch.sqrt(reduce(sum(torch.dot(a.reshape(-1), a.reshape(-1))
+                                     for a in leaves)))
     if isinstance(x, torch.Tensor):
         return torch.linalg.vector_norm(x.reshape(-1))
     return torch.sqrt(sum(torch.dot(x[k].reshape(-1), x[k].reshape(-1))
@@ -227,6 +233,42 @@ def _line_search_bt_family(res_b, x, dx, fnorm0: np.ndarray, live: np.ndarray,
     return best, fn, ok
 
 
+def _line_search_callable_family(res_b, thetas, x, F, lin_state, dx, fnorm: np.ndarray,
+                                 live: np.ndarray, line_search):
+    """A callable line search (``NewtonConfig.line_search``) applied member
+    by member to the live members: each call sees one member's residual
+    (the family's residual on a batch of one, at the member's parameters),
+    state, step and norm, as under the JAX package's ``vmap``.  Returns
+    the batch with the live members' results written in, their norms and
+    the accepted flags (frozen members keep theirs, accepted)."""
+    def put(batch, b, one):
+        def f(a, v):
+            if not isinstance(a, torch.Tensor):
+                return a
+            a = a.clone()
+            a[b] = v
+            return a
+        return pytree.tree_map(f, batch, one)
+
+    def at(b):
+        th = pytree.tree_map(lambda a: a[b:b + 1] if isinstance(a, torch.Tensor) else a,
+                             thetas)
+
+        def residual(z):
+            F1, ls1 = res_b(pytree.tree_map(lambda a: a[None], z), th)
+            return member(F1, 0), member(ls1, 0)
+        return residual
+
+    fnn, ok = fnorm.copy(), np.ones(len(fnorm), bool)
+    new = (x, F, lin_state)
+    for b in np.flatnonzero(live):
+        xb, Fb, lsb, fnb, okb = line_search(at(b), member(x, b), member(dx, b),
+                                            float(fnorm[b]))
+        new = (put(new[0], b, xb), put(new[1], b, Fb), put(new[2], b, lsb))
+        fnn[b], ok[b] = float(fnb), bool(okb)
+    return new, fnn, ok
+
+
 def newton_solve_family(
     residual_fn: Callable[[Any, Any], tuple[Any, Any]],
     x0: Any,
@@ -278,10 +320,7 @@ def newton_solve_family(
         setup_b = None if pc_setup is None else batch_map(pc_setup)
         apply_b = None if pc_apply is None else batch_map(pc_apply)
         null_b = None if null_project is None else batch_map(null_project)
-    if callable(config.line_search):
-        raise NotImplementedError("a callable line search in a family is not "
-                                  "ported yet (ROADMAP.md queue 1, item 7c)")
-    if config.line_search not in ("bt", "basic"):
+    if not callable(config.line_search) and config.line_search not in ("bt", "basic"):
         raise ValueError(f"unknown line search {config.line_search!r}")
 
     def res_t(z):
@@ -338,7 +377,10 @@ def newton_solve_family(
                                  null_project=null_b, rtol=lin_rtol, active=live,
                                  batched=True)
         dx = lres.x
-        if config.line_search == "basic":
+        if callable(config.line_search):
+            new, fnn, ok = _line_search_callable_family(res_b, thetas, x, F, lin_state, dx,
+                                                        fnorm, live, config.line_search)
+        elif config.line_search == "basic":
             xn = _step_members(x, dx, torch.ones(B, device=dev))
             Fn, lsn = res_t(xn)
             fnn = _norms(Fn).cpu().numpy()
@@ -365,16 +407,17 @@ def newton_solve_family(
                                          else np.zeros((0, B), np.int64)))
 
 
-def _trial(residual_fn, x, dx, lam: float, dxnorm: torch.Tensor):
+def _trial(residual_fn, x, dx, lam: float, dxnorm: torch.Tensor, reduce=None):
     """x - lam dx and its residual; one host transfer returns
     (fnorm, dxnorm, xnorm) as floats."""
     xt = _step(x, dx, lam)
     Ft, lst = residual_fn(xt)
-    host = torch.stack([_norm(Ft), dxnorm, _norm(xt)]).cpu().tolist()
+    host = torch.stack([_norm(Ft, reduce), dxnorm, _norm(xt, reduce)]).cpu().tolist()
     return xt, Ft, lst, host
 
 
-def _line_search_bt(residual_fn, x, dx, fnorm0: float, dxnorm, cfg: NewtonConfig):
+def _line_search_bt(residual_fn, x, dx, fnorm0: float, dxnorm, cfg: NewtonConfig,
+                    reduce=None):
     """Backtracking on ||F|| with sufficient decrease: lambda = 1, 1/2,
     1/4, ... until accepted or ``ls_max_steps`` trials.  Returns the last
     trial (x, F, lin_state, [fnorm, dxnorm, xnorm]) and whether it was
@@ -383,7 +426,7 @@ def _line_search_bt(residual_fn, x, dx, fnorm0: float, dxnorm, cfg: NewtonConfig
     for tries in range(cfg.ls_max_steps):
         if tries:
             lam *= 0.5
-        best = _trial(residual_fn, x, dx, lam, dxnorm)
+        best = _trial(residual_fn, x, dx, lam, dxnorm, reduce)
         fn = best[3][0]
         ok = bool(np.isfinite(fn) and fn <= (1.0 - cfg.ls_alpha * lam) * fnorm0)
         if ok:
@@ -404,6 +447,7 @@ def newton_solve(
     callback: Optional[Callable] = None,
     control_dtype: Optional[torch.dtype] = None,
     recycle_U0=None,
+    reduce=None,
 ) -> NewtonResult:
     """Solve F(x) = 0 by Newton-Krylov.
 
@@ -425,7 +469,15 @@ def newton_solve(
         subspace ((k, n) flat rows, cast to the state's dtype); None
         starts from zeros.  The result's ``recycle_U`` carries the last
         harvest on.
+      reduce: the mesh reduction hook of a solve on slabs
+        (``parallel.mesh.Mesh.allreduce``): the residual, step and state
+        norms of the stopping tests and the line search are summed over
+        the mesh, and the linear solves take it, so every process takes
+        the one-process steps.
     """
+    if reduce is not None and config.recycle > 0:
+        raise ValueError("Krylov recycling (NewtonConfig.recycle) runs in one process; "
+                         "a solve on a mesh takes recycle=0")
     if jacobian_action is None:
         jacobian_action = _jfnk(residual_fn)
     sc = float if control_dtype is None else torch.empty(0, dtype=control_dtype).numpy().dtype.type
@@ -438,7 +490,7 @@ def newton_solve(
         Ff = _ravel(F, _leaf_dtype(F))[0]
         U = (torch.zeros((config.recycle, Ff.numel()), dtype=Ff.dtype, device=Ff.device)
              if recycle_U0 is None else torch.as_tensor(recycle_U0).to(Ff.device, Ff.dtype))
-    fnorm = sc(_norm(F).item())
+    fnorm = sc(_norm(F, reduce).item())
     fnorm0 = max(fnorm, sc(1e-300))
     hist = [float(fnorm)]
     ksp_iters: list[int] = []
@@ -502,19 +554,20 @@ def newton_solve(
             lres, U = ksp_eff.solve_recycled(A, F, M=M, null_project=null_project,
                                              U=U, nkeep=config.recycle)
         else:
-            lres = ksp_eff.solve(A, F, M=M, null_project=null_project)
+            lres = ksp_eff.solve(A, F, M=M, null_project=null_project, reduce=reduce)
         dx = lres.x
-        dxnorm = _norm(dx)
+        dxnorm = _norm(dx, reduce)
         if callable(config.line_search):
             x, F, lin_state, fn, ok = config.line_search(residual_fn, x, dx, float(fnorm))
             fnorm, ok = float(fn), bool(ok)
-            dxn, xnorm = torch.stack([dxnorm, _norm(x)]).cpu().tolist()
+            dxn, xnorm = torch.stack([dxnorm, _norm(x, reduce)]).cpu().tolist()
         elif config.line_search == "basic":
-            x, F, lin_state, (fnorm, dxn, xnorm) = _trial(residual_fn, x, dx, 1.0, dxnorm)
+            x, F, lin_state, (fnorm, dxn, xnorm) = _trial(residual_fn, x, dx, 1.0, dxnorm,
+                                                          reduce)
             ok = bool(np.isfinite(fnorm))
         elif config.line_search == "bt":
             (x, F, lin_state, (fnorm, dxn, xnorm)), ok = _line_search_bt(
-                residual_fn, x, dx, float(fnorm), dxnorm, config)
+                residual_fn, x, dx, float(fnorm), dxnorm, config, reduce)
         else:
             raise ValueError(f"unknown line search {config.line_search!r}")
         fnorm = sc(fnorm)

@@ -110,6 +110,15 @@ Sections (all by default), each one JSON line:
   family8 at 16^2): Newton counts and reasons (``FAMILY_ORACLE`` of
   ``chip_smoke.py`` phase 16, ``tests/test_torch_family.py``) and the 10^2
   solutions, written to ``tests/data/torch_family_oracle.npz``.
+- ``parallel``: the single-device results of the JAX package's sharded
+  tests (``tests/test_parallel.py``, which show sharded equal to single
+  device) whose live run would not fit the CPU test budget: the 12^2
+  Stokes solve, 2 x 2's (12, 12, 8), the curved 12^2 with the metric
+  multigrid, the curved annulus Poisson (16 x 12, mg and jacobi), the
+  elliptic 16 x 12 Newton solve (fastdiag, jacobi, mg, and mg on
+  ``bump:0.08``), the unsteady step, the convection step and the traced-dt step; counts and
+  solutions, written to ``tests/data/torch_parallel_oracle.npz``
+  (``tests/test_torch_parallel.py``).
 """
 
 from __future__ import annotations
@@ -1375,6 +1384,118 @@ def family() -> list:
     return rows
 
 
+PARALLEL_NPZ = "tests/data/torch_parallel_oracle.npz"
+
+
+def parallel() -> list:
+    """The single-device JAX results the port's sharded solves are held to
+    (``PARALLEL_NPZ``): the configurations of ``tests/test_parallel.py``
+    at its own sizes, each solved once on one device."""
+    from spectral_tpu.grid import Grid
+    from spectral_tpu.models.convection import ConvectionConfig, ConvectionModel
+    from spectral_tpu.models.elliptic import EllipticModel
+    from spectral_tpu.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu.models.stokes_unsteady import UnsteadyStokes
+    from spectral_tpu.ops.curvilinear import named_map
+    from spectral_tpu.solvers.krylov import KSPConfig
+    from spectral_tpu.solvers.newton import NewtonConfig
+
+    from spectral_tpu.models.poisson import PoissonModel
+    from spectral_tpu.ops.mapping import AxisMap
+
+    rows, arrays = [], {}
+    ksp = KSPConfig(type="gmres", rtol=1e-10, max_it=300)
+    pm = PoissonModel(Grid((16, 16)))
+    b = pm.rhs(*pm.exact_solution())
+    for pc in ("jacobi", "mg", "lu", "none"):
+        r = pm.solve(b, ksp=ksp, pc_type=pc)
+        arrays[f"poisson {pc} x"] = np.asarray(r.x)
+        arrays[f"poisson {pc} iters"] = np.asarray([int(r.iters)])
+    mm = PoissonModel(Grid((16, 16), maps=(AxisMap.tanh_cluster(0.0, 2.0, 16, 1.5),
+                                           AxisMap.kte(-1.0, 1.0, 16, 0.9))))
+    for pc in ("fastdiag", "mg"):
+        r = mm.solve(mm.rhs(*mm.exact_solution()), ksp=ksp, pc_type=pc)
+        arrays[f"poisson mapped {pc} x"] = np.asarray(r.x)
+        arrays[f"poisson mapped {pc} iters"] = np.asarray([int(r.iters)])
+    from spectral_tpu.models.curvilinear import CurvilinearPoisson
+
+    t0 = time.perf_counter()
+    cp = CurvilinearPoisson(Grid((16, 12)), named_map("annulus:1:2"))
+    _, cb = cp.manufactured(lambda x: np.sin(x[..., 0]) * x[..., 1],
+                            lambda x: -np.sin(x[..., 0]) * x[..., 1])
+    for pc in ("mg", "jacobi"):
+        r = cp.solve(cb, pc_type=pc)
+        arrays[f"curved poisson {pc} x"] = np.asarray(r.x)
+        arrays[f"curved poisson {pc} iters"] = np.asarray([int(r.iters)])
+    rows.append({"name": "curved poisson", "iters": [int(arrays[f"curved poisson {pc} iters"][0])
+                                                     for pc in ("mg", "jacobi")],
+                 "seconds": time.perf_counter() - t0})
+    pd = PoissonModel(Grid((12, 12)))
+    b1 = pd.rhs(*pd.exact_solution())
+    scales = np.random.default_rng(3).uniform(0.5, 2.0, size=4)
+    r = KSPConfig(type="gmres", rtol=1e-10, max_it=200).solve_batched(
+        pd.operator, jnp.asarray(scales)[:, None, None] * b1[None], M=pd.build_pc("fastdiag"))
+    arrays.update({"dp x": np.asarray(r.x), "dp iters": np.asarray(r.iters)})
+
+    def stokes(name, dims, cfg, **kw):
+        t0 = time.perf_counter()
+        r = StokesProblem(Grid(dims), cfg, **kw).solve()
+        rows.append({"name": name, "newton": int(r.iters), "krylov": [int(k) for k in r.ksp_iters],
+                     "seconds": time.perf_counter() - t0})
+        arrays[f"{name} v"] = np.asarray(r.x["v"])
+        arrays[f"{name} iters"] = np.asarray([int(r.iters)] + [int(k) for k in r.ksp_iters])
+
+    cfg = StokesConfig(exact=2, cont0=1)
+    stokes("stokes 1-axis", (12, 12), cfg)
+    stokes("stokes 2x2", (12, 12, 8), cfg)
+    stokes("stokes curved", (12, 12), StokesConfig(exact=1, pcvel="mg"),
+           phi=named_map("bump:0.07"))
+    stokes("stokes tbc", (12, 12), StokesConfig(exact=1, boundary=3, tbc=1, traction_p=True))
+    m = EllipticModel(Grid((16, 12)), gamma=1.0)
+    u, b, d = m.setup_problem(exact=0)
+    for pc in ("fastdiag", "jacobi", "mg"):
+        t0 = time.perf_counter()
+        r = m.solve(b, d, pc_type=pc, newton=NewtonConfig(rtol=1e-10, max_it=20))
+        rows.append({"name": f"elliptic {pc}", "newton": int(r.iters),
+                     "krylov": [int(k) for k in r.ksp_iters],
+                     "seconds": time.perf_counter() - t0})
+        arrays[f"elliptic {pc} x"] = np.asarray(r.x)
+        arrays[f"elliptic {pc} iters"] = np.asarray([int(r.iters)] + [int(k) for k in r.ksp_iters])
+    t0 = time.perf_counter()
+    mc = EllipticModel(Grid((16, 12)), gamma=1.0, phi=named_map("bump:0.08"))
+    u, b, d = mc.setup_problem(exact=0)
+    r = mc.solve(b, d, pc_type="mg")
+    rows.append({"name": "elliptic curved", "newton": int(r.iters),
+                 "krylov": [int(k) for k in r.ksp_iters], "seconds": time.perf_counter() - t0})
+    arrays["elliptic curved x"] = np.asarray(r.x)
+    arrays["elliptic curved iters"] = np.asarray([int(r.iters)] + [int(k) for k in r.ksp_iters])
+    t0 = time.perf_counter()
+    ucfg = StokesConfig(exact=1, boundary=0, pcvel="fastdiag",
+                        outer_ksp=KSPConfig(type="fgmres", rtol=1e-10, max_it=200, restart=100))
+    um = UnsteadyStokes(Grid((12, 12)), ucfg, dt=0.05, theta=0.5)
+    u0, sf, ff, _, _ = um.manufactured(omega=1.0)
+    v, pr, it, _ = um.step(u0, sf(0.05), 0.5 * ff(0.05) + 0.5 * ff(0.0))
+    rows.append({"name": "unsteady", "iters": int(it), "seconds": time.perf_counter() - t0})
+    arrays.update({"unsteady v": np.asarray(v), "unsteady p": np.asarray(pr),
+                   "unsteady iters": np.asarray([int(it)])})
+    t0 = time.perf_counter()
+    ccfg = ConvectionConfig(Ra=5e3, dt=1e-3, velocity_bc="freeslip", side_bc="insulated",
+                            stokes_ksp=KSPConfig(type="fgmres", rtol=1e-10, max_it=150,
+                                                 restart=60))
+    cm = ConvectionModel.unit_box((12, 12), ccfg)
+    T0 = cm.conductive_state(amp=0.05)
+    it0 = int(cm.solve_stokes(T0, cm.stokes.zero_state()).iters)
+    carry = cm.init_carry(T0)
+    T1, N1, x1 = cm.step(*carry)
+    Td, Nd, _ = cm.step_dt(*carry, jnp.asarray(7e-4), jnp.asarray(0.8))
+    rows.append({"name": "convection", "iters": it0, "seconds": time.perf_counter() - t0})
+    arrays.update({"convection T0": np.asarray(T0), "convection T": np.asarray(T1),
+                   "convection v": np.asarray(x1["v"]), "convection Tdt": np.asarray(Td),
+                   "convection Ndt": np.asarray(Nd), "convection iters": np.asarray([it0])})
+    np.savez_compressed(PARALLEL_NPZ, **arrays)
+    return rows
+
+
 SECTIONS = {
     "cli43": lambda: run_cli(README43),
     "cli52": lambda: run_cli(README52),
@@ -1407,6 +1528,7 @@ SECTIONS = {
     "curved": curved,
     "curvedcpu": curvedcpu,
     "family": family,
+    "parallel": parallel,
 }
 
 

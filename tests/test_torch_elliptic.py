@@ -203,12 +203,14 @@ def test_cli_debug2_prints_the_field():
 
 def test_unported_options_raise():
     g = Grid((8, 8), device="cpu")
-    # mesh= runs the residual on slabs (tests/test_torch_parallel.py); a
-    # curved domain on a mesh waits for item 7c
+    # mesh= runs the whole Newton solve on slabs, curved domains included
+    # (tests/test_torch_parallel.py); the Q1 FEM PC on a mesh waits for
+    # item 7d
     from spectral_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        EllipticModel(g, mesh=make_mesh({"x": 1}), phi=lambda x: x)
+    em = EllipticModel(g, mesh=make_mesh({"x": 1}), phi=lambda x: x)
+    with pytest.raises(NotImplementedError, match="item 7d"):
+        em.make_pc("q1fem")
     # curved domains run (tests/test_torch_curvilinear.py); phi needs an
     # unmapped grid, and -map excludes -domain, as in the JAX package
     with pytest.raises(ValueError, match="unmapped Grid"):
@@ -217,13 +219,13 @@ def test_unported_options_raise():
     base = ["elliptic", "-device", "cpu", "-dim", "8,8"]
     with pytest.raises(SystemExit, match="mutually exclusive"):
         _run(t_main, base + ["-map", "bump:0.1", "-domain", "0,1,0,1"])
-    # families run (tests/test_torch_family.py); a callable line search in
-    # a family waits for item 7c
-    with pytest.raises(NotImplementedError, match="item 7c"):
+    # families run (tests/test_torch_family.py), a callable line search
+    # member by member; an unknown line search name raises
+    with pytest.raises(ValueError, match="unknown line search"):
         newton.newton_solve_family(
             lambda x, t: (x - t, None), torch.zeros(2, dtype=torch.float64),
             torch.ones(2, dtype=torch.float64), jacobian_action=lambda x, ls, w: w,
-            config=NewtonConfig(line_search=lambda *a: None))
+            config=NewtonConfig(line_search="cp"))
     # the SNES family runs (tests/test_torch_snes.py); an unknown type exits
     with pytest.raises(SystemExit, match="unknown -snes_type"):
         _run(t_main, base + ["-snes_type", "ncg"])

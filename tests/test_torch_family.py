@@ -151,10 +151,35 @@ def test_solve_batched_restart_one_freezes_members(ksp_type):
         np.testing.assert_allclose(tr.x[i].numpy(), s.x.numpy(), rtol=0, atol=1e-12)
 
 
+def _spd_range(n, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return (Q * np.linspace(lo, hi, n)) @ Q.T
+
+
 def test_solve_batched_unported_types_raise():
-    for typ in ("bicgstab", "richardson", "chebyshev", "minres"):
-        with pytest.raises(NotImplementedError, match="item 7c"):
-            KSPConfig(type=typ).solve_batched(lambda x: x, torch.ones(2, 3, dtype=F64))
+    """The four short-recurrence types that had no batched core (they
+    raised before): each member's count, reason and solution equal the
+    JAX package's ``solve_batched`` (its ``vmap`` of ``solve``), x to
+    1e-10.  Richardson runs on a spectrum in [1, 1.9], where x += b - A x
+    converges; the rest on kappa 50; one member starts half way to its
+    solution."""
+    A = _spd(30, 5)
+    A2 = _spd_range(30, 1.0, 1.9, 6)
+    Bm = np.random.default_rng(8).standard_normal((3, 30))
+    x0 = np.zeros_like(Bm)
+    for typ, M in (("bicgstab", A), ("richardson", A2), ("chebyshev", A), ("minres", A)):
+        x0[2] = 0.5 * np.linalg.solve(M, Bm[2])
+        kw = dict(type=typ, rtol=1e-10, max_it=400)
+        jr = JKSP(**kw).solve_batched(lambda x: jnp.asarray(M) @ x, jnp.asarray(Bm),
+                                      jnp.asarray(x0))
+        Mt = _t(M)
+        tr = KSPConfig(**kw).solve_batched(lambda x: Mt @ x, _t(Bm), _t(x0))
+        assert tr.iters.tolist() == np.asarray(jr.iters).tolist(), typ
+        assert tr.reason.tolist() == np.asarray(jr.reason).tolist(), typ
+        assert (tr.reason > 0).all(), typ
+        np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), rtol=0, atol=1e-10,
+                                   err_msg=typ)
 
 
 def test_block_gmres_shared_space_matches_jax():
@@ -287,3 +312,53 @@ def test_family_rollout_matches_jax(oracle):
     assert its[2].tolist() == it.tolist()
     np.testing.assert_allclose(vs[2].numpy(), v.numpy(), rtol=0, atol=1e-11)
     np.testing.assert_allclose(ps[2].numpy(), pl.numpy(), rtol=0, atol=1e-11)
+
+
+# -- families: a callable line search, the Q1 and probed velocity PCs ----------
+
+def test_family_callable_line_search_member_by_member():
+    """A callable line search in ``newton_solve_family``: applied member by
+    member to the live members, the family takes each member's own
+    ``newton_solve`` counts and solution (here a damped step, which the
+    JAX package's family takes under ``vmap`` in the same way)."""
+    from spectral_tpu_torch.solvers.newton import _norm, newton_solve
+
+    def damped(residual_fn, x, dx, fnorm):
+        xt = x - 0.8 * dx
+        F, lin = residual_fn(xt)
+        fn = float(_norm(F))
+        return xt, F, lin, fn, fn < fnorm
+
+    thetas = _t([2.0, 3.0, 5.0])
+    cfg = NewtonConfig(rtol=1e-10, max_it=60, line_search=damped)
+    fam = newton_solve_family(_toy, _t([1.0]), thetas, jacobian_action=_toy_jac,
+                              ksp=KSPConfig(type="gmres", rtol=1e-12), config=cfg)
+    for b, th in enumerate([2.0, 3.0, 5.0]):
+        one = newton_solve(lambda x, th=th: _toy(x, _t(th)), _t([1.0]),
+                           jacobian_action=_toy_jac, ksp=KSPConfig(type="gmres", rtol=1e-12),
+                           config=cfg)
+        assert (int(fam.iters[b]), int(fam.reason[b])) == (one.iters, one.reason)
+        assert float(fam.x[b, 0]) == pytest.approx(float(one.x[0]), abs=1e-14)
+        assert abs(float(fam.x[b, 0]) - np.sqrt(th)) < 1e-8
+
+
+@pytest.mark.parametrize("case", ["q1fem", "probed", "probed1", "tbc"])
+def test_family_q1_probed_and_traction_pcs(case):
+    """The velocity PCs a family set up member by member (the Q1 FEM and
+    probed PCs, and the mixed/Neumann line and traction-block corrections,
+    whose states hold line solvers and dense factors): each member takes
+    its own ``solve``'s Newton and Krylov counts and solution, at 8^2."""
+    cfg = {"q1fem": StokesConfig(exact=2, pcvel="q1fem"),
+           "probed": StokesConfig(exact=2, pcvel="probed"),
+           "probed1": StokesConfig(exact=2, pcvel="probed1"),
+           "tbc": StokesConfig(exact=1, boundary=3, tbc=1, traction_p=True)}[case]
+    p = StokesProblem(Grid((8, 8), device="cpu", dtype=F64), cfg)
+    params = [p.params_at(cfg.cont), PowerLawParams(1.3, cfg.exponent, cfg.regularization,
+                                                    cfg.gamma0)]
+    fam = p.solve_family(params)
+    for b, q in enumerate(params):
+        one = p.solve(params=q)
+        assert int(fam.iters[b]) == one.iters
+        assert fam.ksp_iters[:, b][:one.iters].tolist() == list(one.ksp_iters)
+        np.testing.assert_allclose(fam.x["v"][b].numpy(), one.x["v"].numpy(), rtol=0,
+                                   atol=1e-11)

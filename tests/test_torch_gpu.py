@@ -1071,3 +1071,78 @@ def test_pencil_two_gloo_ranks_on_card(cuda, tmp_path):
     assert max(out[f"pencil {ax}"] for ax in range(3)) <= 1e-12
     assert out["pipelined"] <= 1e-12
     assert out["halo -1"] == out["halo 1"] == 0.0
+
+
+def _sharded_rank(rank, store, queue):
+    """One of two gloo processes on the card: README:43 at 12^3 and the
+    zero-flux fastdiag apply on slabs of {"x": 2}."""
+    import torch.distributed as dist
+
+    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    from spectral_tpu_torch.ops.fastdiag import FastDiagSolver
+    from spectral_tpu_torch.parallel import make_mesh
+    from spectral_tpu_torch.parallel.slab import Slab
+    from spectral_tpu_torch.solvers.krylov import KSPConfig
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    dev = torch.device("cuda")
+    mesh = make_mesh({"x": 2})
+    slab = Slab.of(mesh)
+    cfg = StokesConfig(exact=2, cont0=1, schur_ksp=KSPConfig(type="gmres", rtol=1e-5, max_it=3),
+                       vel_ksp=KSPConfig(type="gmres", rtol=1e-5, max_it=4),
+                       svel_ksp=KSPConfig(type="preonly"),
+                       outer_ksp=KSPConfig(type="fgmres", rtol=1e-10, max_it=500, restart=50))
+    g = Grid((12, 12, 12), device=dev)
+    p1 = StokesProblem(g, cfg)
+    one = p1.solve()
+    z = p1.zero_state()   # round-off's own move: a start moved by 1e-14
+    pert = p1.solve({"v": p1.mask_v(1e-14 * _randn(z["v"].shape, torch.float64, dev, 6)),
+                     "p": p1.mask_p(1e-14 * _randn(z["p"].shape, torch.float64, dev, 7))})
+    cuda_cheb.reset_launch_counts()
+    sh = StokesProblem(g, cfg, mesh=mesh).solve()
+    out = {"counts": [sh.iters, list(sh.ksp_iters)], "one": [one.iters, list(one.ksp_iters)],
+           "perturbed": [pert.iters, list(pert.ksp_iters)],
+           "k1": cuda_cheb.LAUNCHES["chebdiff_last_kernel"],
+           "k2": cuda_cheb.LAUNCHES["laplacian3d_plane_kernel"],
+           "dv": _rel(slab.gather(sh.x["v"]), one.x["v"]), "move": _rel(pert.x["v"], one.x["v"])}
+    r = _randn((12, 12, 12), torch.float64, dev, 5)
+    for nm in (0, 1):
+        fd = FastDiagSolver.build(g, shift=1.0, neumann_axes=(nm,))
+        out[f"neumann {nm}"] = _rel(slab.gather(fd.apply(slab.local(r), slab=slab)),
+                                    fd.apply(r))
+    if rank == 0:
+        queue.put(out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def test_sharded_stokes_and_neumann_fastdiag_on_card(cuda, tmp_path):
+    """ROADMAP item 7c on the card: two gloo processes sharing it run
+    README:43 at 12^3 on slabs of {"x": 2} at the one-process card solve's
+    Newton count, its FGMRES count within the range that a start moved by
+    1e-14 spans (max(3, 10%) beyond it, the repo's rule: round-off moves
+    it, ROADMAP queue 3), v within 4x that start's move (or 1e-9), K1
+    launched and K2 not; and the zero-flux fastdiag apply along the
+    sharded and an unsharded axis against the one-process apply."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_sharded_rank, args=(r, str(tmp_path / "store"), queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        out = queue.get(timeout=600)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    (n, (k,)), (n1, (k1,)), (_, (kp,)) = out["counts"], out["one"], out["perturbed"]
+    lo, hi = min(k1, kp), max(k1, kp)
+    slack = max(3, -(-hi // 10))
+    assert n == n1 and lo - slack <= k <= hi + slack, out
+    assert out["dv"] <= max(1e-9, 4 * out["move"]) and out["k1"] > 0 and out["k2"] == 0, out
+    assert out["neumann 0"] <= 1e-12 and out["neumann 1"] <= 1e-12, out

@@ -10,6 +10,14 @@ stencil (whose sharded JAX programs compile for 5-6 s each) and the
 models with its single-device results: the sharded Poisson solves take
 the single-device iteration counts.  A second test brings up two processes
 with ``initialize_distributed``, as tests/test_distributed.py does.
+
+The sharded solves (ROADMAP item 7c) run in the same spawn: each holds
+the port on slabs to the JAX package's single-device result of the JAX
+test it mirrors (``tests/test_parallel.py``, whose own assertions show
+sharded equal to single device), with the counts equal and x within the
+JAX test's tolerance.  The single-device JAX solves that would not fit
+the CPU budget live are ``stokes_oracle.py parallel``'s, recorded in
+``tests/data/torch_parallel_oracle.npz``.
 """
 
 import os
@@ -22,6 +30,7 @@ import numpy as np
 import pytest
 import torch.multiprocessing as mp
 
+from spectral_tpu.ops.fastdiag import FastDiagSolver as JFastDiag
 from spectral_tpu.grid import Grid as JGrid
 from spectral_tpu.models.elliptic import EllipticModel as JElliptic
 from spectral_tpu.models.poisson import PoissonModel as JPoisson
@@ -37,6 +46,7 @@ from spectral_tpu.solvers.krylov import KSPConfig as JKSP
 from spectral_tpu_torch.parallel import make_mesh
 
 WORLD = 4
+ORACLE_NPZ = os.path.join(os.path.dirname(__file__), "data", "torch_parallel_oracle.npz")
 POISSON = {"poisson 1-axis": (16, 16), "poisson 2x2": (8, 8, 8),
            "poisson pipelined": (16, 12, 8)}
 
@@ -53,6 +63,7 @@ def _inputs() -> dict:
     inp.update(eu=np.array(eu), eb=np.array(eb), ed=np.array(ed))
     x = JStokes(JGrid((16, 12)), JStokesConfig(exact=2)).exact_state()
     inp.update(sv=np.array(x["v"]), sp=np.array(x["p"]))
+    inp["dp scales"] = np.random.default_rng(3).uniform(0.5, 2.0, size=4)
     return inp
 
 
@@ -186,3 +197,99 @@ def test_two_process_initialize_distributed_poisson(tmp_path):
     its = [[ln for ln in text.splitlines() if "DIST-OK" in ln][0].split("iters=")[1]
            for text in outs]
     assert its[0] == its[1]
+
+
+@pytest.fixture(scope="module")
+def oracle():
+    return np.load(ORACLE_NPZ)
+
+
+def _counts(out, oracle, key):
+    assert np.asarray(out[f"{key} iters"]).tolist() == oracle[f"{key} iters"].tolist(), key
+
+
+@pytest.mark.parametrize("pc", ["jacobi", "mg", "lu", "none", "mapped fastdiag",
+                                "mapped mg"])
+def test_sharded_poisson_every_pc_matches_jax(port, oracle, pc):
+    """PoissonModel(mesh=) with every build_pc type (multigrid with its
+    coarse levels replicated, dense LU replicated) and on a mapped grid
+    (the chain-rule weights cut to the slab): the single-device JAX
+    count and solution (JAX test_parallel.py:65's tolerance); the curved
+    annulus Poisson on slabs (CurvilinearPoisson(mesh=)) at the
+    single-device JAX count, x to 1e-11 (the curved tolerance)."""
+    _, out = port
+    key = f"poisson {pc}" if not pc.startswith("mapped") else f"poisson mapped {pc[7:]}"
+    assert int(out[f"{key} iters"]) == int(oracle[f"{key} iters"][0])
+    _close(out[f"{key} x"], oracle[f"{key} x"], 1e-9)
+    if pc in ("mg", "jacobi"):
+        key = f"curved poisson {pc}"
+        assert int(out[f"{key} iters"]) == int(oracle[f"{key} iters"][0])
+        _close(out[f"{key} x"], oracle[f"{key} x"], 1e-11)
+
+
+def test_sharded_data_parallel_batches_match_jax(port, oracle):
+    """solve_batched(mesh=) cuts the batch over the mesh axis (JAX
+    test_parallel.py:87 and :365): per-member counts equal the unsharded
+    JAX batch's, x to 1e-12; the dp batch of scales 1-4 is u * s."""
+    _, out = port
+    _counts(out, oracle, "dp")
+    _close(out["dp x"], oracle["dp x"], 1e-12)
+    u = out["dp u"]
+    for i, s in enumerate([1.0, 2.0, 3.0, 4.0]):
+        _close(out["dp vmap x"][i], u * s, 1e-7)
+
+
+@pytest.mark.parametrize("case,atol", [("1-axis", 1e-12), ("2x2", 1e-9), ("curved", 1e-11),
+                                       ("pipelined", 1e-8), ("tbc", 1e-11)])
+def test_sharded_stokes_newton_solve_matches_jax(port, oracle, case, atol):
+    """The full sharded Stokes Newton solve with its nested PC on slabs
+    (JAX test_parallel.py:243, :267, :292, :394 at their sizes and
+    tolerances; the pipelined run is :394's (12, 12, 8), whose
+    single-device solve is 2 x 2's): the single-device Newton and FGMRES
+    counts and velocity.  "tbc": Neumann rows with the line and
+    traction-block corrections on a mesh."""
+    _, out = port
+    ref = "2x2" if case == "pipelined" else case
+    assert out[f"stokes {case} iters"].tolist() == oracle[f"stokes {ref} iters"].tolist()
+    _close(out[f"stokes {case} v"], oracle[f"stokes {ref} v"], atol)
+
+
+@pytest.mark.parametrize("pc", ["fastdiag", "jacobi", "mg"])
+def test_sharded_elliptic_newton_solve_matches_jax(port, oracle, pc):
+    """JAX test_parallel.py:221 carried on to a full sharded Newton solve
+    with the model's PC on slabs: the single-device counts, x to 1e-9;
+    and the curved (phi=) mg solve on a mesh at the single-device JAX
+    Newton and FGMRES counts, x to 1e-11."""
+    _, out = port
+    _counts(out, oracle, f"elliptic {pc}")
+    _close(out[f"elliptic {pc} x"], oracle[f"elliptic {pc} x"], 1e-9)
+    _counts(out, oracle, "elliptic curved")
+    _close(out["elliptic curved x"], oracle["elliptic curved x"], 1e-11)
+
+
+def test_sharded_unsteady_step_and_neumann_fastdiag_match_jax(port, oracle):
+    """The unsteady CN step on slabs (JAX test_parallel.py:423: count
+    equal, v and p to 1e-9) and the zero-flux fastdiag apply along the
+    sharded and the unsharded axis (:489, against the JAX apply live, to
+    1e-12: the mask/roll form on slabs)."""
+    _, out = port
+    _counts(out, oracle, "unsteady")
+    _close(out["unsteady v"], oracle["unsteady v"], 1e-9)
+    _close(out["unsteady p"], oracle["unsteady p"], 1e-9)
+    r = jnp.asarray(out["neumann r"])
+    for nm in (0, 1):
+        fd = JFastDiag.build(JGrid((12, 12)), shift=1.0, neumann_axes=(nm,))
+        _close(out[f"neumann fastdiag {nm}"], fd.apply(r), 1e-12)
+
+
+def test_sharded_convection_step_matches_jax(port, oracle):
+    """The coupled convection step and the traced-dt step on slabs (JAX
+    test_parallel.py:454 and :515): the Stokes count of the cold solve, T
+    to 1e-9, v to 1e-8; step_dt's T to 1e-9 and N to 1e-8."""
+    _, out = port
+    _close(out["convection T0"], oracle["convection T0"], 1e-14)
+    _counts(out, oracle, "convection")
+    _close(out["convection T"], oracle["convection T"], 1e-9)
+    _close(out["convection v"], oracle["convection v"], 1e-8)
+    _close(out["convection Tdt"], oracle["convection Tdt"], 1e-9)
+    _close(out["convection Ndt"], oracle["convection Ndt"], 1e-8)

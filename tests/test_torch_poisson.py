@@ -184,17 +184,17 @@ def test_mg_pc_matches_jax():
 
 def test_unported_paths_raise():
     g = Grid((8, 8), device="cpu")
-    # mesh= runs on slabs (tests/test_torch_parallel.py); a mapped grid and
-    # the other PCs on a mesh wait for item 7c
+    # mesh= runs on slabs with every PC, mapped grids too
+    # (tests/test_torch_parallel.py); an unknown PC raises
     from spectral_tpu_torch.ops.mapping import AxisMap
     from spectral_tpu_torch.parallel import make_mesh
 
     mesh1 = make_mesh({"x": 1})
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        PoissonModel(g, mesh=mesh1).build_pc("mg")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        PoissonModel(Grid((8, 8), maps=(AxisMap.affine(0.0, 1.0, 8),) * 2, device="cpu"),
-                     mesh=mesh1)
+    with pytest.raises(ValueError, match="unknown pc_type"):
+        PoissonModel(g, mesh=mesh1).build_pc("ilu")
+    pm = PoissonModel(Grid((8, 8), maps=(AxisMap.affine(0.0, 1.0, 8),) * 2, device="cpu"),
+                      mesh=mesh1)
+    assert pm.build_pc("mg") is not None
     # axis maps and -map run (tests/test_torch_curvilinear.py); a map per
     # axis, and -map excludes -domain, as in the JAX package
     with pytest.raises(ValueError, match="one AxisMap per axis"):

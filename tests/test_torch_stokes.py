@@ -557,27 +557,29 @@ def test_unported_options_raise():
     # refused as the JAX package refuses it
     with pytest.raises(ValueError, match="UNSTEADY step operator"):
         StokesProblem(g, StokesConfig(mass_shift=1.0)).solve()
-    # item 7b runs the residual on slabs (tests/test_torch_parallel.py); the
-    # sharded Newton solve and a mapped grid on a mesh wait for item 7c
+    # item 7c runs the sharded Newton solve, on mapped grids too
+    # (tests/test_torch_parallel.py); the Q1 and probed velocity PCs and
+    # the dense tier on a mesh wait for item 7d
     from spectral_tpu_torch.parallel import make_mesh
 
     mesh1 = make_mesh({"x": 1})
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        StokesProblem(g, StokesConfig(exact=2), mesh=mesh1).solve()
+    assert StokesProblem(g, StokesConfig(exact=2), mesh=mesh1).solve().reason > 0
     from spectral_tpu_torch.ops.mapping import AxisMap
 
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        StokesProblem(Grid((8, 8), maps=(AxisMap.affine(0.0, 1.0, 8),) * 2, device="cpu"),
-                      mesh=mesh1)
+    pm = StokesProblem(Grid((8, 8), maps=(AxisMap.affine(0.0, 1.0, 8),) * 2, device="cpu"),
+                       mesh=mesh1)
+    for fn in (lambda: StokesProblem(g, StokesConfig(pcvel="q1fem"), mesh=mesh1).make_pc()[0](
+                   None, pm.make_residual(pm.params_at(1))(pm.zero_state())[1]),
+               lambda: pm.make_dense_pc()):
+        with pytest.raises(NotImplementedError, match="item 7d"):
+            fn()
     with pytest.raises(ValueError, match="unmapped Grid"):   # curved domains run
         StokesProblem(Grid((8, 8), intervals=((0.0, 1.0),) * 2, device="cpu"),
                       phi=lambda x: x)
     p = StokesProblem(g, StokesConfig(exact=2))
-    # item 7a runs families (tests/test_torch_family.py); the Q1 and probed
-    # velocity PCs in a family wait for item 7c
-    pq = StokesProblem(g, StokesConfig(exact=2, pcvel="probed"))
-    for fn, name in ((lambda: pq.solve_family([pq.params_at(1)]), "item 7c"),
-                     (lambda: p.solve_continuation(checkpoint_dir="x"), "item 8")):
+    # items 7a and 7c run families with every velocity PC
+    # (tests/test_torch_family.py)
+    for fn, name in ((lambda: p.solve_continuation(checkpoint_dir="x"), "item 8"),):
         with pytest.raises(NotImplementedError, match=name):
             fn()
     # recycling runs in the host loop only, as in the JAX package
