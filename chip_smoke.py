@@ -129,6 +129,15 @@ paths at their real sizes through the entry points a user calls:
      ustokes and three Blankenbach 1a convection steps; (f) 16d's batch of
      8 cut over the mesh.  Every process's K1 launches count (K2 must stay
      at 0); phase 1 holds K1 at the slab shapes (K1_SLAB_SHAPES).
+ 18. the utilities in float64: (a) README:52 through the ``stokes`` CLI
+     with ``-checkpoint_dir``, ``-output_vtk`` and ``-log_summary``, then
+     resumed after its last two steps' files are deleted, its stokes.vtk
+     held to the one the port writes on the CPU from the card's final
+     state; (b) 12a's ``-ts_adapt`` march with checkpoints, resumed from
+     step 200; (c) ``graft_entry.entry()`` at 32^3 on the K1 and the
+     matmul production paths, held to each other; (d) ``trace_summary``
+     of a warm continuation step; (e) the six ported examples.  Phase 1
+     holds K1 at the examples' shapes (K1_EXAMPLE_SHAPES, K1_FAMILY_SHAPES).
 
 ``python3 chip_smoke.py --phases 3,8-15,13b-d`` runs phase 0 and the
 phases listed in this process (a check run: no kernels line, no result
@@ -140,7 +149,7 @@ processes of phases 16e and 17 report theirs to their worker).  The workers'
 path times are taken while the others run; ``--serial`` runs every phase
 in this process, for path times taken alone.
 
-Each path (phases 3-17) is driven with the launch counts set to 0 just
+Each path (phases 3-18) is driven with the launch counts set to 0 just
 before it and read just after (K1's forward and transposed launches also
 by shape), and times nothing inside it (a call captured in a CUDA graph counts once and launches at
 every replay); every phase raises on failure.  A timed comparison gives
@@ -202,11 +211,15 @@ K1_CURVED_SHAPES = ((8, 8), (13, 13), (14, 14), (17, 17), (18, 18), (20, 20), (2
 # bit for bit directly and under vmap; the slabs of 16e's two processes
 # and the curved family's sequential solve, held as the curved shapes are
 K1_FAMILY_SHAPES = ((8, 16, 16), (3, 10, 10), (4, 20, 20, 20), (8, 64, 64, 64),
-                    (4, 64, 64, 64))
+                    (4, 64, 64, 64), (3, 12, 12))
 # phase 17's slabs: README:43 on {"x": 2} and on 2 x 2, the curved 14^3,
 # the elliptic 32^3, Blankenbach's 16^2 (and 17f's batch of 4 a process)
 K1_SLAB_SHAPES = ((32, 64, 64), (8, 12), (10, 10), (10, 20, 20), (10, 10, 20), (7, 14, 14),
                   (16, 32, 32), (8, 16))
+# phase 18's examples' shape beyond these (solver_tuning_demo's 24^2; its
+# family_sweep_demo batch (3, 12, 12) is in K1_FAMILY_SHAPES), held as the
+# curved shapes are
+K1_EXAMPLE_SHAPES = ((24, 24),)
 K3_SCALE = 1.0 / 64**2   # exp_pallas.py:33 folds 1/n^2 into D^T
 # K3's ragged cases, each in float32 and float64: (rows, n, pack, row tile,
 # offset of u2d in its storage).  n % 4 == 0 goes by bulk copies (n = 12:
@@ -2773,22 +2786,18 @@ def stokes_refined_runs(dev) -> dict:
 
 
 def stokes_forward(dev, dtype):
-    """entry()'s forward step at 32^3 in ``dtype`` on ``dev``: the residual
-    at zero_state() and one Jacobian action on it; returns a function of
-    no arguments giving (F, J F)."""
-    from spectral_tpu_torch.grid import Grid
-    from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
+    """graft_entry.entry()'s forward step at 32^3 in ``dtype`` on ``dev``:
+    the residual at zero_state() and one Jacobian action on it; returns a
+    function of no arguments giving (F, J F)."""
+    from spectral_tpu_torch.graft_entry import entry
 
-    cfg = StokesConfig(exact=2, rheology=1, exponent=3.0, regularization=1e-2)
-    p = StokesProblem(Grid((32, 32, 32), device=dev, dtype=dtype), cfg)
-    residual = p.make_residual(p.params_at(cfg.cont))
-    x0 = p.zero_state()
+    forward, (x0,) = entry(device=dev, dtype=dtype)
 
-    def forward():
-        F, lin_state = residual(x0)
-        return F, p.jacobian_action(x0, lin_state, F)
+    def step():
+        y = forward(x0)
+        return y["F"], y["JF"]
 
-    return forward
+    return step
 
 
 def require(cond: bool, msg: str) -> None:
@@ -3371,17 +3380,279 @@ def phase17(path, k1_shapes, launches, parts=PARTS17) -> dict:
     return out
 
 
-ALL_PHASES = frozenset(range(18))
+# -- phase 18: the utilities -----------------------------------------------------
+# 18a: README:52 (phase 8's power law, -cont 4, 20^3) through the stokes CLI
+# with -checkpoint_dir, -output_vtk and -log_summary, held to STOKES_ORACLE
+# as phase 8 holds it; its last two steps' files deleted, the run again:
+# it solves those two steps alone, their Newton counts the full run's,
+# their Krylov counts within max(3, 10%) of the range of the JAX runs and
+# the card's full run, the error the oracle's.  The fields the VTK writer
+# computes from the card's final state (read from the checkpoint) on the
+# card, in float64 before formatting, are held to those it computes on the
+# CPU from the same state: each within 1e-12 of its section's largest.  The
+# stokes.vtk the CLI wrote is held to the file the port writes on the CPU
+# from that state: the same header lines and counts of values, and each
+# printed value at most one unit apart in the last of its 7 digits (a
+# round-off on either side of a printed rounding; the fields gate is the
+# one that bounds the values).  The native formatter must be in use, and
+# -log_summary's SNESSolve total within 10% of the host time of the run.
+# 18b: 12a's -ts_adapt march at 12^2 with checkpoint_every=50, then
+# resumed from its step 200: the step counter
+# carried on, only the remaining steps marched, accepted and rejected
+# steps within max(3, 10%) of the full run's, Nu within 1e-6 relative.
+# 18c: graft_entry.entry() at 32^3 under set_production_path("kernel") and
+# ("matmul"): F and J F within 1e-12 relative of each other and of the
+# oracle's norms, K1 launched on the kernel path and not on the matmul
+# path, each forward's warm time by CUDA events.  18d: trace_summary of a
+# warm Newton solve of 18a's last continuation step (the problem built and
+# the step-3 state read before the trace starts): device busy time, event
+# count, idle share, beside the same solve's untraced wall in the resumed
+# run (between its step-3 and step-4 checkpoint files).  18e: the six
+# examples, each exiting 0.
+P18_MARCH_ARGV = CONVECTION_ORACLE["12a adapt"]["argv"][1:]
+P18_EXAMPLES = {   # module -> argv (default depth; family_sweep at 3 members)
+    "shell_demo": [], "nk_demo": ["-user_precond", "-rhistory"],
+    "curved_domain_demo": ["-output_vtk"], "family_sweep_demo": ["-B", "3"],
+    "solver_tuning_demo": [], "sharded_poisson_demo": ["-np", "4"]}
+
+
+def vtk_sections(path) -> list:
+    """[(header lines, values), ...] of a legacy VTK file."""
+    import numpy as np
+
+    sections, head, vals = [], [], []
+    for line in open(path).read().splitlines():
+        try:
+            vals.extend(float(t) for t in line.split())
+        except ValueError:
+            if vals:
+                sections.append((head, np.asarray(vals)))
+                head, vals = [], []
+            head.append(line)
+    sections.append((head, np.asarray(vals)))
+    return sections
+
+
+def vtk_agree(path, ref_path) -> dict:
+    """18a's comparison of two VTK files' text (see above): the same header
+    lines and counts of values, no value more than one unit apart in its
+    last printed digit; the count of values and of those one unit apart."""
+    import numpy as np
+
+    got, ref = vtk_sections(path), vtk_sections(ref_path)
+    require([h for h, _ in got] == [h for h, _ in ref], f"{path}: other lines than {ref_path}")
+    n = last_digit = 0
+    for (head, a), (_, b) in zip(got, ref):
+        require(a.shape == b.shape, f"{path}: {head}: {a.shape} values, {b.shape} on the CPU")
+        unit = 10.0 ** (np.floor(np.log10(np.maximum(np.abs(b), 1e-300))) - 6)
+        d = np.abs(a - b)
+        require(bool(np.all(d <= 1.0000001 * unit)),
+                f"{path}: {head}: a printed value more than one unit off the CPU's")
+        n, last_digit = n + b.size, last_digit + int(np.count_nonzero(d))
+    return {"values": n, "last_digit_units": last_digit}
+
+
+def phase18(cli_main, path, k1_shapes) -> dict:
+    """Phase 18 (above): the utilities on the card; raises on a failed gate."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectral_tpu_torch.cli.drivers import convection_config, stokes_config
+    from spectral_tpu_torch.grid import Grid
+    from spectral_tpu_torch.models.convection import ConvectionModel
+    from spectral_tpu_torch.models.stokes import StokesProblem
+    from spectral_tpu_torch.ops import chebyshev
+    from spectral_tpu_torch.utils import checkpoint as ckpt
+    from spectral_tpu_torch.utils import native
+    from spectral_tpu_torch.utils.options import Options
+    from spectral_tpu_torch.utils.profiling import trace_summary
+    from spectral_tpu_torch.utils.vtk import stokes_vtk_fields, write_stokes_vtk
+
+    out = {}
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke18-")
+    try:
+        # -- 18a: README:52 with checkpoints, VTK output and -log_summary ------
+        argv = ["stokes", *STOKES_README52, "-checkpoint_dir", "ck", "-output_vtk",
+                "-log_summary"]
+
+        def cli(name):
+            with contextlib.chdir(tmp):
+                (got, host_s), counts = path(f"phase18 {name}",
+                                             lambda: timed_once(lambda: run_cli(cli_main, argv)),
+                                             [K1_NAME])
+            rc, text = got
+            mc = re.search(r"Continuation steps: Newton (\[.*\])  Krylov (\[.*\])", text)
+            me = re.search(r"Norm of error\s*: abs = (\S+)", text)
+            ms = re.search(r"^SNESSolve +1 +(\S+) ", text, re.M)
+            require(rc == 0 and mc and me and ms and "wrote stokes.vtk" in text,
+                    f"18a {name} failed (rc {rc}): {text!r}")
+            return {"newton": json.loads(mc.group(1)), "krylov": json.loads(mc.group(2)),
+                    "error": float(me.group(1)), "snes_solve_s": float(ms.group(1)),
+                    "host_s": host_s, "k1_launches": counts[K1_NAME],
+                    "k1_launches_by_shape": k1_shapes[f"phase18 {name}"]}
+
+        full = cli("README:52 checkpointed")
+        why = stokes_cli_ok("README:52", full["newton"], full["krylov"], full["error"])
+        require(why is None, f"18a: {why}")
+        require(abs(full["snes_solve_s"] - full["host_s"]) <= 0.1 * full["host_s"],
+                f"18a: SNESSolve {full['snes_solve_s']} s, the run {full['host_s']:.3f} s (10%)")
+        require(native.available(), "18a: the native IO runtime did not build")
+        cdir = os.path.join(tmp, "ck")
+        cfg = stokes_config(Options(STOKES_README52), torch.float64)
+        p_cpu = StokesProblem(Grid((20, 20, 20), device="cpu"), cfg)
+        p_card = StokesProblem(Grid((20, 20, 20), device=dev), cfg)
+        x_cpu = ckpt.load_state(cdir, 4, p_cpu.zero_state())
+        on_card = stokes_vtk_fields(p_card, ckpt.load_state(cdir, 4, p_card.zero_state()))
+        on_cpu = stokes_vtk_fields(p_cpu, x_cpu)
+        rel = {k: float(np.abs(on_card[k] - b).max() / max(np.abs(b).max(), 1e-300))
+               for k, b in on_cpu.items()}
+        require(max(rel.values()) <= 1e-12, f"18a: the VTK fields on the card against the "
+                                            f"CPU's (1e-12 of each one's largest): {rel}")
+        write_stokes_vtk(p_cpu, x_cpu, os.path.join(tmp, "cpu.vtk"))
+        full["vtk"] = {"fields_rel": rel, **vtk_agree(os.path.join(tmp, "stokes.vtk"),
+                                                      os.path.join(tmp, "cpu.vtk"))}
+        out["README:52 checkpointed"] = full
+        for step in (3, 4):
+            for suffix in (".npz", ".npz.json"):
+                os.remove(os.path.join(cdir, f"step_{step:04d}{suffix}"))
+        resumed = cli("README:52 resumed")
+        spec = STOKES_ORACLE["README:52"]
+        require(resumed["newton"] == full["newton"][-2:],
+                f"18a resumed: Newton {resumed['newton']}, the full run's {full['newton'][-2:]}")
+        runs = [spec["krylov"], *spec["perturbed"], full["krylov"]]
+        for i, got in zip((3, 4), resumed["krylov"]):
+            for j, k in enumerate(got):
+                lo, hi = min(r[i][j] for r in runs), max(r[i][j] for r in runs)
+                require(_within(k, lo, hi), f"18a resumed: Krylov {got} in step {i}, the runs "
+                                            f"span {lo}..{hi} (max(3, 10%) beyond)")
+        require(abs(resumed["error"] - spec["error"]) <= 1e-6 * spec["error"],
+                f"18a resumed: error {resumed['error']!r}, oracle {spec['error']!r}")
+        out["README:52 resumed"] = resumed
+
+        # -- 18d: trace_summary of a warm solve, the last step from step 3 ---------
+        # The same solve untraced is the resumed run's last step: the time
+        # between its step-3 and step-4 checkpoint files (the step-4 save,
+        # ~0.2 MB, included).
+        untraced_s = (os.stat(os.path.join(cdir, "step_0004.npz")).st_mtime_ns
+                      - os.stat(os.path.join(cdir, "step_0003.npz")).st_mtime_ns) / 1e9
+        x3 = ckpt.load_state(cdir, 3, p_card.zero_state())
+        solved = {}
+        trace = trace_summary(lambda: solved.update(
+            res=p_card.solve(x3, params=p_card.params_at(cfg.cont))))
+        require(solved["res"].iters == full["newton"][-1] and trace["device_event_count"] > 0,
+                f"18d: {solved['res'].iters} Newton iterations (the CLI's "
+                f"{full['newton'][-1]}), {trace}")
+        trace["idle_share"] = 1.0 - trace["device_busy_ms"] / trace["wall_ms"]
+        # the profiler slows the host, not the card: the busy time over the
+        # untraced wall is the idle share of the solve as it runs untraced
+        trace["untraced_ms"] = untraced_s * 1e3
+        trace["idle_share_untraced"] = 1.0 - trace["device_busy_ms"] / trace["untraced_ms"]
+        print("phase18 trace " + json.dumps(trace))
+        out["trace"] = {k: trace[k] for k in ("wall_ms", "untraced_ms", "device_busy_ms",
+                                              "device_event_count", "idle_share",
+                                              "idle_share_untraced")}
+
+        # -- 18b: the adaptive march, checkpointed and resumed ----------------------
+        m = ConvectionModel.box((12, 12), convection_config(Options(P18_MARCH_ARGV)), device=dev)
+        T0 = m.conductive_state(amp=0.05)
+        march = dict(max_steps=3000, tol=1e-4, rtol=3e-3, dt0=2e-5)
+        mdir = os.path.join(tmp, "march")
+        (_, _, info), counts = path("phase18 march", lambda: m.march_adaptive(
+            T0, checkpoint=mdir, checkpoint_every=50, **march), [K1_NAME])
+        ref = CONVECTION_ORACLE["12a adapt"]
+        require(_max10(info["steps"], ref["accepted"]) and _max10(info["rejects"], ref["rejected"]),
+                f"18b: {info['steps']} / {info['rejects']}, oracle {ref['accepted']} / "
+                f"{ref['rejected']}")
+        for f in os.listdir(mdir):
+            if int(re.match(r"step_(\d+)", f).group(1)) > 200:
+                os.remove(os.path.join(mdir, f))
+        (_, _, rinfo), rcounts = path("phase18 march resumed", lambda: m.march_adaptive(
+            T0, checkpoint=mdir, checkpoint_every=50, resume=True, **march), [K1_NAME])
+        require(len(rinfo["dts"]) == rinfo["steps"] - 200,
+                f"18b: {len(rinfo['dts'])} steps marched to reach {rinfo['steps']} from 200")
+        require(_max10(rinfo["steps"], info["steps"]) and _max10(rinfo["rejects"], info["rejects"]),
+                f"18b resumed: {rinfo['steps']} / {rinfo['rejects']}, the full run "
+                f"{info['steps']} / {info['rejects']}")
+        require(abs(rinfo["nu_top"] - info["nu_top"]) <= 1e-6 * abs(info["nu_top"]),
+                f"18b resumed: Nu {rinfo['nu_top']!r}, the full run {info['nu_top']!r}")
+        out["march"] = {k: {"steps": i["steps"], "rejects": i["rejects"], "nu_top": i["nu_top"],
+                            "k1_launches": c[K1_NAME],
+                            "k1_launches_by_shape": k1_shapes[f"phase18 {k}"]}
+                        for k, i, c in (("march", info, counts), ("march resumed", rinfo, rcounts))}
+
+        # -- 18c: the graft entry on both production paths ------------------------
+        from spectral_tpu_torch.graft_entry import entry
+
+        fields = {}
+        try:
+            for mode in ("kernel", "matmul"):
+                chebyshev.set_production_path(mode)
+                forward, (x,) = entry()
+                y, counts = path(f"phase18 entry {mode}", lambda: forward(x), [])
+                require((counts[K1_NAME] > 0) == (mode == "kernel"),
+                        f"18c {mode}: {counts[K1_NAME]} K1 launches")
+                fields[mode] = {f"{k} {c}": t for k, yk in y.items() for c, t in yk.items()}
+                forward(x)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(10):
+                    forward(x)
+                end.record()
+                end.synchronize()
+                norms = {k: float(torch.sqrt(sum(torch.sum(t ** 2) for t in yk.values())))
+                         for k, yk in y.items()}
+                rel = max(abs(v / STOKES_ORACLE["entry"][k] - 1.0) for k, v in norms.items())
+                require(rel <= 1e-12, f"18c {mode}: norms {norms}, oracle {STOKES_ORACLE['entry']}")
+                out[f"entry {mode}"] = {"warm_ms": start.elapsed_time(end) / 10,
+                                        "k1_launches": counts[K1_NAME],
+                                        "k1_launches_by_shape": k1_shapes[f"phase18 entry {mode}"]}
+        finally:
+            chebyshev.set_production_path("kernel")
+        diff = max(float(torch.max(torch.abs(fields["kernel"][k] - t)) / torch.max(torch.abs(t)))
+                   for k, t in fields["matmul"].items())
+        require(diff <= 1e-12, f"18c: the kernel and matmul paths {diff:.3e} apart (1e-12)")
+        out["entry kernel"]["rel_to_matmul"] = diff
+
+        # -- 18e: the examples ---------------------------------------------------
+        import importlib
+
+        for name, extra in P18_EXAMPLES.items():
+            mod = importlib.import_module(f"spectral_tpu_torch.examples.{name}")
+            with contextlib.chdir(tmp):
+                (got, seconds), counts = path(
+                    f"phase18 {name}", lambda: timed_once(lambda: run_cli(mod.main, extra)), [])
+            rc, text = got
+            require(rc == 0, f"18e {name}: exit {rc}: {text!r}")
+            for line in text.splitlines():
+                print(f"phase18 {name}: {line}")
+            out[name] = {"seconds": seconds, "k1_launches": counts[K1_NAME],
+                         "k1_launches_by_shape": k1_shapes[f"phase18 {name}"]}
+        held = {f"{s} float64" for s in K1_PATH_SHAPES + K1_CURVED_SHAPES + K1_FAMILY_SHAPES
+                + K1_EXAMPLE_SHAPES}
+        seen = {k for n, by in k1_shapes.items() if n.startswith("phase18") for k in by}
+        require(seen <= held, f"phase 18: K1 launched on {sorted(seen - held)}, which phase 1 "
+                              "does not hold (add them to K1_EXAMPLE_SHAPES)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+ALL_PHASES = frozenset(range(19))
 # The full run: phases 0-2, 5 and 13a in this process, so that their kernel
 # timings have the card to themselves, then the paths in worker processes
 # run at once, one a group.  The paths are host-bound (the card idles 91-99%
 # in each, PERF.md section 3), so the groups share the card and the cores
 # with little loss; they are balanced by the seconds of a serial run.
 PARENT_PHASES = "1-2,5,13a"
-WORKER_GROUPS = ("8-9", "13e", "3-4,6-7,11,13b-d", "10,12,14", "15", "16a", "16b-e", "17")
+WORKER_GROUPS = ("8-9", "13e", "3-4,6-7,11,13b-d", "10,12,14", "15", "16a", "16b-e,18", "17")
 # The workers end within this many seconds of the script's start.
 WORKER_DEADLINE_S = 1100.0
-USAGE = "usage: chip_smoke.py [--serial | --phases 1,3,8-17,13b-d,16a,17b]"
+USAGE = "usage: chip_smoke.py [--serial | --phases 1,3,8-18,13b-d,16a,17b]"
 
 
 def parse_phases(spec: str) -> tuple[frozenset, frozenset]:
@@ -3544,7 +3815,7 @@ def main(argv: list[str] | None = None) -> int:
         # small and ragged cases, then the shapes the paths give K1
         k1_cases = [((3, 10, 16), None), ((7, 12), None), ((5, 12), 0.25),
                     ((11, 10), None), ((4, 9, 128), None)] + [(s, None) for s in K1_PATH_SHAPES]
-        k1_curved = [(s, None) for s in K1_CURVED_SHAPES + K1_SLAB_SHAPES
+        k1_curved = [(s, None) for s in K1_CURVED_SHAPES + K1_SLAB_SHAPES + K1_EXAMPLE_SHAPES
                      if s not in K1_PATH_SHAPES]
         for dtype in (torch.float32, torch.float64):
             for seed, (shape, scale) in enumerate(k1_cases):
@@ -4144,6 +4415,13 @@ def main(argv: list[str] | None = None) -> int:
         phase17_out["seconds"] = time.perf_counter() - t_phase
         print("phase17 " + json.dumps(phase17_out))
 
+    # -- phase 18: the utilities ----------------------------------------------------
+    if 18 in phases:
+        t_phase = time.perf_counter()
+        phase18_out = phase18(cli_main, path, k1_shapes)
+        phase18_out["seconds"] = time.perf_counter() - t_phase
+        print("phase18 " + json.dumps(phase18_out))
+
     if mode == "worker":   # the parent adds these to its own
         print("worker " + json.dumps({"launches": launches, "k1t_shapes": k1t_shapes}))
         return 0
@@ -4183,6 +4461,7 @@ def main(argv: list[str] | None = None) -> int:
                     "bound_by": k1t_main["bound_by"], "library_ms": k1t_main["library_ms"],
                     "case": f"{k1t_main['case']} {k1t_main['dtype']}"})
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

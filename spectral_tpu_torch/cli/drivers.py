@@ -292,14 +292,6 @@ def _pcvel_option(opts: Options) -> str:
     return table.get(raw, raw)
 
 
-# stokes driver options whose code is not ported yet, with their ROADMAP item
-_STOKES_NOT_PORTED = {
-    "checkpoint_dir": "item 8: utils/checkpoint.py",
-    "output_vtk": "item 8: utils/vtk.py",
-    "log_summary": "item 8: utils/profiling.py",
-}
-
-
 def stokes_config(opts: Options, dtype: torch.dtype):
     """The StokesConfig of a ``stokes`` command line (without -map's
     pcvel default), as the driver builds it."""
@@ -348,22 +340,23 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
     -pcvel is given).  Prints the JAX driver's lines, then the Newton and Krylov counts of
     every continuation step; with -snes_grid_sequence, also those of the
     coarse level's continuation (``Continuation steps on level ...``, a line
-    the JAX driver does not print).  Exit code 0 when the last Newton solve
-    converged, 2 when it did not."""
+    the JAX driver does not print).  ``-checkpoint_dir`` saves each
+    continuation step (of the coarse level under -snes_grid_sequence) and
+    resumes after the last one saved.  ``-output_vtk`` writes
+    stokes.vtk, ``-log_summary`` prints the SNESSolve phase's time.  Exit
+    code 0 when the last Newton solve converged, 2 when it did not."""
     from spectral_tpu_torch.grid import Grid
     from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
     from spectral_tpu_torch.ops.chebyshev import cheb_regrid
     from spectral_tpu_torch.solvers.krylov import KSPConfig, extreme_singular_values
     from spectral_tpu_torch.solvers.newton import NewtonConfig
     from spectral_tpu_torch.utils.printing import vec_print2
+    from spectral_tpu_torch.utils.profiling import PhaseTimer
 
-    if opts.has("fused") and opts.get_string("checkpoint_dir", ""):
+    ckpt_dir = opts.get_string("checkpoint_dir", "") or None
+    if opts.has("fused") and ckpt_dir:
         raise SystemExit("-fused and -checkpoint_dir are mutually exclusive (fused runs "
                          "have no host loop to checkpoint)")
-    for key, item in _STOKES_NOT_PORTED.items():
-        if opts.has(key):
-            raise NotImplementedError(
-                f"stokes -{key} is not ported yet (ROADMAP.md queue 1, {item})")
     dims = opts.get_int_array("dim", (8, 6))
     debug = opts.get_int("debug", 0)
     cfg = stokes_config(opts, dtype)
@@ -433,39 +426,40 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
 
     monitor = opts.has("snes_monitor")
     gseq = opts.get_int("snes_grid_sequence", 0)
-    if gseq > 0:
-        # -snes_grid_sequence k: the whole continuation on the coarsest grid
-        # only, then the finer grids at
-        # the final parameters, each from the regridded, masked state
-        seq = _sequence_levels(dims, gseq, floor=6)
-        x0 = None
-        for i, dl in enumerate(seq):
-            pl = make_p(dl)
-            if x0 is None:
-                coarse = pl.solve_continuation(monitor=monitor)
-                print(f"Continuation steps on level {dl}: Newton "
-                      f"{[int(r.iters) for r in coarse]}  "
-                      f"Krylov {[[int(k) for k in r.ksp_iters] for r in coarse]}")
-                rl = coarse[-1]
-            else:
-                rl = pl.solve(x0, monitor=monitor)
-            nxt = seq[i + 1] if i + 1 < len(seq) else tuple(dims)
-            pn = make_p(nxt) if nxt != tuple(dims) else p
-            x0 = {"v": pn.mask_v(cheb_regrid(rl.x["v"], nxt)),
-                  "p": pn.mask_p(cheb_regrid(rl.x["p"], nxt))}
-            print(f"  grid sequence level {dl}: {int(rl.iters)} Newton / "
-                  f"{int(np.sum(np.asarray(rl.ksp_iters)))} Krylov, "
-                  f"reason {rl.reason_str()}")
-        results = [p.solve(x0, monitor=monitor)]
-    elif opts.has("fused"):
-        # -fused: solve_continuation_fused (make_fused_newton's rules, the
-        # JAX package's single-dispatch solve); no monitor
-        results = p.solve_continuation_fused()
-        for i, r in enumerate(results):
-            print(f"  [fused {i}/{len(results) - 1}] {int(r.iters)} Newton / "
-                  f"{int(np.sum(np.asarray(r.ksp_iters)))} Krylov, reason {r.reason_str()}")
-    else:
-        results = p.solve_continuation(monitor=monitor)
+    timer = PhaseTimer(device)
+    with timer.phase("SNESSolve"):
+        if gseq > 0:
+            # -snes_grid_sequence k: the whole continuation on the coarsest
+            # grid only (it carries the checkpoints), then the finer grids
+            # at the final parameters, each from the regridded, masked state
+            seq = _sequence_levels(dims, gseq, floor=6)
+            x0 = None
+            for i, dl in enumerate(seq):
+                pl = make_p(dl)
+                if x0 is None:
+                    coarse = pl.solve_continuation(monitor=monitor, checkpoint_dir=ckpt_dir)
+                    print(f"Continuation steps on level {dl}: Newton "
+                          f"{[int(r.iters) for r in coarse]}  "
+                          f"Krylov {[[int(k) for k in r.ksp_iters] for r in coarse]}")
+                    rl = coarse[-1]
+                else:
+                    rl = pl.solve(x0, monitor=monitor)
+                nxt = seq[i + 1] if i + 1 < len(seq) else tuple(dims)
+                pn = make_p(nxt) if nxt != tuple(dims) else p
+                x0 = {"v": pn.mask_v(cheb_regrid(rl.x["v"], nxt)),
+                      "p": pn.mask_p(cheb_regrid(rl.x["p"], nxt))}
+                print(f"  grid sequence level {dl}: {int(rl.iters)} Newton / "
+                      f"{int(np.sum(np.asarray(rl.ksp_iters)))} Krylov, reason {rl.reason_str()}")
+            results = [p.solve(x0, monitor=monitor)]
+        elif opts.has("fused"):
+            # -fused: solve_continuation_fused (make_fused_newton's rules,
+            # the JAX package's single-dispatch solve); no monitor
+            results = p.solve_continuation_fused()
+            for i, r in enumerate(results):
+                print(f"  [fused {i}/{len(results) - 1}] {int(r.iters)} Newton / "
+                      f"{int(np.sum(np.asarray(r.ksp_iters)))} Krylov, reason {r.reason_str()}")
+        else:
+            results = p.solve_continuation(monitor=monitor, checkpoint_dir=ckpt_dir)
     res = results[-1]
     if monitor and res.lin_state is not None:
         eta = res.lin_state[0]
@@ -492,6 +486,12 @@ def stokes_main(opts: Options, *, device: torch.device, dtype: torch.dtype) -> i
         _print_singular_values(extreme_singular_values(
             lambda w: p.jacobian_action(res.x, lin_state, w), Ff,
             M=lambda r: pca(pc_state, r), null_project=p.null_project))
+    if opts.has("output_vtk"):
+        from spectral_tpu_torch.utils.vtk import write_stokes_vtk
+        write_stokes_vtk(p, res.x, "stokes.vtk")
+        print("wrote stokes.vtk")
+    if opts.has("log_summary"):
+        print(timer.summary())
     _print_unused(opts)
     return 0 if res.reason > 0 else 2
 
@@ -612,9 +612,6 @@ def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dt
     from spectral_tpu_torch.solvers.krylov import KSPConfig
     from spectral_tpu_torch.solvers.newton import NewtonConfig
 
-    if opts.has("output_vtk"):
-        raise NotImplementedError(
-            "ustokes -output_vtk is not ported yet (ROADMAP.md queue 1, item 8: utils/vtk.py)")
     dims = opts.get_int_array("dim", (12, 12))
     dt = opts.get_real("dt", 0.05)
     nsteps = opts.get_int("nsteps", 10)
@@ -656,6 +653,11 @@ def unsteady_stokes_main(opts: Options, *, device: torch.device, dtype: torch.dt
     err = float(torch.max(torch.abs(v - u_of_t(times[-1]))))
     print(f"Outer iterations per step: min {min(its)}  max {max(its)}")
     print(f"Norm of error            : abs = {err:e} (time-integration)")
+    if opts.has("output_vtk"):
+        from spectral_tpu_torch.utils.vtk import write_stokes_vtk
+        write_stokes_vtk(m.problem, {"v": m.problem.mask_v(v), "p": pres}, "ustokes.vtk",
+                         bc_scale=s_of_t(times[-1]))
+        print("Wrote ustokes.vtk")
     # a line the JAX driver does not print: the count of every step
     print(f"Outer iterations each step: {its}")
     _print_unused(opts)
@@ -698,17 +700,14 @@ def convection_main(opts: Options, *, device: torch.device, dtype: torch.dtype) 
     (the Blankenbach case 1a configuration; published Nu = 4.884409, Vrms
     = 42.864947).  Prints the JAX driver's lines.  ``-accel`` is the
     Anderson-accelerated steady state (-accel_m, -chunk, -steady_tol,
-    -max_steps, -warmup).  ``-output_vtk`` raises naming ROADMAP item 8;
-    ``-map`` is not an option of this driver (the JAX driver's neither):
+    -max_steps, -warmup).  ``-output_vtk`` writes convection.vtk with the
+    temperature as an extra scalar; ``-map`` is not an option of this driver (the JAX driver's neither):
     it is reported as unused.  Exit code 0 when the run converged, 2 when
     it did not."""
     from spectral_tpu_torch.models.convection import ConvectionConfig, ConvectionModel
     from spectral_tpu_torch.solvers.krylov import KSPConfig
     from spectral_tpu_torch.solvers.newton import NewtonConfig
 
-    if opts.has("output_vtk"):
-        raise NotImplementedError("convection -output_vtk is not ported yet "
-                                  "(ROADMAP.md queue 1, item 8: utils/vtk.py)")
     dims = opts.get_int_array("dim", (16, 16))
     cfg = convection_config(opts)
     aspect = opts.get_real("aspect", 1.0)
@@ -809,5 +808,9 @@ def convection_main(opts: Options, *, device: torch.device, dtype: torch.dtype) 
           f"{info['nu_bottom']:.6f}   Nu(volume) = "
           f"{float(m.nusselt_volume(T, x)):.6f}")
     print(f"Vrms = {info['vrms']:.6f}")
+    if opts.has("output_vtk"):
+        from spectral_tpu_torch.utils.vtk import write_stokes_vtk
+        write_stokes_vtk(m.stokes, x, "convection.vtk", extra_scalars={"temperature": T})
+        print("Wrote convection.vtk")
     _print_unused(opts)
     return 0 if info["converged"] and np.isfinite(info["nu_top"]) else 2

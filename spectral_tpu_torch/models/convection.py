@@ -45,7 +45,7 @@ import torch
 from spectral_tpu_torch.grid import Grid
 from spectral_tpu_torch.models.heat import HeatModel
 from spectral_tpu_torch.models.rheology import PowerLawParams
-from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem, _todo
+from spectral_tpu_torch.models.stokes import StokesConfig, StokesProblem
 from spectral_tpu_torch.ops.chebyshev import chebdiff
 from spectral_tpu_torch.solvers.krylov import KSPConfig
 
@@ -537,13 +537,18 @@ class ConvectionModel:
 
         Returns (T, x, info); info adds 'rejects' and 'dts' to the
         march_to_steady keys, and 'steps' counts accepted steps.
-        ``checkpoint``/``resume`` raise naming ROADMAP item 8."""
+
+        ``checkpoint`` (a directory, ``utils/checkpoint.py``) saves the
+        marching state, the (T, N, x, T_prev) carry and the controller's
+        dt, dt_prev, dt_stab and counts, every ``checkpoint_every``
+        accepted steps; ``resume`` restarts from the latest saved state,
+        the step and reject counts carried on.  As in the JAX package, a
+        resumed run starts the stall window and the lagged PC afresh, so
+        it follows the JAX package's resumed run."""
         self._one_process("march_adaptive")
         from spectral_tpu_torch.solvers.ts import wrms
+        from spectral_tpu_torch.utils import checkpoint as ckpt
 
-        if checkpoint or resume:
-            raise _todo("march_adaptive(checkpoint=..., resume=...)",
-                        "item 8: utils/checkpoint.py")
         T = T0
         T_prev = None
         dt_prev = None
@@ -555,7 +560,23 @@ class ConvectionModel:
         rate_hist: list[float] = []
         steps_since_cap = 0
         window = 30
-        carry = self.init_carry(T)
+        carry = None
+        if checkpoint and resume:
+            k = ckpt.latest_step(checkpoint)
+            if k is not None:
+                like = (T, T, self.stokes.zero_state(), T)
+                Tl, Nl, xl, T_prev = ckpt.load_state(checkpoint, k, like)
+                meta = ckpt.load_meta(checkpoint, k)
+                T, carry = Tl, (Tl, Nl, xl)
+                dt = float(meta.get("dt", dt))
+                dt_prev = float(meta.get("dt_prev", dt))
+                dt_stab = float(meta.get("dt_stab", np.inf))
+                steps = int(meta.get("steps", k))
+                rejects = int(meta.get("rejects", 0))
+                if monitor:
+                    print(f"  resumed from checkpoint step {steps}")
+        if carry is None:
+            carry = self.init_carry(T)
         pcs = None
         pc_age = 10**9
         while steps < max_steps and steps + rejects < 4 * max_steps:
@@ -615,6 +636,12 @@ class ConvectionModel:
             fac = safety * est ** -0.5 if est > 0.0 else grow_max
             fac = min(grow_max, max(0.2, fac))
             dt = min(dt * fac, dt_max, dt_stab, self._cfl_dt(carry[2], cfl))
+            if checkpoint and est <= 1.0 and steps % checkpoint_every == 0:
+                # 1e300 stands for an infinite cap, as in the JAX package
+                ckpt.save_state(checkpoint, steps, (*carry, T_prev),
+                                meta={"dt": dt, "dt_prev": dt_prev,
+                                      "dt_stab": dt_stab if np.isfinite(dt_stab) else 1e300,
+                                      "steps": steps, "rejects": rejects})
         T, _, x = carry
         info = {"steps": steps, "rejects": rejects, "rate": rate, "dts": dts,
                 **self._diagnostics(T, x), "converged": rate < tol}

@@ -1365,17 +1365,31 @@ class StokesProblem:
         (default: the grid's).  ``fused`` is solve_continuation_fused's
         loop: each solve by make_fused_newton's rules, the outer rtol
         clamped, no secant predictor.  With ``config.newton.recycle``, each
-        step's harvested Krylov subspace seeds the next step's solve."""
-        if checkpoint_dir is not None:
-            raise _todo("solve_continuation(checkpoint_dir=...)",
-                        "item 8: utils/checkpoint.py")
+        step's harvested Krylov subspace seeds the next step's solve.
+
+        With ``checkpoint_dir`` (``utils/checkpoint.py``), each step's
+        solution is saved with its parameters, fnorm and reason, and the
+        loop resumes after the last step saved there: a run on a complete
+        directory solves nothing and returns []."""
+        from spectral_tpu_torch.utils import checkpoint as ckpt
+
+        if checkpoint_dir is not None and self.mesh is not None:
+            raise _todo("solve_continuation(checkpoint_dir=...) on a mesh", "item 7d")
         cfg = self.config
         results = []
         x = self.zero_state(dtype)
         x_prev = None      # previous step's solution (secant predictor)
         exp_prev = None    # its exponent (continuation parameter)
         recycle_U = None   # the Krylov subspace threaded across the steps
-        for i in range(cfg.cont0, cfg.cont + 1):
+        start = cfg.cont0
+        if checkpoint_dir is not None:
+            last = ckpt.latest_step(checkpoint_dir)
+            if last is not None and last >= cfg.cont0:
+                x = ckpt.load_state(checkpoint_dir, last, x)
+                start = last + 1
+                if monitor:
+                    print(f"## resuming continuation from step {last}")
+        for i in range(start, cfg.cont + 1):
             p = self.params_at(i)
             if monitor:
                 print(f"## [{i}/{cfg.cont}] Solving with exponent = {p.exponent:5f} "
@@ -1403,6 +1417,11 @@ class StokesProblem:
             x_prev, exp_prev = x, p.exponent
             x, recycle_U = res.x, res.recycle_U
             results.append(res)
+            if checkpoint_dir is not None:
+                ckpt.save_state(checkpoint_dir, i, x,
+                                meta={"exponent": p.exponent,
+                                      "regularization": p.regularization,
+                                      "fnorm": float(res.fnorm), "reason": int(res.reason)})
         return results
 
     def solve_continuation_fused(self, dtype: torch.dtype | None = None) -> list[NewtonResult]:

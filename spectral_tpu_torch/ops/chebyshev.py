@@ -19,9 +19,11 @@ Execution paths of ``chebdiff``:
   launch for the batch, under ``jvp`` one for the primal and one for the
   tangent, and in every backward the transposed product K1^T.  It is the
   port's name for the JAX package's ``"pallas"``.
-- ``"auto"``: the production switch.  On a CUDA tensor a last-axis
-  derivative with ``n <= K1_MAX_N`` goes to K1; otherwise ``n <=
-  MATMUL_MAX_N`` takes the matmul path and larger ``n`` the fft path.
+- ``"auto"``: the production switch.  Under ``production_path() ==
+  "kernel"`` (the default) a last-axis derivative of a CUDA tensor with
+  ``n <= K1_MAX_N`` goes to K1; otherwise ``n <= MATMUL_MAX_N`` takes the
+  matmul path and larger ``n`` the fft path.  ``set_production_path``
+  switches last-axis derivatives between K1 and the matmul path.
 """
 
 from __future__ import annotations
@@ -35,6 +37,28 @@ import torch
 # (the JAX package's threshold, kept so both packages pick the same path).
 MATMUL_MAX_N = 512
 
+# The path chebdiff(method="auto") takes for last-axis derivatives of CUDA
+# tensors: "kernel" (K1) or "matmul".
+_PRODUCTION_LAST_AXIS = "kernel"
+
+
+def set_production_path(last_axis: str) -> None:
+    """Select the path chebdiff(method="auto") takes for LAST-axis
+    derivatives: "kernel" (K1, the default; "pallas", the JAX package's
+    name, is taken as "kernel") or "matmul" (``torch.tensordot``).  The
+    JAX package defaults to "matmul"; here K1 is the production path, and
+    "matmul" routes every automatic last-axis derivative of the process
+    away from it.  Other axes, CPU tensors and explicit methods are
+    unaffected."""
+    global _PRODUCTION_LAST_AXIS
+    if last_axis not in ("kernel", "matmul", "pallas"):
+        raise ValueError(f"unknown path {last_axis!r}")
+    _PRODUCTION_LAST_AXIS = "kernel" if last_axis == "pallas" else last_axis
+
+
+def production_path() -> str:
+    return _PRODUCTION_LAST_AXIS
+
 
 # ---------------------------------------------------------------------------
 # Host-side numpy builders (copies of the JAX package's ops/chebyshev.py ones)
@@ -46,6 +70,12 @@ def cgl_nodes_np(n: int, dtype=np.float64) -> np.ndarray:
         raise ValueError(f"need at least 2 nodes, got {n}")
     i = np.arange(n, dtype=np.float64)
     return np.cos(i * np.pi / (n - 1)).astype(dtype)
+
+
+def cgl_nodes(n: int, dtype: torch.dtype = torch.float64,
+              device: torch.device | str = "cuda") -> torch.Tensor:
+    """CGL nodes as a tensor, cast from the float64 host nodes."""
+    return torch.as_tensor(cgl_nodes_np(n), dtype=dtype, device=device)
 
 
 def cc_weights_np(n: int) -> np.ndarray:
@@ -207,7 +237,8 @@ def chebdiff(u: torch.Tensor, axis: int = 0, method: str = "auto") -> torch.Tens
     if method == "auto":
         if n > MATMUL_MAX_N:
             method = "fft"
-        elif last and u.is_cuda and n <= cuda_cheb.K1_MAX_N:
+        elif (last and u.is_cuda and n <= cuda_cheb.K1_MAX_N
+              and _PRODUCTION_LAST_AXIS == "kernel"):
             method = "kernel"
         else:
             method = "matmul"
@@ -220,6 +251,11 @@ def chebdiff(u: torch.Tensor, axis: int = 0, method: str = "auto") -> torch.Tens
     if method == "fft":
         return _chebdiff_fft(u, axis)
     raise ValueError(f"unknown method {method!r}")
+
+
+def gradient(u: torch.Tensor, ndim: int, method: str = "auto") -> list[torch.Tensor]:
+    """[d/dx_0 u, ..., d/dx_{ndim-1} u]; axes beyond ndim are batch axes."""
+    return [chebdiff(u, axis=i, method=method) for i in range(ndim)]
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +281,17 @@ def cheb_nodal(a: torch.Tensor, axis: int = -1) -> torch.Tensor:
     c[0] = c[-1] = 2.0
     u = dct1(a * _const(c, a) / 2.0, -1)
     return torch.movedim(u, -1, axis)
+
+
+def cheb_eval(a: torch.Tensor, x, axis: int = -1) -> torch.Tensor:
+    """The Chebyshev series with coefficients ``a`` (along ``axis``) at
+    points x in [-1, 1], in the matmul form T_k(x) = cos(k arccos x): one
+    product at full precision (the package's policy keeps TF32 off)."""
+    a = torch.movedim(a, axis, -1)
+    k = torch.arange(a.shape[-1], dtype=a.dtype, device=a.device)
+    xt = torch.as_tensor(x, dtype=a.dtype, device=a.device)
+    T = torch.cos(k[None, :] * torch.arccos(xt)[:, None])
+    return torch.movedim(torch.tensordot(a, T, dims=([-1], [1])), -1, axis)
 
 
 def cheb_pad_matrices_np(n: int, m: int) -> tuple[np.ndarray, np.ndarray]:

@@ -119,6 +119,20 @@ Sections (all by default), each one JSON line:
   ``bump:0.08``), the unsteady step, the convection step and the traced-dt step; counts and
   solutions, written to ``tests/data/torch_parallel_oracle.npz``
   (``tests/test_torch_parallel.py``).
+- ``march``: the checkpointed adaptive march at 8x8 (``MARCH``, the dense
+  saddle PC): 20 steps saving every 10, the step-20 files kept in
+  ``tests/data/torch_march_checkpoint/``, then the run resumed from them
+  to step 40: its counts, steps and temperature, written to
+  ``tests/data/torch_march_oracle.npz`` (``tests/test_torch_utils.py``);
+  ~10 s.
+- ``clioutputs``: the JAX drivers with the output options at 8x8
+  (``CLI_OUTPUTS``): ``stokes`` with ``-checkpoint_dir``, ``-output_vtk``
+  and ``-log_summary``, then resumed after deleting its last step;
+  ``ustokes`` and ``convection`` with ``-output_vtk``.  Their printed
+  lines (the SNESSolve row's times left out), continuation counts,
+  checkpoint metas and VTK files, written to
+  ``tests/data/torch_cli_outputs/`` (``tests/test_torch_utils.py``);
+  ~45 s, nearly all of it compiles.
 """
 
 from __future__ import annotations
@@ -1496,6 +1510,110 @@ def parallel() -> list:
     return rows
 
 
+MARCH_NPZ = "tests/data/torch_march_oracle.npz"
+MARCH_DIR = "tests/data/torch_march_checkpoint"
+MARCH = dict(config=dict(Ra=5e3, dt=1e-3, velocity_bc="freeslip", side_bc="insulated",
+                         stokes_pc="dense"),
+             dims=(8, 8), amp=0.05, march=dict(tol=1e-12, rtol=3e-3, dt0=2e-5))
+
+
+def march() -> dict:
+    """The JAX package's checkpointed march_adaptive and its resumed run
+    (``MARCH_DIR``, ``MARCH_NPZ``)."""
+    import os
+    import shutil
+
+    from spectral_tpu.models.convection import ConvectionConfig, ConvectionModel
+
+    t0 = time.perf_counter()
+    m = ConvectionModel.unit_box(MARCH["dims"], ConvectionConfig(**MARCH["config"]))
+    T0 = m.conductive_state(amp=MARCH["amp"])
+    shutil.rmtree(MARCH_DIR, ignore_errors=True)
+    m.march_adaptive(T0, max_steps=20, checkpoint=MARCH_DIR, checkpoint_every=10,
+                     **MARCH["march"])
+    for f in ("step_0010.npz", "step_0010.npz.json"):
+        os.remove(os.path.join(MARCH_DIR, f))
+    work = MARCH_DIR + ".resume"
+    shutil.copytree(MARCH_DIR, work)
+    T, _, info = m.march_adaptive(T0, max_steps=40, checkpoint=work, resume=True,
+                                  **MARCH["march"])
+    shutil.rmtree(work)
+    np.savez_compressed(MARCH_NPZ, T0=np.asarray(T0), T=np.asarray(T),
+                        dts=np.asarray(info["dts"]),
+                        counts=np.asarray([info["steps"], info["rejects"]]))
+    return {"name": "march", "steps": info["steps"], "rejects": info["rejects"],
+            "seconds": time.perf_counter() - t0}
+
+
+CLI_OUTPUTS_DIR = "tests/data/torch_cli_outputs"
+CLI_OUTPUTS = {
+    "stokes": ["stokes", "-exact", "2", "-rheology", "1", "-cont", "2", "-eps", "1e-2",
+               "-exponent", "3", "-dim", "8,8", "-checkpoint_dir", "ck", "-output_vtk",
+               "-log_summary"],
+    "ustokes": ["ustokes", "-dim", "8,8", "-nsteps", "2", "-output_vtk"],
+    "convection": ["convection", "-dim", "8,8", "-nsteps", "2", "-stokes_pc", "dense",
+                   "-output_vtk"],
+}
+
+
+def clioutputs() -> dict:
+    """The JAX drivers' output options (``CLI_OUTPUTS``, ``CLI_OUTPUTS_DIR``):
+    ``<name>.json`` holds the printed lines (and for stokes the counts and
+    the checkpoint metas of the full and the resumed run), ``<name>.vtk``
+    the file written (``stokes_resumed.vtk``: the resumed run's)."""
+    import os
+    import shutil
+    import tempfile
+
+    from spectral_tpu.cli.main import main as jmain
+    from spectral_tpu.models.stokes import StokesProblem
+    from spectral_tpu.utils import checkpoint as ckpt
+
+    captured = []
+    orig_cont = StokesProblem.solve_continuation
+
+    def cont(self, *a, **kw):
+        res = orig_cont(self, *a, **kw)
+        captured.append(_counts(res))
+        return res
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = jmain(argv)
+        assert rc == 0, buf.getvalue()
+        return [ln for ln in buf.getvalue().splitlines() if not ln.startswith("SNESSolve")]
+
+    t0 = time.perf_counter()
+    out = os.path.abspath(CLI_OUTPUTS_DIR)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    here = os.getcwd()
+    StokesProblem.solve_continuation = cont
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            rows = {}
+            for name, argv in CLI_OUTPUTS.items():
+                rows[name] = {"argv": argv, "lines": run(argv)}
+                shutil.copy(f"{name}.vtk", os.path.join(out, f"{name}.vtk"))
+            last = ckpt.latest_step("ck")
+            rows["stokes"]["meta"] = [ckpt.load_meta("ck", i) for i in range(last + 1)]
+            for f in (f"step_{last:04d}.npz", f"step_{last:04d}.npz.json"):
+                os.remove(os.path.join("ck", f))
+            os.remove("stokes.vtk")
+            rows["stokes"]["resumed_lines"] = run(CLI_OUTPUTS["stokes"])
+            shutil.copy("stokes.vtk", os.path.join(out, "stokes_resumed.vtk"))
+    finally:
+        os.chdir(here)
+        StokesProblem.solve_continuation = orig_cont
+    rows["stokes"]["counts"], rows["stokes"]["resumed_counts"] = captured
+    for name, row in rows.items():
+        with open(os.path.join(out, f"{name}.json"), "w") as f:
+            json.dump(row, f, indent=1)
+    return {"name": "clioutputs", "counts": captured, "seconds": time.perf_counter() - t0}
+
+
 SECTIONS = {
     "cli43": lambda: run_cli(README43),
     "cli52": lambda: run_cli(README52),
@@ -1529,6 +1647,8 @@ SECTIONS = {
     "curvedcpu": curvedcpu,
     "family": family,
     "parallel": parallel,
+    "march": march,
+    "clioutputs": clioutputs,
 }
 
 

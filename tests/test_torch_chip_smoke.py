@@ -38,12 +38,14 @@ def test_worker_groups_cover_every_phase_once():
     (["--worker", "--phases", "16b-e"], {0, 16}, {"16b", "16c", "16d", "16e"}, "worker"),
     (["--phases", "17"], {0, 17}, {f"17{c}" for c in "abcdef"}, "check"),
     (["--phases", "17b,17e-f"], {0, 17}, {"17b", "17e", "17f"}, "check"),
+    (["--phases", "18"], {0, 18}, set(), "check"),
+    (["--worker", "--phases", "16b-e,18"], {0, 16, 18}, {"16b", "16c", "16d", "16e"}, "worker"),
 ])
 def test_parse_args(argv, phases, parts, mode):
     assert chip_smoke.parse_args(argv) == (frozenset(phases), frozenset(parts), mode)
 
 
-@pytest.mark.parametrize("argv", [["--phases"], ["--phases", "18"], ["--worker"],
+@pytest.mark.parametrize("argv", [["--phases"], ["--phases", "19"], ["--worker"],
                                   ["--serial", "--phases", "1"], ["-x"]])
 def test_parse_args_refuses(argv):
     with pytest.raises(SystemExit):

@@ -367,16 +367,17 @@ def test_steady_accelerated_matches_jax(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """Checkpointing waits for ROADMAP item 8; the CLI's -output_vtk names
-    its item, and -map, which the JAX driver does not read, is reported as
-    an unused option as the JAX driver reports it (the Anderson steady
-    state and -accel run: test_steady_accelerated_matches_jax)."""
-    tm = ConvectionModel.unit_box(DIMS, ConvectionConfig(stokes_pc="dense"), device="cpu")
-    T0 = tm.conductive_state()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tm.march_adaptive(T0, checkpoint="ckpt")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _cli(["-dim", "8,8", "-output_vtk"])
+    """The checkpointed adaptive march on a mesh waits for ROADMAP item 7d
+    (it runs in one process: tests/test_torch_utils.py), and -map, which
+    the JAX driver does not read, is reported as an unused option as the
+    JAX driver reports it (the Anderson steady state and -accel run:
+    test_steady_accelerated_matches_jax)."""
+    from spectral_tpu_torch.parallel import make_mesh
+
+    tm = ConvectionModel.unit_box(DIMS, ConvectionConfig(), device="cpu",
+                                  mesh=make_mesh({"x": 1}))
+    with pytest.raises(NotImplementedError, match="item 7d"):
+        tm.march_adaptive(tm.conductive_state(), checkpoint="ckpt")
     # the JAX driver's lines on this run end with the same warning (checked
     # against spectral_tpu.cli.drivers.convection_main when -map was ported)
     argv = ["-dim", "8,8", "-nsteps", "2", "-stokes_pc", "dense"]

@@ -1146,3 +1146,48 @@ def test_sharded_stokes_and_neumann_fastdiag_on_card(cuda, tmp_path):
     assert n == n1 and lo - slack <= k <= hi + slack, out
     assert out["dv"] <= max(1e-9, 4 * out["move"]) and out["k1"] > 0 and out["k2"] == 0, out
     assert out["neumann 0"] <= 1e-12 and out["neumann 1"] <= 1e-12, out
+
+
+def test_utilities_on_card(cuda, tmp_path):
+    """Checkpoints load onto the card in their saved dtype, check_finite
+    and fail-fast read CUDA tensors, PhaseTimer waits for the card,
+    trace_summary sees the card's kernels, and the production switch sends
+    a last-axis derivative to K1 or to the matmul."""
+    from spectral_tpu_torch.utils import checkpoint as ckpt
+    from spectral_tpu_torch.utils import debug
+    from spectral_tpu_torch.utils.profiling import PhaseTimer, trace_summary
+
+    x = {"v": _randn((6, 5, 2), torch.float64, cuda, 0), "p": _randn((6, 5), torch.float32, cuda, 1)}
+    ckpt.save_state(str(tmp_path), 3, x)
+    y = ckpt.load_state(str(tmp_path), 3, {"v": torch.zeros(1, device=cuda),
+                                           "p": torch.zeros(1, dtype=torch.float64)})
+    assert y["v"].is_cuda and y["v"].dtype == torch.float64 and torch.equal(y["v"], x["v"])
+    assert y["p"].device.type == "cpu" and y["p"].dtype == torch.float32
+    debug.check_finite(x)
+    with pytest.raises(FloatingPointError, match=r"\['p'\]"):
+        debug.check_finite({"v": x["v"], "p": x["p"] / 0.0})
+    try:
+        debug.enable_fail_fast()
+        with pytest.raises(FloatingPointError, match="sqrt"):
+            torch.sqrt(-x["v"].abs() - 1.0)
+    finally:
+        debug.enable_fail_fast(False)
+    t = PhaseTimer(cuda)
+    with t.phase("matmul"):
+        a = _randn((2048, 2048), torch.float64, cuda, 2)
+        for _ in range(4):
+            a = a @ a / 2048.0
+    assert t.counts["matmul"] == 1 and t.totals["matmul"] > 0
+    s = trace_summary(lambda: a @ a)
+    assert s["device_event_count"] >= 1 and 0 < s["device_busy_ms"] <= s["wall_ms"]
+    assert any(k.startswith("/device:cuda") for k in s["planes"])
+    u = _randn((4, 20, 20), torch.float64, cuda, 3)
+    try:
+        for mode, launches in (("kernel", 1), ("matmul", 0)):
+            chebyshev.set_production_path(mode)
+            cuda_cheb.reset_launch_counts()
+            got = chebyshev.chebdiff(u, -1)
+            assert cuda_cheb.LAUNCHES["chebdiff_last_kernel"] == launches
+            assert _rel(got, cuda_cheb.chebdiff_last_ref(u)) <= BOUND[torch.float64]
+    finally:
+        chebyshev.set_production_path("kernel")

@@ -576,20 +576,17 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unmapped Grid"):   # curved domains run
         StokesProblem(Grid((8, 8), intervals=((0.0, 1.0),) * 2, device="cpu"),
                       phi=lambda x: x)
-    p = StokesProblem(g, StokesConfig(exact=2))
     # items 7a and 7c run families with every velocity PC
-    # (tests/test_torch_family.py)
-    for fn, name in ((lambda: p.solve_continuation(checkpoint_dir="x"), "item 8"),):
+    # (tests/test_torch_family.py); checkpoints run in one process
+    # (tests/test_torch_utils.py), on a mesh they wait for item 7d
+    for fn, name in ((lambda: StokesProblem(g, StokesConfig(exact=2), mesh=mesh1)
+                      .solve_continuation(checkpoint_dir="x"), "item 7d"),):
         with pytest.raises(NotImplementedError, match=name):
             fn()
     # recycling runs in the host loop only, as in the JAX package
     pr = StokesProblem(g, StokesConfig(exact=2, newton=NewtonConfig(recycle=4)))
     with pytest.raises(ValueError, match="host-loop-only"):
         pr.solve(fused=True)
-    for opt, name in (("-checkpoint_dir d", "item 8"), ("-output_vtk", "item 8"),
-                      ("-map bump:0.1 -output_vtk", "item 8"), ("-log_summary", "item 8")):
-        with pytest.raises(NotImplementedError, match=name):
-            t_main(["stokes", "-device", "cpu", "-dim", "6,6", *opt.split()])
     # items 3c and 3d run: every pcvel, the mixed PC with tbc, the fused paths
     for cfg in (dict(pcvel="nodal"), dict(boundary=2), dict(boundary=1, pcvel="mg"),
                 dict(boundary=2, tbc=1, pcvel="jacobi"), dict(pcvel="q1fem"),

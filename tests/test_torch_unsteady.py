@@ -250,9 +250,6 @@ def test_ustokes_cli_matches_oracle():
             "  omega = 1.0  steps = 10") in out
     assert "Outer iterations per step: min 15  max 15" in out
     assert "Norm of error            : abs = 1.412196e-06 (time-integration)" in out
-    for opt, item in (("-map bump:0.1 -output_vtk", "item 8"), ("-output_vtk", "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_main(["ustokes", "-device", "cpu", *opt.split()])
 
 
 def test_curved_cn_step_matches_jax():
